@@ -1,0 +1,61 @@
+"""State carried between the JAX package and the port.
+
+Registration has no weights: its state is the configuration and the voxel
+map.  These helpers read the JAX package's objects as plain fields and
+numpy arrays (this module imports no JAX), so both packages can compute
+from the same state and their results can be compared.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.vgicp import VGICPConfig
+from .ops.voxelmap import DenseRawGridMap
+from .solver import LsqConfig, LsqResult
+
+
+def config_from_jax(cfg):
+    """A JAX `VGICPConfig` or `LsqConfig` (any object with the same field
+    names) -> the port's config of the same kind."""
+    if hasattr(cfg, "lsq"):
+        fields = {f: getattr(cfg, f) for f in VGICPConfig._fields if f != "lsq"}
+        if fields["grid_dims"] is not None:
+            fields["grid_dims"] = tuple(int(d) for d in fields["grid_dims"])
+        return VGICPConfig(**fields, lsq=config_from_jax(cfg.lsq))
+    return LsqConfig(**{f: getattr(cfg, f) for f in LsqConfig._fields})
+
+
+def raw_grid_from_numpy(rows, grid8, origin, resolution, device="cpu"):
+    """A JAX `DenseRawGridMap`'s arrays, as numpy, -> the port's map.
+
+    `grid8` ((ncells/8 + 1, 8) int32) flattens to the port's 1-D grid of
+    ncells + 1 slots; the last slot is where out-of-grid points park in
+    both layouts and is masked by every reader."""
+    flat = np.asarray(grid8).reshape(-1)
+    ncells = flat.shape[0] - 8
+    return DenseRawGridMap(
+        rows=torch.tensor(np.asarray(rows, np.float32), device=device),
+        grid=torch.as_tensor(flat[: ncells + 1].astype(np.int64), device=device),
+        origin=torch.tensor(np.asarray(origin, np.int32), device=device),
+        resolution=float(resolution),
+    )
+
+
+def _to_numpy(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def lsq_result_to_numpy(res) -> LsqResult:
+    """An `LsqResult` of either package -> one with numpy fields (pose and
+    Hessian arrays, error float, converged bool, iterations int)."""
+    return LsqResult(
+        transformation=_to_numpy(res.transformation),
+        hessian=_to_numpy(res.hessian),
+        error=float(_to_numpy(res.error)),
+        converged=bool(_to_numpy(res.converged)),
+        iterations=int(_to_numpy(res.iterations)),
+    )

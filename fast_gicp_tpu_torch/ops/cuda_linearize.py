@@ -1,0 +1,136 @@
+"""VGICP linearize and trial error against raw voxel rows: the CUDA kernels
+of `csrc/linearize.cu` and their plain PyTorch versions (port of
+`fast_gicp_tpu.ops.pallas_linearize`'s raw-row part).
+
+`linearize_raw` is the counterpart of `linearize_raw_pallas` (kernel
+`_linearize_raw_kernel`, `pallas_linearize.py:193`) and `error` of
+`error_pallas` (kernel `_error_kernel`, `pallas_linearize.py:633`).
+
+Layouts (L correspondences, column-major like the JAX package's SoA math,
+without its (8, N) sublane padding):
+  * p (3, L): untransformed source columns; ca (6, L): unrotated source
+    sym-6 covariance columns -- both loop-invariant over a solve;
+  * x (4, 4): the pose, applied inside the kernel;
+  * rows (L, 16): gathered raw voxel rows [count, sum mu (3), sum cov
+    (9 row-major), pad (3)], count 0 marking a miss;
+  * valid (L,): 0/1 source validity;
+  * aux (10, L) = [M (6), w, mu_B (3)]: written by `linearize_raw`, read
+    by `error`.  w = sqrt(count) * valid (the raw kernel's weight row).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build, soa
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_LIN_ARGS = (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P)
+_ERR_ARGS = (_P, _P, _P, _I, _P, _P, _P, _P)
+
+AUX_ROWS = 10
+
+
+def _check(name, t, shape, dtype=torch.float32):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {tuple(shape)} {dtype}, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+
+
+def _check_cuda(tensors):
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"tensors on several devices: {t.device} vs {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+
+
+def _reduce_scratch(L, width, device):
+    """Per-block partial sums and the zeroed ticket of the kernels'
+    cross-block reduction.  They are freed when the wrapper returns, before
+    the kernel has run; that is safe because the caching allocator hands
+    the memory out again only to work queued after it on the same stream."""
+    blocks = _build.function("fgt_reduce_blocks", (_I,))(L)
+    partials = torch.empty(blocks * width, dtype=torch.float32, device=device)
+    ticket = torch.zeros(1, dtype=torch.int32, device=device)
+    return partials, ticket
+
+
+def linearize_raw(p, ca, x, rows, valid):
+    """(err (), H (6, 6), b (6,), aux (10, L)) of the VGICP objective at
+    pose x against raw voxel rows.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    L = p.shape[-1]
+    _check("p", p, (3, L))
+    _check("ca", ca, (6, L))
+    _check("x", x, (4, 4))
+    _check("rows", rows, (L, 16))
+    _check("valid", valid, (L,))
+    if p.device.type == "cpu":
+        return linearize_raw_plain(p, ca, x, rows, valid)
+    _check_cuda([p, ca, x, rows, valid])
+    if rows.data_ptr() % 16:
+        raise ValueError("rows must be 16-byte aligned (read as float4)")
+    partials, ticket = _reduce_scratch(L, 28, p.device)
+    out = torch.empty(28, dtype=torch.float32, device=p.device)
+    aux = torch.empty((AUX_ROWS, L), dtype=torch.float32, device=p.device)
+    fn = _build.function("fgt_linearize_raw", _LIN_ARGS)
+    stream = torch.cuda.current_stream(p.device).cuda_stream
+    _build.check("fgt_linearize_raw", fn(
+        p.data_ptr(), ca.data_ptr(), x.data_ptr(), rows.data_ptr(),
+        valid.data_ptr(), L, partials.data_ptr(), ticket.data_ptr(),
+        out.data_ptr(), aux.data_ptr(), stream))
+    linearize_raw.launches += 1
+    return soa.unpack28(out) + (aux,)
+
+
+linearize_raw.launches = 0
+
+
+def error(p, x, aux):
+    """Sum of w e^T M e at trial pose x against the frozen aux (scalar).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    L = p.shape[-1]
+    _check("p", p, (3, L))
+    _check("x", x, (4, 4))
+    _check("aux", aux, (AUX_ROWS, L))
+    if p.device.type == "cpu":
+        return error_plain(p, x, aux)
+    _check_cuda([p, x, aux])
+    partials, ticket = _reduce_scratch(L, 1, p.device)
+    out = torch.empty(1, dtype=torch.float32, device=p.device)
+    fn = _build.function("fgt_error", _ERR_ARGS)
+    stream = torch.cuda.current_stream(p.device).cuda_stream
+    _build.check("fgt_error", fn(
+        p.data_ptr(), x.data_ptr(), aux.data_ptr(), L, partials.data_ptr(),
+        ticket.data_ptr(), out.data_ptr(), stream))
+    error.launches += 1
+    return out[0]
+
+
+error.launches = 0
+
+
+def linearize_raw_plain(p, ca, x, rows, valid):
+    """Plain PyTorch version of `linearize_raw` (the raw-grid branch of the
+    JAX objective, `vgicp.py:219-237`, with the kernel's aux layout)."""
+    mu_B, cov_B, count = soa.sym_cols_from_raw(rows)
+    valid = valid * (count > 0).to(valid.dtype)
+    p_t = soa.transform_cols(x, p)
+    cov_rot = soa.rotate_sym_cols(x[:3, :3], ca)
+    M = soa.inv_sym_cols(cov_B + cov_rot) * valid
+    w = torch.sqrt(torch.clamp(count, min=0.0)) * valid
+    err, H, b = soa.linearize_cols(p_t, mu_B, M, w)
+    return err, H, b, torch.cat([M, w[None], mu_B])
+
+
+def error_plain(p, x, aux):
+    """Plain PyTorch version of `error`."""
+    return soa.error_cols(soa.transform_cols(x, p), aux[7:10], aux[:6], aux[6])

@@ -1,0 +1,97 @@
+"""The port stands alone: `fast_gicp_tpu_torch` (and chip_smoke.py) import
+neither JAX nor the JAX package, the entry points default to CUDA and
+raise without it, and a kernel wrapper given CPU tensors takes its plain
+version without counting a launch."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "fast_gicp_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "fast_gicp_tpu")
+
+
+def test_import_leaves_no_jax_in_sys_modules():
+    code = (
+        "import sys, fast_gicp_tpu_torch, fast_gicp_tpu_torch.convert\n"
+        "import fast_gicp_tpu_torch.ops.cuda_kernels, fast_gicp_tpu_torch.ops.cuda_linearize\n"
+        "import fast_gicp_tpu_torch.ops.cuda_solver, fast_gicp_tpu_torch.utils.io\n"
+        "import fast_gicp_tpu_torch.utils.synthetic, fast_gicp_tpu_torch.utils.downsample\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_imports_no_jax(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from fast_gicp_tpu_torch.models.vgicp import (
+        VGICPConfig, vgicp_align, vgicp_register,
+    )
+    from fast_gicp_tpu_torch.ops.covariance import rbf_covariances
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.zeros((2048, 3), np.float32)
+    mask = np.ones(2048, bool)
+    eye = np.eye(4, dtype=np.float32)
+    covs = np.tile(np.eye(3, dtype=np.float32), (2048, 1, 1))
+    cfg = VGICPConfig(grid_dims=(32, 32, 32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vgicp_register(pts, mask, pts, mask, eye, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vgicp_align(pts, mask, covs, pts, mask, covs, eye, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rbf_covariances(pts, mask)
+
+
+def test_wrappers_take_plain_version_on_cpu_without_counting():
+    from fast_gicp_tpu_torch.ops import cuda_kernels, cuda_linearize, cuda_solver
+
+    wrappers = (cuda_kernels.rbf_moments, cuda_linearize.linearize_raw,
+                cuda_linearize.error, cuda_solver.lm_trial)
+    for fn in wrappers:
+        fn.launches = 0
+    rng = np.random.default_rng(0)
+    n = 256
+    pts = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32))
+    mask = torch.ones(n, dtype=torch.bool)
+    m = cuda_kernels.rbf_moments(pts, mask, pts, mask, pts.mean(0), 0.5, 3.0)
+    assert m.shape == (16, n) and m.device.type == "cpu"
+    rows = torch.zeros((n, 16))
+    rows[:, 0] = 2.0
+    rows[:, 1:4] = 2.0 * pts
+    rows[:, [4, 8, 12]] = 2.0
+    x = torch.eye(4)
+    ca = torch.zeros((6, n))
+    ca[[0, 3, 5]] = 1.0
+    err, H, b, aux = cuda_linearize.linearize_raw(pts.T.contiguous(), ca, x, rows,
+                                                  torch.ones(n))
+    e = cuda_linearize.error(pts.T.contiguous(), x, aux)
+    xi, delta, d, denom = cuda_solver.lm_trial(
+        H + torch.eye(6), b, torch.tensor([0.1]), x)
+    assert float(err) == pytest.approx(0.0, abs=1e-4) and float(e) == pytest.approx(0.0, abs=1e-4)
+    assert xi.shape == (4, 4) and d.shape == (6,)
+    assert all(fn.launches == 0 for fn in wrappers)
