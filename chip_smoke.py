@@ -2,23 +2,26 @@
 
     python3 chip_smoke.py
 
+Two registration paths run: `vgicp_register` (RBF covariances, dense raw
+voxel grid, two-phase LM solve) and `gicp_register_fresh` (kNN covariances,
+exact 1-NN correspondences re-searched at every linearization, LM solve).
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device: CUDA must be present; prints the card's name and power limit;
-  2. build: compiles the four CUDA kernels from `fast_gicp_tpu_torch/csrc`;
+  2. build: compiles the seven CUDA kernels from `fast_gicp_tpu_torch/csrc`;
   3. kernels: each kernel against its plain PyTorch version on the same
-     inputs, at the shapes of the main path on the full-size synthetic pair
-     (22,528 padded points per cloud), with the stated tolerances, timed
-     with CUDA events;
-  4. main path: `vgicp_register` on the full-size pair, with every launch
-     counter set to 0 just before and read just after; checks the pose
+     inputs, at the shapes its path gives it on the full-size synthetic
+     pair (22,528 padded points per cloud), with the stated tolerances,
+     timed from a torch.profiler trace;
+  4. main paths: each path on the full-size pair, with every launch
+     counter set to 0 just before it and read just after; checks the pose
      against the synthetic ground truth (t < 0.05 m, r < 1 deg) and that
-     all four kernels ran;
-  5. small pair: `vgicp_register` on the card against the same call with
+     every kernel of the path ran;
+  5. small pair: each path on the card against the same call with
      device="cpu" (the plain versions) on the CPU-test-sized pair;
-  6. bench protocol: 100 registrations, each through a 1e-5 rigid jitter
-     of both clouds (bench.py's protocol), after a warm-up;
+  6. bench protocol: registrations of each path through a 1e-5 rigid
+     jitter of both clouds (bench.py's protocol), after a warm-up;
   7. profile: stage wall times and a torch.profiler trace of a few
-     registrations (device time by kernel, device busy share).
+     registrations of each path (device time by kernel, device busy share).
 
 The last lines are the `nvidia-smi` name/power-limit line, one
 {"kernels": [...]} JSON line and the {"ok": true, ...} JSON line.
@@ -43,6 +46,9 @@ RBF_OPS_PER_PAIR = 28  # distance 8, exp 1, moment products 9 and sums 10
 LINEARIZE_OPS = 300  # per correspondence: transform, R C R^T, inverse, 28 terms
 ERROR_OPS = 43  # per correspondence: transform, e, M e, e^T M e, sum
 LM_TRIAL_OPS = 700  # two 6x6 Cholesky solves, residual, se3_exp, 4x4 product
+NN_OPS_PER_PAIR = 8  # 3 differences, 3 squares, 2 adds
+KNN_OPS_PER_CANDIDATE = 11  # distance 8, key 2, one compare of a k-selection
+KNN_OPS_PER_NEIGHBOUR = 22  # local coordinates 6, moment products 6, sums 10
 
 
 class PhaseError(RuntimeError):
@@ -96,9 +102,9 @@ def cuda_ms(fn, reps):
 
 def device_ms(fn, reps, kernel=None):
     """Device time per call of `fn` from a torch.profiler trace of `reps`
-    calls: the self device time of the kernels whose name holds `kernel`,
-    or of every device op when `kernel` is None.  0.0 if the trace holds
-    no device time."""
+    calls: the self device time of the kernels whose name holds `kernel`
+    (a name or a tuple of names), or of every device op when `kernel` is
+    None.  0.0 if the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -107,8 +113,9 @@ def device_ms(fn, reps, kernel=None):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    names = (kernel,) if isinstance(kernel, str) else kernel
     total = sum(e.self_device_time_total for e in device_events(prof)
-                if kernel is None or kernel in e.key)
+                if names is None or any(k in e.key for k in names))
     return total / 1e3 / reps
 
 
@@ -236,7 +243,7 @@ def phase_kernels(dev, pair):
     ]
     tm = timings(lambda: cuda_linearize.linearize_raw(P, CA, x, rows, valid),
                  lambda: cuda_linearize.linearize_raw_plain(P, CA, x, rows, valid),
-                 "linearize_raw_kernel", 200, 50)
+                 "linearize_kernel<true>", 200, 50)
     b_ms, b_by = bound_ms(L * (12 + 24 + 64 + 4 + 40) + 64 + 28 * 4, L * LINEARIZE_OPS)
     records.append(dict(
         name="linearize_raw", route="cuda",
@@ -294,6 +301,145 @@ def phase_kernels(dev, pair):
     return records
 
 
+def phase_gicp_kernels(dev, pair):
+    """The GICP path's kernels against their plain versions, at the shapes
+    `gicp_register_fresh` gives them on the full-size pair."""
+    from fast_gicp_tpu_torch import se3
+    from fast_gicp_tpu_torch.models.gicp import GICPConfig, make_gicp_objective
+    from fast_gicp_tpu_torch.ops import cuda_kernels, cuda_linearize
+    from fast_gicp_tpu_torch.ops.covariance import knn_covariance_cols, masked_mean
+    from fast_gicp_tpu_torch.ops.neighbors import _masked_target, select_candidate_tiles
+    from fast_gicp_tpu_torch.utils.padding import pad_points
+
+    source, target, _gt = pair
+    sp, sm = pad_points(source)
+    tp, tm = pad_points(target)
+    src, smask, tgt, tmask = (torch.as_tensor(a, device=dev) for a in (sp, sm, tp, tm))
+    n = tgt.shape[0]
+    records = []
+
+    # -- knn_moments: the target cloud's covariances, k = 20 --------------
+    k, ct, C = 20, 128, 16
+    Q = n // cuda_kernels.KNN_TILE
+    cidx, _excluded = select_candidate_tiles(
+        tgt.reshape(Q, cuda_kernels.KNN_TILE, 3),
+        _masked_target(tgt, tmask).reshape(n // ct, ct, 3), C)
+    ones = torch.ones_like(tmask)
+    args = (tgt, ones, tgt, tmask, cidx, k)
+    mom, kth = cuda_kernels.knn_moments(*args)
+    mom_w, kth_w = cuda_kernels.knn_moments_plain(*args)
+    torch.cuda.synchronize()
+    require(bool(torch.equal(kth, kth_w)),
+            f"knn_moments kth: {int((kth != kth_w).sum())} of {n} not bit-equal")
+    scale = mom_w.abs().amax(dim=1, keepdim=True)
+    err_mom = check_close("knn_moments mom", mom / scale, mom_w / scale, 0.0, 1e-4)
+    tm_ = timings(lambda: cuda_kernels.knn_moments(*args),
+                  lambda: cuda_kernels.knn_moments_plain(*args),
+                  "knn_moments_kernel", 50, 5)
+    b_ms, b_by = bound_ms(n * 16 + n * 16 + Q * C * 4 + n * 11 * 4,
+                          n * C * ct * KNN_OPS_PER_CANDIDATE + n * k * KNN_OPS_PER_NEIGHBOUR)
+    records.append(dict(
+        name="knn_moments", route="cuda",
+        source="fast_gicp_tpu_torch/csrc/knn_moments.cu",
+        replaces="fast_gicp_tpu/ops/pallas_kernels.py:302",
+        max_abs_err=float((mom - mom_w).abs().max()),
+        tolerance="kth bit-equal; mom within 1e-4 of each row's largest entry",
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, **tm_))
+    log(f"[kernels] knn_moments: kth bit-equal on all {n}; mom max diff / row scale "
+        f"{err_mom:.3e}")
+
+    # -- nn_search at the first re-search of a solve: the transformed,
+    # centered source against the centered target --------------------------
+    c = masked_mean(tgt, tmask)
+    src_c, tgt_c = src - c, tgt - c
+    x = se3.se3_exp(torch.tensor([0.002, -0.001, 0.003, 0.02, -0.01, 0.005], device=dev))
+    q = se3.transform_points(x, src_c).contiguous()
+    idx, d2 = cuda_kernels.nn_search(q, tgt_c, tmask, smask)
+    idx_w, d2_w = cuda_kernels.nn_search_plain(q, tgt_c, tmask)
+    torch.cuda.synchronize()
+    # near-ties among the valid queries, from chunked distance rows
+    parked = _masked_target(tgt_c, tmask)
+    unique = torch.empty_like(tmask)
+    for s0 in range(0, n, 2048):
+        dd = torch.cdist(q[s0:s0 + 2048], parked,
+                         compute_mode="donot_use_mm_for_euclid_dist").square()
+        unique[s0:s0 + 2048] = (dd <= dd.amin(1, keepdim=True) * (1 + 1e-6)).sum(1) == 1
+    ok = (idx == idx_w) | ~unique | ~smask
+    require(bool(ok.all()), f"nn_search idx: {int((~ok).sum())} unique nearest differ")
+    require(bool(torch.isfinite(d2).all()), "nn_search d2: non-finite rows")
+    err_d2 = check_close("nn_search d2", d2[smask], d2_w[smask], 1e-6, 0.0)
+
+    # the pairs an exact cull at this tiling must visit: the (128-query,
+    # 128-target) tile pairs whose box gap^2 is <= the query tile's worst
+    # nearest d^2, over the valid queries
+    inf = torch.full_like(q, float("inf"))
+    qlo = torch.where(smask[:, None], q, inf).reshape(-1, 128, 3).amin(1)
+    qhi = torch.where(smask[:, None], q, -inf).reshape(-1, 128, 3).amax(1)
+    tlo = parked.reshape(-1, 128, 3).amin(1)
+    thi = parked.reshape(-1, 128, 3).amax(1)
+    gap = torch.clamp(torch.maximum(qlo[:, None] - thi[None], tlo[None] - qhi[:, None]),
+                      min=0.0)
+    worst = torch.where(smask, d2_w, torch.zeros_like(d2_w)).reshape(-1, 128).amax(1)
+    need = (gap.square().sum(-1) <= worst[:, None]) & (worst[:, None] > 0)
+    pairs = int(need.sum()) * 128 * 128
+    tm_ = timings(lambda: cuda_kernels.nn_search(q, tgt_c, tmask, smask),
+                  lambda: cuda_kernels.nn_search_plain(q, tgt_c, tmask),
+                  ("tile_bbox_kernel", "nn_search_kernel"), 100, 5)
+    b_ms, b_by = bound_ms(n * 12 + n * 12 + n * 8, pairs * NN_OPS_PER_PAIR)
+    records.append(dict(
+        name="nn_search", route="cuda",
+        source="fast_gicp_tpu_torch/csrc/nn_search.cu",
+        replaces="fast_gicp_tpu/ops/pallas_kernels.py:99",
+        max_abs_err=err_d2,
+        tolerance="valid queries: idx equal where the nearest is unique; d2 rtol 1e-6",
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, pairs_to_visit=pairs, **tm_))
+    log(f"[kernels] nn_search: idx equal on all {int((unique & smask).sum())} unique "
+        f"nearest of valid queries, {int((~unique & smask).sum())} near-ties; "
+        f"exact-cull pairs {pairs} of {n * n}")
+
+    # -- linearize at the first linearization of the solve ---------------
+    scov = knn_covariance_cols(src, smask)
+    tcov = knn_covariance_cols(tgt, tmask)
+    _lin, _err, freeze, _lin_frozen = make_gicp_objective(
+        src_c, smask, scov, tgt_c, tmask, tcov, GICPConfig(), with_freeze=True)
+    rows, valid = freeze(x)
+    P = src_c.T.contiguous()
+    CA = scov.contiguous()
+    L = P.shape[1]
+    got = cuda_linearize.linearize(P, CA, x, rows, valid)
+    want = cuda_linearize.linearize_plain(P, CA, x, rows, valid)
+    torch.cuda.synchronize()
+
+    def rel_to_max(name, a, b):
+        m = float(b.abs().max())
+        return check_close(name, a / m, b / m, 0.0, 1e-5) * m
+
+    errs = [
+        rel_to_max("linearize err", got[0].reshape(1), want[0].reshape(1)),
+        rel_to_max("linearize H", got[1], want[1]),
+        rel_to_max("linearize b", got[2], want[2]),
+        check_close("linearize aux", got[3], want[3], 1e-5, 1e-5),
+    ]
+    tm_ = timings(lambda: cuda_linearize.linearize(P, CA, x, rows, valid),
+                  lambda: cuda_linearize.linearize_plain(P, CA, x, rows, valid),
+                  "linearize_kernel<false>", 200, 50)
+    b_ms, b_by = bound_ms(L * (12 + 24 + 64 + 4 + 40) + 64 + 28 * 4, L * LINEARIZE_OPS)
+    records.append(dict(
+        name="linearize", route="cuda",
+        source="fast_gicp_tpu_torch/csrc/linearize.cu",
+        replaces="fast_gicp_tpu/ops/pallas_linearize.py:180",
+        max_abs_err=max(errs),
+        tolerance="err, H, b within 1e-5 of their largest entry; aux rtol 1e-5 atol 1e-5",
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, **tm_))
+    for r in records:
+        log(f"[kernels] {r['name']}: max_abs_diff {r['max_abs_err']:.3e} "
+            f"({r['tolerance']}), {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
+            f"({r['timing']}); per call with the host's enqueue: "
+            f"{r['call_ms']:.4f} ms, plain {r['plain_call_ms']:.4f} ms; "
+            f"bound {r['bound_ms']:.3e} ms ({r['bound_by']})")
+    return records
+
+
 def counters():
     from fast_gicp_tpu_torch.ops import cuda_kernels, cuda_linearize, cuda_solver
 
@@ -302,131 +448,198 @@ def counters():
         "linearize_raw": cuda_linearize.linearize_raw,
         "error": cuda_linearize.error,
         "lm_trial": cuda_solver.lm_trial,
+        "knn_moments": cuda_kernels.knn_moments,
+        "nn_search": cuda_kernels.nn_search,
+        "linearize": cuda_linearize.linearize,
     }
 
 
-def phase_main_path(dev, pair):
+def vgicp_path(target):
+    """`vgicp_register` as bench.py runs it: RBF covariances, the dense raw
+    grid at 1 m, two-phase solve."""
     from fast_gicp_tpu_torch.models.vgicp import VGICPConfig, vgicp_register
     from fast_gicp_tpu_torch.ops.voxelmap import auto_grid_dims
+
+    cfg = VGICPConfig(grid_dims=auto_grid_dims(target, 1.0), refresh_iterations=2)
+
+    def register(s, sm, t, tm, guess, device):
+        return vgicp_register(s, sm, t, tm, guess, cfg, device=device)
+
+    return register
+
+
+def gicp_path(target):
+    """`gicp_register_fresh` with the defaults FastGICP's fresh align uses:
+    kNN covariances (k = 20, plane), 1-NN re-search every iteration."""
+    from fast_gicp_tpu_torch.models.gicp import GICPConfig, gicp_register_fresh
+
+    del target
+
+    def register(s, sm, t, tm, guess, device):
+        return gicp_register_fresh(s, sm, t, tm, guess, GICPConfig(), device=device)[0]
+
+    return register
+
+
+PATHS = {
+    "vgicp_register": (vgicp_path, ("rbf_moments", "linearize_raw", "error", "lm_trial")),
+    "gicp_register_fresh": (gicp_path, ("knn_moments", "nn_search", "linearize", "error",
+                                        "lm_trial")),
+}
+
+
+def phase_main_path(dev, pair, path):
+    from fast_gicp_tpu_torch.models.metrics import fitness_score
     from fast_gicp_tpu_torch.solver import lsq_solve
     from fast_gicp_tpu_torch.utils.padding import pad_points
 
     source, target, gt = pair
+    make, kernels = PATHS[path]
+    register = make(target)
     sp, sm = pad_points(source)
     tp, tm = pad_points(target)
-    cfg = VGICPConfig(grid_dims=auto_grid_dims(target, 1.0), refresh_iterations=2)
     inputs = [torch.as_tensor(a, device=dev) for a in (sp, sm, tp, tm)]
     guess = torch.eye(4, device=dev)
-    vgicp_register(*inputs, guess, cfg, device=dev)  # warm-up
+    register(*inputs, guess, dev)  # warm-up
     torch.cuda.synchronize()
 
     for fn in counters().values():
         fn.launches = 0
     lsq_solve.host_syncs = 0
     t0 = time.perf_counter()
-    res = vgicp_register(*inputs, guess, cfg, device=dev)
+    res = register(*inputs, guess, dev)
     T = res.transformation.cpu().numpy()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = {k: fn.launches for k, fn in counters().items()}
     syncs = lsq_solve.host_syncs
 
-    require(T.shape == (4, 4) and np.isfinite(T).all(), "main path: non-finite pose")
+    require(T.shape == (4, 4) and np.isfinite(T).all(), f"{path}: non-finite pose")
     t_err, r_err = pose_errors(T.astype(np.float64), gt)
     iters = int(res.iterations)
-    log(f"[main] grid {cfg.grid_dims}, t_err {t_err:.6f} m, r_err {r_err:.6f} deg, "
+    fitness = float(fitness_score(res.transformation, *inputs, device=dev))
+    log(f"[main] {path}: t_err {t_err:.6f} m, r_err {r_err:.6f} deg, "
         f"iterations {iters}, converged {bool(res.converged)}, host syncs {syncs}, "
-        f"wall {wall_ms:.3f} ms, launches {launches}")
-    require(t_err < 0.05 and r_err < 1.0, f"main path: pose error {t_err} m {r_err} deg")
-    require(all(v > 0 for v in launches.values()),
-            f"main path: a kernel was not launched: {launches}")
+        f"wall {wall_ms:.3f} ms, fitness {fitness:.6f}, launches {launches}")
+    require(math.isfinite(fitness), f"{path}: non-finite fitness")
+    require(t_err < 0.05 and r_err < 1.0, f"{path}: pose error {t_err} m {r_err} deg")
+    require(all(launches[k] > 0 for k in kernels),
+            f"{path}: a kernel of the path was not launched: {launches}")
     return launches, dict(t_err_m=t_err, r_err_deg=r_err, iterations=iters,
-                          host_syncs=syncs, wall_ms=wall_ms)
+                          host_syncs=syncs, wall_ms=wall_ms, fitness=fitness)
 
 
-def phase_small_pair(dev):
-    """The card's run of the main path against the CPU run (plain versions)
-    on the small synthetic pair; tolerance 1e-3 on the pose, as the CPU
-    tests hold the port against the JAX package."""
-    from fast_gicp_tpu_torch.models.vgicp import VGICPConfig, vgicp_register
-    from fast_gicp_tpu_torch.ops.voxelmap import auto_grid_dims
+def phase_small_pair(dev, small, path):
+    """The card's run of a path against the CPU run (plain versions) on the
+    small synthetic pair; tolerance 1e-3 on the pose, as the CPU tests hold
+    the port against the JAX package."""
     from fast_gicp_tpu_torch.utils.padding import pad_points
 
-    source, target, gt = synthetic_pair(n_world=400_000, voxel=0.3)
+    source, target, gt = small
+    register = PATHS[path][0](target)
     sp, sm = pad_points(source)
     tp, tm = pad_points(target)
-    cfg = VGICPConfig(grid_dims=auto_grid_dims(target, 1.0), refresh_iterations=2)
     eye = np.eye(4, dtype=np.float32)
-    r_gpu = vgicp_register(sp, sm, tp, tm, eye, cfg, device=dev)
-    r_cpu = vgicp_register(sp, sm, tp, tm, eye, cfg, device="cpu")
+    r_gpu = register(sp, sm, tp, tm, eye, dev)
+    r_cpu = register(sp, sm, tp, tm, eye, "cpu")
     T_gpu = r_gpu.transformation.cpu().numpy()
     T_cpu = r_cpu.transformation.numpy()
     diff = float(np.abs(T_gpu - T_cpu).max())
     t_err, r_err = pose_errors(T_gpu.astype(np.float64), gt)
-    log(f"[small] {sp.shape[0]} padded points: |T_gpu - T_cpu| max {diff:.3e}, "
+    log(f"[small] {path}, {sp.shape[0]} padded points: |T_gpu - T_cpu| max {diff:.3e}, "
         f"iterations gpu {int(r_gpu.iterations)} cpu {int(r_cpu.iterations)}, "
         f"t_err {t_err:.6f} m")
     require(np.isfinite(T_gpu).all() and diff <= 1e-3, f"small pair: pose diff {diff}")
     require(abs(int(r_gpu.iterations) - int(r_cpu.iterations)) <= 1,
             "small pair: iteration counts differ by more than 1")
     require(t_err < 0.05 and r_err < 1.0, f"small pair: pose error {t_err} m {r_err} deg")
+    return dict(pose_diff=diff, iterations_gpu=int(r_gpu.iterations),
+                iterations_cpu=int(r_cpu.iterations))
 
 
-def phase_bench(dev, pair, n_regs=100):
+def phase_bench(dev, pair, path, n_regs=100):
     from fast_gicp_tpu_torch import se3
-    from fast_gicp_tpu_torch.models.vgicp import VGICPConfig, vgicp_register
-    from fast_gicp_tpu_torch.ops.voxelmap import auto_grid_dims
     from fast_gicp_tpu_torch.solver import lsq_solve
     from fast_gicp_tpu_torch.utils.padding import pad_points
 
     source, target, _gt = pair
+    register = PATHS[path][0](target)
     sp, sm = pad_points(source)
     tp, tm = pad_points(target)
-    cfg = VGICPConfig(grid_dims=auto_grid_dims(target, 1.0), refresh_iterations=2)
     sp, sm, tp, tm = (torch.as_tensor(a, device=dev) for a in (sp, sm, tp, tm))
     rng = np.random.default_rng(0)
     twists = 1e-5 * rng.standard_normal((n_regs, 6)).astype(np.float32)
     jitters = se3.se3_exp(torch.as_tensor(twists)).to(dev)
     guess = torch.eye(4, device=dev)
 
-    def register(J):
+    def jittered(J):
         sj = sp @ J[:3, :3].T + J[:3, 3]
         tj = tp @ J[:3, :3].T + J[:3, 3]
-        return vgicp_register(sj, sm, tj, tm, guess, cfg, device=dev)
+        return register(sj, sm, tj, tm, guess, dev)
 
-    register(jitters[0])  # warm-up
+    jittered(jitters[0])  # warm-up
     torch.cuda.synchronize()
     syncs0 = lsq_solve.host_syncs
     t0 = time.perf_counter()
     iters = []
     for J in jitters:
-        iters.append(register(J).iterations)
+        iters.append(jittered(J).iterations)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / n_regs
     iters = torch.stack(iters).cpu().numpy()
     syncs = (lsq_solve.host_syncs - syncs0) / n_regs
-    log(f"[bench] {n_regs} registrations: {ms:.4f} ms/registration "
+    log(f"[bench] {path}, {n_regs} registrations: {ms:.4f} ms/registration "
         f"({1e3 / ms:.2f} reg/s), iterations mean {iters.mean():.2f}, "
         f"host syncs/registration {syncs:.2f}")
-    return dict(ms_per_registration=ms, registrations_per_s=1e3 / ms,
+    return dict(registrations=n_regs, ms_per_registration=ms, registrations_per_s=1e3 / ms,
                 mean_iterations=float(iters.mean()), host_syncs_per_registration=syncs)
 
 
-def phase_profile(dev, pair, n_regs=5):
+def _stages_vgicp(dev, target, sp, sm, tp, tm, guess, register, wall_ms):
+    from fast_gicp_tpu_torch.ops.covariance import masked_mean, rbf_covariance_cols
+    from fast_gicp_tpu_torch.ops.voxelmap import auto_grid_dims, build_raw_grid
+
+    dims = auto_grid_dims(target, 1.0)
+    tc = tp - masked_mean(tp, tm)
+    tcov = rbf_covariance_cols(tc, tm)
+    stages = {
+        "register": wall_ms(lambda: register(sp, sm, tp, tm, guess, dev)),
+        "covariances (both clouds)": wall_ms(
+            lambda: (rbf_covariance_cols(sp, sm), rbf_covariance_cols(tp, tm))),
+        "grid build": wall_ms(lambda: build_raw_grid(tc, tm, 1.0, tcov, dims)),
+    }
+    stages["align rest (solve)"] = (stages["register"] - stages["covariances (both clouds)"]
+                                    - stages["grid build"])
+    return stages
+
+
+def _stages_gicp(dev, target, sp, sm, tp, tm, guess, register, wall_ms):
+    from fast_gicp_tpu_torch.models.gicp import gicp_align
+    from fast_gicp_tpu_torch.ops.covariance import knn_covariance_cols
+
+    del target
+    scov, tcov = knn_covariance_cols(sp, sm), knn_covariance_cols(tp, tm)
+    return {
+        "register": wall_ms(lambda: register(sp, sm, tp, tm, guess, dev)),
+        "covariances (both clouds)": wall_ms(
+            lambda: (knn_covariance_cols(sp, sm), knn_covariance_cols(tp, tm))),
+        "align (solve)": wall_ms(
+            lambda: gicp_align(sp, sm, scov, tp, tm, tcov, guess, device=dev)),
+    }
+
+
+def phase_profile(dev, pair, path, n_regs=5):
     """Where a registration's time goes: host-clock stage times (each stage
     alone, synchronised), then a torch.profiler trace of `n_regs`
     registrations for the device time by kernel and the device's busy
     share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from fast_gicp_tpu_torch.models.vgicp import VGICPConfig, vgicp_register
-    from fast_gicp_tpu_torch.ops.covariance import masked_mean, rbf_covariance_cols
-    from fast_gicp_tpu_torch.ops.voxelmap import auto_grid_dims, build_raw_grid
     from fast_gicp_tpu_torch.utils.padding import pad_points
 
     source, target, _gt = pair
+    register = PATHS[path][0](target)
     sp, sm = pad_points(source)
     tp, tm = pad_points(target)
-    cfg = VGICPConfig(grid_dims=auto_grid_dims(target, 1.0), refresh_iterations=2)
     sp, sm, tp, tm = (torch.as_tensor(a, device=dev) for a in (sp, sm, tp, tm))
     guess = torch.eye(4, device=dev)
 
@@ -439,35 +652,27 @@ def phase_profile(dev, pair, n_regs=5):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / reps
 
-    tc = tp - masked_mean(tp, tm)
-    tcov = rbf_covariance_cols(tc, tm)
-    stages = {
-        "register": wall_ms(lambda: vgicp_register(sp, sm, tp, tm, guess, cfg, device=dev)),
-        "covariances (both clouds)": wall_ms(
-            lambda: (rbf_covariance_cols(sp, sm), rbf_covariance_cols(tp, tm))),
-        "grid build": wall_ms(lambda: build_raw_grid(tc, tm, 1.0, tcov, cfg.grid_dims)),
-    }
-    stages["align rest (solve)"] = (stages["register"] - stages["covariances (both clouds)"]
-                                    - stages["grid build"])
-    log("[profile] stage wall ms/registration: "
+    stage_fn = _stages_vgicp if path == "vgicp_register" else _stages_gicp
+    stages = stage_fn(dev, target, sp, sm, tp, tm, guess, register, wall_ms)
+    log(f"[profile] {path} stage wall ms/registration: "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_regs):
-            vgicp_register(sp, sm, tp, tm, guess, cfg, device=dev)
+            register(sp, sm, tp, tm, guess, dev)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n_regs
     events = device_events(prof)
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / n_regs
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n_regs
     launches = sum(e.count for e in events) / n_regs
-    log(f"[profile] traced {n_regs} registrations: wall {wall:.3f} ms, device busy "
-        f"{device_ms:.3f} ms ({100 * device_ms / wall:.1f}%), device ops "
+    log(f"[profile] {path}, traced {n_regs} registrations: wall {wall:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms ({100 * busy_ms / wall:.1f}%), device ops "
         f"{launches:.0f} per registration")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3 / n_regs:9.4f} ms  "
             f"x{e.count / n_regs:5.1f}  {e.key[:90]}")
-    return dict(stage_wall_ms=stages, traced_wall_ms=wall, device_busy_ms=device_ms,
+    return dict(stage_wall_ms=stages, traced_wall_ms=wall, device_busy_ms=busy_ms,
                 device_ops_per_registration=launches)
 
 
@@ -497,19 +702,29 @@ def main() -> int:
             log(f"[build] {line.strip()}")
 
     pair = synthetic_pair()
-    records = phase_kernels(dev, pair)
-    launches, main_stats = phase_main_path(dev, pair)
+    records = phase_kernels(dev, pair) + phase_gicp_kernels(dev, pair)
+    summary = {}
+    path_launches = {}
+    for path in PATHS:
+        path_launches[path], main_stats = phase_main_path(dev, pair, path)
+        summary[path] = {"main_path": main_stats}
+    small = synthetic_pair(n_world=400_000, voxel=0.3)
+    for path in PATHS:
+        summary[path]["small_pair"] = phase_small_pair(dev, small, path)
+    for path in PATHS:
+        summary[path]["bench"] = phase_bench(dev, pair, path)
+    for path in PATHS:
+        summary[path]["profile"] = phase_profile(dev, pair, path)
     for r in records:
-        r["launches"] = launches[r["name"]]
-    phase_small_pair(dev)
-    bench = phase_bench(dev, pair)
-    prof = phase_profile(dev, pair)
-    log("[summary] " + json.dumps({"main_path": main_stats, "bench": bench,
-                                   "profile": prof}))
+        # a kernel's launches on its own path (the first path that runs it)
+        own = next(p for p, (_make, ks) in PATHS.items() if r["name"] in ks)
+        r["launches"] = path_launches[own][r["name"]]
+        r["launches_by_path"] = {p: path_launches[p][r["name"]] for p in PATHS}
+    log("[summary] " + json.dumps(summary))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("tolerance", "timing", "call_ms", "plain_call_ms")
+    extra = ("tolerance", "timing", "call_ms", "plain_call_ms", "launches_by_path")
     kernels = [{k: r[k] for k in keys + extra} for r in records]
     require(all(math.isfinite(r["ms"]) for r in kernels), "kernel timings")
     print(smi)

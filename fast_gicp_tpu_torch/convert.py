@@ -11,20 +11,30 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.gicp import GICPConfig
 from .models.vgicp import VGICPConfig
+from .ops import soa
 from .ops.voxelmap import DenseRawGridMap
 from .solver import LsqConfig, LsqResult
 
 
 def config_from_jax(cfg):
-    """A JAX `VGICPConfig` or `LsqConfig` (any object with the same field
-    names) -> the port's config of the same kind."""
+    """A JAX `VGICPConfig`, `GICPConfig` or `LsqConfig` (any object with the
+    same field names) -> the port's config of the same kind."""
     if hasattr(cfg, "lsq"):
-        fields = {f: getattr(cfg, f) for f in VGICPConfig._fields if f != "lsq"}
-        if fields["grid_dims"] is not None:
+        kind = VGICPConfig if hasattr(cfg, "grid_dims") else GICPConfig
+        fields = {f: getattr(cfg, f) for f in kind._fields if f != "lsq"}
+        if fields.get("grid_dims") is not None:
             fields["grid_dims"] = tuple(int(d) for d in fields["grid_dims"])
-        return VGICPConfig(**fields, lsq=config_from_jax(cfg.lsq))
+        return kind(**fields, lsq=config_from_jax(cfg.lsq))
     return LsqConfig(**{f: getattr(cfg, f) for f in LsqConfig._fields})
+
+
+def covs_from_numpy(covs, device="cpu"):
+    """Covariances of the JAX package as numpy, (N, 3, 3) or (6, N) sym-6
+    columns -> the port's (6, N) float32 sym-6 columns on `device`."""
+    t = torch.tensor(np.asarray(covs, np.float32), device=device)
+    return soa.sym_cols_from_covs(t).contiguous()
 
 
 def raw_grid_from_numpy(rows, grid8, origin, resolution, device="cpu"):

@@ -1,16 +1,19 @@
-// VGICP linearization and trial error against raw voxel rows, one thread per
-// correspondence.
+// GICP/VGICP linearization and trial error, one thread per correspondence.
 //
-// Replaces fast_gicp_tpu/ops/pallas_linearize.py::_linearize_raw_kernel
-// (with its core _lin_body) and ::_error_kernel.
+// Replaces fast_gicp_tpu/ops/pallas_linearize.py::_linearize_raw_kernel,
+// ::_linearize_kernel (both with their shared core _lin_body) and
+// ::_error_kernel.
 //
-// linearize_raw, per correspondence n (L of them):
-//   rows[n] = [count, sum mu (3), sum cov (9 row-major), pad (3)] of the
-//   target voxel; divide by count (count 0 marks a miss), transform the
-//   source point by the pose x, M = (C_B + R C_A R^T)^-1 with the
-//   determinant clamped to +-1e-18, w = sqrt(count) * valid; accumulate the
-//   28 sums [err, H (21 unique), b (6)] of w e^T M e, w J^T M J, w J^T M e
-//   with J = [skew(p) | -I]; write aux (10, L) = [M (6), w, mu_B (3)].
+// linearize_raw / linearize, per correspondence n (L of them):
+//   unpack the gathered target row: raw voxel rows [count, sum mu (3),
+//   sum cov (9 row-major), pad (3)] are divided by count (count 0 marks a
+//   miss, which clears valid); finalized rows [mu (3), cov (9 row-major),
+//   count, pad (3)] are read as they are (GICP's rows carry count 1).
+//   Then, shared: transform the source point by the pose x,
+//   M = (C_B + R C_A R^T)^-1 with the determinant clamped to +-1e-18,
+//   w = sqrt(count) * valid; accumulate the 28 sums [err, H (21 unique),
+//   b (6)] of w e^T M e, w J^T M J, w J^T M e with J = [skew(p) | -I];
+//   write aux (10, L) = [M (6), w, mu_B (3)].
 // error, per correspondence: sum of w e^T M e at a trial pose, reading the
 //   frozen aux.
 //
@@ -79,28 +82,56 @@ __device__ __forceinline__ Pose load_pose(const float* __restrict__ x) {
           __ldg(x + 8), __ldg(x + 9), __ldg(x + 10), __ldg(x + 11)};
 }
 
+// The target side of one correspondence, unpacked from its 16-float row.
+struct Target {
+  float q0, q1, q2;                    // mu_B
+  float b00, b01, b02, b11, b12, b22;  // C_B, sym-6
+  float count, valid;
+};
+
+// Raw voxel row [count, sum mu (3), sum cov9, pad (3)]: finalized here.
+__device__ __forceinline__ Target unpack_raw(const float4* __restrict__ rows, int n,
+                                             float valid_in) {
+  const float4 r0 = rows[4 * n + 0], r1 = rows[4 * n + 1];
+  const float4 r2 = rows[4 * n + 2], r3 = rows[4 * n + 3];
+  const float count = r0.x;
+  const float alive = count > 0.f ? 1.f : 0.f;
+  const float inv_n = alive / fmaxf(count, 1.f);
+  // sym-6 of the row-major cov9 at row offsets 4, 5, 6, 8, 9, 12
+  return {r0.y * inv_n, r0.z * inv_n, r0.w * inv_n,
+          r1.x * inv_n, r1.y * inv_n, r1.z * inv_n,
+          r2.x * inv_n, r2.y * inv_n, r3.x * inv_n,
+          count, valid_in * alive};
+}
+
+// Finalized row [mu (3), cov9, count, pad (3)].
+__device__ __forceinline__ Target unpack_finalized(const float4* __restrict__ rows, int n,
+                                                   float valid_in) {
+  const float4 r0 = rows[4 * n + 0], r1 = rows[4 * n + 1];
+  const float4 r2 = rows[4 * n + 2], r3 = rows[4 * n + 3];
+  // sym-6 of the row-major cov9 at row offsets 3, 4, 5, 7, 8, 11
+  return {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.w, r2.x, r2.w, r3.x, valid_in};
+}
+
+template <bool kRaw>
 __global__ void __launch_bounds__(kThreads)
-    linearize_raw_kernel(const float* __restrict__ p, const float* __restrict__ ca,
-                         const float* __restrict__ xp, const float4* __restrict__ rows,
-                         const float* __restrict__ valid_in, int L,
-                         float* partials, unsigned int* ticket,
-                         float* __restrict__ out, float* __restrict__ aux) {
+    linearize_kernel(const float* __restrict__ p, const float* __restrict__ ca,
+                     const float* __restrict__ xp, const float4* __restrict__ rows,
+                     const float* __restrict__ valid_in, int L,
+                     float* partials, unsigned int* ticket,
+                     float* __restrict__ out, float* __restrict__ aux) {
   const Pose x = load_pose(xp);
   float acc[28];
 #pragma unroll
   for (int k = 0; k < 28; ++k) acc[k] = 0.f;
 
   for (int n = blockIdx.x * kThreads + threadIdx.x; n < L; n += gridDim.x * kThreads) {
-    const float4 r0 = rows[4 * n + 0], r1 = rows[4 * n + 1];
-    const float4 r2 = rows[4 * n + 2], r3 = rows[4 * n + 3];
-    const float count = r0.x;
-    const float alive = count > 0.f ? 1.f : 0.f;
-    const float inv_n = alive / fmaxf(count, 1.f);
-    const float q0 = r0.y * inv_n, q1 = r0.z * inv_n, q2 = r0.w * inv_n;
-    // sym-6 of the row-major cov9 at row offsets 4, 5, 6, 8, 9, 12
-    const float b00 = r1.x * inv_n, b01 = r1.y * inv_n, b02 = r1.z * inv_n;
-    const float b11 = r2.x * inv_n, b12 = r2.y * inv_n, b22 = r3.x * inv_n;
-    const float valid = valid_in[n] * alive;
+    const Target tg = kRaw ? unpack_raw(rows, n, valid_in[n])
+                           : unpack_finalized(rows, n, valid_in[n]);
+    const float q0 = tg.q0, q1 = tg.q1, q2 = tg.q2;
+    const float b00 = tg.b00, b01 = tg.b01, b02 = tg.b02;
+    const float b11 = tg.b11, b12 = tg.b12, b22 = tg.b22;
+    const float count = tg.count, valid = tg.valid;
 
     const float s0 = p[n], s1 = p[L + n], s2 = p[2 * L + n];
     const float p0 = x.r00 * s0 + x.r01 * s1 + x.r02 * s2 + x.t0;
@@ -206,15 +237,27 @@ extern "C" int fgt_reduce_blocks(int L) {
   return blocks < 1 ? 1 : (blocks > 264 ? 264 : blocks);
 }
 
-// p (3, L), ca (6, L), x (4, 4), rows (L, 16), valid (L,): float32.
-// partials: fgt_reduce_blocks(L) * 28 floats; ticket: one zeroed uint32.
-// out: 28 floats; aux: (10, L).
+// p (3, L), ca (6, L), x (4, 4), rows (L, 16), valid (L,): float32; rows
+// raw ([count, sum mu, sum cov9, pad]).  partials: fgt_reduce_blocks(L) * 28
+// floats; ticket: one zeroed uint32.  out: 28 floats; aux: (10, L).
 extern "C" int fgt_linearize_raw(const float* p, const float* ca, const float* x,
                                  const float* rows, const float* valid, int L,
                                  float* partials, unsigned int* ticket, float* out,
                                  float* aux, void* stream) {
-  linearize_raw_kernel<<<fgt_reduce_blocks(L), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  linearize_kernel<true><<<fgt_reduce_blocks(L), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      p, ca, x, reinterpret_cast<const float4*>(rows), valid, L, partials, ticket,
+      out, aux);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As fgt_linearize_raw, with finalized rows ([mu, cov9, count, pad]).
+extern "C" int fgt_linearize(const float* p, const float* ca, const float* x,
+                             const float* rows, const float* valid, int L,
+                             float* partials, unsigned int* ticket, float* out,
+                             float* aux, void* stream) {
+  linearize_kernel<false><<<fgt_reduce_blocks(L), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
       p, ca, x, reinterpret_cast<const float4*>(rows), valid, L, partials, ticket,
       out, aux);
   return static_cast<int>(cudaGetLastError());

@@ -1,5 +1,6 @@
-"""The target-centroid frame every align runs in (port of
-`fast_gicp_tpu.models.base.centered_frame_align`)."""
+"""The target-centroid frame every align and evaluation runs in (port of
+`fast_gicp_tpu.models.base.centered_frame_align` and
+`centered_frame_evaluate`)."""
 
 from __future__ import annotations
 
@@ -30,3 +31,19 @@ def centered_frame_align(run, source, target, target_mask, guess):
         transformation=se3.conjugate_from_centered(res.transformation, c),
         hessian=A.T @ res.hessian @ A,
     )
+
+
+def centered_frame_evaluate(run, source, target, target_mask, pose):
+    """`centered_frame_align`'s twin for evaluating the objective:
+    `run(source_c, target_c, pose_c) -> (err, H', b')` evaluates it in the
+    target-centroid frame; the returned (err, H, b) are world-frame (err
+    is frame-invariant; H and b return through the translation adjoint),
+    consistent with the aligns' reported Hessian."""
+    c = masked_mean(target, target_mask)
+    err, H, b = run(
+        source - c,
+        target - c,
+        se3.conjugate_to_centered(pose.to(target.dtype), c),
+    )
+    A = se3.adjoint_translation(c)
+    return err, A.T @ H @ A, A.T @ b

@@ -1,0 +1,192 @@
+"""Generalized ICP (port of the functional path of
+`fast_gicp_tpu.models.gicp`, the reference's `FastGICP`,
+fast_gicp_impl.hpp).
+
+kNN covariances for both clouds, then an LM solve whose every
+linearization re-searches exact 1-NN correspondences of the transformed
+source (the `nn_search` kernel), gathers the matched target rows
+[mu, cov9, count = 1, pad] with one index, and freezes the Mahalanobis
+M = (C_B + R C_A R^T)^-1 for the trials that follow (the `linearize`
+kernel); every LM trial runs the `error` and `lm_trial` kernels.
+Correspondences farther than max_correspondence_distance are dropped.
+
+Ported here: `GICPConfig`, the objective, `gicp_align` (with the two-phase
+refresh_iterations form), `gicp_evaluate` and `gicp_register_fresh`.  The
+`FastGICP` class waits for the `Registration` class API.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from .. import device as _device
+from ..ops import cuda_linearize, soa
+from ..ops.covariance import estimate_covariance_cols
+from ..ops.neighbors import nn_search
+from ..precision import f32_matmuls
+from ..solver import LsqConfig, LsqResult, lsq_solve
+from .base import centered_frame_align, centered_frame_evaluate
+
+
+class GICPConfig(NamedTuple):
+    """Defaults match fast_gicp_impl.hpp:16-20 and the lsq defaults; the
+    fields and defaults of the JAX package's GICPConfig.
+
+    refresh_iterations: R -> re-search 1-NN correspondences for the first
+    R LM iterations, then freeze the matched target rows for the rest
+    (M is still re-frozen from each linearization's rotation); None
+    re-searches every iteration like FastGICP.
+    """
+
+    k_correspondences: int = 20
+    regularization: str = "plane"
+    max_correspondence_distance: float = math.inf
+    refresh_iterations: int | None = None
+    lsq: LsqConfig = LsqConfig()
+
+
+def _covs_rows9(covs):
+    """(N, 3, 3) or (6, N) sym-6 covariances -> (N, 9) row-major rows."""
+    if covs.shape[-2:] == (3, 3):
+        return covs.reshape(covs.shape[0], 9)
+    return soa.sym_cols_to_rows9(covs)
+
+
+def make_gicp_objective(source, source_mask, source_covs, target, target_mask,
+                        target_covs, config: GICPConfig, with_freeze: bool = False):
+    """(linearize, error) closures of the GICP objective; with
+    `with_freeze=True` also (freeze, linearize_frozen).
+
+    `freeze(x)` runs the 1-NN search at pose x and returns the matched
+    target rows (N, 16) and the correspondence validity (N,);
+    `linearize_frozen(x, frozen)` linearizes against them without a
+    re-search.  The source columns and covariance columns are
+    loop-invariant and the pose is applied inside the kernels."""
+    thr_sq = config.max_correspondence_distance ** 2
+    P = soa.cols_from_points(source).contiguous()  # (3, N)
+    C_A = soa.sym_cols_from_covs(source_covs).contiguous()  # (6, N)
+    nt = target.shape[0]
+    # [mu (3) | cov 3x3 row-major (9) | count = 1 | pad (3)]: count 1 makes
+    # the kernel's sqrt(count) weight the GICP unit weight
+    target_pack16 = torch.cat(
+        [target, _covs_rows9(target_covs),
+         torch.ones((nt, 1), dtype=target.dtype, device=target.device),
+         torch.zeros((nt, 3), dtype=target.dtype, device=target.device)],
+        dim=1,
+    ).contiguous()
+
+    def freeze(x):
+        p_t = soa.transform_cols(x, P)
+        idx, sq_dist = nn_search(p_t.T.contiguous(), target, target_mask, source_mask)
+        valid = (source_mask & (sq_dist < thr_sq)).to(source.dtype)
+        return target_pack16[idx.long()], valid
+
+    def linearize_frozen(x, frozen):
+        rows, valid = frozen
+        return cuda_linearize.linearize(P, C_A, x, rows, valid)
+
+    def linearize(x):
+        return linearize_frozen(x, freeze(x))
+
+    def error(x, aux):
+        return cuda_linearize.error(P, x, aux)
+
+    if with_freeze:
+        return linearize, error, freeze, linearize_frozen
+    return linearize, error
+
+
+def _inputs(dev, *clouds):
+    """(points, mask, covs) triples -> tensors on `dev`."""
+    out = []
+    for points, mask, covs in clouds:
+        out += [_device.as_f32(points, dev), _device.as_bool(mask, dev),
+                _device.as_f32(covs, dev)]
+    return out
+
+
+@f32_matmuls
+def gicp_align(source, source_mask, source_covs, target, target_mask,
+               target_covs, guess, config: GICPConfig = GICPConfig(),
+               device="cuda") -> LsqResult:
+    """GICP align of (N, 3) source onto (M, 3) target, with per-point
+    covariances as (N, 3, 3) or (6, N) sym-6 columns.
+
+    With config.refresh_iterations = R the solve is two-phase: R
+    re-searching LM iterations, then the matched target rows are frozen
+    at the phase-1 pose for the rest.  Runs in the target-centroid frame;
+    the returned pose and Hessian are world-frame.  Runs on `device` (CUDA
+    unless the caller asks for the CPU)."""
+    dev = _device.resolve(device)
+    source, source_mask, source_covs, target, target_mask, target_covs = _inputs(
+        dev, (source, source_mask, source_covs), (target, target_mask, target_covs))
+    guess = _device.as_f32(guess, dev)
+
+    def run(src_c, tgt_c, x0):
+        linearize, error, freeze, linearize_frozen = make_gicp_objective(
+            src_c, source_mask, source_covs, tgt_c, target_mask, target_covs,
+            config, with_freeze=True,
+        )
+        R = config.refresh_iterations
+        if not R or R >= config.lsq.max_iterations:
+            return lsq_solve(linearize, error, x0, config.lsq)
+        p1 = lsq_solve(linearize, error, x0, config.lsq._replace(max_iterations=R))
+        frozen = freeze(p1.transformation)
+        p2 = lsq_solve(
+            lambda x: linearize_frozen(x, frozen),
+            error,
+            p1.transformation,
+            config.lsq._replace(max_iterations=config.lsq.max_iterations - R),
+        )
+        return p2._replace(iterations=p1.iterations + p2.iterations)
+
+    return centered_frame_align(run, source, target, target_mask, guess)
+
+
+@f32_matmuls
+def gicp_evaluate(source, source_mask, source_covs, target, target_mask,
+                  target_covs, pose, config: GICPConfig = GICPConfig(),
+                  device="cuda"):
+    """(error, H, b) of the GICP objective at an arbitrary pose (the
+    reference's evaluateCost, lsq_registration_impl.hpp:48-50), evaluated
+    in the target-centroid frame and reported world-frame, consistent with
+    `gicp_align`'s Hessian.  Runs on `device`."""
+    dev = _device.resolve(device)
+    source, source_mask, source_covs, target, target_mask, target_covs = _inputs(
+        dev, (source, source_mask, source_covs), (target, target_mask, target_covs))
+    pose = _device.as_f32(pose, dev)
+
+    def run(src_c, tgt_c, p):
+        linearize, _error = make_gicp_objective(
+            src_c, source_mask, source_covs, tgt_c, target_mask, target_covs, config)
+        err, H, b, _aux = linearize(p)
+        return err, H, b
+
+    return centered_frame_evaluate(run, source, target, target_mask, pose)
+
+
+@f32_matmuls
+def gicp_register_fresh(source, source_mask, target, target_mask, guess,
+                        config: GICPConfig = GICPConfig(), method: str = "knn",
+                        k: int = 20, regularization: str = "plane",
+                        kernel_width: float = 0.5, kernel_max_dist: float = 3.0,
+                        device="cuda"):
+    """Fresh registration: covariances for both clouds ("knn" or "rbf"),
+    then the GICP align.  Returns (LsqResult, source_cov6, target_cov6) so
+    a caller can cache the sym-6 covariance columns (6, N).  Runs on
+    `device` (CUDA unless the caller asks for the CPU)."""
+    dev = _device.resolve(device)
+    source = _device.as_f32(source, dev)
+    target = _device.as_f32(target, dev)
+    source_mask = _device.as_bool(source_mask, dev)
+    target_mask = _device.as_bool(target_mask, dev)
+    kwargs = dict(k=k, regularization=regularization, kernel_width=kernel_width,
+                  kernel_max_dist=kernel_max_dist)
+    scovs = estimate_covariance_cols(source, source_mask, method, **kwargs)
+    tcovs = estimate_covariance_cols(target, target_mask, method, **kwargs)
+    res = gicp_align(source, source_mask, scovs, target, target_mask, tcovs,
+                     guess, config, device=dev)
+    return res, scovs, tcovs

@@ -1,6 +1,7 @@
-"""RBF kernel-density moments: the CUDA kernel `csrc/rbf_moments.cu` and
-its plain PyTorch version (port of `fast_gicp_tpu.ops.pallas_kernels`'
-RBF part).
+"""The point-pair kernels -- RBF moments, exact 1-NN search and fused kNN
+moments -- (`csrc/rbf_moments.cu`, `csrc/nn_search.cu`,
+`csrc/knn_moments.cu`) and their plain PyTorch versions (port of
+`fast_gicp_tpu.ops.pallas_kernels`).
 
 `rbf_moments` is the counterpart of `rbf_cross_moments_centered_T`
 (`pallas_kernels.py:461`, kernel `_rbf_kernel`): for every query, 16 rows
@@ -9,10 +10,20 @@ of weighted moments of the target cloud about `center`,
 w = exp(-kernel_width d^2) for d^2 = |q - y|^2 <= max_dist^2 and y the
 target point minus `center`.  Rows of masked queries carry no meaning.
 
-The TPU kernel's bf16 hi/lo feature split and (8, N) padding are layout
-workarounds and are gone: the CUDA kernel accumulates in f32 registers
-(see the note in the source for its design and bound).  The (q - t)^2
-distance form and the centering are numerics and are kept.
+`nn_search` is the counterpart of `nn_search_pallas` (`pallas_kernels.py:173`,
+kernel `_nn_kernel`): the exact nearest target of every query.
+
+`knn_moments` is the counterpart of `knn_moments_pallas`
+(`pallas_kernels.py:372`, kernel `_make_knn_moments_kernel`): the packed-key
+k-NN selection over each query tile's candidate slab, and the moments of
+the selected neighbours about the tile's first query point.
+
+The TPU kernels' bf16 hi/lo feature split and (8, N) padding are layout
+workarounds and are gone: the CUDA kernels keep their sums in f32
+registers (see the note in each source for its design and bound).  The
+(q - t)^2 distance form, the centering and the per-tile moment origin are
+numerics and are kept; every d^2 is rounded in the order the plain versions
+use, so both take the same range, nearest and selection decisions.
 """
 
 from __future__ import annotations
@@ -26,6 +37,15 @@ from . import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _RBF_ARGS = (_P, _P, _I, _I, _F, _F, _P, _P)
+_NN_ARGS = (_P, _P, _I, _I, _P, _P, _P, _P)
+_KNN_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P)
+
+# Large finite coordinate for masked points: distances ~3.6e18, far below
+# f32 overflow (3.4e38) even after squaring differences of 1e9.
+MASK_COORD = 1.0e9
+KNN_TILE = 256  # queries sharing one candidate slab in `knn_moments`
+KNN_MAX_SLAB = 2048  # candidate positions a query tile may search
+_NN_TILE = 128  # targets per bounding box in `nn_search`
 
 
 def _pack(points, mask, center):
@@ -35,12 +55,42 @@ def _pack(points, mask, center):
     ).contiguous()
 
 
-def _check_cloud(name, points, mask):
+def _pack_masked(points, mask):
+    """(N, 3) points and (N,) mask -> contiguous (N, 4) [p, valid] with the
+    masked points parked at MASK_COORD."""
+    parked = torch.where(mask[:, None], points, torch.full_like(points, MASK_COORD))
+    return torch.cat([parked, mask.to(points.dtype)[:, None]], dim=1).contiguous()
+
+
+def _check_points(name, points):
     if points.dtype != torch.float32 or points.ndim != 2 or points.shape[1] != 3:
         raise ValueError(f"{name}: expected (N, 3) float32, got "
                          f"{tuple(points.shape)} {points.dtype}")
+
+
+def _check_cloud(name, points, mask):
+    _check_points(name, points)
     if mask.dtype != torch.bool or mask.shape != points.shape[:1]:
         raise ValueError(f"{name} mask: expected ({points.shape[0]},) bool")
+
+
+def _one_device(name, tensors):
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def _sq_dist(q, t):
+    """Squared distances of (..., 3) q against (..., 3) t broadcast, summed
+    in the kernels' order ((dx^2 + dy^2) + dz^2)."""
+    dx = q[..., 0] - t[..., 0]
+    dy = q[..., 1] - t[..., 1]
+    dz = q[..., 2] - t[..., 2]
+    return (dx * dx + dy * dy) + dz * dz
 
 
 def _constants(kernel_width, max_dist):
@@ -54,14 +104,10 @@ def rbf_moments(query, qmask, target, tmask, center, kernel_width, max_dist):
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     _check_cloud("query", query, qmask)
     _check_cloud("target", target, tmask)
-    devices = {t.device for t in (query, qmask, target, tmask, center)}
-    if len(devices) != 1:
-        raise ValueError(f"rbf_moments: tensors on several devices {devices}")
-    if query.device.type == "cpu":
+    dev = _one_device("rbf_moments", (query, qmask, target, tmask, center))
+    if dev.type == "cpu":
         return rbf_moments_plain(query, qmask, target, tmask, center,
                                  kernel_width, max_dist)
-    if query.device.type != "cuda":
-        raise ValueError(f"rbf_moments: unsupported device {query.device}")
     kw, md2 = _constants(kernel_width, max_dist)
     q4 = _pack(query, qmask, center)
     t4 = _pack(target, tmask, center)
@@ -94,11 +140,7 @@ def rbf_moments_plain(query, qmask, target, tmask, center, kernel_width,
     qc = query - center
     parts = []
     for start in range(0, qc.shape[0], chunk):
-        q = qc[start:start + chunk]
-        dx = q[:, 0:1] - y0[None, :]
-        dy = q[:, 1:2] - y1[None, :]
-        dz = q[:, 2:3] - y2[None, :]
-        d2 = (dx * dx + dy * dy) + dz * dz
+        d2 = _sq_dist(qc[start:start + chunk, None, :], y[None, :, :])
         w = torch.where(tmask[None, :] & (d2 <= md2), torch.exp(d2 * -kw),
                         torch.zeros_like(d2))
         parts.append(w @ feats)
@@ -109,3 +151,132 @@ def rbf_moments_plain(query, qmask, target, tmask, center, kernel_width,
          m[4], m[5], m[6], m[5], m[7], m[8], m[6], m[8], m[9],
          zero, zero, zero]
     )
+
+
+def nn_search(query, target, tmask, qmask=None):
+    """Exact 1-NN of each (Nq, 3) query in the (Nt, 3) target with (Nt,)
+    mask: (idx int32 (Nq,), d^2 f32 (Nq,)), ties to the lowest index.
+    Rows of queries masked out by the optional (Nq,) `qmask` are finite and
+    carry no meaning (the kernel leaves them out of its culling bounds).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if qmask is None:
+        qmask = torch.ones(query.shape[0], dtype=torch.bool, device=query.device)
+    _check_cloud("query", query, qmask)
+    _check_cloud("target", target, tmask)
+    if target.shape[0] == 0:
+        raise ValueError("nn_search: empty target")
+    dev = _one_device("nn_search", (query, qmask, target, tmask))
+    if dev.type == "cpu":
+        return nn_search_plain(query, target, tmask)
+    q4 = torch.cat([query, qmask.to(query.dtype)[:, None]], dim=1).contiguous()
+    t4 = _pack_masked(target, tmask)
+    nq, nt = q4.shape[0], t4.shape[0]
+    boxes = torch.empty(6 * -(-nt // _NN_TILE), dtype=torch.float32, device=dev)
+    idx = torch.empty(nq, dtype=torch.int32, device=dev)
+    d2 = torch.empty(nq, dtype=torch.float32, device=dev)
+    fn = _build.function("fgt_nn_search", _NN_ARGS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check("fgt_nn_search", fn(
+        q4.data_ptr(), t4.data_ptr(), nq, nt, boxes.data_ptr(), idx.data_ptr(),
+        d2.data_ptr(), stream))
+    nn_search.launches += 1
+    return idx, d2
+
+
+nn_search.launches = 0
+
+
+def nn_search_plain(query, target, tmask, chunk: int = 2048):
+    """Plain PyTorch version of `nn_search` (every query row searched):
+    dense (chunk, Nt) distance tiles and a first-index argmin."""
+    t = torch.where(tmask[:, None], target, torch.full_like(target, MASK_COORD))
+    idx, d2 = [], []
+    for start in range(0, query.shape[0], chunk):
+        d = _sq_dist(query[start:start + chunk, None, :], t[None, :, :])
+        i = torch.argmin(d, dim=1)
+        idx.append(i.to(torch.int32))
+        d2.append(torch.gather(d, 1, i[:, None])[:, 0])
+    return torch.cat(idx), torch.clamp(torch.cat(d2), min=0.0)
+
+
+def _check_knn(query, target, cidx, k, cand_tile):
+    Q, C = cidx.shape
+    nq, nt = query.shape[0], target.shape[0]
+    if cidx.dtype != torch.int32:
+        raise ValueError(f"cidx: expected int32, got {cidx.dtype}")
+    if nq != Q * KNN_TILE or nt % cand_tile or C * cand_tile > nt:
+        raise ValueError(f"knn_moments: sizes ({nq}, {nt}) not tiled for "
+                         f"Q={Q}, C={C}, cand_tile={cand_tile}")
+    if C * cand_tile > KNN_MAX_SLAB:
+        raise ValueError(f"knn_moments: slab {C} x {cand_tile} is wider than "
+                         f"{KNN_MAX_SLAB} positions")
+    if not 1 <= k <= C * cand_tile:
+        raise ValueError(f"knn_moments: k={k} outside [1, {C * cand_tile}]")
+
+
+def knn_moments(query, qmask, target, tmask, cidx, k: int, cand_tile: int = 128):
+    """Fused k-NN moments: (mom (10, Nq), kth_sq (Nq,)).
+
+    Query tile i (KNN_TILE queries) searches the `cand_tile`-point target
+    tiles `cidx[i]`, each in [0, Nt / cand_tile) (on the card a tile index
+    outside that range reads as masked points); mom rows are [count, sum y (3), sym-6 sum y y^T] over
+    each query's k selected neighbours, y = x - (the tile's first query
+    point), for the center-invariant covariance finalize only.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    _check_cloud("query", query, qmask)
+    _check_cloud("target", target, tmask)
+    _check_knn(query, target, cidx, k, cand_tile)
+    dev = _one_device("knn_moments", (query, qmask, target, tmask, cidx))
+    if dev.type == "cpu":
+        return knn_moments_plain(query, qmask, target, tmask, cidx, k, cand_tile)
+    q4 = _pack_masked(query, qmask)
+    t4 = _pack_masked(target, tmask)
+    cidx = cidx.contiguous()
+    nq, nt = q4.shape[0], t4.shape[0]
+    mom = torch.empty((10, nq), dtype=torch.float32, device=dev)
+    kth = torch.empty(nq, dtype=torch.float32, device=dev)
+    fn = _build.function("fgt_knn_moments", _KNN_ARGS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check("fgt_knn_moments", fn(
+        q4.data_ptr(), t4.data_ptr(), cidx.data_ptr(), nq, nt, cidx.shape[1],
+        cand_tile, int(k), mom.data_ptr(), kth.data_ptr(), stream))
+    knn_moments.launches += 1
+    return mom, kth
+
+
+knn_moments.launches = 0
+
+
+def knn_moments_plain(query, qmask, target, tmask, cidx, k: int,
+                      cand_tile: int = 128, chunk: int = 8):
+    """Plain PyTorch version of `knn_moments`: the packed keys of whole
+    (KNN_TILE, C * cand_tile) slabs, the k smallest by `torch.topk` (keys
+    are unique, so the set is unambiguous), and the moments of the
+    gathered neighbours; `chunk` query tiles at a time."""
+    Q, C = cidx.shape
+    S = C * cand_tile
+    q = _pack_masked(query, qmask)[:, :3].reshape(Q, KNN_TILE, 3)
+    t4 = _pack_masked(target, tmask).reshape(-1, cand_tile, 4)
+    lane = torch.arange(S, dtype=torch.int32, device=query.device)
+    moms, kths = [], []
+    for start in range(0, Q, chunk):
+        qq = q[start:start + chunk]  # (n, KNN_TILE, 3)
+        n = qq.shape[0]
+        cand = t4[cidx[start:start + chunk].long()].reshape(n, S, 4)
+        d = _sq_dist(qq[:, :, None, :], cand[:, None, :, :])  # (n, KNN_TILE, S)
+        keys = (d.view(torch.int32) & -4096) | lane
+        top = torch.topk(keys, k, dim=2, largest=False, sorted=True)
+        kths.append(torch.clamp((top.values[..., k - 1] & -4096).view(torch.float32),
+                                min=0.0))
+        picked = torch.gather(
+            cand[:, None].expand(n, KNN_TILE, S, 4), 2,
+            top.indices[..., None].expand(n, KNN_TILE, k, 4))  # (n, KNN_TILE, k, 4)
+        v = picked[..., 3]
+        y = (picked[..., :3] - qq[:, :1, None, :]) * v[..., None]
+        y0, y1, y2 = y[..., 0], y[..., 1], y[..., 2]
+        feats = torch.stack([v, y0, y1, y2, y0 * y0, y0 * y1, y0 * y2,
+                             y1 * y1, y1 * y2, y2 * y2], dim=0)  # (10, n, KNN_TILE, k)
+        moms.append(feats.sum(dim=3).reshape(10, n * KNN_TILE))
+    return torch.cat(moms, dim=1), torch.cat(kths).reshape(-1)

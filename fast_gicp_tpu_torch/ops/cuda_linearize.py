@@ -1,21 +1,26 @@
-"""VGICP linearize and trial error against raw voxel rows: the CUDA kernels
-of `csrc/linearize.cu` and their plain PyTorch versions (port of
-`fast_gicp_tpu.ops.pallas_linearize`'s raw-row part).
+"""GICP/VGICP linearize and trial error: the CUDA kernels of
+`csrc/linearize.cu` and their plain PyTorch versions (port of
+`fast_gicp_tpu.ops.pallas_linearize`'s GICP part).
 
 `linearize_raw` is the counterpart of `linearize_raw_pallas` (kernel
-`_linearize_raw_kernel`, `pallas_linearize.py:193`) and `error` of
-`error_pallas` (kernel `_error_kernel`, `pallas_linearize.py:633`).
+`_linearize_raw_kernel`, `pallas_linearize.py:193`), `linearize` of
+`linearize_pallas` (kernel `_linearize_kernel`, `pallas_linearize.py:180`)
+and `error` of `error_pallas` (kernel `_error_kernel`,
+`pallas_linearize.py:633`).  The two linearizes share one device body and
+differ only in how they unpack the gathered target rows.
 
 Layouts (L correspondences, column-major like the JAX package's SoA math,
 without its (8, N) sublane padding):
   * p (3, L): untransformed source columns; ca (6, L): unrotated source
     sym-6 covariance columns -- both loop-invariant over a solve;
   * x (4, 4): the pose, applied inside the kernel;
-  * rows (L, 16): gathered raw voxel rows [count, sum mu (3), sum cov
-    (9 row-major), pad (3)], count 0 marking a miss;
-  * valid (L,): 0/1 source validity;
-  * aux (10, L) = [M (6), w, mu_B (3)]: written by `linearize_raw`, read
-    by `error`.  w = sqrt(count) * valid (the raw kernel's weight row).
+  * rows (L, 16): for `linearize_raw`, gathered raw voxel rows [count,
+    sum mu (3), sum cov (9 row-major), pad (3)], count 0 marking a miss;
+    for `linearize`, finalized rows [mu (3), cov (9 row-major), count,
+    pad (3)] (GICP's matched target points carry count 1);
+  * valid (L,): 0/1 source (correspondence) validity;
+  * aux (10, L) = [M (6), w, mu_B (3)]: written by both linearizes, read
+    by `error`.  w = sqrt(count) * valid.
 """
 
 from __future__ import annotations
@@ -61,11 +66,10 @@ def _reduce_scratch(L, width, device):
     return partials, ticket
 
 
-def linearize_raw(p, ca, x, rows, valid):
-    """(err (), H (6, 6), b (6,), aux (10, L)) of the VGICP objective at
-    pose x against raw voxel rows.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+def _linearize(wrapper, entry, plain, p, ca, x, rows, valid):
+    """The shared body of the two linearize wrappers: checks, the plain
+    version for CPU tensors, else one launch of C entry `entry`, counted on
+    `wrapper`."""
     L = p.shape[-1]
     _check("p", p, (3, L))
     _check("ca", ca, (6, L))
@@ -73,24 +77,45 @@ def linearize_raw(p, ca, x, rows, valid):
     _check("rows", rows, (L, 16))
     _check("valid", valid, (L,))
     if p.device.type == "cpu":
-        return linearize_raw_plain(p, ca, x, rows, valid)
+        return plain(p, ca, x, rows, valid)
     _check_cuda([p, ca, x, rows, valid])
     if rows.data_ptr() % 16:
         raise ValueError("rows must be 16-byte aligned (read as float4)")
     partials, ticket = _reduce_scratch(L, 28, p.device)
     out = torch.empty(28, dtype=torch.float32, device=p.device)
     aux = torch.empty((AUX_ROWS, L), dtype=torch.float32, device=p.device)
-    fn = _build.function("fgt_linearize_raw", _LIN_ARGS)
+    fn = _build.function(entry, _LIN_ARGS)
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    _build.check("fgt_linearize_raw", fn(
+    _build.check(entry, fn(
         p.data_ptr(), ca.data_ptr(), x.data_ptr(), rows.data_ptr(),
         valid.data_ptr(), L, partials.data_ptr(), ticket.data_ptr(),
         out.data_ptr(), aux.data_ptr(), stream))
-    linearize_raw.launches += 1
+    wrapper.launches += 1
     return soa.unpack28(out) + (aux,)
 
 
+def linearize_raw(p, ca, x, rows, valid):
+    """(err (), H (6, 6), b (6,), aux (10, L)) of the VGICP objective at
+    pose x against raw voxel rows.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    return _linearize(linearize_raw, "fgt_linearize_raw", linearize_raw_plain,
+                      p, ca, x, rows, valid)
+
+
 linearize_raw.launches = 0
+
+
+def linearize(p, ca, x, rows, valid):
+    """(err (), H (6, 6), b (6,), aux (10, L)) of the GICP objective at pose
+    x against finalized target rows [mu, cov9, count, pad].
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    return _linearize(linearize, "fgt_linearize", linearize_plain,
+                      p, ca, x, rows, valid)
+
+
+linearize.launches = 0
 
 
 def error(p, x, aux):
@@ -123,6 +148,21 @@ def linearize_raw_plain(p, ca, x, rows, valid):
     JAX objective, `vgicp.py:219-237`, with the kernel's aux layout)."""
     mu_B, cov_B, count = soa.sym_cols_from_raw(rows)
     valid = valid * (count > 0).to(valid.dtype)
+    p_t = soa.transform_cols(x, p)
+    cov_rot = soa.rotate_sym_cols(x[:3, :3], ca)
+    M = soa.inv_sym_cols(cov_B + cov_rot) * valid
+    w = torch.sqrt(torch.clamp(count, min=0.0)) * valid
+    err, H, b = soa.linearize_cols(p_t, mu_B, M, w)
+    return err, H, b, torch.cat([M, w[None], mu_B])
+
+
+def linearize_plain(p, ca, x, rows, valid):
+    """Plain PyTorch version of `linearize` (the GICP objective,
+    `gicp.py:112-133`, with the kernel's aux layout)."""
+    mu_B = rows[:, 0:3].T
+    cov_B = torch.stack([rows[:, 3], rows[:, 4], rows[:, 5],
+                         rows[:, 7], rows[:, 8], rows[:, 11]])
+    count = rows[:, 12]
     p_t = soa.transform_cols(x, p)
     cov_rot = soa.rotate_sym_cols(x[:3, :3], ca)
     M = soa.inv_sym_cols(cov_B + cov_rot) * valid

@@ -23,6 +23,8 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import fast_gicp_tpu_torch.ops.cuda_kernels, fast_gicp_tpu_torch.ops.cuda_linearize\n"
         "import fast_gicp_tpu_torch.ops.cuda_solver, fast_gicp_tpu_torch.utils.io\n"
         "import fast_gicp_tpu_torch.utils.synthetic, fast_gicp_tpu_torch.utils.downsample\n"
+        "import fast_gicp_tpu_torch.models.gicp, fast_gicp_tpu_torch.models.metrics\n"
+        "import fast_gicp_tpu_torch.ops.neighbors, fast_gicp_tpu_torch.ops.covariance\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -48,10 +50,12 @@ def test_source_imports_no_jax(path):
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from fast_gicp_tpu_torch.models.gicp import gicp_align, gicp_register_fresh
+    from fast_gicp_tpu_torch.models.metrics import fitness_score
     from fast_gicp_tpu_torch.models.vgicp import (
         VGICPConfig, vgicp_align, vgicp_register,
     )
-    from fast_gicp_tpu_torch.ops.covariance import rbf_covariances
+    from fast_gicp_tpu_torch.ops.covariance import knn_covariances, rbf_covariances
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pts = np.zeros((2048, 3), np.float32)
@@ -65,13 +69,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         vgicp_align(pts, mask, covs, pts, mask, covs, eye, cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         rbf_covariances(pts, mask)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gicp_register_fresh(pts, mask, pts, mask, eye)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gicp_align(pts, mask, covs, pts, mask, covs, eye)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        knn_covariances(pts, mask)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fitness_score(eye, pts, mask, pts, mask)
 
 
 def test_wrappers_take_plain_version_on_cpu_without_counting():
     from fast_gicp_tpu_torch.ops import cuda_kernels, cuda_linearize, cuda_solver
 
     wrappers = (cuda_kernels.rbf_moments, cuda_linearize.linearize_raw,
-                cuda_linearize.error, cuda_solver.lm_trial)
+                cuda_linearize.error, cuda_solver.lm_trial, cuda_kernels.nn_search,
+                cuda_kernels.knn_moments, cuda_linearize.linearize)
     for fn in wrappers:
         fn.launches = 0
     rng = np.random.default_rng(0)
@@ -94,4 +107,14 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
         H + torch.eye(6), b, torch.tensor([0.1]), x)
     assert float(err) == pytest.approx(0.0, abs=1e-4) and float(e) == pytest.approx(0.0, abs=1e-4)
     assert xi.shape == (4, 4) and d.shape == (6,)
+    idx, sq = cuda_kernels.nn_search(pts, pts, mask)
+    assert idx.tolist() == list(range(n)) and float(sq.max()) == 0.0
+    mom, kth = cuda_kernels.knn_moments(pts, mask, pts, mask,
+                                        torch.zeros((1, 2), dtype=torch.int32), 20)
+    assert mom.shape == (10, n) and kth.shape == (n,)
+    fin = torch.cat([pts, torch.eye(3).reshape(1, 9).expand(n, 9), torch.ones((n, 1)),
+                     torch.zeros((n, 3))], dim=1)
+    err, _H, _b, _aux = cuda_linearize.linearize(pts.T.contiguous(), ca, x, fin,
+                                                 torch.ones(n))
+    assert float(err) == pytest.approx(0.0, abs=1e-4)
     assert all(fn.launches == 0 for fn in wrappers)

@@ -1,6 +1,7 @@
-"""Port vs JAX: the plain versions of the linearize-raw and error kernels
-(fast_gicp_tpu_torch.ops.cuda_linearize) against the Pallas kernel bodies
-`linearize_raw_pallas` / `error_pallas`, run in interpret mode.
+"""Port vs JAX: the plain versions of the linearize (raw and finalized
+rows) and error kernels (fast_gicp_tpu_torch.ops.cuda_linearize) against
+the Pallas kernel bodies `linearize_raw_pallas` / `linearize_pallas` /
+`error_pallas`, run in interpret mode.
 
 Inputs in the style of tests/test_pallas_linearize.py: random SPD source
 and voxel covariances, raw voxel rows [count, sum mu, sum cov, pad] with
@@ -91,6 +92,38 @@ def test_error_plain_matches_pallas(seed):
     np.testing.assert_allclose(e0, float(_e), rtol=1e-5)
 
 
+def _finalized_rows(rows):
+    """The same target statistics as GICP's finalized rows [mu (3), cov9,
+    count, pad (3)], with count 1 (GICP's unit weight) where the raw row
+    had a point and 0 where it was a miss."""
+    count = rows[:, 0]
+    inv = np.where(count > 0, 1.0 / np.maximum(count, 1.0), 0.0)[:, None]
+    return np.concatenate(
+        [rows[:, 1:4] * inv, rows[:, 4:13] * inv, (count > 0)[:, None],
+         np.zeros((rows.shape[0], 3))], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_linearize_plain_matches_pallas(seed):
+    """Finalized rows against `linearize_pallas`: the tolerances of the
+    raw-row test above (err rtol 1e-4; H and b rtol 3e-3, atol 0.5; aux
+    rtol 1e-5, atol 1e-6)."""
+    P, CA, x, raw, valid = _inputs(seed)
+    rows = _finalized_rows(raw)
+    err_j, H_j, b_j, aux_j = pallas_linearize.linearize_pallas(
+        _pad8(P), _pad8(CA), jnp.asarray(x), jnp.asarray(rows.T),
+        _pad8(valid[None]), interpret=True)
+    err, H, b, aux = cuda_linearize.linearize(
+        *(torch.as_tensor(a) for a in (P, CA, x, rows, valid)))
+    np.testing.assert_allclose(float(err), float(err_j), rtol=1e-4)
+    np.testing.assert_allclose(H.numpy(), np.asarray(H_j), rtol=3e-3, atol=0.5)
+    np.testing.assert_allclose(b.numpy(), np.asarray(b_j), rtol=3e-3, atol=0.5)
+    np.testing.assert_allclose(aux.numpy(), np.asarray(aux_j)[:10],
+                               rtol=1e-5, atol=1e-6)
+    # the weight row is sqrt(count) * valid: a miss (count 0) weighs nothing
+    np.testing.assert_array_equal(aux[6].numpy(), rows[:, 12] * valid)
+
+
 def test_wrappers_reject_bad_inputs():
     P, CA, x, rows, valid = (torch.as_tensor(a) for a in _inputs(0))
     with pytest.raises(ValueError):
@@ -99,3 +132,5 @@ def test_wrappers_reject_bad_inputs():
         cuda_linearize.linearize_raw(P.double(), CA, x, rows, valid)
     with pytest.raises(ValueError):
         cuda_linearize.error(P, x, torch.zeros(16, N))
+    with pytest.raises(ValueError):
+        cuda_linearize.linearize(P, CA, x, rows[:, :13], valid)

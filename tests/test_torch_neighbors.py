@@ -1,0 +1,185 @@
+"""Port vs JAX: nearest-neighbour search.  The candidate-tile ranking
+(fast_gicp_tpu_torch.ops.neighbors) and the plain versions of the 1-NN and
+fused kNN-moment kernels (ops.cuda_kernels) against
+fast_gicp_tpu.ops.neighbors and the Pallas kernel bodies `nn_search_pallas`
+and `knn_moments_pallas`, run in interpret mode."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fast_gicp_tpu.ops import neighbors as jneighbors
+from fast_gicp_tpu.ops import pallas_kernels
+from fast_gicp_tpu_torch.ops import cuda_kernels, neighbors
+
+
+def _voxel_sorted_cloud(rng, n, extent=10.0, res=0.5):
+    """A cloud in voxel-key order, the layout the port's downsampler emits
+    and the tile culling relies on."""
+    pts = (rng.random((n, 3)) * extent).astype(np.float32)
+    keys = np.floor(pts / res).astype(np.int64)
+    return pts[np.lexsort((keys[:, 2], keys[:, 1], keys[:, 0]))]
+
+
+def _tiles(case):
+    rng = np.random.default_rng(3)
+    n = 2048
+    if case == "sorted":
+        pts = _voxel_sorted_cloud(rng, n)
+    else:  # "ties": unsorted, so every tile box overlaps every other (gap 0)
+        pts = (rng.random((n, 3)) * 10.0).astype(np.float32)
+    mask = np.ones(n, bool)
+    mask[-100:] = False
+    return pts, mask
+
+
+@pytest.mark.parametrize("case", ["sorted", "ties"])
+def test_select_candidate_tiles_matches_jax(case):
+    """cidx equal (ties broken toward the lower tile index by both), and
+    the excluded tiles' squared gaps within 1e-6."""
+    pts, mask = _tiles(case)
+    qt, C = pts.reshape(-1, 256, 3), 5
+    jt = jneighbors._masked_target(jnp.asarray(pts), jnp.asarray(mask))
+    tt = neighbors._masked_target(torch.as_tensor(pts), torch.as_tensor(mask))
+    cidx_j, ex_j = jneighbors.select_candidate_tiles(jnp.asarray(qt),
+                                                     jt.reshape(-1, 128, 3), C)
+    cidx, ex = neighbors.select_candidate_tiles(torch.as_tensor(qt),
+                                                tt.reshape(-1, 128, 3), C)
+    assert cidx.dtype == torch.int32 and cidx.shape == (8, C)
+    np.testing.assert_array_equal(cidx.numpy(), np.asarray(cidx_j))
+    np.testing.assert_allclose(ex.numpy(), np.asarray(ex_j), rtol=1e-6, atol=1e-6)
+    if case == "ties":
+        assert (ex.numpy() == 0.0).all()
+    # C >= T: every tile, nothing excluded
+    cidx, ex = neighbors.select_candidate_tiles(torch.as_tensor(qt),
+                                                tt.reshape(-1, 128, 3), 16)
+    np.testing.assert_array_equal(cidx.numpy(), np.tile(np.arange(16), (8, 1)))
+    assert np.isinf(ex.numpy()).all()
+
+
+def _nn_case(case):
+    rng = np.random.default_rng(7)
+    if case == "random":
+        nq, nt = 2048, 4096
+        q = (rng.normal(size=(nq, 3)) * 10).astype(np.float32)
+        t = (rng.normal(size=(nt, 3)) * 10).astype(np.float32)
+        tmask = rng.uniform(size=nt) > 0.1
+        return q, t, tmask
+    # test_pallas_linearize.py's edge case: two sorted query clusters 200 m
+    # apart, a sorted target covering only the first, half of it masked
+    nq, nt = 1024, 2048
+    a = rng.normal(size=(nq // 2, 3)) * 2.0
+    b = rng.normal(size=(nq // 2, 3)) * 2.0 + np.float32([200.0, 0, 0])
+    q = np.concatenate([a, b]).astype(np.float32)
+    q = q[np.lexsort(q.T[::-1])]
+    t = (rng.normal(size=(nt, 3)) * 2.0).astype(np.float32)
+    t = t[np.lexsort(t.T[::-1])]
+    return q, t, rng.uniform(size=nt) > 0.5
+
+
+@pytest.mark.parametrize("case", ["random", "two_clusters_masked"])
+def test_nn_search_plain_matches_pallas(case):
+    """idx equal and d^2 within 1e-6 relative of `nn_search_pallas`
+    (interpret mode): both form d^2 as ((q - t)^2) summed in one order."""
+    q, t, tmask = _nn_case(case)
+    idx_j, sq_j = pallas_kernels.nn_search_pallas(
+        jnp.asarray(q), jnp.asarray(t), jnp.asarray(tmask), interpret=True)
+    idx, sq = neighbors.nn_search(torch.as_tensor(q), torch.as_tensor(t),
+                                  torch.as_tensor(tmask))
+    assert idx.dtype == torch.int32 and sq.dtype == torch.float32
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j))
+    np.testing.assert_allclose(sq.numpy(), np.asarray(sq_j), rtol=1e-6)
+    assert tmask[idx.numpy()].all()
+    # a query mask only marks rows whose results carry no meaning
+    qmask = np.random.default_rng(1).uniform(size=len(q)) > 0.1
+    idx_m, sq_m = neighbors.nn_search(torch.as_tensor(q), torch.as_tensor(t),
+                                      torch.as_tensor(tmask), torch.as_tensor(qmask))
+    np.testing.assert_array_equal(idx_m.numpy()[qmask], idx.numpy()[qmask])
+    assert np.isfinite(sq_m.numpy()).all()
+
+
+def test_nn_search_plain_ties_and_all_masked():
+    """Ties go to the lowest target index; with every target masked the
+    results stay finite (index 0, the first parked point)."""
+    t = np.float32([[1, 0, 0], [0, 0, 0], [0, 0, 0], [2, 0, 0]])
+    q = np.float32([[0, 0, 0], [1.5, 0, 0]])
+    idx, sq = cuda_kernels.nn_search_plain(torch.as_tensor(q), torch.as_tensor(t),
+                                           torch.ones(4, dtype=torch.bool))
+    assert idx.tolist() == [1, 0] and sq.tolist() == [0.0, 0.25]
+    idx, sq = cuda_kernels.nn_search_plain(torch.as_tensor(q), torch.as_tensor(t),
+                                           torch.zeros(4, dtype=torch.bool))
+    assert idx.tolist() == [0, 0] and np.isfinite(sq.numpy()).all()
+
+
+def _packed_key_kth(pts, mask, cidx, k, ct=128):
+    """numpy emulation of the packed-key rule with every operation rounded
+    on its own (numpy does not fuse a multiply into the add that follows):
+    the k-th smallest key & -4096 of each query's slab, as a float."""
+    tgt = np.where(mask[:, None], pts, np.float32(cuda_kernels.MASK_COORD))
+    out = []
+    for i, row in enumerate(np.asarray(cidx)):
+        cand = tgt.reshape(-1, ct, 3)[row].reshape(-1, 3)
+        q = pts[256 * i:256 * (i + 1)]
+        d = np.zeros((256, cand.shape[0]), np.float32)
+        for a in range(3):
+            dd = q[:, a:a + 1] - cand[None, :, a]
+            d = d + dd * dd
+        keys = (d.view(np.int32) & np.int32(-4096)) | np.arange(d.shape[1], dtype=np.int32)
+        out.append((np.sort(keys, axis=1)[:, k - 1] & np.int32(-4096)).view(np.float32))
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("C", [8, 16])
+def test_knn_moments_plain_matches_pallas(C):
+    """The packed-key selection and moments against `knn_moments_pallas`
+    (interpret mode, cand_tile 128) with the same cidx on 2,048 points.
+
+    kth: bit-equal to a numpy emulation of the packed-key rule, and within
+    rtol 1e-6 of the Pallas kernel on all but at most 0.1% of the queries.
+    XLA on the CPU fuses d^2's multiply-adds (FMA), so its d^2 may differ
+    by an ulp; where that crosses a 2^-11 quantization step the kth differs
+    by exactly one step, and the selected set stays the same.
+    mom: rtol 1e-4, atol 1e-4 everywhere (test_ops.py's tolerance: the
+    Pallas kernel sums the moments as an f32 matmul, the plain version
+    adds the k neighbours in order)."""
+    rng = np.random.default_rng(11)
+    n, k = 2048, 20
+    pts = _voxel_sorted_cloud(rng, n)
+    mask = np.ones(n, bool)
+    mask[-70:] = False
+    jt = jneighbors._masked_target(jnp.asarray(pts), jnp.asarray(mask))
+    cidx_j, _ = jneighbors.select_candidate_tiles(
+        jnp.asarray(pts).reshape(-1, 256, 3), jt.reshape(-1, 128, 3), C)
+    mom_j, kth_j = pallas_kernels.knn_moments_pallas(
+        jnp.asarray(pts), jnp.ones(n, bool), jnp.asarray(pts), jnp.asarray(mask),
+        cidx_j, k, cand_tile=128, interpret=True)
+    cidx = np.array(cidx_j)
+    p = torch.as_tensor(pts)
+    mom, kth = cuda_kernels.knn_moments(
+        p, torch.ones(n, dtype=torch.bool), p, torch.as_tensor(mask),
+        torch.as_tensor(cidx), k)
+    assert mom.shape == (10, n) and kth.shape == (n,)
+    np.testing.assert_array_equal(kth.numpy(), _packed_key_kth(pts, mask, cidx, k))
+    kth_j = np.asarray(kth_j)
+    off = np.abs(kth.numpy() - kth_j) > 1e-6 * np.abs(kth_j)
+    assert off.mean() <= 1e-3, np.nonzero(off)
+    np.testing.assert_allclose(kth.numpy()[off], kth_j[off], rtol=2.0 ** -11)
+    np.testing.assert_allclose(mom.numpy(), np.asarray(mom_j), rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(mom[0].numpy(), float(k))
+
+
+def test_knn_moments_rejects_bad_inputs():
+    p = torch.zeros((512, 3))
+    m = torch.ones(512, dtype=torch.bool)
+    cidx = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        cuda_kernels.knn_moments(p[:500], m[:500], p, m, cidx, 20)  # not tiled
+    with pytest.raises(ValueError):
+        cuda_kernels.knn_moments(p, m, p, m, cidx.long(), 20)  # cidx dtype
+    with pytest.raises(ValueError):
+        cuda_kernels.knn_moments(p, m, p, m, cidx, 513)  # k > slab
+    with pytest.raises(ValueError):
+        cuda_kernels.knn_moments(p, m, torch.zeros((4096, 3)),
+                                 torch.ones(4096, dtype=torch.bool),
+                                 torch.zeros((2, 32), dtype=torch.int32), 20)  # slab > 2048
