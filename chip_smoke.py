@@ -2,22 +2,29 @@
 
     python3 chip_smoke.py
 
-Two registration paths run: `vgicp_register` (RBF covariances, dense raw
-voxel grid, two-phase LM solve) and `gicp_register_fresh` (kNN covariances,
-exact 1-NN correspondences re-searched at every linearization, LM solve).
+Six registration paths run (`PATHS`): `vgicp_register` (RBF covariances,
+dense raw voxel grid, two-phase LM solve), `gicp_register_fresh` (kNN
+covariances, exact 1-NN correspondences re-searched at every
+linearization, LM solve), and NDT in four forms: `ndt_register_fresh` D2D
+and P2D (NDTCuda's fresh align: finalized maps prepared per cloud) and
+`ndt_align` D2D and P2D (raw target grid, two-phase solve).
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device: CUDA must be present; prints the card's name and power limit;
-  2. build: compiles the seven CUDA kernels from `fast_gicp_tpu_torch/csrc`;
+  2. build: compiles the twelve CUDA kernels from `fast_gicp_tpu_torch/csrc`
+     (one nvcc per source, all started together);
   3. kernels: each kernel against its plain PyTorch version on the same
      inputs, at the shapes its path gives it on the full-size synthetic
      pair (22,528 padded points per cloud), with the stated tolerances,
      timed from a torch.profiler trace;
   4. main paths: each path on the full-size pair, with every launch
      counter set to 0 just before it and read just after; checks the pose
-     against the synthetic ground truth (t < 0.05 m, r < 1 deg) and that
-     every kernel of the path ran;
-  5. small pair: each path on the card against the same call with
-     device="cpu" (the plain versions) on the CPU-test-sized pair;
+     against the synthetic ground truth (t < 0.05 m, r < 1 deg; P2D NDT at
+     twice that) and that every kernel of the path ran; then the NDT voxel
+     budgets against the pair's occupied voxels;
+  5. card against CPU: each path on the card against the same call with
+     device="cpu" (the plain versions): the GICP-family paths on the
+     CPU-test-sized pair, the NDT paths on the full-size pair (the small
+     pair's 1 m voxels hold too few points for NDT's > 6 gate);
   6. bench protocol: registrations of each path through a 1e-5 rigid
      jitter of both clouds (bench.py's protocol), after a warm-up;
   7. profile: stage wall times and a torch.profiler trace of a few
@@ -30,11 +37,13 @@ This script imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,6 +55,11 @@ RBF_OPS_PER_PAIR = 28  # distance 8, exp 1, moment products 9 and sums 10
 LINEARIZE_OPS = 300  # per correspondence: transform, R C R^T, inverse, 28 terms
 ERROR_OPS = 43  # per correspondence: transform, e, M e, e^T M e, sum
 LM_TRIAL_OPS = 700  # two 6x6 Cholesky solves, residual, se3_exp, 4x4 product
+NDT_LINEARIZE_OPS = 310  # LINEARIZE_OPS and the Cauchy weight (D2D)
+NDT_P2D_LINEARIZE_OPS = 220  # no covariance rotation, no inverse
+NDT_RAW_OPS = 250  # raw finalize 25, eigenvalues 60 + acos and 2 cos, clamp 110
+NDT_ERROR_OPS = 52  # ERROR_OPS and the Cauchy weight
+NDT_OFFSETS = 7  # DIRECT7: the NDT kernels' lanes are 7 offsets x the source
 NN_OPS_PER_PAIR = 8  # 3 differences, 3 squares, 2 adds
 KNN_OPS_PER_CANDIDATE = 11  # distance 8, key 2, one compare of a k-selection
 KNN_OPS_PER_NEIGHBOUR = 22  # local coordinates 6, moment products 6, sums 10
@@ -440,8 +454,142 @@ def phase_gicp_kernels(dev, pair):
     return records
 
 
+def ndt_dims(source, target):
+    """Dense-grid dims over both clouds' extent at 1 m (NDTCuda._grid_dims)."""
+    from fast_gicp_tpu_torch.ops.voxelmap import auto_grid_dims_from_extent
+
+    return auto_grid_dims_from_extent(np.minimum(source.min(0), target.min(0)),
+                                      np.maximum(source.max(0), target.max(0)), 1.0)
+
+
+def ndt_first_packs(dev, pair, x):
+    """For each NDT linearize mode, the inputs its path gives the kernel at
+    the first linearization, at pose x: {mode: (p (3, L), ca (6, L) or
+    None, pack (L, 16))}.  d2d / p2d: `ndt_register_fresh`'s prepared
+    per-cloud maps; d2d_raw / p2d_raw: `ndt_align`'s raw target grid; each
+    from `ndt_path_objective`, which prepares them as the entry point does.
+    They are built on the CPU and copied to the card: the card's map builds
+    sum with atomic scatter-adds, so their near-degenerate voxels, and with
+    them the clamp's worst case, would change from run to run."""
+    from fast_gicp_tpu_torch.models.ndt import ndt_path_objective
+    from fast_gicp_tpu_torch.utils.padding import pad_points
+
+    source, target, _gt = pair
+    sp, sm = pad_points(source)
+    tp, tm = pad_points(target)
+    out = {}
+    for mode in ("d2d", "p2d", "d2d_raw", "p2d_raw"):
+        fresh = not mode.endswith("_raw")
+        make = ndt_fresh_path if fresh else ndt_align_path
+        cfg = make(mode[:3])(source, target).config
+        obj, _c = ndt_path_objective(sp, sm, tp, tm, cfg, fresh=fresh, device="cpu")
+        require(obj.mode == mode, f"ndt_path_objective gave mode {obj.mode} for {mode}")
+        out[mode] = tuple(None if t is None else t.to(dev)
+                          for t in (obj.p, obj.ca, obj.freeze(x.cpu())))
+    return out
+
+
+def phase_ndt_kernels(dev, pair):
+    """The four NDT linearize modes and the NDT error kernel against their
+    plain versions, at the shapes their paths give them on the full-size
+    pair."""
+    from fast_gicp_tpu_torch import se3
+    from fast_gicp_tpu_torch.ops import cuda_ndt
+
+    x = se3.se3_exp(torch.tensor([0.002, -0.001, 0.003, 0.02, -0.01, 0.005], device=dev))
+    x2 = se3.se3_exp(torch.tensor([-0.001, 0.002, 0.0, 0.01, 0.02, -0.02], device=dev))
+    c_sq = 1.0
+    records = []
+
+    def rel_to_max(name, a, b, tol):
+        m = float(b.abs().max())
+        return check_close(name, a / m, b / m, 0.0, tol) * m
+
+    def check_aux(name, got, want, tol):
+        # M relative to each lane's largest |M| entry (near-planar voxels
+        # reach |M| ~ 1e3); valid exact; mu elementwise
+        scale = want[:6].abs().amax(0).clamp(min=1e-30)
+        rel = (got[:6] - want[:6]).abs() / scale
+        log(f"[kernels] {name} aux M: max diff {float(rel.max()):.2e} of the lane's largest "
+            f"|M|, {int((rel > 1e-5).sum())} of {rel.numel()} entries above 1e-5")
+        err_m = check_close(f"{name} aux M", got[:6] / scale, want[:6] / scale, 0.0, tol)
+        require(bool(torch.equal(got[6], want[6])), f"{name} aux valid differs")
+        err_mu = check_close(f"{name} aux mu", got[7:10], want[7:10], 1e-6, 1e-6)
+        return max(err_m, err_mu)
+
+    packs = ndt_first_packs(dev, pair, x)
+    auxes = {}
+    for mode, (p, ca, pack) in packs.items():
+        L = p.shape[1]
+        got = cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, mode)
+        want = cuda_ndt.ndt_linearize_plain(p, ca, x, pack, c_sq, mode)
+        torch.cuda.synchronize()
+        d2d, raw = mode.startswith("d2d"), mode.endswith("_raw")
+        # M of a raw pack goes through the eigenvalue clamp and the inverse of
+        # a near-planar voxel's covariance, which magnify a last-bit difference
+        # of acosf / cosf between the kernel and torch's ops: 2.46e-5 of the
+        # lane's largest |M| on 244 of the 946,176 P2D entries on these
+        # CPU-built inputs, up to 4.75e-5 on card-built maps (H100, full-size
+        # pair).  A wrong clamp moves M by O(1) of it.
+        m_tol = 1e-4 if raw else 1e-5
+        errs = [rel_to_max(f"ndt_{mode} err", got[0].reshape(1), want[0].reshape(1), 1e-5),
+                rel_to_max(f"ndt_{mode} H", got[1], want[1], 1e-5),
+                rel_to_max(f"ndt_{mode} b", got[2], want[2], 1e-5),
+                check_aux(f"ndt_{mode}", got[3], want[3], m_tol)]
+        tm_ = timings(lambda: cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, mode),
+                      lambda: cuda_ndt.ndt_linearize_plain(p, ca, x, pack, c_sq, mode),
+                      f"ndt_linearize_kernel<{str(d2d).lower()}, {str(raw).lower()}>",
+                      200, 20)
+        # each source point read once (the kernel reads p and ca tiled over
+        # the offsets), the pack's data fields a lane (finalized [mu, cov or
+        # M, valid] 40 B, raw [o, count, sum d, sum d d^T, valid] 56 B), aux
+        # written a lane
+        n_src = L // NDT_OFFSETS
+        nbytes = (n_src * (12 + (24 if d2d else 0)) + L * ((56 if raw else 40) + 40)
+                  + 64 + 28 * 4)
+        nops = L * ((NDT_LINEARIZE_OPS if d2d else NDT_P2D_LINEARIZE_OPS)
+                    + (NDT_RAW_OPS if raw else 0))
+        b_ms, b_by = bound_ms(nbytes, nops)
+        records.append(dict(
+            name=f"ndt_{mode}", route="cuda",
+            source="fast_gicp_tpu_torch/csrc/ndt_linearize.cu",
+            replaces="fast_gicp_tpu/ops/pallas_linearize.py:"
+                     + {"d2d": "330", "p2d": "347", "d2d_raw": "492", "p2d_raw": "507"}[mode],
+            max_abs_err=max(errs),
+            tolerance=f"err, H, b within 1e-5 of their largest entry; aux M within "
+                      f"{m_tol} of each lane's largest |M|, valid equal, mu rtol 1e-6 "
+                      f"atol 1e-6",
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, lanes=L, bytes=nbytes, **tm_))
+        auxes[mode] = got[3]
+
+    # the error kernel at the largest lane count, on the P2D raw aux
+    p, aux = packs["p2d_raw"][0], auxes["p2d_raw"]
+    L = p.shape[1]
+    e_got = cuda_ndt.ndt_error(p, aux, x2, 1.0)
+    e_want = cuda_ndt.ndt_error_plain(p, aux, x2, c_sq)
+    torch.cuda.synchronize()
+    e_err = check_close("ndt_error", e_got, e_want, 1e-5, 0.0)
+    tm_ = timings(lambda: cuda_ndt.ndt_error(p, aux, x2, 1.0),
+                  lambda: cuda_ndt.ndt_error_plain(p, aux, x2, c_sq),
+                  "ndt_error_kernel", 200, 20)
+    nbytes = L // NDT_OFFSETS * 12 + L * 40 + 64 + 4
+    b_ms, b_by = bound_ms(nbytes, L * NDT_ERROR_OPS)
+    records.append(dict(
+        name="ndt_error", route="cuda", source="fast_gicp_tpu_torch/csrc/ndt_linearize.cu",
+        replaces="fast_gicp_tpu/ops/pallas_linearize.py:580", max_abs_err=e_err,
+        tolerance="rtol 1e-5", bound_ms=b_ms, bound_by=b_by, library_ms=None, lanes=L,
+        bytes=nbytes, **tm_))
+    for r in records:
+        log(f"[kernels] {r['name']} at L = {r['lanes']}: max_abs_diff "
+            f"{r['max_abs_err']:.3e} ({r['tolerance']}), {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms ({r['timing']}); per call with the host's enqueue: "
+            f"{r['call_ms']:.4f} ms, plain {r['plain_call_ms']:.4f} ms; bound "
+            f"{r['bound_ms']:.3e} ms ({r['bound_by']}, {r['bytes']} bytes)")
+    return records
+
+
 def counters():
-    from fast_gicp_tpu_torch.ops import cuda_kernels, cuda_linearize, cuda_solver
+    from fast_gicp_tpu_torch.ops import cuda_kernels, cuda_linearize, cuda_ndt, cuda_solver
 
     return {
         "rbf_moments": cuda_kernels.rbf_moments,
@@ -451,41 +599,113 @@ def counters():
         "knn_moments": cuda_kernels.knn_moments,
         "nn_search": cuda_kernels.nn_search,
         "linearize": cuda_linearize.linearize,
+        "ndt_d2d": cuda_ndt.ndt_linearize_d2d,
+        "ndt_p2d": cuda_ndt.ndt_linearize_p2d,
+        "ndt_d2d_raw": cuda_ndt.ndt_linearize_d2d_raw,
+        "ndt_p2d_raw": cuda_ndt.ndt_linearize_p2d_raw,
+        "ndt_error": cuda_ndt.ndt_error,
     }
 
 
-def vgicp_path(target):
+class Path(NamedTuple):
+    """A registration path: `register(source, source_mask, target,
+    target_mask, guess, device) -> LsqResult` and the config it runs."""
+
+    register: object
+    config: object
+
+
+def vgicp_path(source, target):
     """`vgicp_register` as bench.py runs it: RBF covariances, the dense raw
     grid at 1 m, two-phase solve."""
     from fast_gicp_tpu_torch.models.vgicp import VGICPConfig, vgicp_register
     from fast_gicp_tpu_torch.ops.voxelmap import auto_grid_dims
 
+    del source
     cfg = VGICPConfig(grid_dims=auto_grid_dims(target, 1.0), refresh_iterations=2)
 
     def register(s, sm, t, tm, guess, device):
         return vgicp_register(s, sm, t, tm, guess, cfg, device=device)
 
-    return register
+    return Path(register, cfg)
 
 
-def gicp_path(target):
+def gicp_path(source, target):
     """`gicp_register_fresh` with the defaults FastGICP's fresh align uses:
     kNN covariances (k = 20, plane), 1-NN re-search every iteration."""
     from fast_gicp_tpu_torch.models.gicp import GICPConfig, gicp_register_fresh
 
-    del target
+    del source, target
+    cfg = GICPConfig()
 
     def register(s, sm, t, tm, guess, device):
-        return gicp_register_fresh(s, sm, t, tm, guess, GICPConfig(), device=device)[0]
+        return gicp_register_fresh(s, sm, t, tm, guess, cfg, device=device)[0]
 
-    return register
+    return Path(register, cfg)
 
 
+def ndt_fresh_path(mode):
+    """`ndt_register_fresh` with NDTCuda's defaults (DIRECT7, 1 m, no
+    refresh, budgets 4,096 source / 8,192 target voxels) and grid dims over
+    both clouds, as NDTCuda's fresh align runs it."""
+
+    def make(source, target):
+        from fast_gicp_tpu_torch.models.ndt import NDTConfig, ndt_register_fresh
+
+        cfg = NDTConfig(distance_mode=mode, grid_dims=ndt_dims(source, target))
+
+        def register(s, sm, t, tm, guess, device):
+            return ndt_register_fresh(s, sm, t, tm, guess, cfg, device=device)[0]
+
+        return Path(register, cfg)
+
+    return make
+
+
+# apps/align.py's NDT rows use 2,048 source voxels, sized for the bundled
+# pair's ~1.1k occupied; the synthetic pair occupies 6,660, so the same rule
+# gives 8,192 (the 2,048 budget's overflow is measured in phase_ndt_budgets).
+NDT_ALIGN_SOURCE_VOXELS = 8192
+APPS_ALIGN_SOURCE_VOXELS = 2048
+
+
+def ndt_align_path(mode, max_source_voxels=NDT_ALIGN_SOURCE_VOXELS):
+    """`ndt_align` with apps/align.py's NDT config (DIRECT7, 1 m,
+    refresh_iterations=3) and grid dims over both clouds."""
+
+    def make(source, target):
+        from fast_gicp_tpu_torch.models.ndt import NDTConfig, ndt_align
+
+        cfg = NDTConfig(distance_mode=mode, grid_dims=ndt_dims(source, target),
+                        refresh_iterations=3, max_source_voxels=max_source_voxels)
+
+        def register(s, sm, t, tm, guess, device):
+            return ndt_align(s, sm, t, tm, guess, cfg, device=device)
+
+        return Path(register, cfg)
+
+    return make
+
+
+D2D_LIMITS = (0.05, 1.0)  # gicp_test.cpp:148-149
+P2D_LIMITS = (0.10, 2.0)  # twice the reference's, as tests/test_registration.py holds P2D
+
+# path -> (make(source, target) -> Path, kernels the path must launch, limits)
 PATHS = {
-    "vgicp_register": (vgicp_path, ("rbf_moments", "linearize_raw", "error", "lm_trial")),
+    "vgicp_register": (vgicp_path, ("rbf_moments", "linearize_raw", "error", "lm_trial"),
+                       D2D_LIMITS),
     "gicp_register_fresh": (gicp_path, ("knn_moments", "nn_search", "linearize", "error",
-                                        "lm_trial")),
+                                        "lm_trial"), D2D_LIMITS),
+    "ndt_d2d_fresh": (ndt_fresh_path("d2d"), ("ndt_d2d", "ndt_error", "lm_trial"),
+                      D2D_LIMITS),
+    "ndt_p2d_fresh": (ndt_fresh_path("p2d"), ("ndt_p2d", "ndt_error", "lm_trial"),
+                      P2D_LIMITS),
+    "ndt_d2d_align": (ndt_align_path("d2d"), ("ndt_d2d_raw", "ndt_error", "lm_trial"),
+                      D2D_LIMITS),
+    "ndt_p2d_align": (ndt_align_path("p2d"), ("ndt_p2d_raw", "ndt_p2d", "ndt_error",
+                                              "lm_trial"), P2D_LIMITS),
 }
+NDT_PATHS = tuple(p for p in PATHS if p.startswith("ndt_"))
 
 
 def phase_main_path(dev, pair, path):
@@ -494,8 +714,8 @@ def phase_main_path(dev, pair, path):
     from fast_gicp_tpu_torch.utils.padding import pad_points
 
     source, target, gt = pair
-    make, kernels = PATHS[path]
-    register = make(target)
+    make, kernels, (t_lim, r_lim) = PATHS[path]
+    register = make(source, target).register
     sp, sm = pad_points(source)
     tp, tm = pad_points(target)
     inputs = [torch.as_tensor(a, device=dev) for a in (sp, sm, tp, tm)]
@@ -521,21 +741,58 @@ def phase_main_path(dev, pair, path):
         f"iterations {iters}, converged {bool(res.converged)}, host syncs {syncs}, "
         f"wall {wall_ms:.3f} ms, fitness {fitness:.6f}, launches {launches}")
     require(math.isfinite(fitness), f"{path}: non-finite fitness")
-    require(t_err < 0.05 and r_err < 1.0, f"{path}: pose error {t_err} m {r_err} deg")
+    require(t_err < t_lim and r_err < r_lim, f"{path}: pose error {t_err} m {r_err} deg")
     require(all(launches[k] > 0 for k in kernels),
             f"{path}: a kernel of the path was not launched: {launches}")
     return launches, dict(t_err_m=t_err, r_err_deg=r_err, iterations=iters,
                           host_syncs=syncs, wall_ms=wall_ms, fitness=fitness)
 
 
-def phase_small_pair(dev, small, path):
-    """The card's run of a path against the CPU run (plain versions) on the
-    small synthetic pair; tolerance 1e-3 on the pose, as the CPU tests hold
-    the port against the JAX package."""
+def phase_ndt_budgets(dev, pair):
+    """The NDT voxel budgets against the full-size pair's occupied 1 m
+    voxels (each cloud in its own centroid frame, as `ndt_register_fresh`
+    voxelizes it, and the source in the target's frame, as `ndt_align`
+    does), and `ndt_align` D2D at apps/align.py's 2,048-voxel source
+    budget, whose overflow drops voxels as the JAX package does."""
+    from fast_gicp_tpu_torch.ops.covariance import masked_mean
+    from fast_gicp_tpu_torch.ops.voxelmap import voxel_coord
     from fast_gicp_tpu_torch.utils.padding import pad_points
 
-    source, target, gt = small
-    register = PATHS[path][0](target)
+    source, target, gt = pair
+    src, tgt = (torch.as_tensor(a, device=dev) for a in (source, target))
+    tc = masked_mean(tgt, torch.ones(len(target), dtype=torch.bool, device=dev))
+    sc = masked_mean(src, torch.ones(len(source), dtype=torch.bool, device=dev))
+
+    def occupied(pts):
+        return int(torch.unique(voxel_coord(pts, 1.0), dim=0).shape[0])
+
+    occ = {"target (own frame)": occupied(tgt - tc), "source (own frame)": occupied(src - sc),
+           "source (target frame)": occupied(src - tc)}
+    log(f"[main] occupied 1 m voxels {occ} against the budgets 2,048 / 4,096 / 8,192")
+    register = ndt_align_path("d2d", APPS_ALIGN_SOURCE_VOXELS)(source, target).register
+    sp, sm = pad_points(source)
+    tp, tm = pad_points(target)
+    res = register(*(torch.as_tensor(a, device=dev) for a in (sp, sm, tp, tm)),
+                   torch.eye(4, device=dev), dev)
+    T = res.transformation.cpu().numpy()
+    require(np.isfinite(T).all(), "ndt_align at the 2,048 budget: non-finite pose")
+    t_err, r_err = pose_errors(T.astype(np.float64), gt)
+    log(f"[main] ndt_align D2D at apps/align.py's {APPS_ALIGN_SOURCE_VOXELS} source "
+        f"voxels ({occ['source (target frame)'] - APPS_ALIGN_SOURCE_VOXELS} dropped): "
+        f"t_err {t_err:.6f} m, r_err {r_err:.6f} deg, iterations {int(res.iterations)}")
+    return dict(occupied_voxels=occ, apps_budget_t_err_m=t_err, apps_budget_r_err_deg=r_err,
+                apps_budget_iterations=int(res.iterations))
+
+
+def phase_card_vs_cpu(dev, pair, path):
+    """The card's run of a path against the CPU run (plain versions) on
+    `pair`; tolerance 1e-3 on the pose, as the CPU tests hold the port
+    against the JAX package."""
+    from fast_gicp_tpu_torch.utils.padding import pad_points
+
+    source, target, gt = pair
+    make, _kernels, (t_lim, r_lim) = PATHS[path]
+    register = make(source, target).register
     sp, sm = pad_points(source)
     tp, tm = pad_points(target)
     eye = np.eye(4, dtype=np.float32)
@@ -545,15 +802,16 @@ def phase_small_pair(dev, small, path):
     T_cpu = r_cpu.transformation.numpy()
     diff = float(np.abs(T_gpu - T_cpu).max())
     t_err, r_err = pose_errors(T_gpu.astype(np.float64), gt)
-    log(f"[small] {path}, {sp.shape[0]} padded points: |T_gpu - T_cpu| max {diff:.3e}, "
-        f"iterations gpu {int(r_gpu.iterations)} cpu {int(r_cpu.iterations)}, "
+    log(f"[card vs cpu] {path}, {sp.shape[0]} padded points: |T_gpu - T_cpu| max "
+        f"{diff:.3e}, iterations gpu {int(r_gpu.iterations)} cpu {int(r_cpu.iterations)}, "
         f"t_err {t_err:.6f} m")
-    require(np.isfinite(T_gpu).all() and diff <= 1e-3, f"small pair: pose diff {diff}")
+    require(np.isfinite(T_gpu).all() and diff <= 1e-3, f"{path} card vs cpu: pose diff {diff}")
     require(abs(int(r_gpu.iterations) - int(r_cpu.iterations)) <= 1,
-            "small pair: iteration counts differ by more than 1")
-    require(t_err < 0.05 and r_err < 1.0, f"small pair: pose error {t_err} m {r_err} deg")
-    return dict(pose_diff=diff, iterations_gpu=int(r_gpu.iterations),
-                iterations_cpu=int(r_cpu.iterations))
+            f"{path} card vs cpu: iteration counts differ by more than 1")
+    require(t_err < t_lim and r_err < r_lim,
+            f"{path} card vs cpu: pose error {t_err} m {r_err} deg")
+    return dict(padded_points=int(sp.shape[0]), pose_diff=diff,
+                iterations_gpu=int(r_gpu.iterations), iterations_cpu=int(r_cpu.iterations))
 
 
 def phase_bench(dev, pair, path, n_regs=100):
@@ -562,7 +820,7 @@ def phase_bench(dev, pair, path, n_regs=100):
     from fast_gicp_tpu_torch.utils.padding import pad_points
 
     source, target, _gt = pair
-    register = PATHS[path][0](target)
+    register = PATHS[path][0](source, target).register
     sp, sm = pad_points(source)
     tp, tm = pad_points(target)
     sp, sm, tp, tm = (torch.as_tensor(a, device=dev) for a in (sp, sm, tp, tm))
@@ -594,11 +852,12 @@ def phase_bench(dev, pair, path, n_regs=100):
                 mean_iterations=float(iters.mean()), host_syncs_per_registration=syncs)
 
 
-def _stages_vgicp(dev, target, sp, sm, tp, tm, guess, register, wall_ms):
+def _stages_vgicp(dev, path, sp, sm, tp, tm, guess, wall_ms):
     from fast_gicp_tpu_torch.ops.covariance import masked_mean, rbf_covariance_cols
-    from fast_gicp_tpu_torch.ops.voxelmap import auto_grid_dims, build_raw_grid
+    from fast_gicp_tpu_torch.ops.voxelmap import build_raw_grid
 
-    dims = auto_grid_dims(target, 1.0)
+    register, cfg = path
+    dims = cfg.grid_dims
     tc = tp - masked_mean(tp, tm)
     tcov = rbf_covariance_cols(tc, tm)
     stages = {
@@ -612,11 +871,11 @@ def _stages_vgicp(dev, target, sp, sm, tp, tm, guess, register, wall_ms):
     return stages
 
 
-def _stages_gicp(dev, target, sp, sm, tp, tm, guess, register, wall_ms):
+def _stages_gicp(dev, path, sp, sm, tp, tm, guess, wall_ms):
     from fast_gicp_tpu_torch.models.gicp import gicp_align
     from fast_gicp_tpu_torch.ops.covariance import knn_covariance_cols
 
-    del target
+    register = path.register
     scov, tcov = knn_covariance_cols(sp, sm), knn_covariance_cols(tp, tm)
     return {
         "register": wall_ms(lambda: register(sp, sm, tp, tm, guess, dev)),
@@ -625,6 +884,21 @@ def _stages_gicp(dev, target, sp, sm, tp, tm, guess, register, wall_ms):
         "align (solve)": wall_ms(
             lambda: gicp_align(sp, sm, scov, tp, tm, tcov, guess, device=dev)),
     }
+
+
+def _stages_ndt(dev, path, sp, sm, tp, tm, guess, wall_ms, fresh):
+    """NDT: the maps and the objective's set-up as the entry point prepares
+    them (`ndt_path_objective`; fresh: each cloud's prepared state; align:
+    the raw target grid and, for D2D, the source's compact statistics), then
+    the rest of the registration (the solve)."""
+    from fast_gicp_tpu_torch.models.ndt import ndt_path_objective
+
+    register, cfg = path
+    stages = {"register": wall_ms(lambda: register(sp, sm, tp, tm, guess, dev)),
+              "maps": wall_ms(lambda: ndt_path_objective(sp, sm, tp, tm, cfg, fresh=fresh,
+                                                         device=dev))}
+    stages["rest (solve)"] = stages["register"] - stages["maps"]
+    return stages
 
 
 def phase_profile(dev, pair, path, n_regs=5):
@@ -637,7 +911,8 @@ def phase_profile(dev, pair, path, n_regs=5):
     from fast_gicp_tpu_torch.utils.padding import pad_points
 
     source, target, _gt = pair
-    register = PATHS[path][0](target)
+    made = PATHS[path][0](source, target)
+    register = made.register
     sp, sm = pad_points(source)
     tp, tm = pad_points(target)
     sp, sm, tp, tm = (torch.as_tensor(a, device=dev) for a in (sp, sm, tp, tm))
@@ -652,8 +927,9 @@ def phase_profile(dev, pair, path, n_regs=5):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / reps
 
-    stage_fn = _stages_vgicp if path == "vgicp_register" else _stages_gicp
-    stages = stage_fn(dev, target, sp, sm, tp, tm, guess, register, wall_ms)
+    stage_fn = {"vgicp_register": _stages_vgicp, "gicp_register_fresh": _stages_gicp}.get(
+        path, functools.partial(_stages_ndt, fresh=path.endswith("_fresh")))
+    stages = stage_fn(dev, made, sp, sm, tp, tm, guess, wall_ms)
     log(f"[profile] {path} stage wall ms/registration: "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
 
@@ -702,22 +978,25 @@ def main() -> int:
             log(f"[build] {line.strip()}")
 
     pair = synthetic_pair()
-    records = phase_kernels(dev, pair) + phase_gicp_kernels(dev, pair)
+    records = (phase_kernels(dev, pair) + phase_gicp_kernels(dev, pair)
+               + phase_ndt_kernels(dev, pair))
     summary = {}
     path_launches = {}
     for path in PATHS:
         path_launches[path], main_stats = phase_main_path(dev, pair, path)
         summary[path] = {"main_path": main_stats}
+    summary["ndt_budgets"] = phase_ndt_budgets(dev, pair)
     small = synthetic_pair(n_world=400_000, voxel=0.3)
     for path in PATHS:
-        summary[path]["small_pair"] = phase_small_pair(dev, small, path)
+        summary[path]["card_vs_cpu"] = phase_card_vs_cpu(
+            dev, pair if path in NDT_PATHS else small, path)
     for path in PATHS:
         summary[path]["bench"] = phase_bench(dev, pair, path)
     for path in PATHS:
         summary[path]["profile"] = phase_profile(dev, pair, path)
     for r in records:
         # a kernel's launches on its own path (the first path that runs it)
-        own = next(p for p, (_make, ks) in PATHS.items() if r["name"] in ks)
+        own = next(p for p, (_make, ks, _lim) in PATHS.items() if r["name"] in ks)
         r["launches"] = path_launches[own][r["name"]]
         r["launches_by_path"] = {p: path_launches[p][r["name"]] for p in PATHS}
     log("[summary] " + json.dumps(summary))

@@ -12,17 +12,20 @@ import numpy as np
 import torch
 
 from .models.gicp import GICPConfig
+from .models.ndt import NDTConfig
 from .models.vgicp import VGICPConfig
 from .ops import soa
-from .ops.voxelmap import DenseRawGridMap
+from .ops.voxelmap import DenseRawGridMap, NdtGridMap, RawNdtGrid
 from .solver import LsqConfig, LsqResult
 
 
 def config_from_jax(cfg):
-    """A JAX `VGICPConfig`, `GICPConfig` or `LsqConfig` (any object with the
-    same field names) -> the port's config of the same kind."""
+    """A JAX `VGICPConfig`, `GICPConfig`, `NDTConfig` or `LsqConfig` (any
+    object with the same field names) -> the port's config of the same
+    kind."""
     if hasattr(cfg, "lsq"):
-        kind = VGICPConfig if hasattr(cfg, "grid_dims") else GICPConfig
+        kind = (NDTConfig if hasattr(cfg, "distance_mode")
+                else VGICPConfig if hasattr(cfg, "grid_dims") else GICPConfig)
         fields = {f: getattr(cfg, f) for f in kind._fields if f != "lsq"}
         if fields.get("grid_dims") is not None:
             fields["grid_dims"] = tuple(int(d) for d in fields["grid_dims"])
@@ -38,19 +41,53 @@ def covs_from_numpy(covs, device="cpu"):
 
 
 def raw_grid_from_numpy(rows, grid8, origin, resolution, device="cpu"):
-    """A JAX `DenseRawGridMap`'s arrays, as numpy, -> the port's map.
-
-    `grid8` ((ncells/8 + 1, 8) int32) flattens to the port's 1-D grid of
-    ncells + 1 slots; the last slot is where out-of-grid points park in
-    both layouts and is masked by every reader."""
-    flat = np.asarray(grid8).reshape(-1)
-    ncells = flat.shape[0] - 8
+    """A JAX `DenseRawGridMap`'s arrays, as numpy, -> the port's map."""
     return DenseRawGridMap(
         rows=torch.tensor(np.asarray(rows, np.float32), device=device),
-        grid=torch.as_tensor(flat[: ncells + 1].astype(np.int64), device=device),
+        grid=_grid_from_grid8(grid8, device),
         origin=torch.tensor(np.asarray(origin, np.int32), device=device),
         resolution=float(resolution),
     )
+
+
+def _grid_from_grid8(grid8, device):
+    """A JAX dense grid's (ncells/8 + 1, 8) `grid8` -> the port's 1-D grid of
+    ncells + 1 slots; the last slot is where out-of-grid points park in
+    both layouts and is masked by every reader."""
+    flat = np.asarray(grid8).reshape(-1)
+    return torch.as_tensor(flat[: flat.shape[0] - 7].astype(np.int64), device=device)
+
+
+def raw_ndt_grid_from_numpy(rows, grid8, origin, resolution, dims, device="cpu"):
+    """A JAX `RawNdtGrid`'s arrays, as numpy (dims: its `grid.shape`) -> the
+    port's `RawNdtGrid`."""
+    return RawNdtGrid(
+        rows=torch.tensor(np.asarray(rows, np.float32), device=device),
+        grid=_grid_from_grid8(grid8, device),
+        origin=torch.tensor(np.asarray(origin, np.int32), device=device),
+        resolution=float(resolution),
+        dims=tuple(int(d) for d in dims),
+    )
+
+
+def ndt_grid_map_from_numpy(packed, grid8, origin, resolution, dims, device="cpu"):
+    """A JAX `NdtGridMap`'s arrays, as numpy (dims: its `grid.shape`) -> the
+    port's `NdtGridMap`."""
+    return NdtGridMap(
+        packed=torch.tensor(np.asarray(packed, np.float32), device=device),
+        grid=_grid_from_grid8(grid8, device),
+        origin=torch.tensor(np.asarray(origin, np.int32), device=device),
+        resolution=float(resolution),
+        dims=tuple(int(d) for d in dims),
+    )
+
+
+def ndt_stats_from_numpy(means, valid, cov6, device="cpu"):
+    """The JAX package's compact NDT source statistics (means (B, 3),
+    valid (B,), cov6 (6, B)), as numpy -> the port's tensors."""
+    return (torch.tensor(np.asarray(means, np.float32), device=device),
+            torch.tensor(np.asarray(valid, bool), device=device),
+            torch.tensor(np.asarray(cov6, np.float32), device=device))
 
 
 def _to_numpy(a):

@@ -1,0 +1,382 @@
+"""NDT, point-to-distribution (P2D) and distribution-to-distribution (D2D)
+(port of the functional dense-grid path of `fast_gicp_tpu.models.ndt`, the
+reference's `NDTCuda`, ndt_cuda.cu and ndt_compute_derivatives.cu).
+
+The target is a voxel map of raw points with NDT statistics (mean, and
+covariance E[x x^T] - mu mu^T with its eigenvalues clamped to >= 1e-3);
+voxels with 6 points or fewer are skipped.  P2D scores raw source points
+against target voxels with M = cov_B^-1; D2D scores the source's own voxel
+Gaussians with M = (cov_B + R C_A R^T)^-1.  Both use the Cauchy weight
+w = c^2 / (c^2 + |e|^2), c = the voxel resolution.  M is frozen at each
+linearization; the LM trials recompute w at the trial pose (the `ndt_error`
+kernel).
+
+Correspondences are (neighbor offset x source) lanes flattened offset-major
+to L = K * N; each linearization is one voxel-row gather and one
+`ndt_linearize` launch, each LM trial one `ndt_error` launch
+(ops/cuda_ndt.py; their plain versions for CPU tensors).
+
+Ported here: `NDTConfig`, the objective (the JAX package's fused form,
+`_make_ndt_objective_fused`), `ndt_align`, `ndt_prepare_cloud`,
+`ndt_align_prebuilt`, `ndt_register_fresh` and `ndt_evaluate` on dense grids.
+The hash map (grid_dims=None) and the `NDTCuda` class wait for the class API
+and hash maps; the sharded psum (`axis_name`) waits for multi-device support.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from .. import device as _device
+from .. import se3
+from ..ops import cuda_ndt, soa
+from ..ops.covariance import masked_mean
+from ..ops.voxelmap import (
+    RawNdtGrid,
+    build_ndt_grid_compact,
+    build_ndt_raw_grid,
+    lookup_ndt_cols,
+    neighbor_offsets,
+    voxel_coord,
+)
+from ..precision import f32_matmuls
+from ..solver import LsqConfig, LsqResult, lsq_solve
+from .base import centered_frame_align, centered_frame_evaluate
+
+_MIN_VOXEL_POINTS = 6  # voxels with <= 6 points are skipped
+
+
+class NDTConfig(NamedTuple):
+    """Defaults match ndt_cuda.cu:21-22 (D2D, DIRECT7, resolution 1.0); the
+    fields and defaults of the JAX package's NDTConfig.
+
+    grid_dims: static (Dx, Dy, Dz) of the dense grids (`auto_grid_dims`).
+    max_source_voxels / max_target_voxels: row budgets of the compacted
+    D2D source statistics and of the prepared target map; occupied voxels
+    beyond a budget are dropped for the align.
+    refresh_iterations: R -> re-search voxel correspondences for the first
+    R LM iterations, then freeze the gathered rows for the rest; None
+    re-searches every iteration.
+    """
+
+    resolution: float = 1.0
+    distance_mode: str = "d2d"  # "p2d" | "d2d"
+    neighbor_search_method: str = "direct7"
+    neighbor_search_radius: float = 1.5
+    grid_dims: tuple | None = None
+    max_source_voxels: int = 4096
+    max_target_voxels: int = 8192
+    refresh_iterations: int | None = None
+    lsq: LsqConfig = LsqConfig()
+
+
+class _FinPack(NamedTuple):
+    """A finalized frozen pack [mu, M, valid] rebuilt from a linearize aux
+    (P2D's frozen phase): its type tells `linearize_frozen` to run the
+    M-direct "p2d" kernel even on a raw map."""
+
+    pack: torch.Tensor
+
+
+def _require_dense(config: NDTConfig):
+    if config.grid_dims is None:
+        raise NotImplementedError(
+            "NDT on the hash voxel map (grid_dims=None) is not ported yet; it "
+            "comes with the hash maps and the class API"
+        )
+    if config.distance_mode not in ("p2d", "d2d"):
+        raise ValueError(f"unknown NDT distance mode: {config.distance_mode}")
+
+
+class NdtObjective(NamedTuple):
+    """The NDT objective over L = K * N lanes (offset-major), as
+    `make_ndt_objective` builds it.
+
+    `freeze(x)` gathers the voxel rows at pose x into the frozen (L, 16)
+    pack; `linearize_frozen(x, pack)` re-linearizes against it without a
+    re-search (D2D still re-freezes M from the current rotation, and the
+    Cauchy weight follows the pose); `linearize(x)` does both.
+    `pack_from_aux` (P2D only, else None) rebuilds a frozen state from a
+    linearize's aux: P2D's M does not depend on the pose, so the two-phase
+    solve seeds its frozen phase from the last refresh iteration instead of
+    re-searching.  `p`, `ca` and `mode` are what the `ndt_linearize` kernel
+    reads besides the pose and the pack."""
+
+    linearize: Callable  # x -> (err, H, b, aux)
+    error: Callable  # (x, aux) -> err
+    freeze: Callable  # x -> pack (L, 16)
+    linearize_frozen: Callable  # (x, pack) -> (err, H, b, aux)
+    pack_from_aux: Callable | None  # aux -> _FinPack (P2D only)
+    p: torch.Tensor  # (3, L) source columns
+    ca: torch.Tensor | None  # (6, L) source covariance columns (D2D only)
+    mode: str  # the `ndt_linearize` mode of `linearize`
+
+
+def make_ndt_objective(src_means, src_mask, src_covs, vmap, offsets) -> NdtObjective:
+    """The NDT objective against a `RawNdtGrid` or an `NdtGridMap`; src_covs
+    is None for P2D, else the source voxel covariances as (6, N) sym-6
+    columns."""
+    n = src_means.shape[0]
+    k = len(offsets)
+    L = n * k
+    raw = isinstance(vmap, RawNdtGrid)
+    d2d = src_covs is not None
+    mode = ("d2d" if d2d else "p2d") + ("_raw" if raw else "")
+    res = vmap.resolution
+    P = soa.cols_from_points(src_means)  # (3, N)
+    P_flat = P.repeat(1, k).contiguous()  # column k * N + i = P[:, i]
+    CA_flat = (soa.sym_cols_from_covs(src_covs).repeat(1, k).contiguous()
+               if d2d else None)
+    src_valid = src_mask.repeat(k)
+    zeros = torch.zeros((L, 6 if not raw else 2), dtype=P.dtype, device=P.device)
+
+    def freeze(x):
+        coords = voxel_coord(soa.transform_cols(x, P), res)
+        q = [torch.stack([coords[a] + int(o[a]) for o in offsets]) for a in range(3)]
+        ids = lookup_ndt_cols(vmap, *q).reshape(L)
+        if raw:
+            # [o (3), count, sum d (3), sum d d^T (6), valid, pad (2)]: the
+            # voxel corner comes from the query coordinate
+            rows = vmap.rows[ids]
+            valid = (src_valid & (rows[:, 0] > _MIN_VOXEL_POINTS)).to(P.dtype)
+            o = torch.stack([(qa.reshape(L).to(P.dtype) + 1.0) * res for qa in q], dim=1)
+            return torch.cat([o, rows, valid[:, None], zeros], dim=1).contiguous()
+        mu, cov6, count = soa.sym_cols_from_packed(vmap.packed[ids])
+        valid = (src_valid & (count > _MIN_VOXEL_POINTS)).to(P.dtype)
+        if not d2d:
+            # P2D: M = cov_B^-1 does not depend on the pose; invert at the freeze
+            cov6 = soa.inv_sym_cols(cov6)
+        return torch.cat([mu.T, cov6.T, valid[:, None], zeros], dim=1).contiguous()
+
+    def linearize_frozen(x, pack):
+        if isinstance(pack, _FinPack):
+            return cuda_ndt.ndt_linearize(P_flat, CA_flat, x, pack.pack, res, "p2d")
+        return cuda_ndt.ndt_linearize(P_flat, CA_flat, x, pack, res, mode)
+
+    def linearize(x):
+        return linearize_frozen(x, freeze(x))
+
+    def error(x, aux):
+        return cuda_ndt.ndt_error(P_flat, aux, x, res)
+
+    def pack_from_aux(aux):
+        # aux [M (6), valid, mu (3)] -> the M-direct pack [mu, M, valid, pad]
+        return _FinPack(torch.cat(
+            [aux[7:10].T, aux[0:6].T, aux[6:7].T,
+             torch.zeros((L, 6), dtype=aux.dtype, device=aux.device)], dim=1
+        ).contiguous())
+
+    # P2D only: D2D's frozen phase re-freezes M from cov_B at each
+    # linearization, and the aux carries only M (the JAX package measured
+    # 8 mm off the full re-search solve with an aux-seeded D2D freeze).
+    return NdtObjective(linearize, error, freeze, linearize_frozen,
+                        None if d2d else pack_from_aux, P_flat, CA_flat, mode)
+
+
+def _two_phase_solve(obj: NdtObjective, x0, config: NDTConfig) -> LsqResult:
+    """R re-searching LM iterations, then the frozen phase: seeded from the
+    last refresh iteration's aux for P2D, re-frozen at the phase-1 pose for
+    D2D."""
+    R = config.refresh_iterations
+    cfg1 = config.lsq._replace(max_iterations=R)
+    cfg2 = config.lsq._replace(max_iterations=config.lsq.max_iterations - R)
+    if obj.pack_from_aux is not None:
+        p1, aux1 = lsq_solve(obj.linearize, obj.error, x0, cfg1, with_aux=True)
+        frozen = obj.pack_from_aux(aux1)
+    else:
+        p1 = lsq_solve(obj.linearize, obj.error, x0, cfg1)
+        frozen = obj.freeze(p1.transformation)
+    p2 = lsq_solve(lambda x: obj.linearize_frozen(x, frozen), obj.error,
+                   p1.transformation, cfg2)
+    return p2._replace(iterations=p1.iterations + p2.iterations)
+
+
+def _solve(obj: NdtObjective, x0, config) -> LsqResult:
+    """The LM solve of an objective (one or two phases)."""
+    R = config.refresh_iterations
+    if not R or R >= config.lsq.max_iterations:
+        return lsq_solve(obj.linearize, obj.error, x0, config.lsq)
+    return _two_phase_solve(obj, x0, config)
+
+
+def _objective(source, source_mask, source_compact, target_vm, config) -> NdtObjective:
+    """The objective from prebuilt state in one frame: the target voxel map
+    and, for D2D, the compact source voxel statistics (means, valid, cov6);
+    P2D reads the raw source points."""
+    offsets = neighbor_offsets(config.neighbor_search_method,
+                               config.neighbor_search_radius)
+    if source_compact is None:
+        return make_ndt_objective(source, source_mask, None, target_vm, offsets)
+    means, mask, covs = source_compact
+    return make_ndt_objective(means, mask, covs, target_vm, offsets)
+
+
+def _align_objective(src_c, source_mask, tgt_c, target_mask, config) -> NdtObjective:
+    """`ndt_align`'s (and `ndt_evaluate`'s) objective on target-centred
+    points: a raw target grid and, for D2D, the source's compact statistics,
+    both built in the target's frame."""
+    stats = None
+    if config.distance_mode == "d2d":
+        _, stats = build_ndt_grid_compact(
+            src_c, source_mask, config.resolution, config.grid_dims,
+            budget=config.max_source_voxels, with_map=False, with_stats=True)
+    target_vm = build_ndt_raw_grid(tgt_c, target_mask, config.resolution,
+                                   config.grid_dims)
+    return _objective(src_c, source_mask, stats, target_vm, config)
+
+
+def _prebuilt_objective(source, source_mask, source_compact, src_center,
+                        target_vm, tgt_center, config) -> NdtObjective:
+    """`ndt_align_prebuilt`'s objective in the target-centroid frame: D2D
+    source means shift by (src_center - tgt_center), raw source points by
+    -tgt_center."""
+    compact = None
+    if config.distance_mode == "d2d":
+        means, mask_c, covs = source_compact
+        compact = (means + (src_center - tgt_center), mask_c, covs)
+    return _objective(source - tgt_center, source_mask, compact, target_vm, config)
+
+
+def _prepare_fresh(source, source_mask, target, target_mask, config, dev):
+    """`ndt_register_fresh`'s per-cloud state, each cloud in its own centroid
+    frame (P2D prepares no source state): (target_state, source_state or
+    None, the state arguments of `ndt_align_prebuilt`: source_compact,
+    src_center, target_vm, tgt_center)."""
+    tstate = ndt_prepare_cloud(target, target_mask, config, device=dev)
+    sstate, compact, src_center = None, None, tstate[2]  # P2D: raw source points
+    if config.distance_mode == "d2d":
+        sstate = ndt_prepare_cloud(source, source_mask, config, device=dev)
+        _, compact, src_center = sstate
+    return tstate, sstate, (compact, src_center, tstate[0], tstate[2])
+
+
+@f32_matmuls
+def ndt_path_objective(source, source_mask, target, target_mask,
+                       config: NDTConfig, fresh: bool, device="cuda"):
+    """The objective a registration solves, with the state prepared as its
+    entry point prepares it: `ndt_register_fresh`'s (fresh=True) or
+    `ndt_align`'s (fresh=False), both in the target-centroid frame.  Returns
+    (NdtObjective, target centroid).  For measuring the path's parts (its
+    map builds, its kernels' inputs) without running the solve."""
+    _require_dense(config)
+    dev = _device.resolve(device)
+    source, target = _device.as_f32(source, dev), _device.as_f32(target, dev)
+    source_mask = _device.as_bool(source_mask, dev)
+    target_mask = _device.as_bool(target_mask, dev)
+    if fresh:
+        _, _, prebuilt = _prepare_fresh(source, source_mask, target, target_mask,
+                                        config, dev)
+        return _prebuilt_objective(source, source_mask, *prebuilt, config), prebuilt[3]
+    c = masked_mean(target, target_mask)
+    return _align_objective(source - c, source_mask, target - c, target_mask, config), c
+
+
+@f32_matmuls
+def ndt_align(source, source_mask, target, target_mask, guess,
+              config: NDTConfig = NDTConfig(), device="cuda") -> LsqResult:
+    """NDT align of (N, 3) source onto (M, 3) target; the voxel maps are
+    built from the points (a raw target grid; for D2D the source's compact
+    statistics).
+
+    With config.refresh_iterations = R the solve is two-phase.  Runs in the
+    target-centroid frame; the returned pose and Hessian are world-frame.
+    Runs on `device` (CUDA unless the caller asks for the CPU)."""
+    _require_dense(config)
+    dev = _device.resolve(device)
+    source, target = _device.as_f32(source, dev), _device.as_f32(target, dev)
+    source_mask = _device.as_bool(source_mask, dev)
+    target_mask = _device.as_bool(target_mask, dev)
+    guess = _device.as_f32(guess, dev)
+
+    def run(src_c, tgt_c, x0):
+        return _solve(_align_objective(src_c, source_mask, tgt_c, target_mask, config),
+                      x0, config)
+
+    return centered_frame_align(run, source, target, target_mask, guess)
+
+
+def ndt_prepare_cloud(points, mask, config: NDTConfig, device="cuda"):
+    """Per-cloud NDT state (voxel map, compact stats, centroid), built in the
+    cloud's own centroid frame: an `NdtGridMap` at the target budget and,
+    for D2D, the compact statistics trimmed to the source budget (None for
+    P2D).  Runs on `device`.
+
+    Voxelizing in the cloud's own frame can bin a point into another voxel
+    than `ndt_align`, which voxelizes the source in the target's frame
+    (floor(x / res - 0.5) depends on the shift), so the two give slightly
+    different, equally valid poses."""
+    _require_dense(config)
+    dev = _device.resolve(device)
+    points = _device.as_f32(points, dev)
+    mask = _device.as_bool(mask, dev)
+    c = masked_mean(points, mask)
+    want_stats = config.distance_mode == "d2d"
+    vm, compact = build_ndt_grid_compact(
+        points - c, mask, config.resolution, config.grid_dims,
+        budget=config.max_target_voxels, with_stats=want_stats)
+    if want_stats and config.max_source_voxels < config.max_target_voxels:
+        # one state serves both roles; trim the stats to the source budget
+        b = config.max_source_voxels
+        m, v, c6 = compact
+        compact = (m[:b], v[:b], c6[:, :b])
+    return vm, compact, c
+
+
+@f32_matmuls
+def ndt_align_prebuilt(source, source_mask, source_compact, src_center,
+                       target_vm, tgt_center, guess,
+                       config: NDTConfig = NDTConfig(), device="cuda") -> LsqResult:
+    """NDT align against prebuilt per-cloud state (`ndt_prepare_cloud`), with
+    `ndt_align`'s two-phase semantics.  The solve runs in the target-centroid
+    frame: D2D source means shift by (src_center - tgt_center), raw source
+    points by -tgt_center; the pose and Hessian return to world."""
+    _require_dense(config)
+    dev = _device.resolve(device)
+    source = _device.as_f32(source, dev)
+    source_mask = _device.as_bool(source_mask, dev)
+    guess = _device.as_f32(guess, dev)
+    x0 = se3.conjugate_to_centered(guess, tgt_center)
+    obj = _prebuilt_objective(source, source_mask, source_compact, src_center,
+                              target_vm, tgt_center, config)
+    res = _solve(obj, x0, config)
+    A = se3.adjoint_translation(tgt_center)
+    return res._replace(
+        transformation=se3.conjugate_from_centered(res.transformation, tgt_center),
+        hessian=A.T @ res.hessian @ A,
+    )
+
+
+@f32_matmuls
+def ndt_register_fresh(source, source_mask, target, target_mask, guess,
+                       config: NDTConfig = NDTConfig(), device="cuda"):
+    """Fresh NDT registration as the class API runs it: each cloud's state
+    prepared in its own centroid frame (`ndt_prepare_cloud`; P2D prepares no
+    source state), then `ndt_align_prebuilt`.  Returns (LsqResult,
+    target_state, source_state or None).  Runs on `device`."""
+    dev = _device.resolve(device)
+    tstate, sstate, prebuilt = _prepare_fresh(source, source_mask, target, target_mask,
+                                              config, dev)
+    res = ndt_align_prebuilt(source, source_mask, *prebuilt, guess, config, device=dev)
+    return res, tstate, sstate
+
+
+@f32_matmuls
+def ndt_evaluate(source, source_mask, target, target_mask, pose,
+                 config: NDTConfig = NDTConfig(), device="cuda"):
+    """(error, H, b) of the NDT objective at an arbitrary pose, evaluated in
+    the target-centroid frame and reported world-frame.  Runs on `device`."""
+    _require_dense(config)
+    dev = _device.resolve(device)
+    source, target = _device.as_f32(source, dev), _device.as_f32(target, dev)
+    source_mask = _device.as_bool(source_mask, dev)
+    target_mask = _device.as_bool(target_mask, dev)
+    pose = _device.as_f32(pose, dev)
+
+    def run(src_c, tgt_c, p):
+        obj = _align_objective(src_c, source_mask, tgt_c, target_mask, config)
+        err, H, b, _aux = obj.linearize(p)
+        return err, H, b
+
+    return centered_frame_evaluate(run, source, target, target_mask, pose)

@@ -57,6 +57,18 @@ def sym_cols_from_raw(rows):
     return mean, cov, count
 
 
+def sym_cols_from_packed(rows):
+    """Finalized voxel rows (..., N, 16) [mean (3), cov (9 row-major),
+    count, pad (3)] -> (mean (..., 3, N), cov (..., 6, N), count (..., N))."""
+    mean = rows[..., 0:3].transpose(-1, -2)
+    cov = torch.stack(
+        [rows[..., 3], rows[..., 4], rows[..., 5],
+         rows[..., 7], rows[..., 8], rows[..., 11]],
+        dim=-2,
+    )
+    return mean, cov, rows[..., 12]
+
+
 def transform_cols(T, P):
     """Rigid transform of (..., 3, N) columns by a 4x4 matrix."""
     R, t = T[:3, :3], T[:3, 3]
@@ -185,6 +197,56 @@ def plane_covs_cols(C):
     return torch.stack(
         [1.0 - k * v0 * v0, -k * v0 * v1, -k * v0 * v2,
          1.0 - k * v1 * v1, -k * v1 * v2, 1.0 - k * v2 * v2],
+        dim=-2,
+    )
+
+
+def clamp_eigs_cols(C, eps):
+    """MIN_EIG regularization on sym-6 columns: eigenvalues clamped to
+    >= eps with the eigenvectors kept (covariance_regularization.cu
+    covariance_regularization_mineig), in closed form.
+
+    With eigenvalues e_s <= e_m <= e_b and clamp deficits
+    c_i = max(0, eps - e_i),
+        A' = A + c_m I - (c_m - c_b) P_big + (c_s - c_m) P_small,
+    each spectral projector a Cayley-Hamilton polynomial in A.  A projector
+    denominator that degenerates (repeated eigenvalues) is guarded by
+    tiny = 1e-12 scale^2, and its coefficient vanishes in that limit."""
+    c00, c01, c02, c11, c12, c22 = (C[..., i, :] for i in range(6))
+    e_s, e_m, e_b = eigvals_sym_cols(C)
+    c_s = torch.clamp(eps - e_s, min=0.0)
+    c_m = torch.clamp(eps - e_m, min=0.0)
+    c_b = torch.clamp(eps - e_b, min=0.0)
+    s00 = c00 * c00 + c01 * c01 + c02 * c02
+    s01 = c00 * c01 + c01 * c11 + c02 * c12
+    s02 = c00 * c02 + c01 * c12 + c02 * c22
+    s11 = c01 * c01 + c11 * c11 + c12 * c12
+    s12 = c01 * c02 + c11 * c12 + c12 * c22
+    s22 = c02 * c02 + c12 * c12 + c22 * c22
+
+    scale = torch.clamp(torch.maximum(e_b.abs(), e_s.abs()), min=eps)
+    tiny = 1e-12 * scale * scale
+
+    def coeff(num, den):
+        safe = den > tiny
+        return torch.where(safe, num / torch.where(safe, den, torch.ones_like(den)),
+                           torch.zeros_like(den))
+
+    # P_big ~ (A - e_s)(A - e_m) / ((e_b - e_s)(e_b - e_m))
+    a_b = coeff(c_m - c_b, (e_b - e_s) * (e_b - e_m))
+    # P_small ~ (A - e_m)(A - e_b) / ((e_s - e_m)(e_s - e_b))
+    a_s = coeff(c_s - c_m, (e_s - e_m) * (e_s - e_b))
+
+    def poly(t, d, a):
+        # a (A^2 - t A + d I)
+        return (a * (s00 - t * c00 + d), a * (s01 - t * c01), a * (s02 - t * c02),
+                a * (s11 - t * c11 + d), a * (s12 - t * c12), a * (s22 - t * c22 + d))
+
+    pb = poly(e_s + e_m, e_s * e_m, -a_b)
+    ps = poly(e_m + e_b, e_m * e_b, a_s)
+    return torch.stack(
+        [c00 + c_m + pb[0] + ps[0], c01 + pb[1] + ps[1], c02 + pb[2] + ps[2],
+         c11 + c_m + pb[3] + ps[3], c12 + pb[4] + ps[4], c22 + c_m + pb[5] + ps[5]],
         dim=-2,
     )
 

@@ -25,6 +25,7 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import fast_gicp_tpu_torch.utils.synthetic, fast_gicp_tpu_torch.utils.downsample\n"
         "import fast_gicp_tpu_torch.models.gicp, fast_gicp_tpu_torch.models.metrics\n"
         "import fast_gicp_tpu_torch.ops.neighbors, fast_gicp_tpu_torch.ops.covariance\n"
+        "import fast_gicp_tpu_torch.ops.cuda_ndt, fast_gicp_tpu_torch.models.ndt\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -118,3 +119,77 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
                                                  torch.ones(n))
     assert float(err) == pytest.approx(0.0, abs=1e-4)
     assert all(fn.launches == 0 for fn in wrappers)
+
+
+def test_ndt_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from fast_gicp_tpu_torch.models import ndt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.zeros((2048, 3), np.float32)
+    mask = np.ones(2048, bool)
+    eye = np.eye(4, dtype=np.float32)
+    cfg = ndt.NDTConfig(grid_dims=(32, 32, 32))
+    calls = [
+        lambda: ndt.ndt_register_fresh(pts, mask, pts, mask, eye, cfg),
+        lambda: ndt.ndt_align(pts, mask, pts, mask, eye, cfg),
+        lambda: ndt.ndt_prepare_cloud(pts, mask, cfg),
+        lambda: ndt.ndt_evaluate(pts, mask, pts, mask, eye, cfg),
+        lambda: ndt.ndt_align_prebuilt(pts, mask, None, torch.zeros(3), None,
+                                       torch.zeros(3), eye, cfg._replace(distance_mode="p2d")),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def _ndt_inputs(device, n=256):
+    rng = np.random.default_rng(0)
+    p = torch.as_tensor(rng.normal(size=(3, n)).astype(np.float32), device=device)
+    ca = torch.zeros((6, n), device=device)
+    ca[[0, 3, 5]] = 0.1
+    pack = torch.zeros((n, 16), device=device)
+    pack[:, 0:3] = p.T
+    pack[:, [3, 6, 8]] = 1.0  # cov_B = M = I
+    pack[:, 9] = 1.0
+    return p, ca, torch.eye(4, device=device), pack
+
+
+def test_ndt_wrappers_take_plain_version_on_cpu_without_counting():
+    from fast_gicp_tpu_torch.ops import cuda_ndt
+
+    wrappers = (cuda_ndt.ndt_linearize_d2d, cuda_ndt.ndt_linearize_p2d,
+                cuda_ndt.ndt_linearize_d2d_raw, cuda_ndt.ndt_linearize_p2d_raw,
+                cuda_ndt.ndt_error)
+    for fn in wrappers:
+        fn.launches = 0
+    p, ca, x, pack = _ndt_inputs("cpu")
+    for mode in cuda_ndt.MODES:
+        err, H, b, aux = cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, mode)
+        assert aux.shape == (10, 256) and aux.device.type == "cpu"
+        assert float(cuda_ndt.ndt_error(p, aux, x, 1.0)) == pytest.approx(float(err), abs=1e-4)
+    assert float(cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, "p2d")[0]) == 0.0
+    assert all(fn.launches == 0 for fn in wrappers)
+
+
+def test_wrappers_raise_for_tensors_on_other_devices():
+    """No fallback: a tensor that is not on the CPU never takes the plain
+    version; what is not a CUDA tensor is refused."""
+    from fast_gicp_tpu_torch.ops import cuda_linearize, cuda_ndt
+
+    p, ca, x, pack = _ndt_inputs("meta")
+    for mode in cuda_ndt.MODES:
+        with pytest.raises(ValueError, match="unsupported device meta"):
+            cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, mode)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        cuda_ndt.ndt_error(p, torch.zeros((10, 256), device="meta"), x, 1.0)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        cuda_linearize.linearize(p, ca, x, pack, torch.ones(256, device="meta"))
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "ops").glob("cuda_*.py")) + [PKG / "models" / "ndt.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_kernel_modules_have_no_try(path):
+    """A wrapper launches its kernel or raises: no try/except that could
+    fall back to the plain version."""
+    tree = ast.parse(path.read_text())
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], path

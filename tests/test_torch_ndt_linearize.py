@@ -1,0 +1,203 @@
+"""Port vs JAX: the NDT linearize (four modes) and trial-error kernels'
+plain versions (fast_gicp_tpu_torch.ops.cuda_ndt) through the port's NDT
+objective, against the JAX package's fused objective
+`_make_ndt_objective_fused(..., interpret=True)` (the Pallas kernel bodies
+`_ndt_{d2d,p2d}{,_raw}_lin_kernel` and `_ndt_error_kernel` in interpret
+mode) and against its SoA objective, on the same JAX-built voxel maps
+carried across by `convert`.
+
+Tolerances: the Pallas bodies run under XLA:CPU, which fuses multiply-adds
+in interpret mode, and take arccos from a polynomial (|err| <= 2e-8 rad);
+the raw modes' MIN_EIG clamp and the inverse of a near-planar voxel's
+covariance (|M| up to ~1e3) magnify both.  So M is held to 1e-4 of each
+lane's largest |M|, the 28 sums to 1e-4 of their largest entry and the
+errors to rtol 1e-4 (2,048 sources x 7 offsets summed in two orders)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fast_gicp_tpu import se3 as jse3
+from fast_gicp_tpu.models import ndt as jndt
+from fast_gicp_tpu.ops import pallas_linearize
+from fast_gicp_tpu.ops import soa as jsoa
+from fast_gicp_tpu.ops import voxelmap as jvox
+from fast_gicp_tpu_torch import convert
+from fast_gicp_tpu_torch.models import ndt
+from fast_gicp_tpu_torch.ops import cuda_linearize, cuda_ndt
+from fast_gicp_tpu_torch.ops.voxelmap import auto_grid_dims, neighbor_offsets
+from tests.torch_cpu import warm_intra_op_threads
+
+N = 2048
+MODES = ["d2d", "p2d", "d2d_raw", "p2d_raw"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _warm_threads():
+    warm_intra_op_threads()
+
+
+@pytest.fixture(scope="module")
+def scene():
+    """Target: a near-planar ground patch and a dense blob (voxels well
+    above the > 6 points gate); source: the target points with 5 cm noise,
+    the last 100 masked; random SPD source covariances for D2D."""
+    rng = np.random.default_rng(7)
+    k = N // 2
+    plane = np.column_stack([rng.uniform(-4, 4, k), rng.uniform(-4, 4, k),
+                             0.003 * rng.standard_normal(k)])
+    blob = rng.normal(size=(N - k, 3)) * [1.5, 1.0, 0.8] + [1.0, 0.5, 1.5]
+    tgt = np.concatenate([plane, blob]).astype(np.float32)
+    src = (tgt + rng.normal(size=tgt.shape) * 0.05).astype(np.float32)
+    mask = np.arange(N) < N - 100
+    A = rng.normal(size=(N, 3, 3)).astype(np.float32)
+    covs = (A @ np.swapaxes(A, 1, 2) * 0.01 + 0.01 * np.eye(3)).astype(np.float32)
+    dims = auto_grid_dims(tgt, 1.0)
+    tmask = np.ones(N, bool)
+    jraw = jvox.build_ndt_raw_grid(jnp.asarray(tgt), jnp.asarray(tmask), 1.0, dims)
+    jfin, _ = jvox.build_ndt_grid_compact(jnp.asarray(tgt), jnp.asarray(tmask), 1.0, dims,
+                                          budget=2048)
+    maps = {
+        True: (jraw, convert.raw_ndt_grid_from_numpy(jraw.rows, jraw.grid8, jraw.origin,
+                                                     1.0, jraw.grid.shape)),
+        False: (jfin, convert.ndt_grid_map_from_numpy(jfin.packed, jfin.grid8, jfin.origin,
+                                                      1.0, jfin.grid.shape)),
+    }
+    x = np.asarray(jse3.se3_exp(jnp.float32([0.02, -0.01, 0.03, 0.1, -0.2, 0.05])))
+    x2 = np.asarray(jse3.se3_exp(jnp.float32([-0.01, 0.02, 0.0, 0.05, 0.1, -0.1])))
+    return dict(src=src, mask=mask, covs=covs, dims=dims, maps=maps, x=x, x2=x2)
+
+
+def _objectives(scene, mode):
+    """(port objective, JAX fused objective, JAX SoA objective) for `mode`."""
+    d2d, raw = mode.startswith("d2d"), mode.endswith("_raw")
+    jmap, tmap = scene["maps"][raw]
+    offsets = neighbor_offsets("direct7")
+    covs = scene["covs"] if d2d else None
+    obj = ndt.make_ndt_objective(
+        torch.as_tensor(scene["src"]), torch.as_tensor(scene["mask"]),
+        None if covs is None else convert.covs_from_numpy(covs), tmap, offsets)
+    assert obj.mode == mode
+    P = jsoa.cols_from_points(jnp.asarray(scene["src"]))
+    C_A = None if covs is None else jsoa.sym_cols_from_covs(jnp.asarray(covs))
+    joffs = jnp.asarray(offsets)
+    fused = jndt._make_ndt_objective_fused(
+        P, C_A, jnp.asarray(scene["mask"]), jmap, joffs.T[:, :, None], N, len(offsets),
+        lambda v: v, False, interpret=True)
+    cfg = jndt.NDTConfig(resolution=1.0, grid_dims=scene["dims"])
+    soa_obj = jndt.make_ndt_objective(jnp.asarray(scene["src"]), jnp.asarray(scene["mask"]),
+                                      None if covs is None else jnp.asarray(covs), jmap,
+                                      joffs, cfg)
+    return (obj.linearize, obj.error), fused, soa_obj
+
+
+def _close_to_max(got, want, tol):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=tol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_ndt_linearize_matches_pallas(scene, mode):
+    """err, H, b and the aux [M, valid, mu] of one linearization and the
+    trial error against its aux, port against the Pallas bodies."""
+    (lin, err_fn), (jlin, jerr), _ = _objectives(scene, mode)
+    x, x2 = torch.as_tensor(scene["x"]), torch.as_tensor(scene["x2"])
+    e, H, b, aux = lin(x)
+    e_j, H_j, b_j, aux16 = jlin(jnp.asarray(scene["x"]))
+    aux_j = np.asarray(aux16)[:10]
+    valid = aux_j[6]
+    assert valid.sum() > 1000  # the gate and the masks leave most lanes
+    np.testing.assert_array_equal(aux[6].numpy(), valid)
+    np.testing.assert_allclose(aux[7:10].numpy(), aux_j[7:10], rtol=1e-5, atol=1e-5)
+    scale = np.maximum(np.abs(aux_j[:6]).max(0), 1e-30)
+    np.testing.assert_allclose(aux[:6].numpy() / scale, aux_j[:6] / scale, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(float(e), float(e_j), rtol=1e-4)
+    _close_to_max(H.numpy(), H_j, 1e-4)
+    _close_to_max(b.numpy(), b_j, 1e-4)
+    np.testing.assert_allclose(float(err_fn(x2, aux)),
+                               float(jerr(jnp.asarray(scene["x2"]), aux16)), rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_ndt_linearize_matches_jax_soa(scene, mode):
+    """The same against the JAX package's SoA objective (XLA ops, no
+    Pallas): err, H, b and the trial error."""
+    (lin, err_fn), _, (jlin, jerr) = _objectives(scene, mode)
+    x, x2 = torch.as_tensor(scene["x"]), torch.as_tensor(scene["x2"])
+    e, H, b, aux = lin(x)
+    e_j, H_j, b_j, aux_j = jlin(jnp.asarray(scene["x"]))
+    np.testing.assert_allclose(float(e), float(e_j), rtol=1e-4)
+    _close_to_max(H.numpy(), H_j, 1e-4)
+    _close_to_max(b.numpy(), b_j, 1e-4)
+    np.testing.assert_allclose(float(err_fn(x2, aux)),
+                               float(jerr(jnp.asarray(scene["x2"]), aux_j)), rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["d2d", "p2d_raw"])
+def test_ndt_error_matches_pallas_on_the_same_aux(scene, mode):
+    """Kernel 15 alone: the port's `ndt_error` and the Pallas
+    `ndt_error_pallas` on the same aux (the JAX linearize's), at a trial
+    pose."""
+    _, (jlin, _jerr), _ = _objectives(scene, mode)
+    aux16 = np.asarray(jlin(jnp.asarray(scene["x"]))[3])
+    L = aux16.shape[1]
+    P = np.tile(scene["src"].T, (1, 7))
+    got = cuda_ndt.ndt_error(torch.as_tensor(P), torch.as_tensor(aux16[:10].copy()),
+                             torch.as_tensor(scene["x2"]), 1.0)
+    P8 = jnp.concatenate([jnp.asarray(P), jnp.zeros((5, L), jnp.float32)])
+    want = pallas_linearize.ndt_error_pallas(P8, jnp.asarray(aux16), jnp.asarray(scene["x2"]),
+                                             1.0, interpret=True)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
+
+
+def test_p2d_pack_from_aux_reproduces_the_linearization(scene):
+    """P2D's frozen phase seeds from the aux: linearizing the rebuilt
+    M-direct pack at the same pose gives the same sums and aux."""
+    offsets = neighbor_offsets("direct7")
+    _jmap, tmap = scene["maps"][True]
+    obj = ndt.make_ndt_objective(
+        torch.as_tensor(scene["src"]), torch.as_tensor(scene["mask"]), None, tmap, offsets)
+    x = torch.as_tensor(scene["x"])
+    e, H, b, aux = obj.linearize(x)
+    e2, H2, b2, aux2 = obj.linearize_frozen(x, obj.pack_from_aux(aux))
+    torch.testing.assert_close(aux2, aux)
+    torch.testing.assert_close(e2, e, rtol=1e-6, atol=0)
+    torch.testing.assert_close(H2, H, rtol=1e-6, atol=1e-6 * float(H.abs().max()))
+    torch.testing.assert_close(b2, b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))
+    d2d = ndt.make_ndt_objective(torch.as_tensor(scene["src"]), torch.as_tensor(scene["mask"]),
+                                 convert.covs_from_numpy(scene["covs"]), tmap, offsets)
+    assert d2d.pack_from_aux is None  # D2D re-freezes M at every linearization
+
+
+def test_ndt_aux_must_not_reach_the_gicp_error(scene):
+    """The NDT aux [M, valid, mu] and the GICP aux [M, w, mu] have the same
+    shape: the GICP `error` reads row 6 as the weight, so on the same NDT aux
+    it gives another sum than `ndt_error` (which recomputes the Cauchy
+    weight); and `ndt_error` on a GICP aux is not the GICP error."""
+    (lin, err_fn), _, _ = _objectives(scene, "p2d_raw")
+    x, x2 = torch.as_tensor(scene["x"]), torch.as_tensor(scene["x2"])
+    aux = lin(x)[3]
+    P = torch.as_tensor(np.tile(scene["src"].T, (1, 7)))
+    e_ndt = float(cuda_ndt.ndt_error(P, aux, x2, 1.0))
+    e_gicp = float(cuda_linearize.error(P, x2, aux))
+    assert e_ndt == pytest.approx(float(err_fn(x2, aux)), rel=1e-6)
+    assert abs(e_gicp - e_ndt) > 0.05 * abs(e_ndt)
+    gicp_aux = aux.clone()
+    gicp_aux[6] = 2.0 * aux[6]  # a GICP weight sqrt(count) = 2 on valid lanes
+    e_g = float(cuda_linearize.error(P, x2, gicp_aux))
+    assert abs(float(cuda_ndt.ndt_error(P, gicp_aux, x2, 1.0)) - e_g) > 0.05 * abs(e_g)
+
+
+def test_ndt_linearize_rejects_bad_input():
+    p = torch.zeros((3, 16))
+    pack = torch.zeros((16, 16))
+    x = torch.eye(4)
+    with pytest.raises(ValueError, match="unknown NDT linearize mode"):
+        cuda_ndt.ndt_linearize(p, None, x, pack, 1.0, "d2d_hash")
+    with pytest.raises(ValueError, match="pack"):
+        cuda_ndt.ndt_linearize(p, None, x, torch.zeros((16, 10)), 1.0, "p2d")
+    with pytest.raises(ValueError, match="ca"):
+        cuda_ndt.ndt_linearize(p, None, x, pack, 1.0, "d2d")
+    err, H, b, aux = cuda_ndt.ndt_linearize(p, None, x, pack, 1.0, "p2d_raw")
+    assert float(err) == 0.0 and aux.shape == (10, 16) and not aux[6].any()
