@@ -2,15 +2,16 @@
 
     python3 chip_smoke.py
 
-Six registration paths run (`PATHS`): `vgicp_register` (RBF covariances,
-dense raw voxel grid, two-phase LM solve), `gicp_register_fresh` (kNN
-covariances, exact 1-NN correspondences re-searched at every
+Eight registration paths run (`PATHS`): `vgicp_register` (RBF covariances,
+dense raw voxel grid, two-phase LM solve), `gicp_register_fresh` in three
+forms (kNN covariances with PLANE, adaptive-radius covariances, kNN
+covariances with MIN_EIG; exact 1-NN correspondences re-searched at every
 linearization, LM solve), and NDT in four forms: `ndt_register_fresh` D2D
 and P2D (NDTCuda's fresh align: finalized maps prepared per cloud) and
 `ndt_align` D2D and P2D (raw target grid, two-phase solve).
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device: CUDA must be present; prints the card's name and power limit;
-  2. build: compiles the twelve CUDA kernels from `fast_gicp_tpu_torch/csrc`
+  2. build: compiles the fifteen CUDA kernels from `fast_gicp_tpu_torch/csrc`
      (one nvcc per source, all started together);
   3. kernels: each kernel against its plain PyTorch version on the same
      inputs, at the shapes its path gives it on the full-size synthetic
@@ -22,7 +23,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
      twice that) and that every kernel of the path ran; then the NDT voxel
      budgets against the pair's occupied voxels;
   5. card against CPU: each path on the card against the same call with
-     device="cpu" (the plain versions): the GICP-family paths on the
+     device="cpu" (the plain versions): the VGICP and GICP paths on the
      CPU-test-sized pair, the NDT paths on the full-size pair (the small
      pair's 1 m voxels hold too few points for NDT's > 6 gate);
   6. bench protocol: registrations of each path through a 1e-5 rigid
@@ -63,6 +64,9 @@ NDT_OFFSETS = 7  # DIRECT7: the NDT kernels' lanes are 7 offsets x the source
 NN_OPS_PER_PAIR = 8  # 3 differences, 3 squares, 2 adds
 KNN_OPS_PER_CANDIDATE = 11  # distance 8, key 2, one compare of a k-selection
 KNN_OPS_PER_NEIGHBOUR = 22  # local coordinates 6, moment products 6, sums 10
+SLAB_OPS_PER_CANDIDATE = 9  # distance 8, one compare against the k-th best
+WINDOW_OPS_PER_PAIR = 25  # distance 8, the window compare 1, 6 products, 10 sums
+WINDOW_REL_TOL = 1e-5  # radius_window rows against each query's own scale
 
 
 class PhaseError(RuntimeError):
@@ -177,6 +181,26 @@ def check_close(name, got, want, rtol, atol):
     return float(diff.max())
 
 
+def count_ops_per_pair(rungs):
+    """FP32 operations `radius_count` needs for a pair inside the largest
+    radius: d^2 (8), the rung it falls in by a binary search of the ladder
+    (ceil(log2(rungs + 1)) compares) and one increment; each query then
+    needs a prefix sum over the rungs, counted apart."""
+    return NN_OPS_PER_PAIR + math.ceil(math.log2(rungs + 1)) + 1
+
+
+def pairs_within(query, target, r2, chunk=1024):
+    """Number of (query, target) pairs with d^2 <= r2 (a float, or one
+    squared radius a query), from chunked distance rows."""
+    r2 = torch.as_tensor(r2, dtype=torch.float32, device=query.device).expand(query.shape[0])
+    total = 0
+    for s in range(0, query.shape[0], chunk):
+        d2 = torch.cdist(query[s:s + chunk], target,
+                         compute_mode="donot_use_mm_for_euclid_dist").square()
+        total += int((d2 <= r2[s:s + chunk, None]).sum())
+    return total
+
+
 def phase_kernels(dev, pair):
     """Each kernel against its plain version at the main path's shapes."""
     from fast_gicp_tpu_torch import se3
@@ -215,11 +239,7 @@ def phase_kernels(dev, pair):
     # data-dependent work: only pairs within max_dist need the exp and the
     # moment update
     y = (tgt - c)[tmask]
-    pairs = 0
-    for s in range(0, y.shape[0], 2048):
-        d2 = torch.cdist(y[s:s + 2048], y,
-                         compute_mode="donot_use_mm_for_euclid_dist").square()
-        pairs += int((d2 <= 9.0).sum())
+    pairs = pairs_within(y, y, 9.0)
     tm = timings(lambda: cuda_kernels.rbf_moments(*args),
                  lambda: cuda_kernels.rbf_moments_plain(*args),
                  "rbf_moments_kernel", 20, 3)
@@ -454,6 +474,133 @@ def phase_gicp_kernels(dev, pair):
     return records
 
 
+def phase_c2_kernels(dev, pair):
+    """The kNN slab search and the adaptive-radius count and window
+    against their plain versions, at the shapes `gicp_register_fresh`
+    gives them on the full-size pair (the target cloud's covariances):
+    `knn_slab` as `knn_search_culled` calls it for MIN_EIG (16 of 88
+    256-point tiles a query tile) and as `knn_search` calls it for the
+    exact search (all 176 128-point tiles); `radius_count` and
+    `radius_window` as the adaptive estimator calls them.  library_ms is
+    None for all three: no single PyTorch call computes a top-k over
+    gathered per-tile slabs, per-rung radius counts or per-query windowed
+    moments (each is several calls, as the plain versions are)."""
+    from fast_gicp_tpu_torch.ops import cuda_kernels
+    from fast_gicp_tpu_torch.ops.covariance import (
+        default_radius_ladder, masked_mean, window_radii,
+    )
+    from fast_gicp_tpu_torch.ops.neighbors import _masked_target, select_candidate_tiles
+    from fast_gicp_tpu_torch.utils.padding import pad_points
+
+    _source, target, _gt = pair
+    tp, tm = pad_points(target)
+    tgt, tmask = (torch.as_tensor(a, device=dev) for a in (tp, tm))
+    n = tgt.shape[0]
+    ones = torch.ones_like(tmask)
+    records = []
+
+    # -- knn_slab: the culled search (the path's shapes), then the exact one
+    k = 20
+    tc = tgt - masked_mean(tgt, tmask)
+    Q, T = n // 256, n // 256
+    cidx, _excluded = select_candidate_tiles(
+        tc.reshape(Q, 256, 3), _masked_target(tc, tmask).reshape(T, 256, 3), 16)
+    args = (tc, ones, tc, tmask, cidx, k, 256)
+    exact = (tc, ones, tc, tmask,
+             torch.arange(n // 128, dtype=torch.int32, device=dev).expand(Q, n // 128)
+             .contiguous(), k, 128)
+    errs = {}
+    for name, a in (("culled", args), ("exact", exact)):
+        idx, sq = cuda_kernels.knn_slab(*a)
+        idx_w, sq_w = cuda_kernels.knn_slab_plain(*a)
+        torch.cuda.synchronize()
+        # the same f32 d^2 and the same tie rule (lower slab position) in both
+        require(bool(torch.equal(sq, sq_w)),
+                f"knn_slab {name} sq: {int((sq != sq_w).sum())} entries not bit-equal")
+        require(bool(torch.equal(idx, idx_w)),
+                f"knn_slab {name} idx: {int((idx != idx_w).sum())} entries differ")
+        errs[name] = float((sq - sq_w).abs().max())
+        log(f"[kernels] knn_slab {name}: idx equal and sq bit-equal on all {n} x {k}")
+    tm_ = timings(lambda: cuda_kernels.knn_slab(*args),
+                  lambda: cuda_kernels.knn_slab_plain(*args), "knn_slab_kernel", 50, 3)
+    exact_ms = device_ms(lambda: cuda_kernels.knn_slab(*exact), 10, "knn_slab_kernel")
+    b_ms, b_by = bound_ms(n * 16 + n * 16 + Q * 16 * 4 + n * k * 8,
+                          n * 16 * 256 * SLAB_OPS_PER_CANDIDATE)
+    records.append(dict(
+        name="knn_slab", route="cuda", source="fast_gicp_tpu_torch/csrc/knn_slab.cu",
+        replaces="fast_gicp_tpu/ops/pallas_kernels.py:227",
+        max_abs_err=max(errs.values()),
+        tolerance=f"idx equal, sq bit-equal (C = 16 x 256 and C = T = {n // 128} x 128)",
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, exact_search_ms=exact_ms, **tm_))
+    log(f"[kernels] knn_slab exact (all {n} targets a query): {exact_ms:.4f} ms")
+
+    # -- radius_count / radius_window: the adaptive estimator's two passes
+    r2 = torch.as_tensor(default_radius_ladder(), device=dev)
+    c = masked_mean(tgt, tmask)
+    cargs = (tgt, tmask, tgt, tmask, c, r2)
+    cnt = cuda_kernels.radius_count(*cargs)
+    cnt_w = cuda_kernels.radius_count_plain(*cargs)
+    torch.cuda.synchronize()
+    require(bool(torch.equal(cnt[:, tmask], cnt_w[:, tmask])),
+            f"radius_count: {int((cnt != cnt_w)[:, tmask].sum())} valid entries differ")
+    y = (tgt - c)[tmask]
+    in_range = pairs_within(y, y, float(r2[-1]))
+    # timed with the packing and the target's tile boxes, which the wrapper builds here
+    tm_ = timings(lambda: cuda_kernels.radius_count(*cargs),
+                  lambda: cuda_kernels.radius_count_plain(*cargs),
+                  ("tile_bbox_kernel", "radius_count_kernel"), 50, 2)
+    L = r2.numel()
+    b_ms, b_by = bound_ms(n * 16 * 2 + L * 4 + L * n * 4,
+                          in_range * count_ops_per_pair(L) + n * L)
+    records.append(dict(
+        name="radius_count", route="cuda", source="fast_gicp_tpu_torch/csrc/radius_window.cu",
+        replaces="fast_gicp_tpu/ops/pallas_kernels.py:609", max_abs_err=0.0,
+        tolerance="counts equal on the valid queries", bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, pairs_in_range=in_range, **tm_))
+    log(f"[kernels] radius_count: counts equal on all {int(tmask.sum())} valid queries x "
+        f"{r2.numel()} rungs; {in_range} pairs within the largest radius")
+
+    r2q = window_radii(cnt, r2, 20)
+    wargs = (tgt, tmask, tgt, tmask, c, r2q)
+    packed = cuda_kernels.radius_inputs(tgt, tmask, tgt, tmask, c)  # as radius_window_moments
+    got = cuda_kernels.radius_window(*wargs, packed)
+    want = cuda_kernels.radius_window_plain(*wargs)
+    torch.cuda.synchronize()
+    require(bool(torch.equal(got[0, tmask], want[0, tmask])),
+            f"radius_window n: {int((got[0] != want[0])[tmask].sum())} valid windows differ")
+    # rows 1-12 against each query's own largest |entry| (a near window's
+    # sums are far smaller than a far one's); the reading against each
+    # row's largest entry over all queries is logged beside it
+    g, w = got[1:13, tmask], want[1:13, tmask]
+    row_gap = float(((g - w).abs() / w.abs().amax(1, keepdim=True).clamp(min=1e-30)).max())
+    scale = w.abs().amax(0, keepdim=True).clamp(min=1e-30)
+    log(f"[kernels] radius_window rows 1-12: max diff / the query's largest entry "
+        f"{float(((g - w).abs() / scale).max()):.3e}; / the row's largest entry {row_gap:.3e}")
+    err = check_close("radius_window rows", g / scale, w / scale, 0.0, WINDOW_REL_TOL)
+    in_window = pairs_within(y, y, r2q[tmask])
+    tm_ = timings(lambda: cuda_kernels.radius_window(*wargs, packed),
+                  lambda: cuda_kernels.radius_window_plain(*wargs),
+                  "radius_window_kernel", 50, 3)
+    b_ms, b_by = bound_ms(n * 16 * 2 + n * 4 + n * 16 * 4, in_window * WINDOW_OPS_PER_PAIR)
+    records.append(dict(
+        name="radius_window", route="cuda", source="fast_gicp_tpu_torch/csrc/radius_window.cu",
+        replaces="fast_gicp_tpu/ops/pallas_kernels.py:629",
+        max_abs_err=float((got - want)[:, tmask].abs().max()),
+        tolerance=f"row 0 (n) equal; rows 1-12 within {WINDOW_REL_TOL:g} of the query's "
+                  "largest |entry| in them, on each valid query",
+        rel_err=err, rel_err_row_scale=row_gap, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, pairs_in_window=in_window, **tm_))
+    log(f"[kernels] radius_window: n equal on all valid queries; rows max diff / the "
+        f"query's scale {err:.3e}; {in_window} pairs in the windows")
+    for r in records:
+        log(f"[kernels] {r['name']}: max_abs_diff {r['max_abs_err']:.3e} "
+            f"({r['tolerance']}), {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
+            f"({r['timing']}); per call with the host's enqueue: "
+            f"{r['call_ms']:.4f} ms, plain {r['plain_call_ms']:.4f} ms; "
+            f"bound {r['bound_ms']:.3e} ms ({r['bound_by']})")
+    return records
+
+
 def ndt_dims(source, target):
     """Dense-grid dims over both clouds' extent at 1 m (NDTCuda._grid_dims)."""
     from fast_gicp_tpu_torch.ops.voxelmap import auto_grid_dims_from_extent
@@ -604,6 +751,9 @@ def counters():
         "ndt_d2d_raw": cuda_ndt.ndt_linearize_d2d_raw,
         "ndt_p2d_raw": cuda_ndt.ndt_linearize_p2d_raw,
         "ndt_error": cuda_ndt.ndt_error,
+        "knn_slab": cuda_kernels.knn_slab,
+        "radius_count": cuda_kernels.radius_count,
+        "radius_window": cuda_kernels.radius_window,
     }
 
 
@@ -630,18 +780,25 @@ def vgicp_path(source, target):
     return Path(register, cfg)
 
 
-def gicp_path(source, target):
-    """`gicp_register_fresh` with the defaults FastGICP's fresh align uses:
-    kNN covariances (k = 20, plane), 1-NN re-search every iteration."""
-    from fast_gicp_tpu_torch.models.gicp import GICPConfig, gicp_register_fresh
+def gicp_path(method, regularization):
+    """`gicp_register_fresh` with FastGICP's fresh-align defaults (k = 20,
+    1-NN re-search every iteration) and the covariance estimator `method`
+    ("knn" or "adaptive", FastGICP's covariance_estimation) under
+    `regularization`."""
 
-    del source, target
-    cfg = GICPConfig()
+    def make(source, target):
+        from fast_gicp_tpu_torch.models.gicp import GICPConfig, gicp_register_fresh
 
-    def register(s, sm, t, tm, guess, device):
-        return gicp_register_fresh(s, sm, t, tm, guess, cfg, device=device)[0]
+        del source, target
+        cfg = GICPConfig()
 
-    return Path(register, cfg)
+        def register(s, sm, t, tm, guess, device):
+            return gicp_register_fresh(s, sm, t, tm, guess, cfg, method=method,
+                                       regularization=regularization, device=device)[0]
+
+        return Path(register, cfg)
+
+    return make
 
 
 def ndt_fresh_path(mode):
@@ -688,14 +845,19 @@ def ndt_align_path(mode, max_source_voxels=NDT_ALIGN_SOURCE_VOXELS):
 
 
 D2D_LIMITS = (0.05, 1.0)  # gicp_test.cpp:148-149
+# the covariance estimator and regularization of each GICP path
+GICP_ESTIMATORS = {"gicp_register_fresh": ("knn", "plane"),
+                   "gicp_adaptive_fresh": ("adaptive", "plane"),
+                   "gicp_min_eig_fresh": ("knn", "min_eig")}
 P2D_LIMITS = (0.10, 2.0)  # twice the reference's, as tests/test_registration.py holds P2D
 
 # path -> (make(source, target) -> Path, kernels the path must launch, limits)
 PATHS = {
     "vgicp_register": (vgicp_path, ("rbf_moments", "linearize_raw", "error", "lm_trial"),
                        D2D_LIMITS),
-    "gicp_register_fresh": (gicp_path, ("knn_moments", "nn_search", "linearize", "error",
-                                        "lm_trial"), D2D_LIMITS),
+    "gicp_register_fresh": (gicp_path(*GICP_ESTIMATORS["gicp_register_fresh"]),
+                            ("knn_moments", "nn_search", "linearize", "error", "lm_trial"),
+                            D2D_LIMITS),
     "ndt_d2d_fresh": (ndt_fresh_path("d2d"), ("ndt_d2d", "ndt_error", "lm_trial"),
                       D2D_LIMITS),
     "ndt_p2d_fresh": (ndt_fresh_path("p2d"), ("ndt_p2d", "ndt_error", "lm_trial"),
@@ -704,6 +866,12 @@ PATHS = {
                       D2D_LIMITS),
     "ndt_p2d_align": (ndt_align_path("p2d"), ("ndt_p2d_raw", "ndt_p2d", "ndt_error",
                                               "lm_trial"), P2D_LIMITS),
+    "gicp_adaptive_fresh": (gicp_path(*GICP_ESTIMATORS["gicp_adaptive_fresh"]),
+                            ("radius_count", "radius_window", "nn_search", "linearize",
+                             "error", "lm_trial"), D2D_LIMITS),
+    "gicp_min_eig_fresh": (gicp_path(*GICP_ESTIMATORS["gicp_min_eig_fresh"]),
+                           ("knn_slab", "nn_search", "linearize", "error", "lm_trial"),
+                           D2D_LIMITS),
 }
 NDT_PATHS = tuple(p for p in PATHS if p.startswith("ndt_"))
 
@@ -871,16 +1039,20 @@ def _stages_vgicp(dev, path, sp, sm, tp, tm, guess, wall_ms):
     return stages
 
 
-def _stages_gicp(dev, path, sp, sm, tp, tm, guess, wall_ms):
+def _stages_gicp(dev, path, sp, sm, tp, tm, guess, wall_ms, estimator):
     from fast_gicp_tpu_torch.models.gicp import gicp_align
-    from fast_gicp_tpu_torch.ops.covariance import knn_covariance_cols
+    from fast_gicp_tpu_torch.ops.covariance import estimate_covariance_cols
 
+    method, reg = estimator
     register = path.register
-    scov, tcov = knn_covariance_cols(sp, sm), knn_covariance_cols(tp, tm)
+
+    def covs(p, m):
+        return estimate_covariance_cols(p, m, method, regularization=reg)
+
+    scov, tcov = covs(sp, sm), covs(tp, tm)
     return {
         "register": wall_ms(lambda: register(sp, sm, tp, tm, guess, dev)),
-        "covariances (both clouds)": wall_ms(
-            lambda: (knn_covariance_cols(sp, sm), knn_covariance_cols(tp, tm))),
+        "covariances (both clouds)": wall_ms(lambda: (covs(sp, sm), covs(tp, tm))),
         "align (solve)": wall_ms(
             lambda: gicp_align(sp, sm, scov, tp, tm, tcov, guess, device=dev)),
     }
@@ -927,8 +1099,12 @@ def phase_profile(dev, pair, path, n_regs=5):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / reps
 
-    stage_fn = {"vgicp_register": _stages_vgicp, "gicp_register_fresh": _stages_gicp}.get(
-        path, functools.partial(_stages_ndt, fresh=path.endswith("_fresh")))
+    if path == "vgicp_register":
+        stage_fn = _stages_vgicp
+    elif path in GICP_ESTIMATORS:
+        stage_fn = functools.partial(_stages_gicp, estimator=GICP_ESTIMATORS[path])
+    else:
+        stage_fn = functools.partial(_stages_ndt, fresh=path.endswith("_fresh"))
     stages = stage_fn(dev, made, sp, sm, tp, tm, guess, wall_ms)
     log(f"[profile] {path} stage wall ms/registration: "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
@@ -979,7 +1155,7 @@ def main() -> int:
 
     pair = synthetic_pair()
     records = (phase_kernels(dev, pair) + phase_gicp_kernels(dev, pair)
-               + phase_ndt_kernels(dev, pair))
+               + phase_ndt_kernels(dev, pair) + phase_c2_kernels(dev, pair))
     summary = {}
     path_launches = {}
     for path in PATHS:

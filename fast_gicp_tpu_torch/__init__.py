@@ -4,14 +4,14 @@ Three registration families run on the card:
   * `models.vgicp.vgicp_register`: RBF kernel-density covariances for both
     clouds, a dense raw voxel grid of the target and a two-phase
     Levenberg-Marquardt solve;
-  * `models.gicp.gicp_register_fresh`: kNN covariances for both clouds and
-    an LM solve with exact 1-NN correspondences re-searched at every
+  * `models.gicp.gicp_register_fresh`: kNN, RBF or adaptive-radius
+    covariances for both clouds (five regularizations) and an LM solve with exact 1-NN correspondences re-searched at every
     linearization (FastGICP); `models.metrics.fitness_score` scores a pose;
   * `models.ndt`: NDT, D2D and P2D, on dense NDT grids --
     `ndt_register_fresh` (each cloud's map prepared in its own frame, as
     NDTCuda's fresh align) and `ndt_align` (raw target grid, optionally
     two-phase).
-Their twelve kernels are hand-written CUDA C++ (`csrc/*.cu`), built with
+Their fifteen kernels are hand-written CUDA C++ (`csrc/*.cu`), built with
 nvcc for sm_90a at first use; each has a plain PyTorch twin that runs for
 CPU tensors.
 
@@ -30,5 +30,10 @@ from .models.ndt import (  # noqa: F401
     ndt_register_fresh,
 )
 from .models.vgicp import VGICPConfig, vgicp_align, vgicp_register  # noqa: F401
-from .ops.covariance import knn_covariances, rbf_covariances  # noqa: F401
+from .ops.covariance import (  # noqa: F401
+    adaptive_radius_covariances,
+    knn_covariances,
+    rbf_covariances,
+)
+from .ops.neighbors import knn_search, knn_search_culled  # noqa: F401
 from .solver import LsqConfig, LsqResult, lsq_solve  # noqa: F401

@@ -27,73 +27,14 @@
 // make its block visit every tile; their results are finite and carry no
 // meaning.  A block of masked queries only uses the box of all its rows.
 
-#include <cfloat>
-#include <cmath>
 #include <cuda_runtime.h>
+
+#include "tile_cull.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // queries per block == targets per tile
-constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Bounding box of the points held one per thread and flagged `valid`:
-// box[0..2] lo, box[3..5] hi.  Ends with a barrier, so box is readable by
-// the whole block.
-__device__ void block_bbox(float4 p, bool valid, float (*scratch)[kWarps], float* box) {
-  float v[6] = {valid ? p.x : FLT_MAX,  valid ? p.y : FLT_MAX,
-                valid ? p.z : FLT_MAX,  valid ? p.x : -FLT_MAX,
-                valid ? p.y : -FLT_MAX, valid ? p.z : -FLT_MAX};
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int c = 0; c < 6; ++c) {
-    v[c] = c < 3 ? warp_min(v[c]) : warp_max(v[c]);
-    if (lane == 0) scratch[c][warp] = v[c];
-  }
-  __syncthreads();
-  if (threadIdx.x < 6) {
-    const int c = threadIdx.x;
-    float r = scratch[c][0];
-    for (int w = 1; w < kWarps; ++w)
-      r = c < 3 ? fminf(r, scratch[c][w]) : fmaxf(r, scratch[c][w]);
-    box[c] = r;
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ float axis_gap(float lo_a, float hi_a, float lo_b, float hi_b) {
-  return fmaxf(0.f, fmaxf(__fsub_rn(lo_b, hi_a), __fsub_rn(lo_a, hi_b)));
-}
-
-// Squared gap between two boxes, rounded like d^2 below.
-__device__ __forceinline__ float box_gap2(const float* a, const float* b) {
-  const float gx = axis_gap(a[0], a[3], b[0], b[3]);
-  const float gy = axis_gap(a[1], a[4], b[1], b[4]);
-  const float gz = axis_gap(a[2], a[5], b[2], b[5]);
-  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)), __fmul_rn(gz, gz));
-}
-
-// One block per 128-target tile: the bounding box of all its points,
-// masked ones included (they are real points at MASK_COORD to the search),
-// into boxes[6 * tile ..].
-__global__ void __launch_bounds__(kThreads)
-    tile_bbox_kernel(const float4* __restrict__ t, int nt, float* __restrict__ boxes) {
-  __shared__ float scratch[6][kWarps];
-  __shared__ float box[6];
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  const float4 tj = j < nt ? t[j] : make_float4(0.f, 0.f, 0.f, 0.f);
-  block_bbox(tj, j < nt, scratch, box);
-  if (threadIdx.x < 6) boxes[6 * blockIdx.x + threadIdx.x] = box[threadIdx.x];
-}
+constexpr int kThreads = kTile;  // queries per block == targets per tile
+constexpr int kWarps = kTileWarps;
 
 __global__ void __launch_bounds__(kThreads)
     nn_search_kernel(const float4* __restrict__ q, const float4* __restrict__ t,
@@ -133,12 +74,7 @@ __global__ void __launch_bounds__(kThreads)
       const int n = min(kThreads, nt - base);
 #pragma unroll 4
       for (int k = 0; k < n; ++k) {
-        const float4 y = tile[k];
-        const float dx = __fsub_rn(qi.x, y.x);
-        const float dy = __fsub_rn(qi.y, y.y);
-        const float dz = __fsub_rn(qi.z, y.z);
-        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                   __fmul_rn(dz, dz));
+        const float d2 = sq_dist(qi, tile[k]);
         const int jj = base + k;
         if (d2 < best || (d2 == best && jj < best_idx)) {
           best = d2;
@@ -175,8 +111,8 @@ extern "C" int fgt_nn_search(const float* q, const float* t, int nq, int nt,
   const int tiles = (nt + kThreads - 1) / kThreads;
   const int blocks = (nq + kThreads - 1) / kThreads;
   if (tiles > 0 && blocks > 0) {
-    tile_bbox_kernel<<<tiles, kThreads, 0, s>>>(reinterpret_cast<const float4*>(t), nt,
-                                                boxes);
+    tile_bbox_kernel<false><<<tiles, kThreads, 0, s>>>(
+        reinterpret_cast<const float4*>(t), nt, boxes);
     nn_search_kernel<<<blocks, kThreads, 0, s>>>(
         reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(t), boxes,
         nq, nt, idx, d2);

@@ -25,53 +25,14 @@
 // rounded operations (no FMA contraction) in the order the plain PyTorch
 // version uses, so both take the same d^2 <= max_dist^2 decisions.
 
-#include <cfloat>
 #include <cuda_runtime.h>
+
+#include "tile_cull.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // queries per block == targets per staged tile
-constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Bounding box of the valid points held one per thread, into box[0..2] (lo)
-// and box[3..5] (hi).  An empty set gives lo = FLT_MAX, hi = -FLT_MAX, whose
-// gap to anything is infinite.  Ends with a barrier, so box is readable.
-__device__ void block_bbox(float4 p, bool valid, float (*scratch)[kWarps],
-                           float* box) {
-  float v[6] = {valid ? p.x : FLT_MAX,  valid ? p.y : FLT_MAX,
-                valid ? p.z : FLT_MAX,  valid ? p.x : -FLT_MAX,
-                valid ? p.y : -FLT_MAX, valid ? p.z : -FLT_MAX};
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int c = 0; c < 6; ++c) {
-    v[c] = c < 3 ? warp_min(v[c]) : warp_max(v[c]);
-    if (lane == 0) scratch[c][warp] = v[c];
-  }
-  __syncthreads();
-  if (threadIdx.x < 6) {
-    const int c = threadIdx.x;
-    float r = scratch[c][0];
-    for (int w = 1; w < kWarps; ++w)
-      r = c < 3 ? fminf(r, scratch[c][w]) : fmaxf(r, scratch[c][w]);
-    box[c] = r;
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ float axis_gap(float lo_a, float hi_a, float lo_b,
-                                          float hi_b) {
-  return fmaxf(0.f, fmaxf(lo_b - hi_a, lo_a - hi_b));
-}
+constexpr int kThreads = kTile;  // queries per block == targets per staged tile
+constexpr int kWarps = kTileWarps;
 
 __global__ void __launch_bounds__(kThreads)
     rbf_moments_kernel(const float4* __restrict__ q, const float4* __restrict__ t,
@@ -95,22 +56,13 @@ __global__ void __launch_bounds__(kThreads)
     const float4 tj = j < nt ? t[j] : make_float4(0.f, 0.f, 0.f, 0.f);
     tile[threadIdx.x] = tj;
     block_bbox(tj, tj.w != 0.f, scratch, tbox);  // its barriers publish tile
-    const float gx = axis_gap(qbox[0], qbox[3], tbox[0], tbox[3]);
-    const float gy = axis_gap(qbox[1], qbox[4], tbox[1], tbox[4]);
-    const float gz = axis_gap(qbox[2], qbox[5], tbox[2], tbox[5]);
-    // Rounded like d2 below, so gap2 <= d2 holds for every pair in floats.
-    const float gap2 = __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)),
-                                 __fmul_rn(gz, gz));
-    if (gap2 <= md2) {  // uniform across the block
+    // rounded like d2 below, so gap2 <= d2 holds for every pair in floats
+    if (box_gap2(qbox, tbox) <= md2) {  // uniform across the block
       const int n = min(kThreads, nt - base);
 #pragma unroll 4
       for (int k = 0; k < n; ++k) {
         const float4 y = tile[k];
-        const float dx = __fsub_rn(qi.x, y.x);
-        const float dy = __fsub_rn(qi.y, y.y);
-        const float dz = __fsub_rn(qi.z, y.z);
-        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                   __fmul_rn(dz, dz));
+        const float d2 = sq_dist(qi, y);
         const float w = (y.w != 0.f && d2 <= md2) ? expf(__fmul_rn(d2, neg_kw)) : 0.f;
         const float wx = w * y.x, wy = w * y.y, wz = w * y.z;
         s_w += w;

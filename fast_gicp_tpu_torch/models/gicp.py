@@ -2,7 +2,8 @@
 `fast_gicp_tpu.models.gicp`, the reference's `FastGICP`,
 fast_gicp_impl.hpp).
 
-kNN covariances for both clouds, then an LM solve whose every
+Covariances for both clouds (kNN by default, or RBF or adaptive-radius
+windows, with any of the five regularizations), then an LM solve whose every
 linearization re-searches exact 1-NN correspondences of the transformed
 source (the `nn_search` kernel), gathers the matched target rows
 [mu, cov9, count = 1, pad] with one index, and freezes the Mahalanobis
@@ -174,10 +175,15 @@ def gicp_register_fresh(source, source_mask, target, target_mask, guess,
                         k: int = 20, regularization: str = "plane",
                         kernel_width: float = 0.5, kernel_max_dist: float = 3.0,
                         device="cuda"):
-    """Fresh registration: covariances for both clouds ("knn" or "rbf"),
-    then the GICP align.  Returns (LsqResult, source_cov6, target_cov6) so
-    a caller can cache the sym-6 covariance columns (6, N).  Runs on
-    `device` (CUDA unless the caller asks for the CPU)."""
+    """Fresh registration: covariances for both clouds, then the GICP
+    align.  `method` is "knn" (k nearest neighbours: the fused
+    `knn_moments` kernel for `plane` and `none`, the `knn_slab` search for
+    the other regularizations), "rbf" (RBF kernel density) or "adaptive"
+    (adaptive-radius windows: the `radius_count` and `radius_window`
+    kernels); `regularization` is any of the reference's five modes.
+    Returns (LsqResult, source_cov6, target_cov6) so a caller can cache the
+    sym-6 covariance columns (6, N).  Runs on `device` (CUDA unless the
+    caller asks for the CPU)."""
     dev = _device.resolve(device)
     source = _device.as_f32(source, dev)
     target = _device.as_f32(target, dev)

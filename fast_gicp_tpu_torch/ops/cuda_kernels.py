@@ -1,7 +1,8 @@
-"""The point-pair kernels -- RBF moments, exact 1-NN search and fused kNN
-moments -- (`csrc/rbf_moments.cu`, `csrc/nn_search.cu`,
-`csrc/knn_moments.cu`) and their plain PyTorch versions (port of
-`fast_gicp_tpu.ops.pallas_kernels`).
+"""The point-pair kernels -- RBF moments, exact 1-NN search, fused kNN
+moments, the kNN slab search and the adaptive-radius count and window --
+(`csrc/rbf_moments.cu`, `csrc/nn_search.cu`, `csrc/knn_moments.cu`,
+`csrc/knn_slab.cu`, `csrc/radius_window.cu`) and their plain PyTorch
+versions (port of `fast_gicp_tpu.ops.pallas_kernels`).
 
 `rbf_moments` is the counterpart of `rbf_cross_moments_centered_T`
 (`pallas_kernels.py:461`, kernel `_rbf_kernel`): for every query, 16 rows
@@ -18,6 +19,16 @@ kernel `_nn_kernel`): the exact nearest target of every query.
 k-NN selection over each query tile's candidate slab, and the moments of
 the selected neighbours about the tile's first query point.
 
+`knn_slab` is the counterpart of `knn_slab_pallas` (`pallas_kernels.py:252`,
+kernel `_make_knn_slab_kernel`): the k nearest candidates of each query
+over its tile's candidate slab, exact f32 d^2 ascending, ties to the lower
+slab position.  With every target tile as a candidate it is the exact k-NN.
+
+`radius_count` and `radius_window` are the two passes of
+`radius_window_moments_T` (`pallas_kernels.py:663`, kernels `_count_kernel`
+and `_window_kernel`): counts within each rung of a squared-radius ladder,
+then hard-window moments at a per-query squared radius.
+
 The TPU kernels' bf16 hi/lo feature split and (8, N) padding are layout
 workarounds and are gone: the CUDA kernels keep their sums in f32
 registers (see the note in each source for its design and bound).  The
@@ -29,6 +40,7 @@ use, so both take the same range, nearest and selection decisions.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,13 +51,18 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _RBF_ARGS = (_P, _P, _I, _I, _F, _F, _P, _P)
 _NN_ARGS = (_P, _P, _I, _I, _P, _P, _P, _P)
 _KNN_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P)
+_BOXES_ARGS = (_P, _I, _P, _P)
+_COUNT_ARGS = (_P, _P, _P, _P, _I, _I, _I, _P, _P)
+_WINDOW_ARGS = (_P, _P, _P, _P, _I, _I, _P, _P)
 
 # Large finite coordinate for masked points: distances ~3.6e18, far below
 # f32 overflow (3.4e38) even after squaring differences of 1e9.
 MASK_COORD = 1.0e9
 KNN_TILE = 256  # queries sharing one candidate slab in `knn_moments`
 KNN_MAX_SLAB = 2048  # candidate positions a query tile may search
-_NN_TILE = 128  # targets per bounding box in `nn_search`
+KNN_SLAB_MAX_K = 32  # neighbours a query may keep in `knn_slab`
+RADIUS_MAX_RUNGS = 32  # ladder rungs `radius_count` counts at once
+_NN_TILE = 128  # targets per bounding box in `nn_search`, `radius_*`
 
 
 def _pack(points, mask, center):
@@ -280,3 +297,231 @@ def knn_moments_plain(query, qmask, target, tmask, cidx, k: int,
                              y1 * y1, y1 * y2, y2 * y2], dim=0)  # (10, n, KNN_TILE, k)
         moms.append(feats.sum(dim=3).reshape(10, n * KNN_TILE))
     return torch.cat(moms, dim=1), torch.cat(kths).reshape(-1)
+
+
+def _check_slab(query, target, cidx, k, cand_tile):
+    Q, C = cidx.shape
+    nq, nt = query.shape[0], target.shape[0]
+    if cidx.dtype != torch.int32:
+        raise ValueError(f"cidx: expected int32, got {cidx.dtype}")
+    if cand_tile not in (128, 256):
+        raise ValueError(f"knn_slab: cand_tile {cand_tile} is not 128 or 256")
+    if nq != Q * KNN_TILE or nt % cand_tile:
+        raise ValueError(f"knn_slab: sizes ({nq}, {nt}) not tiled for Q={Q}, "
+                         f"cand_tile={cand_tile}")
+    if not 1 <= k <= min(KNN_SLAB_MAX_K, C * cand_tile):
+        raise ValueError(f"knn_slab: k={k} outside [1, min({KNN_SLAB_MAX_K}, "
+                         f"{C * cand_tile})]")
+
+
+def knn_slab(query, qmask, target, tmask, cidx, k: int, cand_tile: int = 256):
+    """k-NN over candidate slabs: (idx (Nq, k) int32 global target ids,
+    sq (Nq, k) f32 squared distances ascending, clamped at 0).
+
+    Query tile i (KNN_TILE queries) searches the `cand_tile`-point target
+    tiles `cidx[i]` (a tile index outside [0, Nt / cand_tile) reads as
+    masked points); ties go to the lower slab position c * cand_tile + lane.
+    Masked points are parked at MASK_COORD, so a masked target is chosen
+    only when the slab holds fewer than k valid ones.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    _check_cloud("query", query, qmask)
+    _check_cloud("target", target, tmask)
+    _check_slab(query, target, cidx, k, cand_tile)
+    dev = _one_device("knn_slab", (query, qmask, target, tmask, cidx))
+    if dev.type == "cpu":
+        return knn_slab_plain(query, qmask, target, tmask, cidx, k, cand_tile)
+    q4 = _pack_masked(query, qmask)
+    t4 = _pack_masked(target, tmask)
+    cidx = cidx.contiguous()
+    nq, nt = q4.shape[0], t4.shape[0]
+    idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    sq = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    fn = _build.function("fgt_knn_slab", _KNN_ARGS)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _build.check("fgt_knn_slab", fn(
+        q4.data_ptr(), t4.data_ptr(), cidx.data_ptr(), nq, nt, cidx.shape[1], cand_tile,
+        int(k), idx.data_ptr(), sq.data_ptr(), stream))
+    knn_slab.launches += 1
+    return idx, sq
+
+
+knn_slab.launches = 0
+
+
+def knn_slab_plain(query, qmask, target, tmask, cidx, k: int, cand_tile: int = 256,
+                   max_elems: int = 1 << 24):
+    """Plain PyTorch version of `knn_slab`: the (KNN_TILE, C * cand_tile)
+    d^2 slab of each query tile and a stable sort along it (equal d^2 keep
+    their slab order; `torch.topk` promises no order among equal keys),
+    the first k taken; query tiles in chunks of about `max_elems` d^2."""
+    Q, C = cidx.shape
+    S = C * cand_tile
+    q = _pack_masked(query, qmask)[:, :3].reshape(Q, KNN_TILE, 3)
+    t = _pack_masked(target, tmask)[:, :3].reshape(-1, cand_tile, 3)
+    T = t.shape[0]
+    inside = (cidx >= 0) & (cidx < T)
+    cand = torch.where(inside[..., None, None], t[cidx.clamp(0, T - 1).long()],
+                       torch.full((), MASK_COORD, dtype=t.dtype, device=t.device))
+    cand = cand.reshape(Q, S, 3)
+    lane = torch.arange(cand_tile, dtype=torch.int32, device=cidx.device)
+    gid = (cidx[..., None] * cand_tile + lane).reshape(Q, 1, S)
+    chunk = max(1, max_elems // (KNN_TILE * S))
+    idx, sq = [], []
+    for start in range(0, Q, chunk):
+        qq, cc = q[start:start + chunk], cand[start:start + chunk]
+        d = _sq_dist(qq[:, :, None, :], cc[:, None, :, :])  # (n, KNN_TILE, S)
+        vals, order = torch.sort(d, dim=2, stable=True)
+        order = order[..., :k]
+        sq.append(torch.clamp(vals[..., :k], min=0.0))
+        idx.append(torch.gather(gid[start:start + chunk].expand(-1, KNN_TILE, S), 2, order))
+    return torch.cat(idx).reshape(-1, k), torch.cat(sq).reshape(-1, k)
+
+
+def _check_radius(name, query, qmask, target, tmask, center, r2, lo, hi):
+    _check_cloud("query", query, qmask)
+    _check_cloud("target", target, tmask)
+    if center.shape != (3,) or center.dtype != torch.float32:
+        raise ValueError(f"{name} center: expected (3,) float32")
+    if r2.dtype != torch.float32 or r2.ndim != 1 or not lo <= r2.shape[0] <= hi:
+        raise ValueError(f"{name}: expected a float32 vector of {lo} to {hi} squared "
+                         f"radii, got {tuple(r2.shape)} {r2.dtype}")
+    return _one_device(name, (query, qmask, target, tmask, center, r2))
+
+
+def _pack_centered(query, qmask, target, tmask, center):
+    """Both clouds minus `center`, packed [p, valid] with masked points
+    parked at MASK_COORD: the plain versions' inputs (`radius_inputs`
+    packs the kernels' the same way)."""
+    return _pack_masked(query - center, qmask), _pack_masked(target - center, tmask)
+
+
+class RadiusInputs(NamedTuple):
+    """The radius kernels' inputs on the card: both clouds packed about the
+    center ([p - center, valid], masked points parked at MASK_COORD; one
+    tensor when the query cloud is the target cloud) and the box of the
+    valid targets of each 128-point tile."""
+
+    q4: torch.Tensor
+    t4: torch.Tensor
+    boxes: torch.Tensor
+
+
+def radius_inputs(query, qmask, target, tmask, center):
+    """`RadiusInputs` of a pair of clouds for `radius_count` and
+    `radius_window`, so that the two passes over them pack the clouds and
+    build the target's tile boxes once.  None for CPU tensors (the plain
+    versions pack their own and cull nothing)."""
+    _check_cloud("query", query, qmask)
+    _check_cloud("target", target, tmask)
+    if center.shape != (3,) or center.dtype != torch.float32:
+        raise ValueError("radius_inputs center: expected (3,) float32")
+    dev = _one_device("radius_inputs", (query, qmask, target, tmask, center))
+    if dev.type == "cpu":
+        return None
+    t4 = _pack_masked(target - center, tmask)
+    q4 = t4 if query is target and qmask is tmask else _pack_masked(query - center, qmask)
+    nt = t4.shape[0]
+    boxes = torch.empty(6 * -(-nt // _NN_TILE), dtype=torch.float32, device=dev)
+    fn = _build.function("fgt_radius_boxes", _BOXES_ARGS)
+    _build.check("fgt_radius_boxes", fn(
+        t4.data_ptr(), nt, boxes.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
+    return RadiusInputs(q4, t4, boxes)
+
+
+def _radius_launch_inputs(name, query, qmask, target, tmask, center, inputs, dev):
+    """`inputs`, checked against the clouds, or built here when None."""
+    if inputs is None:
+        return radius_inputs(query, qmask, target, tmask, center)
+    if (inputs.q4.shape != (query.shape[0], 4) or inputs.t4.shape != (target.shape[0], 4)
+            or inputs.boxes.device != dev):
+        raise ValueError(f"{name}: inputs are not radius_inputs of these clouds")
+    return inputs
+
+
+def radius_count(query, qmask, target, tmask, center, r2, inputs=None):
+    """(L, Nq) f32: for each query, the number of targets with
+    d^2 <= r2[l] for each of the L (<= 32) squared radii, both clouds
+    taken about `center`.  Rows of masked queries carry no meaning.
+    `inputs`: `radius_inputs` of these arguments, built here if None.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    dev = _check_radius("radius_count", query, qmask, target, tmask, center, r2,
+                        1, RADIUS_MAX_RUNGS)
+    if dev.type == "cpu":
+        return radius_count_plain(query, qmask, target, tmask, center, r2)
+    q4, t4, boxes = _radius_launch_inputs("radius_count", query, qmask, target, tmask,
+                                          center, inputs, dev)
+    r2 = r2.contiguous()
+    nq, nt, L = q4.shape[0], t4.shape[0], r2.shape[0]
+    cnt = torch.empty((L, nq), dtype=torch.float32, device=dev)
+    fn = _build.function("fgt_radius_count", _COUNT_ARGS)
+    _build.check("fgt_radius_count", fn(
+        q4.data_ptr(), t4.data_ptr(), boxes.data_ptr(), r2.data_ptr(), L, nq, nt,
+        cnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
+    radius_count.launches += 1
+    return cnt
+
+
+radius_count.launches = 0
+
+
+def radius_count_plain(query, qmask, target, tmask, center, r2, chunk: int = 1024):
+    """Plain PyTorch version of `radius_count`: dense (chunk, Nt) d^2
+    tiles, one comparison per rung."""
+    q4, t4 = _pack_centered(query, qmask, target, tmask, center)
+    t = t4[None, :, :3]
+    parts = []
+    for start in range(0, q4.shape[0], chunk):
+        d = _sq_dist(q4[start:start + chunk, None, :3], t)
+        parts.append(torch.stack([(d <= r).sum(1) for r in r2]).to(torch.float32))
+    return torch.cat(parts, dim=1)
+
+
+def radius_window(query, qmask, target, tmask, center, r2q, inputs=None):
+    """(16, Nq) f32 hard-window moment rows [n, sum y (3), sum y y^T (9,
+    row-major), 0 (3)] over the targets with d^2 <= r2q[query], with
+    y = target - center and both clouds taken about `center`; summed in
+    f32.  Rows of masked queries carry no meaning.  `inputs` as for
+    `radius_count`.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    dev = _check_radius("radius_window", query, qmask, target, tmask, center, r2q,
+                        query.shape[0], query.shape[0])
+    if dev.type == "cpu":
+        return radius_window_plain(query, qmask, target, tmask, center, r2q)
+    q4, t4, boxes = _radius_launch_inputs("radius_window", query, qmask, target, tmask,
+                                          center, inputs, dev)
+    r2q = r2q.contiguous()
+    nq, nt = q4.shape[0], t4.shape[0]
+    out = torch.empty((16, nq), dtype=torch.float32, device=dev)
+    fn = _build.function("fgt_radius_window", _WINDOW_ARGS)
+    _build.check("fgt_radius_window", fn(
+        q4.data_ptr(), t4.data_ptr(), boxes.data_ptr(), r2q.data_ptr(), nq, nt,
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
+    radius_window.launches += 1
+    return out
+
+
+radius_window.launches = 0
+
+
+def radius_window_plain(query, qmask, target, tmask, center, r2q, chunk: int = 1024):
+    """Plain PyTorch version of `radius_window`: dense (chunk, Nt) 0/1
+    window weights times an (Nt, 10) moment feature matrix, in f32."""
+    q4, t4 = _pack_centered(query, qmask, target, tmask, center)
+    y = t4[:, :3] * t4[:, 3:]  # masked targets add nothing
+    y0, y1, y2 = y[:, 0], y[:, 1], y[:, 2]
+    feats = torch.stack([t4[:, 3], y0, y1, y2, y0 * y0, y0 * y1, y0 * y2,
+                         y1 * y1, y1 * y2, y2 * y2], dim=1)
+    t = t4[None, :, :3]
+    parts = []
+    for start in range(0, q4.shape[0], chunk):
+        d = _sq_dist(q4[start:start + chunk, None, :3], t)
+        w = (d <= r2q[start:start + chunk, None]).to(torch.float32)
+        parts.append(w @ feats)
+    m = torch.cat(parts).T  # (10, Nq)
+    zero = torch.zeros_like(m[0])
+    return torch.stack([m[0], m[1], m[2], m[3],
+                        m[4], m[5], m[6], m[5], m[7], m[8], m[6], m[8], m[9],
+                        zero, zero, zero])

@@ -1,9 +1,39 @@
 """Small closed-form linear algebra (port of `fast_gicp_tpu.ops.linalg3`,
-the part the registration solve uses)."""
+the parts the registration solve and the covariance regularizations use).
+All functions broadcast over leading batch dimensions."""
 
 from __future__ import annotations
 
 import torch
+
+
+def symmetrize(A):
+    """0.5 (A + A^T) of (..., 3, 3)."""
+    return 0.5 * (A + A.transpose(-1, -2))
+
+
+def inv3(A):
+    """Adjugate inverse of (..., 3, 3), the JAX formula term for term and
+    without a determinant guard (a singular matrix gives inf/NaN, as
+    there)."""
+    c00 = A[..., 1, 1] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 1]
+    c01 = A[..., 0, 2] * A[..., 2, 1] - A[..., 0, 1] * A[..., 2, 2]
+    c02 = A[..., 0, 1] * A[..., 1, 2] - A[..., 0, 2] * A[..., 1, 1]
+    c10 = A[..., 1, 2] * A[..., 2, 0] - A[..., 1, 0] * A[..., 2, 2]
+    c11 = A[..., 0, 0] * A[..., 2, 2] - A[..., 0, 2] * A[..., 2, 0]
+    c12 = A[..., 0, 2] * A[..., 1, 0] - A[..., 0, 0] * A[..., 1, 2]
+    c20 = A[..., 1, 0] * A[..., 2, 1] - A[..., 1, 1] * A[..., 2, 0]
+    c21 = A[..., 0, 1] * A[..., 2, 0] - A[..., 0, 0] * A[..., 2, 1]
+    c22 = A[..., 0, 0] * A[..., 1, 1] - A[..., 0, 1] * A[..., 1, 0]
+    det = A[..., 0, 0] * c00 + A[..., 0, 1] * c10 + A[..., 0, 2] * c20
+    inv_det = 1.0 / det
+    adj = torch.stack(
+        [torch.stack([c00, c01, c02], dim=-1),
+         torch.stack([c10, c11, c12], dim=-1),
+         torch.stack([c20, c21, c22], dim=-1)],
+        dim=-2,
+    )
+    return adj * inv_det[..., None, None]
 
 
 def cholesky_solve(A, b):

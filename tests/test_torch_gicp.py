@@ -243,15 +243,21 @@ def test_config_from_jax_gicp():
 
 
 def test_unported_estimators_raise():
-    """What reaches a kernel not ported yet raises, naming where it is
-    queued; nothing falls back to another statistic."""
+    """Every estimator and regularization is ported now (the kNN slab and
+    adaptive-radius kernels): each gives finite (6, N) columns, and only
+    what no package supports raises -- an unknown regularization or
+    estimator, or an approximate search on a cloud that is not padded to a
+    multiple of 256 -- a ValueError, with nothing falling back to another
+    statistic."""
     pts, mask = (torch.as_tensor(a) for a in _voxel_sorted_cloud())
     for method in ("min_eig", "normalized_min_eig", "frobenius"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            covariance.knn_covariance_cols(pts, mask, method=method)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        covariance.knn_covariance_cols(pts, mask, approx=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        covariance.estimate_covariance_cols(pts, mask, "adaptive")
+        cols = covariance.knn_covariance_cols(pts, mask, method=method)
+        assert cols.shape == (6, 2048) and torch.isfinite(cols).all()
+    assert torch.isfinite(covariance.knn_covariance_cols(pts, mask, approx=False)).all()
+    assert torch.isfinite(covariance.estimate_covariance_cols(pts, mask, "adaptive")).all()
+    with pytest.raises(ValueError):
+        covariance.knn_covariance_cols(pts, mask, method="bogus")
+    with pytest.raises(ValueError):
+        covariance.estimate_covariance_cols(pts, mask, "kdtree")
     with pytest.raises(ValueError):
         covariance.knn_covariance_cols(pts[:1000], mask[:1000])

@@ -186,7 +186,65 @@ def test_wrappers_raise_for_tensors_on_other_devices():
         cuda_linearize.linearize(p, ca, x, pack, torch.ones(256, device="meta"))
 
 
-@pytest.mark.parametrize("path", sorted((PKG / "ops").glob("cuda_*.py")) + [PKG / "models" / "ndt.py"],
+def test_knn_and_adaptive_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from fast_gicp_tpu_torch.ops import covariance, neighbors
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.zeros((512, 3), np.float32)
+    mask = np.ones(512, bool)
+    calls = [
+        lambda: neighbors.knn_search(pts, pts, mask, 20),
+        lambda: neighbors.knn_search_culled(pts, pts, mask, 20),
+        lambda: covariance.adaptive_radius_covariances(pts, mask),
+        lambda: covariance.knn_covariances(pts, mask, method="min_eig", approx=False),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_slab_and_radius_wrappers_take_plain_version_on_cpu_without_counting():
+    from fast_gicp_tpu_torch.ops import cuda_kernels
+
+    wrappers = (cuda_kernels.knn_slab, cuda_kernels.radius_count, cuda_kernels.radius_window)
+    for fn in wrappers:
+        fn.launches = 0
+    n = 512
+    pts = torch.as_tensor(np.random.default_rng(0).normal(size=(n, 3)).astype(np.float32))
+    mask = torch.ones(n, dtype=torch.bool)
+    idx, sq = cuda_kernels.knn_slab(pts, mask, pts, mask,
+                                    torch.tensor([[0, 1], [1, 0]], dtype=torch.int32), 4)
+    assert idx.shape == (n, 4) and idx.device.type == "cpu"
+    assert idx[:, 0].tolist() == list(range(n)) and float(sq[:, 0].max()) == 0.0
+    r2 = torch.tensor([0.25, 1.0, 4.0])
+    cnt = cuda_kernels.radius_count(pts, mask, pts, mask, pts.mean(0), r2)
+    assert cnt.shape == (3, n) and bool((cnt[0] >= 1).all()) and bool((cnt[1:] >= cnt[:-1]).all())
+    rows = cuda_kernels.radius_window(pts, mask, pts, mask, pts.mean(0), torch.full((n,), 0.25))
+    assert rows.shape == (16, n) and torch.equal(rows[0], cnt[0])
+    assert cuda_kernels.radius_inputs(pts, mask, pts, mask, pts.mean(0)) is None  # no cull
+    assert all(fn.launches == 0 for fn in wrappers)
+
+
+def test_slab_and_radius_wrappers_raise_for_tensors_on_other_devices():
+    from fast_gicp_tpu_torch.ops import cuda_kernels
+
+    p = torch.zeros((256, 3), device="meta")
+    m = torch.ones(256, dtype=torch.bool, device="meta")
+    c = torch.zeros(3, device="meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        cuda_kernels.knn_slab(p, m, p, m, torch.zeros((1, 1), dtype=torch.int32,
+                                                      device="meta"), 4)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        cuda_kernels.radius_count(p, m, p, m, c, torch.ones(3, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        cuda_kernels.radius_window(p, m, p, m, c, torch.ones(256, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        cuda_kernels.radius_inputs(p, m, p, m, c)
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "ops").glob("cuda_*.py"))
+                         + [PKG / "ops" / "covariance.py", PKG / "ops" / "neighbors.py",
+                            PKG / "models" / "ndt.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_kernel_modules_have_no_try(path):
     """A wrapper launches its kernel or raises: no try/except that could
