@@ -201,6 +201,64 @@ def pairs_within(query, target, r2, chunk=1024):
     return total
 
 
+def culled_tiles(q4, boxes, r2max, tile=128):
+    """(query blocks, target tiles) bool: the pairs of tile-query block and
+    tile-target tile that the radius kernels' cull visits, those whose
+    squared box gap, rounded as `csrc/tile_cull.cuh` rounds it, is <= r2max.
+    q4: the packed queries (w = valid); boxes: the target's tile boxes
+    (`radius_inputs`)."""
+    q = q4.reshape(-1, tile, 4)
+    valid = (q[..., 3] != 0)[..., None]
+    big = torch.finfo(torch.float32).max
+    qlo = torch.where(valid, q[..., :3], big).amin(1)
+    qhi = torch.where(valid, q[..., :3], -big).amax(1)
+    b = boxes.reshape(-1, 6)
+    tlo, thi = b[:, :3], b[:, 3:]
+    gap = torch.clamp(torch.maximum(tlo[None] - qhi[:, None], qlo[:, None] - thi[None]), min=0.0)
+    g2 = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]) + gap[..., 2] * gap[..., 2]
+    empty = (qlo[:, 0] > qhi[:, 0])[:, None] | (tlo[:, 0] > thi[:, 0])[None, :]
+    return (g2 <= r2max) & ~empty
+
+
+def check_edge_cases(dev):
+    """`knn_slab` and `radius_count` bit-equal to their plain versions on
+    every adversarial case of `utils.synthetic` (ties across positions and
+    tiles, short slabs, tile ids -1 and T, masked queries and targets, k in
+    {1, 20, 32}, both tile widths; pairs exactly on rungs of ascending,
+    non-ascending and repeated ladders, L in {1, 20, 32}): the cases the
+    CPU tests hold the plain versions to against numpy and JAX.  Returns
+    the number of cases."""
+    from fast_gicp_tpu_torch.ops import cuda_kernels
+    from fast_gicp_tpu_torch.utils import synthetic
+
+    slab = synthetic.knn_slab_edge_cases()
+    for case in slab:
+        args = [torch.as_tensor(case[key], device=dev)
+                for key in ("query", "qmask", "target", "tmask", "cidx")]
+        idx, sq = cuda_kernels.knn_slab(*args, case["k"], case["cand_tile"])
+        idx_w, sq_w = cuda_kernels.knn_slab_plain(*args, case["k"], case["cand_tile"])
+        torch.cuda.synchronize()
+        require(bool(torch.equal(sq, sq_w)),
+                f"knn_slab edge case {case['name']}: {int((sq != sq_w).sum())} sq differ")
+        require(bool(torch.equal(idx, idx_w)),
+                f"knn_slab edge case {case['name']}: {int((idx != idx_w).sum())} idx differ")
+    counts = synthetic.radius_count_edge_cases()
+    for case in counts:
+        pts, mask, center, r2 = (torch.as_tensor(case[key], device=dev)
+                                 for key in ("points", "mask", "center", "r2"))
+        args = (pts, mask, pts, mask, center, r2)
+        cnt = cuda_kernels.radius_count(*args)
+        cnt_w = cuda_kernels.radius_count_plain(*args)
+        torch.cuda.synchronize()
+        require(bool(torch.equal(cnt[:, mask], cnt_w[:, mask])),
+                f"radius_count edge case {case['name']}: "
+                f"{int((cnt != cnt_w)[:, mask].sum())} valid entries differ")
+    log(f"[kernels] edge cases: knn_slab idx and sq bit-equal on all {len(slab)} "
+        f"({', '.join(c['name'] for c in slab)}); radius_count equal on the valid queries "
+        f"of all {len(counts)} ({', '.join(c['name'] for c in counts)})")
+    return len(slab) + len(counts)
+
+
 def phase_kernels(dev, pair):
     """Each kernel against its plain version at the main path's shapes."""
     from fast_gicp_tpu_torch import se3
@@ -492,12 +550,13 @@ def phase_c2_kernels(dev, pair):
     from fast_gicp_tpu_torch.ops.neighbors import _masked_target, select_candidate_tiles
     from fast_gicp_tpu_torch.utils.padding import pad_points
 
-    _source, target, _gt = pair
+    source, target, _gt = pair
     tp, tm = pad_points(target)
     tgt, tmask = (torch.as_tensor(a, device=dev) for a in (tp, tm))
     n = tgt.shape[0]
     ones = torch.ones_like(tmask)
     records = []
+    edge_cases = check_edge_cases(dev)
 
     # -- knn_slab: the culled search (the path's shapes), then the exact one
     k = 20
@@ -524,15 +583,26 @@ def phase_c2_kernels(dev, pair):
     tm_ = timings(lambda: cuda_kernels.knn_slab(*args),
                   lambda: cuda_kernels.knn_slab_plain(*args), "knn_slab_kernel", 50, 3)
     exact_ms = device_ms(lambda: cuda_kernels.knn_slab(*exact), 10, "knn_slab_kernel")
+    # the MIN_EIG path searches the source cloud's slabs too (its padding
+    # queries all sit at one point)
+    sp, sm = (torch.as_tensor(a, device=dev) for a in pad_points(source))
+    sc, ns = sp - masked_mean(sp, sm), sp.shape[0]
+    scidx, _excluded = select_candidate_tiles(
+        sc.reshape(ns // 256, 256, 3), _masked_target(sc, sm).reshape(ns // 256, 256, 3), 16)
+    sargs = (sc, torch.ones_like(sm), sc, sm, scidx, k, 256)
+    source_ms = device_ms(lambda: cuda_kernels.knn_slab(*sargs), 20, "knn_slab_kernel")
     b_ms, b_by = bound_ms(n * 16 + n * 16 + Q * 16 * 4 + n * k * 8,
                           n * 16 * 256 * SLAB_OPS_PER_CANDIDATE)
     records.append(dict(
         name="knn_slab", route="cuda", source="fast_gicp_tpu_torch/csrc/knn_slab.cu",
         replaces="fast_gicp_tpu/ops/pallas_kernels.py:227",
         max_abs_err=max(errs.values()),
-        tolerance=f"idx equal, sq bit-equal (C = 16 x 256 and C = T = {n // 128} x 128)",
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, exact_search_ms=exact_ms, **tm_))
-    log(f"[kernels] knn_slab exact (all {n} targets a query): {exact_ms:.4f} ms")
+        tolerance=f"idx equal, sq bit-equal (C = 16 x 256 and C = T = {n // 128} x 128; "
+                  f"and on {edge_cases} edge cases with radius_count's)",
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, candidates=n * 16 * 256,
+        exact_search_ms=exact_ms, exact_candidates=n * n, source_cloud_ms=source_ms, **tm_))
+    log(f"[kernels] knn_slab exact (all {n} targets a query, {n * n} candidates): "
+        f"{exact_ms:.4f} ms; culled on the source cloud: {source_ms:.4f} ms")
 
     # -- radius_count / radius_window: the adaptive estimator's two passes
     r2 = torch.as_tensor(default_radius_ladder(), device=dev)
@@ -545,6 +615,8 @@ def phase_c2_kernels(dev, pair):
             f"radius_count: {int((cnt != cnt_w)[:, tmask].sum())} valid entries differ")
     y = (tgt - c)[tmask]
     in_range = pairs_within(y, y, float(r2[-1]))
+    packed = cuda_kernels.radius_inputs(tgt, tmask, tgt, tmask, c)  # as radius_window_moments
+    visited = int(culled_tiles(packed.q4, packed.boxes, float(r2.max())).sum()) * 128 * 128
     # timed with the packing and the target's tile boxes, which the wrapper builds here
     tm_ = timings(lambda: cuda_kernels.radius_count(*cargs),
                   lambda: cuda_kernels.radius_count_plain(*cargs),
@@ -555,14 +627,15 @@ def phase_c2_kernels(dev, pair):
     records.append(dict(
         name="radius_count", route="cuda", source="fast_gicp_tpu_torch/csrc/radius_window.cu",
         replaces="fast_gicp_tpu/ops/pallas_kernels.py:609", max_abs_err=0.0,
-        tolerance="counts equal on the valid queries", bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, pairs_in_range=in_range, **tm_))
+        tolerance=f"counts equal on the valid queries (and on {edge_cases} edge cases with "
+                  "knn_slab's)", bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, pairs_in_range=in_range, pairs_visited=visited, **tm_))
     log(f"[kernels] radius_count: counts equal on all {int(tmask.sum())} valid queries x "
-        f"{r2.numel()} rungs; {in_range} pairs within the largest radius")
+        f"{r2.numel()} rungs; {in_range} pairs within the largest radius, {visited} "
+        f"visited by the cull ({visited / in_range:.2f}x)")
 
     r2q = window_radii(cnt, r2, 20)
     wargs = (tgt, tmask, tgt, tmask, c, r2q)
-    packed = cuda_kernels.radius_inputs(tgt, tmask, tgt, tmask, c)  # as radius_window_moments
     got = cuda_kernels.radius_window(*wargs, packed)
     want = cuda_kernels.radius_window_plain(*wargs)
     torch.cuda.synchronize()
@@ -1150,7 +1223,7 @@ def main() -> int:
     _build.library()
     log(f"[build] {time.perf_counter() - t0:.2f} s")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "stack frame" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
 
     pair = synthetic_pair()
@@ -1180,7 +1253,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("tolerance", "timing", "call_ms", "plain_call_ms", "launches_by_path")
-    kernels = [{k: r[k] for k in keys + extra} for r in records]
+    work = ("candidates", "exact_candidates", "exact_search_ms", "source_cloud_ms",
+            "pairs_visited", "pairs_in_range")
+    kernels = [{k: r[k] for k in keys + extra + work if k in r} for r in records]
     require(all(math.isfinite(r["ms"]) for r in kernels), "kernel timings")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-// k-NN over per-query-tile candidate slabs, one thread per query.
+// k-NN over per-query-tile candidate slabs, one warp per query.
 //
 // Replaces fast_gicp_tpu/ops/pallas_kernels.py::_make_knn_slab_kernel
 // (reached through knn_slab_pallas, for knn_search_culled).  Query tile i
@@ -15,106 +15,178 @@
 //
 // Bound on an H100: FP32 operations, 8 for the distance and one compare a
 // candidate (22,528 queries x 4,096 positions at C = 16, ct = 256: 0.83
-// GFLOP, 12 us at 67 TFLOP/s).  Design: 4 blocks of 64 threads share one
-// query tile (352 blocks over the 132 SMs at full width).  A block stages
-// the slab in shared memory 1,024 positions at a time (16 KB of float4 and
-// 4 KB of global ids) and every thread reads each position by broadcast, in
-// slab order.  Each thread keeps its k best (d^2, id) sorted in kMaxK slots
-// (every index a constant: the insertion network is fully unrolled) and
-// inserts only on a strict d^2 < its k-th: an equal d^2 later in the slab
-// never displaces an earlier one, which is the tie rule.  What this simple
-// design pays: one thread a query leaves ~5 warps on an SM, and an insertion
-// diverges from the warp's other lanes -- while the lists fill, some lane
-// of a warp inserts at most positions (1.57 ms a call at C = 16 on an H100,
-// 125x the bound).  Masked targets arrive parked at MASK_COORD (d^2 ~ 3e18,
-// finite), so they fill a list only when fewer than k valid targets are in
-// the slab; a tile id outside the target reads as masked points.
+// GFLOP, 12 us at 67 TFLOP/s).  What holds a thread-a-query design far
+// from it is latency (a few warps an SM) and the sorted insertions, which
+// diverge within a warp while the lists fill.  Design: each query's
+// candidates are keyed (bits of d^2) << 32 | slab position.  d^2 is a
+// rounded sum of squares, >= 0 (finite even for parked points), so its bits
+// order as the floats do, and the keys are unique: the k smallest keys are
+// one set in one order whatever order they are visited in, and it is the
+// stable sort's.  A warp keeps the current k smallest keys of kRows queries
+// at once, one key a lane (lane j the j-th smallest, lanes >= k an empty
+// key), and reads the slab twice.  Pass 1 takes each lane's least d^2 over
+// its positions; the k-th smallest of the 32 lane minima bounds the k-th
+// smallest d^2 from above (they are k distinct candidates).  Pass 2 keys
+// each candidate against the kRows queries (kRows independent chains); a
+// ballot against each query's threshold (the bound, then the k-th kept
+// key) finds the few candidates below it, and each is inserted by a
+// warp-wide shift (a ballot for its place, __shfl_up_sync for the shift),
+// so no lane waits on another's insertion.  The bound is what keeps the
+// insertions few: without it a query of the full-size synthetic pair meets
+// about a hundred keys below its running k-th key in slab order at C = 16
+// x 256, and thousands in the exact search's index order.  A block of kWarps warps
+// takes 32 queries of one query tile and stages their shared slab in shared
+// memory, kChunk positions at a time, double-buffered (one barrier a
+// chunk); 8 blocks a query tile give 704 blocks of 8 warps at full width
+// (22,528 queries).  Masked targets arrive parked at MASK_COORD (d^2 ~
+// 3e18, finite), so they enter a list only when fewer than k valid targets
+// are in the slab; a tile id outside the target reads as masked points.
 
-#include <cmath>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr int kWarps = 8;  // warps a block
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 4;  // queries a warp keeps at once
 constexpr int kQueryTile = 256;  // queries sharing one candidate slab
-constexpr int kParts = kQueryTile / kThreads;
+constexpr int kBlockQueries = kWarps * kRows;
+constexpr int kParts = kQueryTile / kBlockQueries;  // blocks a query tile
 constexpr int kChunk = 1024;  // slab positions staged at a time
-constexpr int kMaxK = 32;
 constexpr float kMaskCoord = 1.0e9f;
+constexpr unsigned long long kNoKey = ~0ull;  // an empty slot; above every key
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float sq_dist(float4 a, float4 b) {
+  const float dx = __fsub_rn(a.x, b.x);
+  const float dy = __fsub_rn(a.y, b.y);
+  const float dz = __fsub_rn(a.z, b.z);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+}
+
+// Insert key x into the warp's ascending list (lane j holds the j-th
+// smallest of the k kept, lanes >= k hold kNoKey).  x lands at p, the
+// number of kept keys below it; the keys from p up shift one lane up and
+// the k-th falls out.  A key not below the k-th (p >= k) changes nothing.
+__device__ __forceinline__ void insert(unsigned long long& list, unsigned long long x,
+                                       int lane, int k) {
+  const int p = __popc(__ballot_sync(kFull, list < x));
+  const unsigned long long up = __shfl_up_sync(kFull, list, 1);
+  if (lane < k && lane >= p) list = lane == p ? x : up;
+}
+
+// Stage slab positions [base, base + n) of query tile qt into pts.
+__device__ __forceinline__ void stage(float4* pts, const float4* __restrict__ t,
+                                      const int* __restrict__ cidx, int qt, int C, int ct,
+                                      int tiles, int base, int n) {
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+    const int pos = base + j;
+    const int c = pos / ct;
+    const int tile = cidx[qt * C + c];
+    pts[j] = tile >= 0 && tile < tiles ? t[(size_t)tile * ct + (pos - c * ct)]
+                                       : make_float4(kMaskCoord, kMaskCoord, kMaskCoord, 0.f);
+  }
+}
+
+// The k-th smallest of the warp's 32 values v (one a lane): a bitonic sort
+// across the lanes, then lane k - 1's.
+__device__ __forceinline__ float warp_kth_smallest(float v, int k, int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const float o = __shfl_xor_sync(kFull, v, stride);
+      const bool ascending = (lane & size) == 0, low = (lane & stride) == 0;
+      v = low == ascending ? fminf(v, o) : fmaxf(v, o);
+    }
+  }
+  return __shfl_sync(kFull, v, k - 1);
+}
 
 __global__ void __launch_bounds__(kThreads)
     knn_slab_kernel(const float4* __restrict__ q, const float4* __restrict__ t,
                     const int* __restrict__ cidx, int nt, int C, int ct, int k,
                     int* __restrict__ idx_out, float* __restrict__ sq_out) {
-  __shared__ float4 pts[kChunk];
-  __shared__ int gid[kChunk];
+  __shared__ float4 pts[2][kChunk];
   const int qt = blockIdx.x;
-  const int i = qt * kQueryTile + blockIdx.y * kThreads + threadIdx.x;
-  const float4 qi = q[i];
-  const int S = C * ct;
+  const int lane = threadIdx.x & 31;
+  const int i0 = qt * kQueryTile + blockIdx.y * kBlockQueries + (threadIdx.x >> 5) * kRows;
+  const int S = C * ct;  // a multiple of 128: every chunk holds whole warp steps
   const int tiles = nt / ct;
+  const int chunks = (S + kChunk - 1) / kChunk;
 
-  float bd[kMaxK];
-  int bi[kMaxK];
+  float4 qr[kRows];
+  float lane_min[kRows];  // pass 1: the least d^2 of this lane's positions
+  unsigned long long list[kRows], kth[kRows];  // pass 2: kth bounds the k-th smallest key
 #pragma unroll
-  for (int s = 0; s < kMaxK; ++s) {
-    bd[s] = INFINITY;
-    bi[s] = 0;
+  for (int r = 0; r < kRows; ++r) {
+    qr[r] = q[i0 + r];
+    lane_min[r] = INFINITY;
+    list[r] = kNoKey;
   }
-  float worst = INFINITY;  // bd[k - 1]
 
-  for (int base = 0; base < S; base += kChunk) {
+  // Two passes over the slab, each chunk staged while the one before is
+  // read (one barrier a chunk).  Pass 1 takes each lane's least d^2 over
+  // its positions (j = lane mod 32); the k-th smallest of those 32 minima
+  // is the d^2 of k distinct candidates, so it bounds the k-th smallest
+  // d^2 from above.  Pass 2 keys the candidates and inserts only those
+  // below the bound or, once k are kept, below the k-th kept key.
+  stage(pts[0], t, cidx, qt, C, ct, tiles, 0, min(kChunk, S));
+  __syncthreads();
+  for (int step = 0, buf = 0; step < 2 * chunks; ++step, buf ^= 1) {
+    const int c = step % chunks, base = c * kChunk;
     const int n = min(kChunk, S - base);
-    __syncthreads();  // every thread is done with the previous chunk
-    for (int j = threadIdx.x; j < n; j += kThreads) {
-      const int pos = base + j;
-      const int c = pos / ct;
-      const int lane = pos - c * ct;
-      const int tile = cidx[qt * C + c];
-      pts[j] = tile >= 0 && tile < tiles
-                   ? t[(size_t)tile * ct + lane]
-                   : make_float4(kMaskCoord, kMaskCoord, kMaskCoord, 0.f);
-      gid[j] = tile * ct + lane;
+    // the next chunk goes to the other buffer, which every warp finished
+    // reading before the barrier that ended the step before
+    if (step + 1 < 2 * chunks) {
+      const int next = (step + 1) % chunks * kChunk;
+      stage(pts[buf ^ 1], t, cidx, qt, C, ct, tiles, next, min(kChunk, S - next));
     }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float4 y = pts[j];
-      const float dx = __fsub_rn(qi.x, y.x);
-      const float dy = __fsub_rn(qi.y, y.y);
-      const float dz = __fsub_rn(qi.z, y.z);
-      const float d2 =
-          __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-      if (d2 < worst) {
-        const int g = gid[j];
-        // sorted insertion from the top: slot s takes slot s-1's entry while
-        // d2 is smaller, else d2 itself where it belongs
+    if (step < chunks) {
+      for (int j = lane; j < n; j += 32) {
+        const float4 y = pts[buf][j];
 #pragma unroll
-        for (int s = kMaxK - 1; s > 0; --s) {
-          if (s < k) {
-            if (d2 < bd[s - 1]) {
-              bd[s] = bd[s - 1];
-              bi[s] = bi[s - 1];
-            } else if (d2 < bd[s]) {
-              bd[s] = d2;
-              bi[s] = g;
-            }
+        for (int r = 0; r < kRows; ++r) lane_min[r] = fminf(lane_min[r], sq_dist(qr[r], y));
+      }
+    } else {
+      if (step == chunks) {
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          kth[r] = static_cast<unsigned long long>(
+                       __float_as_uint(warp_kth_smallest(lane_min[r], k, lane))) << 32 |
+                   0xffffffffu;
+      }
+      for (int j = lane; j < n; j += 32) {
+        const float4 y = pts[buf][j];
+        const unsigned long long pos = static_cast<unsigned>(base + j);
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const unsigned long long key =
+              static_cast<unsigned long long>(__float_as_uint(sq_dist(qr[r], y))) << 32 | pos;
+          unsigned hits = __ballot_sync(kFull, key < kth[r]);
+          if (hits) {  // uniform across the warp
+            do {
+              const int src = __ffs(hits) - 1;
+              hits &= hits - 1;
+              insert(list[r], __shfl_sync(kFull, key, src), lane, k);
+            } while (hits);
+            const unsigned long long last = __shfl_sync(kFull, list[r], k - 1);
+            kth[r] = last < kth[r] ? last : kth[r];
           }
         }
-        if (d2 < bd[0]) {
-          bd[0] = d2;
-          bi[0] = g;
-        }
-#pragma unroll
-        for (int s = 0; s < kMaxK; ++s)
-          if (s == k - 1) worst = bd[s];
       }
     }
+    __syncthreads();
   }
+
 #pragma unroll
-  for (int s = 0; s < kMaxK; ++s) {
-    if (s < k) {
-      idx_out[(size_t)i * k + s] = bi[s];
-      sq_out[(size_t)i * k + s] = fmaxf(bd[s], 0.f);
+  for (int r = 0; r < kRows; ++r) {
+    if (lane < k) {
+      const int pos = static_cast<int>(list[r] & 0xffffffffu);
+      const int c = pos / ct;
+      const size_t o = (size_t)(i0 + r) * k + lane;
+      idx_out[o] = cidx[qt * C + c] * ct + (pos - c * ct);
+      sq_out[o] = fmaxf(__uint_as_float(static_cast<unsigned>(list[r] >> 32)), 0.f);
     }
   }
 }

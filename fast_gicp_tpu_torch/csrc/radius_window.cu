@@ -1,5 +1,5 @@
 // Adaptive-radius neighbourhoods: counts within each ladder radius, then
-// hard-window moments at each query's own radius; one thread per query.
+// hard-window moments at each query's own radius.
 //
 // Replaces fast_gicp_tpu/ops/pallas_kernels.py::_count_kernel and
 // ::_window_kernel (reached through radius_window_moments_T, for the
@@ -10,7 +10,7 @@
 // in that order (explicitly rounded operations, no FMA contraction), so a
 // count or a window decision equals the plain version's exactly.
 //   radius_count: cnt (L, nq) = for each query and rung l, the number of
-//     targets with d^2 <= r2[l] (L <= 32).
+//     targets with d^2 <= r2[l] (L <= 32, in any order, repeats allowed).
 //   radius_window: out (16, nq) = [n, sum y (3), sum y y^T (9, row-major),
 //     0 (3)] over the targets with d^2 <= r2q[query], y = target * valid
 //     (masked targets add nothing).  The sums are full f32: the finalize
@@ -18,26 +18,49 @@
 //     precision would leave O(1) relative error on the covariance.
 // Rows of masked queries carry no meaning.
 //
-// Bound on an H100: the FP32 operations the functions need.  The count: for
-// each pair inside the largest radius, d^2 (8), the rung it falls in (a
+// Shared by both: fgt_radius_boxes writes the bounding box of the valid
+// points of each 128-target tile, once a target cloud.  A block of 128
+// queries takes the box of its valid queries and visits only the tiles
+// whose squared box gap is <= its largest radius (the ladder's largest
+// rung for the count, its valid queries' largest r2q for the window); the
+// gap is rounded like d^2 (tile_cull.cuh), so the cull drops no pair
+// inside any radius.
+//
+// radius_count.  Bound on an H100: the FP32 operations the function needs,
+// for each pair inside the largest radius d^2 (8), the rung it falls in (a
 // binary search of the ladder, ceil(log2(L + 1)) compares) and one
-// increment, then a prefix sum of L a query.  The window: for each pair
-// inside its window, d^2, the compare, 6 products and 10 sums.
-// Design: fgt_radius_boxes writes the bounding box of the valid points of
-// each 128-target tile, once a target cloud; the count and the window both
-// read it.  A block of 128 queries takes the box of its valid queries and
-// visits only the tiles whose squared box gap is <= its largest radius (the
-// ladder's largest rung for the count, its valid queries' largest r2q for
-// the window); the gap is rounded like d^2 (tile_cull.cuh), so the cull
-// drops no pair inside any radius.  A visited tile is staged in shared
-// memory and read by broadcast.  Each thread keeps its L counters (fully
-// unrolled, registers; a compare a rung for each pair in range, not the
-// bound's search) or its 10 distinct moment sums in registers, adding
-// targets in index order.  One thread a query leaves ~5 warps on an SM at
-// full width (22,528 queries), so the scan is bound by latency, not by the
-// FP32 rate: on an H100 at the full-size synthetic pair a count takes
-// 1.59 ms (550x its 2.9 us bound) and a window 0.27 ms (410x its 0.67 us
-// byte bound).
+// increment, then a prefix sum of L a query.  The cull visits ~4.9x the
+// pairs in range (67.6 M against 13.8 M on the full-size synthetic pair),
+// so what holds the kernel is the per-pair work and how many warps hide its
+// latency.  Design: kCountGroups groups of 128 threads share the block's 128
+// queries (thread g * 128 + i holds query i); the block lists the tiles
+// that pass the cull in shared memory and group g takes every
+// kCountGroups-th of them, staging each in its own shared slot (a named
+// barrier a group), which also evens out blocks that keep 23 or 37 tiles.
+// The L rungs are ranked once a block (ties by index) into an ascending
+// copy padded with +inf to 32 entries.  For each pair a thread finds by a
+// 5-step binary search of that copy (the first three levels from registers,
+// the last two from shared memory) the first ranked rung with d^2 <= r2,
+// or the discard bucket L when none holds the pair, and adds one to its own
+// histogram column in shared memory ([bucket][thread]: no bank conflicts;
+// the add is a shared atomic only so that nothing waits on its result).
+// Every pair takes the same path, so nothing diverges (a warp vote that
+// skips targets none of the warp's queries reaches would skip only a
+// quarter of them on the full-size pair), and a thread keeps kBatch pairs
+// in flight, their searches before their adds.  The kernel is bound by
+// latency, so warps pay: on an H100, 8 groups (1,024 threads, one block an
+// SM) ran faster than 4 or 2, and batches of 8 pairs than of 2 or 4.  At
+// the end each query sums its groups' columns and
+// prefix-sums them over the ranked buckets, and rung l reads the prefix at
+// its rank: integer counts, exact in any order.
+//
+// radius_window.  Bound on an H100: for each pair inside its window d^2,
+// the compare, 6 products and 10 sums.  Design: one thread a query keeps
+// its 10 distinct moment sums in registers, adding the targets of each
+// visited tile (staged in shared memory, read by broadcast) in index order.
+// That leaves ~5 warps on an SM at full width (22,528 queries), so the scan
+// is bound by latency, not by the FP32 rate: 0.27 ms on an H100 at the
+// full-size synthetic pair, 410x its 0.67 us byte bound.
 
 #include <cuda_runtime.h>
 
@@ -48,48 +71,131 @@ namespace {
 constexpr int kThreads = kTile;  // queries per block == targets per tile
 constexpr int kWarps = kTileWarps;
 constexpr int kMaxRungs = 32;
+constexpr int kCountGroups = 8;  // thread groups sharing one block's queries
+constexpr int kCountThreads = kCountGroups * kTile;
+constexpr int kCountWarps = kCountThreads / 32;
+constexpr int kBatch = 8;  // pairs a thread keeps in flight
+// the histograms: (L + 1) buckets, the last one for "outside every rung"
+constexpr int kCountHistBytes = (kMaxRungs + 1) * kCountThreads * 4;
 
-__global__ void __launch_bounds__(kThreads)
+// Barrier of the 128 threads of group g (ids 1..kCountGroups; 0 is
+// __syncthreads).
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "r"(kTile) : "memory");
+}
+
+__global__ void __launch_bounds__(kCountThreads)
     radius_count_kernel(const float4* __restrict__ q, const float4* __restrict__ t,
                         const float* __restrict__ boxes, const float* __restrict__ r2,
                         int L, int nq, int nt, float* __restrict__ cnt) {
-  __shared__ float4 tile[kThreads];
-  __shared__ float scratch[6][kWarps];
+  extern __shared__ int hist[];  // [L + 1][kCountThreads]
+  __shared__ float4 tile[kCountGroups][kTile];
+  __shared__ int visit[kCountThreads];  // the tiles that pass the cull, one chunk
+  __shared__ int warp_kept[kCountWarps];
+  __shared__ float scratch[6][kCountWarps];
   __shared__ float qbox[6];
-  __shared__ float rung[kMaxRungs];
-  if (threadIdx.x < kMaxRungs) rung[threadIdx.x] = threadIdx.x < L ? r2[threadIdx.x] : 0.f;
+  __shared__ float sorted[kMaxRungs];  // the rungs ascending, +inf past L
+  __shared__ int rank[kMaxRungs];
 
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const float4 qi = i < nq ? q[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-  block_bbox(qi, i < nq && qi.w != 0.f, scratch, qbox);  // also publishes rung
-  float r2max = rung[0];
-  for (int l = 1; l < L; ++l) r2max = fmaxf(r2max, rung[l]);
-
-  int c[kMaxRungs];
-#pragma unroll
-  for (int l = 0; l < kMaxRungs; ++l) c[l] = 0;
-  const int tiles = (nt + kThreads - 1) / kThreads;
-  for (int tt = 0; tt < tiles; ++tt) {
-    if (!(box_gap2(qbox, boxes + 6 * tt) <= r2max)) continue;  // uniform across the block
-    const int base = tt * kThreads;
-    const int j = base + threadIdx.x;
-    tile[threadIdx.x] = j < nt ? t[j] : make_float4(0.f, 0.f, 0.f, 0.f);
-    __syncthreads();
-    const int n = min(kThreads, nt - base);
-    for (int m = 0; m < n; ++m) {
-      const float d2 = sq_dist(qi, tile[m]);
-      if (d2 <= r2max) {
-#pragma unroll
-        for (int l = 0; l < kMaxRungs; ++l)
-          if (l < L) c[l] += d2 <= rung[l] ? 1 : 0;
+  const int tid = threadIdx.x;
+  const int g = tid / kTile, qi_local = tid % kTile;
+  const int lane = tid & 31, warp = tid >> 5;
+  if (tid < kMaxRungs) {
+    // a NaN rung holds nothing (d^2 <= NaN is false): rank it as -inf,
+    // below every d^2, so its bucket stays empty
+    float v = INFINITY;
+    int rk = tid;
+    if (tid < L) {
+      v = r2[tid];
+      v = isnan(v) ? -INFINITY : v;
+      rk = 0;
+      for (int m = 0; m < L; ++m) {
+        float w = r2[m];
+        w = isnan(w) ? -INFINITY : w;
+        rk += (w < v || (w == v && m < tid)) ? 1 : 0;
       }
     }
-    __syncthreads();
+    sorted[rk] = v;
+    rank[tid] = rk;
   }
-  if (i < nq) {
+  int* const own = hist + tid;  // this thread's column
+  for (int b = 0; b <= L; ++b) own[b * kCountThreads] = 0;
+
+  const int i = blockIdx.x * kTile + qi_local;
+  const float4 qi = i < nq ? q[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  // the box of the block's valid queries (group 0 holds each once); the
+  // barrier inside also publishes sorted and rank
+  block_bbox(qi, g == 0 && i < nq && qi.w != 0.f, scratch, qbox);
+  const float r2max = sorted[L - 1];
+  // the search's first three levels: sorted[15]; [7], [23]; [3], [11], [19], [27]
+  const float top[7] = {sorted[15], sorted[7],  sorted[23], sorted[3],
+                        sorted[11], sorted[19], sorted[27]};
+
+  const int tiles = (nt + kTile - 1) / kTile;
+  for (int c0 = 0; c0 < tiles; c0 += kCountThreads) {
+    // list this chunk's tiles that pass the cull, in tile order
+    const int tt = c0 + tid;
+    const bool keep = tt < tiles && box_gap2(qbox, boxes + 6 * tt) <= r2max;
+    const unsigned kept = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) warp_kept[warp] = __popc(kept);
+    __syncthreads();
+    int at = __popc(kept & ((1u << lane) - 1u)), n_kept = 0;
+    for (int w = 0; w < kCountWarps; ++w) {
+      at += w < warp ? warp_kept[w] : 0;
+      n_kept += warp_kept[w];
+    }
+    if (keep) visit[at] = tt;
+    __syncthreads();
+
+    for (int v = g; v < n_kept; v += kCountGroups) {  // uniform across the group
+      const int j = visit[v] * kTile + qi_local;
+      // past the target's end a NaN point: no d^2 <= r2 holds for it
+      tile[g][qi_local] = j < nt ? t[j] : make_float4(NAN, NAN, NAN, 0.f);
+      group_sync(g);
+      for (int m = 0; m < kTile; m += kBatch) {
+        // kBatch pairs in flight: their searches first, then their adds
+        // (shared reads are not moved past a shared atomic)
+        int bucket[kBatch];
 #pragma unroll
-    for (int l = 0; l < kMaxRungs; ++l)
-      if (l < L) cnt[(size_t)l * nq + i] = static_cast<float>(c[l]);
+        for (int u = 0; u < kBatch; ++u) {
+          const float d2 = sq_dist(qi, tile[g][m + u]);
+          // b = the number of ranked rungs below d2 (the first rung that
+          // holds the pair), by a binary search of the 32 padded entries:
+          // the first three levels from registers, the last two from shared
+          int b = top[0] < d2 ? 16 : 0;
+          b += (b ? top[2] : top[1]) < d2 ? 8 : 0;
+          b += (b & 16 ? (b & 8 ? top[6] : top[5]) : (b & 8 ? top[4] : top[3])) < d2 ? 4 : 0;
+          b += sorted[b + 1] < d2 ? 2 : 0;
+          b += sorted[b] < d2 ? 1 : 0;
+          // the discard bucket L when no rung holds it (and for a NaN d^2)
+          bucket[u] = d2 <= r2max ? b : L;
+        }
+        // the adds' results are not read, so nothing waits on them
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) atomicAdd(own + bucket[u] * kCountThreads, 1);
+      }
+      group_sync(g);
+    }
+    __syncthreads();  // visit is rewritten by the next chunk
+  }
+
+  // each query's counts: its groups' columns summed and prefix-summed over
+  // the ranked buckets into group 0's column; rung l reads its rank's
+  if (tid < kTile) {
+    int run = 0;
+    for (int b = 0; b < L; ++b) {
+      int s = 0;
+#pragma unroll
+      for (int gg = 0; gg < kCountGroups; ++gg) s += hist[b * kCountThreads + gg * kTile + tid];
+      run += s;
+      hist[b * kCountThreads + tid] = run;
+    }
+  }
+  __syncthreads();
+  for (int o = tid; o < L * kTile; o += kCountThreads) {
+    const int l = o / kTile, qq = o % kTile;
+    const int iq = blockIdx.x * kTile + qq;
+    if (iq < nq) cnt[(size_t)l * nq + iq] = static_cast<float>(hist[rank[l] * kCountThreads + qq]);
   }
 }
 
@@ -168,11 +274,17 @@ extern "C" int fgt_radius_boxes(const float* t, int nt, float* boxes, void* stre
 extern "C" int fgt_radius_count(const float* q, const float* t, const float* boxes,
                                 const float* r2, int L, int nq, int nt, float* cnt,
                                 void* stream) {
-  const int blocks = (nq + kThreads - 1) / kThreads;
-  if (blocks > 0 && nt > 0)
-    radius_count_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = (nq + kTile - 1) / kTile;
+  if (blocks > 0 && nt > 0) {
+    // above 48 KB only after this attribute; set once for the largest ladder
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        radius_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kCountHistBytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    radius_count_kernel<<<blocks, kCountThreads, (L + 1) * kCountThreads * sizeof(int),
+                          static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(t), boxes, r2, L,
         nq, nt, cnt);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

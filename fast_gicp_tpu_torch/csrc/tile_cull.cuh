@@ -33,9 +33,10 @@ __device__ __forceinline__ float warp_max(float v) {
 // Bounding box of the points held one per thread and flagged `valid`:
 // box[0..2] lo, box[3..5] hi (lo = FLT_MAX > hi = -FLT_MAX when none is
 // valid).  With kSlots = 7 also the largest `extra` over the valid points
-// into box[6].  Ends with a barrier, so box is readable by the whole block.
-template <int kSlots = 6>
-__device__ void block_bbox(float4 p, bool valid, float (*scratch)[kTileWarps], float* box,
+// into box[6].  kWarps is the block's warp count.  Ends with a barrier, so
+// box is readable by the whole block.
+template <int kSlots = 6, int kWarps = kTileWarps>
+__device__ void block_bbox(float4 p, bool valid, float (*scratch)[kWarps], float* box,
                            float extra = 0.f) {
   static_assert(kSlots == 6 || kSlots == 7, "a box, or a box and one extra maximum");
   float v[7] = {valid ? p.x : FLT_MAX,  valid ? p.y : FLT_MAX,  valid ? p.z : FLT_MAX,
@@ -51,7 +52,7 @@ __device__ void block_bbox(float4 p, bool valid, float (*scratch)[kTileWarps], f
   if (threadIdx.x < kSlots) {
     const int c = threadIdx.x;
     float r = scratch[c][0];
-    for (int w = 1; w < kTileWarps; ++w)
+    for (int w = 1; w < kWarps; ++w)
       r = c < 3 ? fminf(r, scratch[c][w]) : fmaxf(r, scratch[c][w]);
     box[c] = r;
   }

@@ -134,3 +134,131 @@ def drive_scans(
     inv0 = np.linalg.inv(poses[0])
     poses = [inv0 @ T for T in poses]
     return scans, poses
+
+
+# --- adversarial inputs for the selection and counting kernels -------------
+
+
+def _grid_points(rng, n: int, distinct: int):
+    """n points drawn with repeats from `distinct` points of a 1/8 m grid in
+    [0, 4)^3: every coordinate difference, square and sum of three squares
+    is exact in f32, so d^2 ties are exact whatever the rounding order."""
+    cells = rng.choice(32 ** 3, size=distinct, replace=False)
+    grid = np.stack([cells // 1024, (cells // 32) % 32, cells % 32], axis=1) / 8.0
+    return grid[rng.integers(0, distinct, n)].astype(np.float32)
+
+
+def _street_points(rng, n: int):
+    """n points over 120 m x 120 m x 4 m in voxel-key order (0.5 m voxels),
+    some repeated: d^2 at ~60 m from the center rounds in the last bits."""
+    pts = (rng.random((n, 3)) * np.float32([120, 120, 4])).astype(np.float32)
+    pts[rng.choice(n, n // 16, replace=False)] = pts[rng.choice(n, n // 16, replace=False)]
+    keys = np.floor(pts / 0.5).astype(np.int64)
+    return pts[np.lexsort((keys[:, 2], keys[:, 1], keys[:, 0]))]
+
+
+def _mask(rng, n: int, masked: float):
+    return rng.random(n) >= masked
+
+
+def _sq_dist_f32(q, t):
+    """(Nq, Nt) f32 d^2 = ((dx^2 + dy^2) + dz^2), each operation rounded."""
+    d = np.zeros((len(q), len(t)), np.float32)
+    for a in range(3):
+        dd = q[:, a:a + 1] - t[None, :, a]
+        d = d + dd * dd
+    return d
+
+
+def knn_slab_edge_cases(seed: int = 0):
+    """Inputs for the k-NN slab search (`ops.cuda_kernels.knn_slab`) that
+    stress its tie rule and its edges, made from `seed`: d^2 tied across
+    slab positions and across tiles (repeated points on an exact grid, a
+    tile listed twice in a slab), slabs with fewer than k valid targets,
+    tile ids -1 and T, masked queries, k in {1, 20, 32}, cand_tile in
+    {128, 256}, the exact search (every tile a candidate) and a street-scale
+    cloud whose d^2 rounds.  1,024 queries (4 query tiles of 256) against
+    2,048 targets.  Returns a list of dicts: name, query, qmask, target,
+    tmask (numpy), cidx ((4, C) int32), k, cand_tile, `in_range` (every
+    tile id is in [0, T): the JAX package's `knn_slab_pallas` gathers other
+    ids by its own rules) and `exact_d2` (grid points: every d^2 is exact)."""
+    rng = np.random.default_rng(seed)
+    nq, nt = 1024, 2048
+    tgt = _grid_points(rng, nt, 400)
+    qry = np.concatenate([tgt[rng.integers(0, nt, nq // 2)], _grid_points(rng, nq // 2, 400)])
+    street = _street_points(rng, nt)
+    cases = []
+
+    def add(name, k, ct, C, query=qry, target=tgt, qmask=None, tmask=None, cidx=None,
+            exact_d2=True):
+        T = nt // ct
+        if cidx is None:
+            cidx = np.stack([rng.permutation(T)[:C] for _ in range(nq // 256)])
+            cidx[0, -1] = cidx[0, 0]  # a tile listed twice: ties across tiles
+        cases.append(dict(
+            name=name, query=query, target=target,
+            qmask=np.ones(nq, bool) if qmask is None else qmask,
+            tmask=_mask(rng, nt, 0.1) if tmask is None else tmask,
+            cidx=np.ascontiguousarray(cidx, np.int32), k=k, cand_tile=ct,
+            in_range=bool(((cidx >= 0) & (cidx < T)).all()), exact_d2=exact_d2))
+
+    add("ties_k20_ct256", 20, 256, 4)
+    add("ties_k32_ct128_masked_queries", 32, 128, 6, qmask=_mask(rng, nq, 0.15))
+    few = np.zeros(nt, bool)
+    few[rng.choice(nt, 40, replace=False)] = True  # ~2.5 valid a 128-point tile
+    add("few_valid_k32_ct128", 32, 128, 3, tmask=few)
+    add("k1_ct256_masked_queries", 1, 256, 2, qmask=_mask(rng, nq, 0.3))
+    bad = np.stack([rng.permutation(8)[:4] for _ in range(nq // 256)])
+    bad[:, 1], bad[1:, 3] = -1, 8  # ids -1 and T read as masked points
+    add("tile_ids_out_of_range_k20_ct256", 20, 256, 4, cidx=bad)
+    add("exact_k20_ct128", 20, 128, 16, cidx=np.tile(np.arange(16), (nq // 256, 1)))
+    add("street_k20_ct256", 20, 256, 4, query=street[:nq], target=street, exact_d2=False)
+    return cases
+
+
+def _ladder_from_pairs(rng, y, mask, rungs: int, r2_max: float):
+    """`rungs` distinct squared radii below r2_max, each the f32 d^2 of a
+    pair of valid points of y, ascending: the pairs sit exactly on rungs."""
+    d = _sq_dist_f32(y[mask][:256], y[mask])
+    vals = np.unique(d[(d > 0) & (d < r2_max)])
+    return np.sort(rng.choice(vals, rungs, replace=False)).astype(np.float32)
+
+
+def radius_count_edge_cases(seed: int = 0):
+    """Inputs for the adaptive-radius count (`ops.cuda_kernels.radius_count`)
+    that put pairs exactly on rungs, made from `seed`: ladders built from
+    chosen pairs' own f32 d^2 (centered coordinates, rounded as the kernels
+    round), ascending, non-ascending with repeated rungs, L in {1, 20, 32},
+    on a street-scale cloud whose d^2 rounds and on an exact grid, with
+    masked targets and queries.  The query cloud is the target cloud
+    (2,048 points, as the adaptive estimator calls it).  Returns a list of
+    dicts: name, points, mask, center (numpy), r2 ((L,) f32), `ascending`
+    (the JAX package's count pass culls by the last rung, so it shares the
+    contract only for a non-decreasing ladder) and `exact_d2`."""
+    rng = np.random.default_rng(seed)
+    n = 2048
+    cases = []
+
+    def add(name, pts, mask, center, r2, exact_d2):
+        cases.append(dict(name=name, points=pts, mask=mask, center=center,
+                          r2=np.asarray(r2, np.float32),
+                          ascending=bool((np.diff(r2) >= 0).all()), exact_d2=exact_d2))
+
+    street = _street_points(rng, n)
+    mask = _mask(rng, n, 0.05)
+    center = street[mask].astype(np.float64).mean(0).astype(np.float32)
+    y = street - center
+    add("street_on_rungs_L20", street, mask, center, _ladder_from_pairs(rng, y, mask, 20, 36.0),
+        exact_d2=False)
+
+    grid = _grid_points(rng, n, 900)
+    mask = _mask(rng, n, 0.1)
+    center = np.float32([2.0, 2.0, 2.0])  # on the grid: centering stays exact
+    y = grid - center
+    ladder = _ladder_from_pairs(rng, y, mask, 24, 2.0)
+    unsorted = rng.permutation(np.concatenate([ladder, rng.choice(ladder, 8)]))
+    add("grid_unsorted_repeats_L32", grid, mask, center, unsorted, exact_d2=True)
+    add("grid_repeats_L20", grid, mask, center,
+        np.sort(np.concatenate([ladder[:14], rng.choice(ladder[:14], 6)])), exact_d2=True)
+    add("grid_on_rung_L1", grid, mask, center, ladder[11:12], exact_d2=True)
+    return cases

@@ -7,6 +7,7 @@ package's; and `gicp_register_fresh` with the adaptive estimator and with
 the kNN estimator's MIN_EIG regularization against the JAX package's, on
 the small synthetic LiDAR pair."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +16,8 @@ import torch
 from fast_gicp_tpu.models import gicp as jgicp
 from fast_gicp_tpu.ops import covariance as jcov
 from fast_gicp_tpu.ops import pallas_kernels
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 from fast_gicp_tpu_torch import convert
 from fast_gicp_tpu_torch.models import gicp
 from fast_gicp_tpu_torch.ops import covariance, cuda_kernels
@@ -99,6 +102,73 @@ def test_radius_rungs_against_pallas_counts():
         jnp.asarray(pts), jnp.asarray(mask), jnp.asarray(pts), jnp.asarray(mask),
         jnp.asarray(r2), 20, jnp.asarray(center), interpret=True))
     assert np.mean(got[0].numpy()[mask] == jwant[0][mask]) >= 0.999
+
+
+COUNT_CASES = {c["name"]: c for c in synthetic.radius_count_edge_cases()}
+
+
+def _pallas_counts(pts, mask, center, r2):
+    """(L, N) counts from the count pass of `radius_window_moments_T` as the
+    JAX package runs it, `_count_kernel` in interpret mode behind its tile
+    cull by the ladder's last rung, the cloud against itself."""
+    f32 = jnp.float32
+    m = jnp.asarray(mask)
+    y = jnp.asarray(pts) - jnp.asarray(center)
+    rq, rt = pallas_kernels._RQT, pallas_kernels._RTT
+    gap = pallas_kernels._tile_gap_sq(y, m.astype(f32), y, m.astype(f32), rq, rt)
+    pT = pallas_kernels._prep_transposed(y, m)
+    n, L = len(pts), len(r2)
+    return np.asarray(pl.pallas_call(
+        pallas_kernels._count_kernel,
+        grid=(n // rq, n // rt),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM), pl.BlockSpec(memory_space=pltpu.SMEM),
+                  pl.BlockSpec((8, rq), lambda i, j: (0, i)),
+                  pl.BlockSpec((8, rt), lambda i, j: (0, j))],
+        out_specs=pl.BlockSpec((L, rq), lambda i, j: (0, i)),
+        out_shape=jax.ShapeDtypeStruct((L, n), f32),
+        interpret=True,
+    )((gap <= r2[-1]).astype(jnp.int32), jnp.asarray(r2, f32), pT, pT))
+
+
+@pytest.mark.parametrize("name", COUNT_CASES)
+def test_radius_count_edge_cases_plain_matches_emulation(name):
+    """Every edge case of `synthetic.radius_count_edge_cases` (pairs exactly
+    on rungs, ladders ascending, non-ascending and with repeated rungs, L in
+    {1, 20, 32}, masked points): the plain version's counts on the valid
+    queries bit-equal to the numpy emulation, and the on-rung pairs counted
+    (each rung holds a pair at exactly its d^2)."""
+    case = COUNT_CASES[name]
+    pts, mask, center, r2 = (case[key] for key in ("points", "mask", "center", "r2"))
+    cnt = cuda_kernels.radius_count(*(torch.as_tensor(a) for a in (pts, mask, pts, mask,
+                                                                   center, r2)))
+    want = _count_emulation(pts, mask, center, r2)
+    np.testing.assert_array_equal(cnt.numpy()[:, mask], want[:, mask])
+    below = _count_emulation(pts, mask, center, np.nextafter(r2, np.float32(-1)))
+    assert (want[:, mask] > below[:, mask]).any(axis=1).all()
+
+
+@pytest.mark.parametrize("name", [n for n, c in COUNT_CASES.items() if c["ascending"]])
+def test_radius_count_edge_cases_match_pallas(name):
+    """The edge cases with a non-decreasing ladder (the JAX package culls
+    by the last rung, so only there is its contract the same) against the
+    Pallas count pass in interpret mode, on the valid queries: equal
+    everywhere on the exact grid; on the street cloud equal on every (rung,
+    query) entry with no target within 1e-6 of the rung in d^2 (XLA on the
+    CPU contracts d^2's multiply-adds, so an on-rung pair may fall on either
+    side there)."""
+    case = COUNT_CASES[name]
+    pts, mask, center, r2 = (case[key] for key in ("points", "mask", "center", "r2"))
+    got = cuda_kernels.radius_count(*(torch.as_tensor(a) for a in (pts, mask, pts, mask,
+                                                                   center, r2))).numpy()
+    want = _pallas_counts(pts, mask, center, r2)
+    sure = np.ones(got.shape, bool)
+    if not case["exact_d2"]:
+        lo = _count_emulation(pts, mask, center, r2 * np.float32(1 - 1e-6))
+        hi = _count_emulation(pts, mask, center, r2 * np.float32(1 + 1e-6))
+        sure = lo == hi
+    sure &= mask[None, :]
+    np.testing.assert_array_equal(got[sure], want[sure])
+    assert sure.sum() >= 0.5 * mask.sum() * len(r2)
 
 
 @pytest.mark.parametrize("method", ["plane", "none"])

@@ -43,16 +43,22 @@ def small_target():
     return padding.pad_points(downsample.voxel_downsample(scans[30], 0.3))
 
 
-def _slab_emulation(pts, mask, cidx, k, ct):
+def _slab_emulation(query, qmask, target, tmask, cidx, k, ct):
     """numpy emulation of the slab contract with every operation rounded on
-    its own: d^2 = ((dx^2 + dy^2) + dz^2) of each query tile against its
-    candidate slab, a stable sort, the first k (global ids, d^2)."""
-    tgt = np.where(mask[:, None], pts, np.float32(cuda_kernels.MASK_COORD))
+    its own: masked points parked at MASK_COORD, a tile id outside the
+    target read as masked points, d^2 = ((dx^2 + dy^2) + dz^2) of each
+    query tile against its candidate slab, a stable sort, the first k
+    (global ids, d^2)."""
+    park = np.float32(cuda_kernels.MASK_COORD)
+    qry = np.where(qmask[:, None], query, park)
+    tiles = np.where(tmask[:, None], target, park).reshape(-1, ct, 3)
     idx, sq = [], []
     for i, row in enumerate(np.asarray(cidx)):
-        cand = tgt.reshape(-1, ct, 3)[row].reshape(-1, 3)
+        inside = (row >= 0) & (row < len(tiles))
+        cand = np.where(inside[:, None, None], tiles[np.clip(row, 0, len(tiles) - 1)], park)
+        cand = cand.reshape(-1, 3)
         gid = (row[:, None] * ct + np.arange(ct)).reshape(-1)
-        q = pts[256 * i:256 * (i + 1)]
+        q = qry[256 * i:256 * (i + 1)]
         d = np.zeros((256, cand.shape[0]), np.float32)
         for a in range(3):
             dd = q[:, a:a + 1] - cand[None, :, a]
@@ -93,13 +99,71 @@ def test_knn_slab_plain_matches_pallas():
     idx, sq = cuda_kernels.knn_slab(p, torch.ones(n, dtype=torch.bool), p,
                                     torch.as_tensor(mask), torch.as_tensor(cidx), k)
     assert idx.dtype == torch.int32 and idx.shape == (n, k) and sq.shape == (n, k)
-    idx_e, sq_e = _slab_emulation(pts, mask, cidx, k, 256)
+    idx_e, sq_e = _slab_emulation(pts, np.ones(n, bool), pts, mask, cidx, k, 256)
     np.testing.assert_array_equal(idx.numpy(), idx_e)
     np.testing.assert_array_equal(sq.numpy(), sq_e)
     np.testing.assert_allclose(sq.numpy(), np.asarray(sq_j), rtol=1e-6)
     untied = _untied(sq.numpy(), 1e-5)
     np.testing.assert_array_equal(idx.numpy()[untied], np.asarray(idx_j)[untied])
     assert untied.mean() > 0.99
+
+
+SLAB_CASES = {c["name"]: c for c in synthetic.knn_slab_edge_cases()}
+
+
+def _slab_args(case):
+    return (torch.as_tensor(case["query"]), torch.as_tensor(case["qmask"]),
+            torch.as_tensor(case["target"]), torch.as_tensor(case["tmask"]),
+            torch.as_tensor(case["cidx"]), case["k"], case["cand_tile"])
+
+
+@pytest.mark.parametrize("name", SLAB_CASES)
+def test_knn_slab_edge_cases_plain_matches_emulation(name):
+    """Every edge case of `synthetic.knn_slab_edge_cases` (ties across slab
+    positions and tiles, slabs with fewer than k valid targets, tile ids -1
+    and T, masked queries, k in {1, 20, 32}, both tile widths, the exact
+    search): the plain version's idx and sq bit-equal to the numpy
+    emulation on every row, masked queries included (the kernel computes
+    them too)."""
+    case = SLAB_CASES[name]
+    idx, sq = cuda_kernels.knn_slab(*_slab_args(case))
+    idx_e, sq_e = _slab_emulation(case["query"], case["qmask"], case["target"], case["tmask"],
+                                  case["cidx"], case["k"], case["cand_tile"])
+    np.testing.assert_array_equal(idx.numpy(), idx_e)
+    np.testing.assert_array_equal(sq.numpy(), sq_e)
+
+
+@pytest.mark.parametrize("name", [n for n, c in SLAB_CASES.items() if c["in_range"]])
+def test_knn_slab_edge_cases_match_pallas(name):
+    """The edge cases whose tile ids are all in range (the JAX package
+    gathers other ids by its own indexing rules) against `knn_slab_pallas`
+    (interpret mode): sq within rtol 1e-6 on every row (XLA on the CPU
+    contracts d^2's multiply-adds, which moves the parked points' ~3e18 by
+    an ulp); idx equal on every valid query's row, at every position where
+    d^2 is exact (the grid cases: ties there are exact in both packages and
+    go to the lower slab position in both), else where it is not within
+    1e-6 of a neighbour in its row, relatively, or its tie is between two
+    copies of one point.  Masked queries sit at MASK_COORD,
+    whose d^2 both packages round differently."""
+    case = SLAB_CASES[name]
+    idx, sq = (a.numpy() for a in cuda_kernels.knn_slab(*_slab_args(case)))
+    idx_j, sq_j = (np.asarray(a) for a in pallas_kernels.knn_slab_pallas(
+        *(jnp.asarray(case[key]) for key in ("query", "qmask", "target", "tmask", "cidx")),
+        case["k"], cand_tile=case["cand_tile"], interpret=True))
+    np.testing.assert_allclose(sq, sq_j, rtol=1e-6)
+    sure = np.ones(sq.shape, bool)
+    if not case["exact_d2"]:
+        # a tie between two copies of one point (a repeated point, the tile
+        # listed twice, parked targets) is the same rounding in both
+        parked = np.where(case["tmask"][:, None], case["target"],
+                          np.float32(cuda_kernels.MASK_COORD))[idx]
+        twins = (parked[:, 1:] == parked[:, :-1]).all(-1)
+        clear = (np.diff(sq, axis=1) > 1e-6 * sq[:, 1:]) | twins
+        sure[:, 1:] &= clear
+        sure[:, :-1] &= clear
+    sure &= case["qmask"][:, None]
+    np.testing.assert_array_equal(idx[sure], idx_j[sure])
+    assert sure[case["qmask"]].mean() > 0.9
 
 
 def test_knn_slab_all_tiles_is_jax_exact_knn():
