@@ -201,23 +201,196 @@ def pairs_within(query, target, r2, chunk=1024):
     return total
 
 
+# the chunked kernels' shapes (csrc/nn_search.cu, csrc/rbf_moments.cu)
+CHUNK = 32  # targets per chunk box
+LIST_CAP = 1024  # chunks a block lists per round
+NN_QUERIES, NN_GROUPS = 64, 4  # queries a block, groups splitting its chunks
+RBF_QUERIES = 32
+
+
+def _gap2(lo_a, hi_a, lo_b, hi_b):
+    """(A, B) squared gaps between boxes, rounded as `csrc/tile_cull.cuh`
+    rounds them; inf where either box is empty."""
+    gap = torch.clamp(torch.maximum(lo_b[None] - hi_a[:, None], lo_a[:, None] - hi_b[None]),
+                      min=0.0)
+    g2 = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]) + gap[..., 2] * gap[..., 2]
+    empty = (lo_a[:, 0] > hi_a[:, 0])[:, None] | (lo_b[:, 0] > hi_b[:, 0])[None, :]
+    return torch.where(empty, torch.full_like(g2, float("inf")), g2)
+
+
+def _boxes(p, valid, size):
+    """(lo, hi) of the flagged points of each `size`-point run of p (the
+    last run may be short)."""
+    n = p.shape[0]
+    pad = -n % size
+    big = torch.finfo(torch.float32).max
+    v = torch.cat([valid, valid.new_zeros(pad)]).reshape(-1, size, 1)
+    pp = torch.cat([p, p.new_zeros((pad, 3))]).reshape(-1, size, 3)
+    return (torch.where(v, pp, big).amin(1), torch.where(v, pp, -big).amax(1))
+
+
 def culled_tiles(q4, boxes, r2max, tile=128):
     """(query blocks, target tiles) bool: the pairs of tile-query block and
     tile-target tile that the radius kernels' cull visits, those whose
     squared box gap, rounded as `csrc/tile_cull.cuh` rounds it, is <= r2max.
     q4: the packed queries (w = valid); boxes: the target's tile boxes
     (`radius_inputs`)."""
-    q = q4.reshape(-1, tile, 4)
-    valid = (q[..., 3] != 0)[..., None]
-    big = torch.finfo(torch.float32).max
-    qlo = torch.where(valid, q[..., :3], big).amin(1)
-    qhi = torch.where(valid, q[..., :3], -big).amax(1)
+    qlo, qhi = _boxes(q4[:, :3], q4[:, 3] != 0, tile)
     b = boxes.reshape(-1, 6)
-    tlo, thi = b[:, :3], b[:, 3:]
-    gap = torch.clamp(torch.maximum(tlo[None] - qhi[:, None], qlo[:, None] - thi[None]), min=0.0)
-    g2 = (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]) + gap[..., 2] * gap[..., 2]
-    empty = (qlo[:, 0] > qhi[:, 0])[:, None] | (tlo[:, 0] > thi[:, 0])[None, :]
-    return (g2 <= r2max) & ~empty
+    return _gap2(qlo, qhi, b[:, :3], b[:, 3:]) <= r2max
+
+
+def _chunk_rows(q, t, fn, rows=1024):
+    """fn(d2 (rows, chunks, CHUNK) with +inf past the target's end) for row
+    slices of q, concatenated."""
+    from fast_gicp_tpu_torch.ops import cuda_kernels
+
+    nt = t.shape[0]
+    pad = -nt % CHUNK
+    tt = torch.cat([t, t.new_zeros((pad, 3))])
+    past = torch.arange(nt + pad, device=t.device) >= nt
+    out = []
+    for s in range(0, q.shape[0], rows):
+        d2 = cuda_kernels._sq_dist(q[s:s + rows, None, :], tt[None])
+        out.append(fn(torch.where(past, float("inf"), d2).reshape(d2.shape[0], -1, CHUNK)))
+    return torch.cat(out)
+
+
+def nn_search_emulated(q4, t4):
+    """The chunked `nn_search` kernel's walk, emulated with tensor ops:
+    (idx, d2, pairs visited).  q4: (nq, 4) [x, y, z, valid]; t4: (nt, 4) with
+    masked targets parked.  Follows the kernel chunk by chunk: the two
+    listing passes, group g's share of each round's list, each warp's
+    point-to-box skip against its running bests and the merges."""
+    from fast_gicp_tpu_torch.ops import cuda_kernels
+
+    dev = q4.device
+    nq, nt = q4.shape[0], t4.shape[0]
+    pad = -nq % NN_QUERIES
+    q = torch.cat([q4[:, :3], q4.new_zeros((pad, 3))])
+    valid = torch.cat([q4[:, 3] != 0, torch.zeros(pad, dtype=torch.bool, device=dev)])
+    t = t4[:, :3]
+    C = -(-nt // CHUNK)
+    clo, chi = _boxes(t, torch.ones(nt, dtype=torch.bool, device=dev), CHUNK)
+    blo, bhi = _boxes(q, valid, NN_QUERIES)
+    gap = _gap2(blo, bhi, clo, chi)  # (blocks, C)
+    pgap = _gap2(q, q, clo, chi)  # (n, C): each query to each chunk box
+    cmin = _chunk_rows(q, t, lambda d: d.amin(2))  # (n, C)
+    carg = _chunk_rows(q, t, lambda d: d.argmin(2))  # first minimum in the chunk
+    clen = torch.clamp(nt - torch.arange(C, device=dev) * CHUNK, max=CHUNK)
+    best = torch.full((q.shape[0],), float("inf"), device=dev)
+    best_idx = torch.zeros(q.shape[0], dtype=torch.int64, device=dev)
+    visited = 0
+
+    def lex_min(d_a, i_a, d_b, i_b):
+        take = (d_b < d_a) | ((d_b == d_a) & (i_b < i_a))
+        return torch.where(take, d_b, d_a), torch.where(take, i_b, i_a)
+
+    for pass_ in range(2):
+        if pass_ == 0:
+            listed = gap <= 0
+        else:
+            bound = torch.where(valid, best, 0.0).reshape(-1, NN_QUERIES).amax(1)
+            listed = (gap > 0) & (gap <= bound[:, None])
+        # a chunk's place in its round's list, hence its group
+        rank = torch.zeros_like(listed, dtype=torch.int64)
+        for c0 in range(0, C, LIST_CAP):
+            part = listed[:, c0:c0 + LIST_CAP].long()
+            rank[:, c0:c0 + LIST_CAP] = part.cumsum(1) - part
+        parts = []
+        for g in range(NN_GROUPS):
+            d, i = best.clone(), best_idx.clone()
+            mine = (listed & (rank % NN_GROUPS == g)).repeat_interleave(NN_QUERIES // 32, 0)
+            for c in range(C):
+                col = mine[:, c]
+                if not bool(col.any()):
+                    continue
+                need = (valid & (pgap[:, c] <= d)).reshape(-1, 32).any(1) & col
+                visited += int(need.sum()) * 32 * int(clen[c])
+                lanes = need.repeat_interleave(32)
+                nd, ni = lex_min(d, i, cmin[:, c], carg[:, c] + c * CHUNK)
+                d, i = torch.where(lanes, nd, d), torch.where(lanes, ni, i)
+            parts.append((d, i))
+        for d, i in parts:
+            best, best_idx = lex_min(best, best_idx, d, i)
+    unsearched = torch.isinf(best)
+    d0 = cuda_kernels._sq_dist(q, t[:1])
+    best = torch.where(unsearched, d0, best)
+    best_idx = torch.where(unsearched, 0, best_idx)
+    return best_idx[:nq].to(torch.int32), torch.clamp(best[:nq], min=0.0), visited
+
+
+def rbf_visited_pairs(q4, t4, md2):
+    """The pairs the chunked `rbf_moments` kernel visits: for each block of
+    32 queries, the chunks whose valid-target box lies within max_dist of
+    its valid queries' box and whose box some valid query's own point
+    reaches.  q4, t4: (n, 4) [x, y, z, valid]."""
+    dev = q4.device
+    nq, nt = q4.shape[0], t4.shape[0]
+    pad = -nq % RBF_QUERIES
+    q = torch.cat([q4[:, :3], q4.new_zeros((pad, 3))])
+    valid = torch.cat([q4[:, 3] != 0, torch.zeros(pad, dtype=torch.bool, device=dev)])
+    C = -(-nt // CHUNK)
+    clo, chi = _boxes(t4[:, :3], t4[:, 3] != 0, CHUNK)
+    blo, bhi = _boxes(q, valid, RBF_QUERIES)
+    listed = _gap2(blo, bhi, clo, chi) <= md2
+    reach = ((_gap2(q, q, clo, chi) <= md2) & valid[:, None]).reshape(-1, 32, C).any(1)
+    clen = torch.clamp(nt - torch.arange(C, device=dev) * CHUNK, max=CHUNK)
+    return int(((listed & reach).long() * clen[None]).sum()) * 32
+
+
+def check_nn_edge_cases(dev):
+    """`nn_search` bit-equal to its plain version on the valid queries of
+    every adversarial case of `utils.synthetic.nn_search_edge_cases` (d^2
+    ties across chunks, every target masked, ragged sizes, a block whose
+    box touches no chunk, a block of padding, queries 50 m off), and finite
+    on every query: the cases the CPU tests hold the plain version to
+    against numpy and JAX.  Returns the number of cases."""
+    from fast_gicp_tpu_torch.ops import cuda_kernels
+    from fast_gicp_tpu_torch.utils import synthetic
+
+    cases = synthetic.nn_search_edge_cases()
+    for case in cases:
+        q, qm, t, tm = (torch.as_tensor(case[key], device=dev)
+                        for key in ("query", "qmask", "target", "tmask"))
+        idx, d2 = cuda_kernels.nn_search(q, t, tm, qm)
+        idx_w, d2_w = cuda_kernels.nn_search_plain(q, t, tm)
+        torch.cuda.synchronize()
+        require(bool(torch.equal(idx[qm], idx_w[qm]) and torch.equal(d2[qm], d2_w[qm])),
+                f"nn_search edge case {case['name']}: {int((idx != idx_w)[qm].sum())} idx, "
+                f"{int((d2 != d2_w)[qm].sum())} d2 differ")
+        require(bool(torch.isfinite(d2).all()), f"nn_search edge case {case['name']}: non-finite")
+    log(f"[kernels] edge cases: nn_search idx and d2 bit-equal on all {len(cases)} "
+        f"({', '.join(c['name'] for c in cases)})")
+    return len(cases)
+
+
+def check_rbf_edge_cases(dev):
+    """`rbf_moments` within its tolerance of the plain version on the valid
+    queries of every adversarial case of `utils.synthetic.rbf_moments_edge_cases`
+    (pairs exactly on the radius, masked targets in range, nq != nt,
+    nt < 128, a block with nothing in range, kernel width 0), and a repeat
+    launch bit-identical.  Returns the number of cases."""
+    from fast_gicp_tpu_torch.ops import cuda_kernels
+    from fast_gicp_tpu_torch.utils import synthetic
+
+    cases = synthetic.rbf_moments_edge_cases()
+    for case in cases:
+        q, qm, t, tm, c = (torch.as_tensor(case[key], device=dev)
+                           for key in ("query", "qmask", "target", "tmask", "center"))
+        args = (q, qm, t, tm, c, case["kernel_width"], case["max_dist"])
+        got = cuda_kernels.rbf_moments(*args)
+        again = cuda_kernels.rbf_moments(*args)
+        want = cuda_kernels.rbf_moments_plain(*args)
+        torch.cuda.synchronize()
+        name = f"rbf edge case {case['name']}"
+        check_close(f"{name} sum w", got[0, qm], want[0, qm], 5e-3, 1e-4)
+        check_close(f"{name} sum w y", got[1:4][:, qm], want[1:4][:, qm], 5e-3, 2e-2)
+        check_close(f"{name} sum w yy", got[4:13][:, qm], want[4:13][:, qm], 5e-3, 5e-2)
+        require(bool(torch.equal(got, again)), f"{name}: a repeat launch differs")
+    log(f"[kernels] edge cases: rbf_moments within tolerance and repeat-identical on all "
+        f"{len(cases)} ({', '.join(c['name'] for c in cases)})")
+    return len(cases)
 
 
 def check_edge_cases(dev):
@@ -294,21 +467,33 @@ def phase_kernels(dev, pair):
         check_close("rbf sum w y", got[1:4][:, v], want[1:4][:, v], 5e-3, 2e-2),
         check_close("rbf sum w yy", got[4:13][:, v], want[4:13][:, v], 5e-3, 5e-2),
     ]
+    again = cuda_kernels.rbf_moments(*args)
+    torch.cuda.synchronize()
+    # the warps' partial sums are added in a fixed order: no atomics
+    require(bool(torch.equal(got, again)), "rbf_moments: a repeat launch differs")
+    edge_cases = check_rbf_edge_cases(dev)
     # data-dependent work: only pairs within max_dist need the exp and the
     # moment update
     y = (tgt - c)[tmask]
     pairs = pairs_within(y, y, 9.0)
+    packed = cuda_kernels._pack(tgt, tmask, c)
+    visited = rbf_visited_pairs(packed, packed, cuda_kernels._constants(0.5, 3.0)[1])
+    log(f"[kernels] rbf_moments: a repeat launch bit-identical; {pairs} pairs within "
+        f"3 m, {visited} visited ({visited / pairs:.2f}x)")
+    # timed with the target's chunk boxes, which the wrapper builds here
     tm = timings(lambda: cuda_kernels.rbf_moments(*args),
                  lambda: cuda_kernels.rbf_moments_plain(*args),
-                 "rbf_moments_kernel", 20, 3)
+                 ("chunk_bbox_kernel", "rbf_moments_kernel"), 20, 3)
     b_ms, b_by = bound_ms(2 * n * 16 + 16 * n * 4, pairs * RBF_OPS_PER_PAIR)
     records.append(dict(
         name="rbf_moments", route="cuda",
         source="fast_gicp_tpu_torch/csrc/rbf_moments.cu",
         replaces="fast_gicp_tpu/ops/pallas_kernels.py:417",
-        max_abs_err=max(errs), tolerance="rtol 5e-3; atol 1e-4/2e-2/5e-2",
+        max_abs_err=max(errs),
+        tolerance=f"rtol 5e-3; atol 1e-4/2e-2/5e-2 (and on {edge_cases} edge cases); "
+                  "a repeat launch bit-identical",
         bound_ms=b_ms, bound_by=b_by, library_ms=None, pairs_in_range=pairs,
-        **tm))
+        pairs_visited=visited, **tm))
 
     # -- linearize_raw / error at the first linearization of the solve ----
     scov = rbf_covariance_cols(src - c, smask)
@@ -449,45 +634,41 @@ def phase_gicp_kernels(dev, pair):
     idx, d2 = cuda_kernels.nn_search(q, tgt_c, tmask, smask)
     idx_w, d2_w = cuda_kernels.nn_search_plain(q, tgt_c, tmask)
     torch.cuda.synchronize()
-    # near-ties among the valid queries, from chunked distance rows
-    parked = _masked_target(tgt_c, tmask)
-    unique = torch.empty_like(tmask)
-    for s0 in range(0, n, 2048):
-        dd = torch.cdist(q[s0:s0 + 2048], parked,
-                         compute_mode="donot_use_mm_for_euclid_dist").square()
-        unique[s0:s0 + 2048] = (dd <= dd.amin(1, keepdim=True) * (1 + 1e-6)).sum(1) == 1
-    ok = (idx == idx_w) | ~unique | ~smask
-    require(bool(ok.all()), f"nn_search idx: {int((~ok).sum())} unique nearest differ")
+    # the lexicographic (d^2, index) minimum: bit-equal on every valid query
+    require(bool(torch.equal(idx[smask], idx_w[smask])),
+            f"nn_search idx: {int((idx != idx_w)[smask].sum())} valid queries differ")
+    require(bool(torch.equal(d2[smask], d2_w[smask])),
+            f"nn_search d2: {int((d2 != d2_w)[smask].sum())} valid queries differ")
     require(bool(torch.isfinite(d2).all()), "nn_search d2: non-finite rows")
-    err_d2 = check_close("nn_search d2", d2[smask], d2_w[smask], 1e-6, 0.0)
+    edge_cases = check_nn_edge_cases(dev)
+    # the pairs the kernel's walk visits (emulated, and its result checked)
+    parked = _masked_target(tgt_c, tmask)
+    idx_e, d2_e, visited = nn_search_emulated(
+        torch.cat([q, smask.to(q.dtype)[:, None]], 1), cuda_kernels._pack_masked(tgt_c, tmask))
+    require(bool(torch.equal(idx_e[smask], idx_w[smask]) and torch.equal(d2_e[smask], d2_w[smask])),
+            "nn_search_emulated differs from the plain version")
 
-    # the pairs an exact cull at this tiling must visit: the (128-query,
-    # 128-target) tile pairs whose box gap^2 is <= the query tile's worst
-    # nearest d^2, over the valid queries
-    inf = torch.full_like(q, float("inf"))
-    qlo = torch.where(smask[:, None], q, inf).reshape(-1, 128, 3).amin(1)
-    qhi = torch.where(smask[:, None], q, -inf).reshape(-1, 128, 3).amax(1)
-    tlo = parked.reshape(-1, 128, 3).amin(1)
-    thi = parked.reshape(-1, 128, 3).amax(1)
-    gap = torch.clamp(torch.maximum(qlo[:, None] - thi[None], tlo[None] - qhi[:, None]),
-                      min=0.0)
-    worst = torch.where(smask, d2_w, torch.zeros_like(d2_w)).reshape(-1, 128).amax(1)
-    need = (gap.square().sum(-1) <= worst[:, None]) & (worst[:, None] > 0)
-    pairs = int(need.sum()) * 128 * 128
+    # the pairs an exact cull at the kernel's granularity must visit: the
+    # (32 queries, 32-target chunk) pairs in which some valid query's
+    # point-to-box gap^2 is <= its own nearest d^2
+    tlo, thi = _boxes(parked, torch.ones_like(tmask), CHUNK)
+    reach = (_gap2(q, q, tlo, thi) <= d2_w[:, None]) & smask[:, None]
+    pairs = int(reach.reshape(-1, 32, tlo.shape[0]).any(1).sum()) * 32 * CHUNK
+    # timed with the target's chunk boxes, which the wrapper builds here
     tm_ = timings(lambda: cuda_kernels.nn_search(q, tgt_c, tmask, smask),
                   lambda: cuda_kernels.nn_search_plain(q, tgt_c, tmask),
-                  ("tile_bbox_kernel", "nn_search_kernel"), 100, 5)
+                  ("chunk_bbox_kernel", "nn_search_kernel"), 100, 5)
     b_ms, b_by = bound_ms(n * 12 + n * 12 + n * 8, pairs * NN_OPS_PER_PAIR)
     records.append(dict(
         name="nn_search", route="cuda",
         source="fast_gicp_tpu_torch/csrc/nn_search.cu",
         replaces="fast_gicp_tpu/ops/pallas_kernels.py:99",
-        max_abs_err=err_d2,
-        tolerance="valid queries: idx equal where the nearest is unique; d2 rtol 1e-6",
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, pairs_to_visit=pairs, **tm_))
-    log(f"[kernels] nn_search: idx equal on all {int((unique & smask).sum())} unique "
-        f"nearest of valid queries, {int((~unique & smask).sum())} near-ties; "
-        f"exact-cull pairs {pairs} of {n * n}")
+        max_abs_err=float((d2 - d2_w)[smask].abs().max()),
+        tolerance=f"idx and d2 bit-equal on every valid query (and on {edge_cases} edge cases)",
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, pairs_to_visit=pairs,
+        pairs_visited=visited, **tm_))
+    log(f"[kernels] nn_search: idx and d2 bit-equal on all {int(smask.sum())} valid queries; "
+        f"exact-cull pairs {pairs} of {n * n}, visited {visited}")
 
     # -- linearize at the first linearization of the solve ---------------
     scov = knn_covariance_cols(src, smask)
@@ -1254,7 +1435,7 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("tolerance", "timing", "call_ms", "plain_call_ms", "launches_by_path")
     work = ("candidates", "exact_candidates", "exact_search_ms", "source_cloud_ms",
-            "pairs_visited", "pairs_in_range")
+            "pairs_visited", "pairs_in_range", "pairs_to_visit")
     kernels = [{k: r[k] for k in keys + extra + work if k in r} for r in records]
     require(all(math.isfinite(r["ms"]) for r in kernels), "kernel timings")
     print(smi)

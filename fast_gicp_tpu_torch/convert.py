@@ -3,7 +3,9 @@
 Registration has no weights: its state is the configuration and the voxel
 map.  These helpers read the JAX package's objects as plain fields and
 numpy arrays (this module imports no JAX), so both packages can compute
-from the same state and their results can be compared.
+from the same state and their results can be compared.  Like the port's
+entry points, the helpers put their tensors on the card unless the caller
+passes device="cpu".
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import device as _device
 from .models.gicp import GICPConfig
 from .models.ndt import NDTConfig
 from .models.vgicp import VGICPConfig
@@ -33,15 +36,17 @@ def config_from_jax(cfg):
     return LsqConfig(**{f: getattr(cfg, f) for f in LsqConfig._fields})
 
 
-def covs_from_numpy(covs, device="cpu"):
+def covs_from_numpy(covs, device="cuda"):
     """Covariances of the JAX package as numpy, (N, 3, 3) or (6, N) sym-6
     columns -> the port's (6, N) float32 sym-6 columns on `device`."""
+    device = _device.resolve(device)
     t = torch.tensor(np.asarray(covs, np.float32), device=device)
     return soa.sym_cols_from_covs(t).contiguous()
 
 
-def raw_grid_from_numpy(rows, grid8, origin, resolution, device="cpu"):
+def raw_grid_from_numpy(rows, grid8, origin, resolution, device="cuda"):
     """A JAX `DenseRawGridMap`'s arrays, as numpy, -> the port's map."""
+    device = _device.resolve(device)
     return DenseRawGridMap(
         rows=torch.tensor(np.asarray(rows, np.float32), device=device),
         grid=_grid_from_grid8(grid8, device),
@@ -58,9 +63,10 @@ def _grid_from_grid8(grid8, device):
     return torch.as_tensor(flat[: flat.shape[0] - 7].astype(np.int64), device=device)
 
 
-def raw_ndt_grid_from_numpy(rows, grid8, origin, resolution, dims, device="cpu"):
+def raw_ndt_grid_from_numpy(rows, grid8, origin, resolution, dims, device="cuda"):
     """A JAX `RawNdtGrid`'s arrays, as numpy (dims: its `grid.shape`) -> the
     port's `RawNdtGrid`."""
+    device = _device.resolve(device)
     return RawNdtGrid(
         rows=torch.tensor(np.asarray(rows, np.float32), device=device),
         grid=_grid_from_grid8(grid8, device),
@@ -70,9 +76,10 @@ def raw_ndt_grid_from_numpy(rows, grid8, origin, resolution, dims, device="cpu")
     )
 
 
-def ndt_grid_map_from_numpy(packed, grid8, origin, resolution, dims, device="cpu"):
+def ndt_grid_map_from_numpy(packed, grid8, origin, resolution, dims, device="cuda"):
     """A JAX `NdtGridMap`'s arrays, as numpy (dims: its `grid.shape`) -> the
     port's `NdtGridMap`."""
+    device = _device.resolve(device)
     return NdtGridMap(
         packed=torch.tensor(np.asarray(packed, np.float32), device=device),
         grid=_grid_from_grid8(grid8, device),
@@ -82,9 +89,10 @@ def ndt_grid_map_from_numpy(packed, grid8, origin, resolution, dims, device="cpu
     )
 
 
-def ndt_stats_from_numpy(means, valid, cov6, device="cpu"):
+def ndt_stats_from_numpy(means, valid, cov6, device="cuda"):
     """The JAX package's compact NDT source statistics (means (B, 3),
     valid (B,), cov6 (6, B)), as numpy -> the port's tensors."""
+    device = _device.resolve(device)
     return (torch.tensor(np.asarray(means, np.float32), device=device),
             torch.tensor(np.asarray(valid, bool), device=device),
             torch.tensor(np.asarray(cov6, np.float32), device=device))

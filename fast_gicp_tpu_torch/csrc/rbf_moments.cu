@@ -1,4 +1,4 @@
-// RBF kernel-density moments, one thread per query.
+// RBF kernel-density moments: the warps of a block split its target chunks.
 //
 // Replaces fast_gicp_tpu/ops/pallas_kernels.py::_rbf_kernel (reached through
 // rbf_cross_moments_centered_T).  For each query q it sums, over the valid
@@ -11,19 +11,31 @@
 //   13..15 zero
 // Rows of masked queries are written but carry no meaning.
 //
-// Bound on an H100: FP32 operations.  Each contributing pair costs a
-// distance (8 flops), one expf and 19 flops of moment accumulation, with
-// no data reuse problem: a block stages 128 targets in shared memory and
-// every thread reads them by broadcast, so device-memory traffic is a few
-// hundred KB per call.  The design keeps all ten sums in registers and
-// skips a whole staged tile when the bounding boxes of the block's valid
-// queries and the tile's valid targets are farther apart than max_dist --
-// exact, since every pair across the two boxes is then out of range.  The
-// clouds arrive voxel-key sorted, so most tiles are skipped.
+// Bound on an H100: FP32 operations.  Each pair in range costs a distance
+// (8 flops), one expf and 19 flops of moment accumulation; device-memory
+// traffic is a few hundred KB a call.  The clouds arrive voxel-key sorted,
+// so a box cull keeps a few percent of the pairs, but at a 3 m radius it
+// still visits ~7x the pairs in range.  What held a first design (a block
+// of 128 queries staging and boxing all 176 target tiles, one thread a
+// query, ~5 warps an SM) was latency.  Design: a prologue kernel writes the
+// box of the valid points of each 32-target chunk.  A block holds 32
+// queries, one a lane, in each of its kGroups warps.  It lists in parallel
+// (a box gap a thread, a ballot and a prefix) the chunks whose box lies
+// within max_dist of its valid queries' box; warp g takes every kGroups-th
+// listed chunk, skips it unless some valid query's own point-to-box gap^2
+// is <= max_dist^2, stages it in its own shared slot (no block barrier) and
+// runs the expf and the moment update only for the pairs in range (a
+// branch: one visited pair in eight is in range; on an H100 it ran faster
+// than first collecting each lane's in-range targets of a chunk in a bit
+// mask, and 8 warps faster than 4 or 16).  Each thread keeps its query's
+// ten sums in registers; at the end the warps' partial sums are added in
+// warp order through shared memory (no atomics), so two launches on the
+// same input return the same bits.
 //
 // The squared distance and the exponent are computed with explicitly
 // rounded operations (no FMA contraction) in the order the plain PyTorch
-// version uses, so both take the same d^2 <= max_dist^2 decisions.
+// version uses, so both take the same d^2 <= max_dist^2 decisions; the gaps
+// are rounded like d^2 (tile_cull.cuh), so the cull drops no pair in range.
 
 #include <cuda_runtime.h>
 
@@ -31,58 +43,84 @@
 
 namespace {
 
-constexpr int kThreads = kTile;  // queries per block == targets per staged tile
-constexpr int kWarps = kTileWarps;
+constexpr int kGroups = 8;  // warps sharing one block's 32 queries
+constexpr int kThreads = 32 * kGroups;
+constexpr int kListCap = 1024;  // chunks tested per listing round
+constexpr int kSums = 10;
 
 __global__ void __launch_bounds__(kThreads)
     rbf_moments_kernel(const float4* __restrict__ q, const float4* __restrict__ t,
-                       int nq, int nt, float kw, float md2,
-                       float* __restrict__ out) {
-  __shared__ float4 tile[kThreads];
-  __shared__ float scratch[6][kWarps];
-  __shared__ float qbox[6];
-  __shared__ float tbox[6];
+                       const float* __restrict__ boxes, int nq, int nt, float kw,
+                       float md2, float* __restrict__ out) {
+  __shared__ int list[kListCap];
+  __shared__ int counts[kListCap / kThreads][kGroups];
+  __shared__ float4 slot[kGroups][kChunk];  // each warp's staged chunk
+  __shared__ float part[kGroups][kSums][32];
 
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int i = blockIdx.x * 32 + lane;
   const float4 qi = i < nq ? q[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-  block_bbox(qi, qi.w != 0.f, scratch, qbox);
+  const bool valid = i < nq && qi.w != 0.f;
+  float qbox[6];  // every warp holds the block's queries: each boxes them alone
+  warp_bbox(qi, valid, qbox);
 
-  float s_w = 0.f, s_x = 0.f, s_y = 0.f, s_z = 0.f;
-  float s_xx = 0.f, s_xy = 0.f, s_xz = 0.f, s_yy = 0.f, s_yz = 0.f, s_zz = 0.f;
+  float s[kSums];
+#pragma unroll
+  for (int a = 0; a < kSums; ++a) s[a] = 0.f;
   const float neg_kw = -kw;
-
-  for (int base = 0; base < nt; base += kThreads) {
-    const int j = base + threadIdx.x;
-    const float4 tj = j < nt ? t[j] : make_float4(0.f, 0.f, 0.f, 0.f);
-    tile[threadIdx.x] = tj;
-    block_bbox(tj, tj.w != 0.f, scratch, tbox);  // its barriers publish tile
-    // rounded like d2 below, so gap2 <= d2 holds for every pair in floats
-    if (box_gap2(qbox, tbox) <= md2) {  // uniform across the block
-      const int n = min(kThreads, nt - base);
+  const int chunks = (nt + kChunk - 1) / kChunk;
+  float4* const own = slot[g];
+  for (int c0 = 0; c0 < chunks; c0 += kListCap) {
+    const int listed = list_chunks<kThreads, kListCap>(
+        c0, chunks, [&](int c) { return box_gap2(qbox, boxes + 6 * c) <= md2; }, list,
+        counts);
+    for (int e = g; e < listed; e += kGroups) {  // uniform across the warp
+      const int c = list[e];
+      const bool need = valid && point_gap2(qi, boxes + 6 * c) <= md2;
+      if (!__any_sync(0xffffffffu, need)) continue;
+      const int base = c * kChunk;
+      const int j = base + lane;
+      own[lane] = j < nt ? t[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+      __syncwarp();
+      const int n = min(kChunk, nt - base);
 #pragma unroll 4
       for (int k = 0; k < n; ++k) {
-        const float4 y = tile[k];
+        const float4 y = own[k];
         const float d2 = sq_dist(qi, y);
-        const float w = (y.w != 0.f && d2 <= md2) ? expf(__fmul_rn(d2, neg_kw)) : 0.f;
-        const float wx = w * y.x, wy = w * y.y, wz = w * y.z;
-        s_w += w;
-        s_x += wx;
-        s_y += wy;
-        s_z += wz;
-        s_xx += wx * y.x;
-        s_xy += wx * y.y;
-        s_xz += wx * y.z;
-        s_yy += wy * y.y;
-        s_yz += wy * y.z;
-        s_zz += wz * y.z;
+        if (y.w != 0.f && d2 <= md2) {
+          const float w = expf(__fmul_rn(d2, neg_kw));
+          const float wx = w * y.x, wy = w * y.y, wz = w * y.z;
+          s[0] += w;
+          s[1] += wx;
+          s[2] += wy;
+          s[3] += wz;
+          s[4] += wx * y.x;
+          s[5] += wx * y.y;
+          s[6] += wx * y.z;
+          s[7] += wy * y.y;
+          s[8] += wy * y.z;
+          s[9] += wz * y.z;
+        }
       }
+      __syncwarp();  // own is rewritten by the next chunk
     }
-    __syncthreads();  // every thread is done with tile and tbox
+    __syncthreads();  // list is rewritten by the next round
   }
 
-  if (i < nq) {
-    const float rows[16] = {s_w,  s_x,  s_y,  s_z,  s_xx, s_xy, s_xz, s_xy,
-                            s_yy, s_yz, s_xz, s_yz, s_zz, 0.f,  0.f,  0.f};
+  // the warps' partial sums, added in warp order
+#pragma unroll
+  for (int a = 0; a < kSums; ++a) part[g][a][lane] = s[a];
+  __syncthreads();
+  if (g == 0 && i < nq) {
+#pragma unroll
+    for (int a = 0; a < kSums; ++a) {
+      float v = part[0][a][lane];
+      for (int h = 1; h < kGroups; ++h) v += part[h][a][lane];
+      s[a] = v;
+    }
+    // rows [sum w, sum w y (3), sum w y y^T (9, row-major), 0 (3)]
+    const float rows[16] = {s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[5],
+                            s[7], s[8], s[6], s[8], s[9], 0.f,  0.f,  0.f};
 #pragma unroll
     for (int r = 0; r < 16; ++r) out[(size_t)r * nq + i] = rows[r];
   }
@@ -91,13 +129,20 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // q, t: (n, 4) float32 [x, y, z, valid] about the common center.
-// out: (16, nq) float32.  Launches on `stream`; returns cudaGetLastError().
+// boxes: scratch of 6 * ceil(nt / 32) floats.  out: (16, nq) float32.  Two
+// launches on `stream` (chunk boxes, then the moments); returns
+// cudaGetLastError().
 extern "C" int fgt_rbf_moments(const float* q, const float* t, int nq, int nt,
-                               float kw, float md2, float* out, void* stream) {
-  const int blocks = (nq + kThreads - 1) / kThreads;
+                               float kw, float md2, float* boxes, float* out,
+                               void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (nq + 31) / 32;
+  if (blocks > 0 && nt > 0)
+    chunk_bbox_kernel<true><<<(nt + kTile - 1) / kTile, kTile, 0, s>>>(
+        reinterpret_cast<const float4*>(t), nt, boxes);
   if (blocks > 0)
-    rbf_moments_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(t),
+    rbf_moments_kernel<<<blocks, kThreads, 0, s>>>(
+        reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(t), boxes,
         nq, nt, kw, md2, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,13 +1,15 @@
 // Device code shared by the tile-culled point-pair kernels (rbf_moments.cu,
 // nn_search.cu, radius_window.cu): warp reductions, the bounding box of the
-// points a block holds, the squared gap between two boxes and the squared
-// distance.  The gap and the distance are rounded the same way,
+// points a block or a warp holds, the squared gap between two boxes or
+// between a point and a box, the squared distance, and the parallel listing
+// of the target chunks that pass a cull.  The gaps and the distance are
+// rounded the same way,
 //   ((x0 - y0)^2 + (x1 - y1)^2) + (x2 - y2)^2
 // with explicitly rounded operations (no FMA contraction), so gap^2 <= d^2
-// holds in floats for every pair across two boxes: a kernel that skips a
-// tile whose gap^2 exceeds its radius or bound drops no pair the plain
-// version would keep.  Everything here has internal linkage, so each source
-// that includes it keeps its own copy.
+// holds in floats for every pair across two boxes (or a point and a box): a
+// kernel that skips a tile whose gap^2 exceeds its radius or bound drops no
+// pair the plain version would keep.  Everything here has internal linkage,
+// so each source that includes it keeps its own copy.
 
 #pragma once
 
@@ -92,6 +94,89 @@ __global__ void __launch_bounds__(kTile)
   const float4 tj = j < nt ? t[j] : make_float4(0.f, 0.f, 0.f, 0.f);
   block_bbox(tj, j < nt && (!kValidOnly || tj.w != 0.f), scratch, box);
   if (threadIdx.x < 6) boxes[6 * blockIdx.x + threadIdx.x] = box[threadIdx.x];
+}
+
+// Squared gap between point p and box b, rounded like sq_dist (inf for an
+// empty box).
+__device__ __forceinline__ float point_gap2(float4 p, const float* b) {
+  const float gx = axis_gap(p.x, p.x, b[0], b[3]);
+  const float gy = axis_gap(p.y, p.y, b[1], b[4]);
+  const float gz = axis_gap(p.z, p.z, b[2], b[5]);
+  return __fadd_rn(__fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy)), __fmul_rn(gz, gz));
+}
+
+// Bounding box of the points held one per lane of a warp and flagged
+// `valid`, in every lane: box[0..2] lo, box[3..5] hi (lo > hi when none is).
+__device__ __forceinline__ void warp_bbox(float4 p, bool valid, float* box) {
+  box[0] = warp_min(valid ? p.x : FLT_MAX);
+  box[1] = warp_min(valid ? p.y : FLT_MAX);
+  box[2] = warp_min(valid ? p.z : FLT_MAX);
+  box[3] = warp_max(valid ? p.x : -FLT_MAX);
+  box[4] = warp_max(valid ? p.y : -FLT_MAX);
+  box[5] = warp_max(valid ? p.z : -FLT_MAX);
+}
+
+constexpr int kChunk = 32;  // points per chunk box: one a lane of a warp
+
+// One warp per kChunk-point chunk of t: the box of its points into
+// boxes[6 * chunk ..], of the valid ones only (w != 0) with kValidOnly, else
+// of all of them (masked points parked at MASK_COORD count as points).
+// Blocks of kTile threads.
+template <bool kValidOnly>
+__global__ void __launch_bounds__(kTile)
+    chunk_bbox_kernel(const float4* __restrict__ t, int nt, float* __restrict__ boxes) {
+  const int j = blockIdx.x * kTile + threadIdx.x;
+  const int chunk = j / kChunk;
+  if (chunk * kChunk >= nt) return;  // uniform across the warp
+  const float4 tj = j < nt ? t[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+  float box[6];
+  warp_bbox(tj, j < nt && (!kValidOnly || tj.w != 0.f), box);
+  const int lane = threadIdx.x & 31;
+  if (lane < 6) {
+    float v = box[0];
+#pragma unroll
+    for (int c = 1; c < 6; ++c) v = lane == c ? box[c] : v;
+    boxes[6 * chunk + lane] = v;
+  }
+}
+
+// The chunks c in [c0, min(c0 + kCap, n)) with keep(c), listed in chunk
+// order into list[0 ..): each thread tests kCap / kThreads of them, a warp
+// ballot and a prefix over the block's warps place the kept ones.  Called by
+// every thread of a kThreads-thread block; counts is shared scratch.
+// Returns the number listed; ends with a barrier, so the list is readable by
+// the whole block.
+template <int kThreads, int kCap, class Keep>
+__device__ __forceinline__ int list_chunks(int c0, int n, Keep keep, int* list,
+                                           int (*counts)[kThreads / 32]) {
+  static_assert(kCap % kThreads == 0, "whole rounds of the block's threads");
+  constexpr int kRounds = kCap / kThreads, kWarpsHere = kThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  bool kept[kRounds];
+  unsigned votes[kRounds];
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    const int c = c0 + r * kThreads + threadIdx.x;
+    kept[r] = c < n && keep(c);
+    votes[r] = __ballot_sync(0xffffffffu, kept[r]);
+    if (lane == 0) counts[r][warp] = __popc(votes[r]);
+  }
+  __syncthreads();
+  int base = 0;
+#pragma unroll
+  for (int r = 0; r < kRounds; ++r) {
+    int before = 0, all = 0;
+    for (int w = 0; w < kWarpsHere; ++w) {
+      before += w < warp ? counts[r][w] : 0;
+      all += counts[r][w];
+    }
+    if (kept[r])
+      list[base + before + __popc(votes[r] & ((1u << lane) - 1u))] =
+          c0 + r * kThreads + threadIdx.x;
+    base += all;
+  }
+  __syncthreads();
+  return base;
 }
 
 }  // namespace

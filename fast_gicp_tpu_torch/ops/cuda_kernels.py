@@ -48,7 +48,7 @@ import torch
 from . import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_RBF_ARGS = (_P, _P, _I, _I, _F, _F, _P, _P)
+_RBF_ARGS = (_P, _P, _I, _I, _F, _F, _P, _P, _P)
 _NN_ARGS = (_P, _P, _I, _I, _P, _P, _P, _P)
 _KNN_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P)
 _BOXES_ARGS = (_P, _I, _P, _P)
@@ -62,7 +62,8 @@ KNN_TILE = 256  # queries sharing one candidate slab in `knn_moments`
 KNN_MAX_SLAB = 2048  # candidate positions a query tile may search
 KNN_SLAB_MAX_K = 32  # neighbours a query may keep in `knn_slab`
 RADIUS_MAX_RUNGS = 32  # ladder rungs `radius_count` counts at once
-_NN_TILE = 128  # targets per bounding box in `nn_search`, `radius_*`
+_RADIUS_TILE = 128  # targets per bounding box in `radius_*`
+_CHUNK = 32  # targets per bounding box in `nn_search`, `rbf_moments`
 
 
 def _pack(points, mask, center):
@@ -129,11 +130,13 @@ def rbf_moments(query, qmask, target, tmask, center, kernel_width, max_dist):
     q4 = _pack(query, qmask, center)
     t4 = _pack(target, tmask, center)
     nq, nt = q4.shape[0], t4.shape[0]
+    boxes = torch.empty(6 * -(-nt // _CHUNK), dtype=torch.float32, device=q4.device)
     out = torch.empty((16, nq), dtype=torch.float32, device=q4.device)
     fn = _build.function("fgt_rbf_moments", _RBF_ARGS)
     stream = torch.cuda.current_stream(q4.device).cuda_stream
     _build.check("fgt_rbf_moments", fn(
-        q4.data_ptr(), t4.data_ptr(), nq, nt, kw, md2, out.data_ptr(), stream))
+        q4.data_ptr(), t4.data_ptr(), nq, nt, kw, md2, boxes.data_ptr(), out.data_ptr(),
+        stream))
     rbf_moments.launches += 1
     return out
 
@@ -189,7 +192,7 @@ def nn_search(query, target, tmask, qmask=None):
     q4 = torch.cat([query, qmask.to(query.dtype)[:, None]], dim=1).contiguous()
     t4 = _pack_masked(target, tmask)
     nq, nt = q4.shape[0], t4.shape[0]
-    boxes = torch.empty(6 * -(-nt // _NN_TILE), dtype=torch.float32, device=dev)
+    boxes = torch.empty(6 * -(-nt // _CHUNK), dtype=torch.float32, device=dev)
     idx = torch.empty(nq, dtype=torch.int32, device=dev)
     d2 = torch.empty(nq, dtype=torch.float32, device=dev)
     fn = _build.function("fgt_nn_search", _NN_ARGS)
@@ -422,7 +425,7 @@ def radius_inputs(query, qmask, target, tmask, center):
     t4 = _pack_masked(target - center, tmask)
     q4 = t4 if query is target and qmask is tmask else _pack_masked(query - center, qmask)
     nt = t4.shape[0]
-    boxes = torch.empty(6 * -(-nt // _NN_TILE), dtype=torch.float32, device=dev)
+    boxes = torch.empty(6 * -(-nt // _RADIUS_TILE), dtype=torch.float32, device=dev)
     fn = _build.function("fgt_radius_boxes", _BOXES_ARGS)
     _build.check("fgt_radius_boxes", fn(
         t4.data_ptr(), nt, boxes.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))

@@ -262,3 +262,95 @@ def radius_count_edge_cases(seed: int = 0):
         np.sort(np.concatenate([ladder[:14], rng.choice(ladder[:14], 6)])), exact_d2=True)
     add("grid_on_rung_L1", grid, mask, center, ladder[11:12], exact_d2=True)
     return cases
+
+
+def _far_points(rng, n: int, center, spread: float = 1.0):
+    """n points in a 2 * spread cube about `center`, sorted along x."""
+    pts = (np.asarray(center, np.float32)
+           + (rng.random((n, 3)) * 2.0 - 1.0) * np.float32(spread)).astype(np.float32)
+    return pts[np.argsort(pts[:, 0], kind="stable")]
+
+
+def nn_search_edge_cases(seed: int = 0):
+    """Inputs for the exact 1-NN search (`ops.cuda_kernels.nn_search`) that
+    stress its tie rule, its cull and its edges, made from `seed`: d^2 tied
+    across chunks and tiles (repeated points on an exact grid, queries at
+    half-grid positions), every target masked, nt < 128 and nq, nt not
+    multiples of 128 (or of 32), a block of 128 queries whose box touches no
+    target chunk (its first pass lists nothing and its bound starts at
+    +inf), a block of padding queries only, and street-scale queries 50 m
+    from the cloud, whose d^2 rounds.  Returns a list of dicts: name, query,
+    qmask, target, tmask (numpy), `jax` (the sizes the JAX package's
+    `nn_search_pallas` takes: nq a multiple of 512, nt of 2,048, at least
+    one valid target) and `exact_d2` (grid points: every d^2 is exact)."""
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def add(name, query, target, qmask=None, tmask=None, exact_d2=False):
+        nq, nt = len(query), len(target)
+        qmask = np.ones(nq, bool) if qmask is None else qmask
+        tmask = _mask(rng, nt, 0.1) if tmask is None else tmask
+        cases.append(dict(name=name, query=query, qmask=qmask, target=target, tmask=tmask,
+                          jax=nq % 512 == 0 and nt % 2048 == 0 and bool(tmask.any()),
+                          exact_d2=exact_d2))
+
+    grid = _grid_points(rng, 2048, 300)
+    half = (_grid_points(rng, 2048, 600) + np.float32(1.0 / 16.0)).astype(np.float32)
+    add("grid_ties_across_chunks", np.concatenate([grid[rng.permutation(2048)[:1024]],
+                                                   half[:1024]]), grid, exact_d2=True)
+    add("all_targets_masked", _grid_points(rng, 512, 200), grid,
+        tmask=np.zeros(2048, bool), exact_d2=True)
+    street = _street_points(rng, 2048)
+    add("nt_below_128_ragged", street[rng.choice(2048, 300, replace=False)], street[:100])
+    add("nq_nt_not_multiples_of_128", street[rng.choice(2048, 1000, replace=False)],
+        street[:1500])
+    far = np.concatenate([_far_points(rng, 128, [140.0, 60.0, 2.0]),
+                          street[rng.choice(2048, 896, replace=False)]])
+    add("block_touching_no_chunk", far, street)
+    qmask = _mask(rng, 1024, 0.05)
+    qmask[256:384] = False
+    pad = street[rng.choice(2048, 1024, replace=False)].copy()
+    pad[256:384] = 0.0  # padding rows, as `pad_points` leaves them
+    add("padding_block", pad, street, qmask=qmask)
+    add("street_queries_50m_off", (street[rng.choice(2048, 1024, replace=False)]
+                                   + np.float32([170.0, 0.0, 0.0])).astype(np.float32), street)
+    return cases
+
+
+def rbf_moments_edge_cases(seed: int = 0):
+    """Inputs for the RBF moments (`ops.cuda_kernels.rbf_moments`) that stress
+    the range test and the cull, made from `seed`: pairs exactly at
+    d^2 = max_dist^2 in f32 (points on an exact grid, centered on a grid
+    point), masked targets inside the radius, a query cloud other than the
+    target with nq != nt, nt < 128, a block of queries with nothing in
+    range, and kernel width 0.  Returns a list of dicts: name, query, qmask,
+    target, tmask, center (numpy), kernel_width, max_dist, `jax` (the sizes
+    the JAX package's `rbf_cross_moments_centered_T` takes: nq a multiple of
+    512, nt of 2,048) and `exact_d2`."""
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def add(name, query, target, center, kernel_width, max_dist, qmask=None, tmask=None,
+            exact_d2=True):
+        nq, nt = len(query), len(target)
+        cases.append(dict(
+            name=name, query=query, target=target, center=np.asarray(center, np.float32),
+            qmask=np.ones(nq, bool) if qmask is None else qmask,
+            tmask=_mask(rng, nt, 0.1) if tmask is None else tmask,
+            kernel_width=float(kernel_width), max_dist=float(max_dist),
+            jax=nq % 512 == 0 and nt % 2048 == 0, exact_d2=exact_d2))
+
+    grid = _grid_points(rng, 2048, 900)
+    on = np.float32([2.0, 2.0, 2.0])  # a grid point: centering stays exact
+    add("on_radius_1.5", grid, grid, on, 0.5, 1.5)  # d^2 = 2.25, e.g. (1.5, 0, 0)
+    add("masked_targets_in_radius", grid, grid, on, 0.5, 3.0, tmask=_mask(rng, 2048, 0.4))
+    add("cross_nq_ne_nt", _grid_points(rng, 1024, 500), grid, on, 0.5, 1.0,
+        qmask=_mask(rng, 1024, 0.1))
+    street = _street_points(rng, 2048)
+    center = street.astype(np.float64).mean(0).astype(np.float32)
+    add("nt_below_128", street[rng.choice(2048, 300, replace=False)], street[:100], center,
+        0.5, 3.0, exact_d2=False)
+    far = np.concatenate([_far_points(rng, 128, [150.0, 60.0, 2.0]), street[:896]])
+    add("block_nothing_in_range", far, street, center, 0.5, 3.0, exact_d2=False)
+    add("kernel_width_0", grid, grid, on, 0.0, 1.5)
+    return cases

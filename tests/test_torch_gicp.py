@@ -121,8 +121,8 @@ def _jax_args(pair, covs):
 
 
 def _port_args(pair, covs):
-    return (pair["sp"], pair["sm"], convert.covs_from_numpy(covs[0]),
-            pair["tp"], pair["tm"], convert.covs_from_numpy(covs[1]))
+    return (pair["sp"], pair["sm"], convert.covs_from_numpy(covs[0], device="cpu"),
+            pair["tp"], pair["tm"], convert.covs_from_numpy(covs[1], device="cpu"))
 
 
 def test_gicp_evaluate_matches_jax(pair, jax_covs):

@@ -80,6 +80,32 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         fitness_score(eye, pts, mask, pts, mask)
 
 
+def test_convert_helpers_default_to_cuda_and_raise_without_it(monkeypatch):
+    """The helpers that carry the JAX package's state into the port put
+    their tensors on the card unless the caller asks for the CPU."""
+    from fast_gicp_tpu_torch import convert
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    grid8 = np.zeros((9, 8), np.int32)
+    rows = np.zeros((4, 16), np.float32)
+    calls = [
+        lambda **kw: convert.covs_from_numpy(np.zeros((6, 4), np.float32), **kw),
+        lambda **kw: convert.raw_grid_from_numpy(rows, grid8, np.zeros(3, np.int32), 1.0, **kw),
+        lambda **kw: convert.raw_ndt_grid_from_numpy(rows, grid8, np.zeros(3, np.int32), 1.0,
+                                                     (4, 4, 4), **kw),
+        lambda **kw: convert.ndt_grid_map_from_numpy(rows, grid8, np.zeros(3, np.int32), 1.0,
+                                                     (4, 4, 4), **kw),
+        lambda **kw: convert.ndt_stats_from_numpy(np.zeros((4, 3), np.float32), np.ones(4, bool),
+                                                  np.zeros((6, 4), np.float32), **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+        out = call(device="cpu")
+        tensors = out if isinstance(out, tuple) else [out]
+        assert all(t.device.type == "cpu" for t in tensors if isinstance(t, torch.Tensor))
+
+
 def test_wrappers_take_plain_version_on_cpu_without_counting():
     from fast_gicp_tpu_torch.ops import cuda_kernels, cuda_linearize, cuda_solver
 

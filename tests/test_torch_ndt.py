@@ -170,8 +170,9 @@ def test_ndt_prepare_cloud_and_align_prebuilt_match_jax(pair, jax_fused, mode):
 
     guess = np.asarray(jse3.se3_exp(jnp.float32([0.002, -0.003, 0.01, 0.3, 0.1, -0.05])))
     tmap = convert.ndt_grid_map_from_numpy(jt[0].packed, jt[0].grid8, jt[0].origin,
-                                           jt[0].resolution, jt[0].grid.shape)
-    compact = None if js[1] is None else convert.ndt_stats_from_numpy(*js[1])
+                                           jt[0].resolution, jt[0].grid.shape,
+                                           device="cpu")
+    compact = None if js[1] is None else convert.ndt_stats_from_numpy(*js[1], device="cpu")
     res = ndt.ndt_align_prebuilt(sp, sm, compact, torch.as_tensor(np.asarray(js[2])), tmap,
                                  torch.as_tensor(np.asarray(jt[2])), guess, pcfg, device="cpu")
     jres = jndt.ndt_align_prebuilt(jnp.asarray(sp), jnp.asarray(sm), js[1], js[2], jt[0],

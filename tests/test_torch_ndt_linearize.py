@@ -60,9 +60,9 @@ def scene():
                                           budget=2048)
     maps = {
         True: (jraw, convert.raw_ndt_grid_from_numpy(jraw.rows, jraw.grid8, jraw.origin,
-                                                     1.0, jraw.grid.shape)),
+                                                     1.0, jraw.grid.shape, device="cpu")),
         False: (jfin, convert.ndt_grid_map_from_numpy(jfin.packed, jfin.grid8, jfin.origin,
-                                                      1.0, jfin.grid.shape)),
+                                                      1.0, jfin.grid.shape, device="cpu")),
     }
     x = np.asarray(jse3.se3_exp(jnp.float32([0.02, -0.01, 0.03, 0.1, -0.2, 0.05])))
     x2 = np.asarray(jse3.se3_exp(jnp.float32([-0.01, 0.02, 0.0, 0.05, 0.1, -0.1])))
@@ -77,7 +77,7 @@ def _objectives(scene, mode):
     covs = scene["covs"] if d2d else None
     obj = ndt.make_ndt_objective(
         torch.as_tensor(scene["src"]), torch.as_tensor(scene["mask"]),
-        None if covs is None else convert.covs_from_numpy(covs), tmap, offsets)
+        None if covs is None else convert.covs_from_numpy(covs, device="cpu"), tmap, offsets)
     assert obj.mode == mode
     P = jsoa.cols_from_points(jnp.asarray(scene["src"]))
     C_A = None if covs is None else jsoa.sym_cols_from_covs(jnp.asarray(covs))
@@ -166,7 +166,7 @@ def test_p2d_pack_from_aux_reproduces_the_linearization(scene):
     torch.testing.assert_close(H2, H, rtol=1e-6, atol=1e-6 * float(H.abs().max()))
     torch.testing.assert_close(b2, b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))
     d2d = ndt.make_ndt_objective(torch.as_tensor(scene["src"]), torch.as_tensor(scene["mask"]),
-                                 convert.covs_from_numpy(scene["covs"]), tmap, offsets)
+                                 convert.covs_from_numpy(scene["covs"], device="cpu"), tmap, offsets)
     assert d2d.pack_from_aux is None  # D2D re-freezes M at every linearization
 
 

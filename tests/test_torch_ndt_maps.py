@@ -172,10 +172,10 @@ def test_maps_carried_across_by_convert():
     jmap, jstats = jvox.build_ndt_grid_compact(jnp.asarray(pts), jnp.asarray(mask), RES, dims,
                                                budget=2048, with_stats=True)
     raw = convert.raw_ndt_grid_from_numpy(jraw.rows, jraw.grid8, jraw.origin,
-                                          jraw.resolution, jraw.grid.shape)
+                                          jraw.resolution, jraw.grid.shape, device="cpu")
     fin = convert.ndt_grid_map_from_numpy(jmap.packed, jmap.grid8, jmap.origin,
-                                          jmap.resolution, jmap.grid.shape)
-    stats = convert.ndt_stats_from_numpy(*jstats)
+                                          jmap.resolution, jmap.grid.shape, device="cpu")
+    stats = convert.ndt_stats_from_numpy(*jstats, device="cpu")
     own_raw = voxelmap.build_ndt_raw_grid(torch.as_tensor(pts), torch.as_tensor(mask), RES, dims)
     own_map, own_stats = voxelmap.build_ndt_grid_compact(
         torch.as_tensor(pts), torch.as_tensor(mask), RES, dims, budget=2048, with_stats=True)

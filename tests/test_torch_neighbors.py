@@ -2,7 +2,9 @@
 (fast_gicp_tpu_torch.ops.neighbors) and the plain versions of the 1-NN and
 fused kNN-moment kernels (ops.cuda_kernels) against
 fast_gicp_tpu.ops.neighbors and the Pallas kernel bodies `nn_search_pallas`
-and `knn_moments_pallas`, run in interpret mode."""
+and `knn_moments_pallas`, run in interpret mode; the 1-NN plain version
+also on the adversarial inputs of `utils.synthetic.nn_search_edge_cases`
+against numpy."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,7 @@ import torch
 from fast_gicp_tpu.ops import neighbors as jneighbors
 from fast_gicp_tpu.ops import pallas_kernels
 from fast_gicp_tpu_torch.ops import cuda_kernels, neighbors
+from fast_gicp_tpu_torch.utils import synthetic
 
 
 def _voxel_sorted_cloud(rng, n, extent=10.0, res=0.5):
@@ -183,3 +186,55 @@ def test_knn_moments_rejects_bad_inputs():
         cuda_kernels.knn_moments(p, m, torch.zeros((4096, 3)),
                                  torch.ones(4096, dtype=torch.bool),
                                  torch.zeros((2, 32), dtype=torch.int32), 20)  # slab > 2048
+
+
+NN_EDGE_CASES = synthetic.nn_search_edge_cases()
+
+
+def _nn_numpy(case):
+    """Exact 1-NN in numpy: masked targets parked at MASK_COORD, d^2 rounded
+    in the kernels' order, the first index among equal minima."""
+    t = np.where(case["tmask"][:, None], case["target"], np.float32(cuda_kernels.MASK_COORD))
+    d = synthetic._sq_dist_f32(case["query"], t)
+    idx = d.argmin(1)
+    return idx, np.maximum(d[np.arange(len(d)), idx], np.float32(0.0)), d
+
+
+@pytest.mark.parametrize("case", NN_EDGE_CASES, ids=[c["name"] for c in NN_EDGE_CASES])
+def test_nn_search_plain_edge_cases_match_numpy(case):
+    """The plain version (the card's reference) on the adversarial inputs of
+    `nn_search_edge_cases`: idx and d^2 bit-equal to the numpy argmin on
+    every valid query, ties included (the lowest index wins), and finite
+    on every query."""
+    idx, d2 = cuda_kernels.nn_search(*(torch.as_tensor(case[k]) for k in
+                                       ("query", "target", "tmask", "qmask")))
+    want_idx, want_d2, _d = _nn_numpy(case)
+    v = case["qmask"]
+    np.testing.assert_array_equal(idx.numpy()[v], want_idx[v])
+    np.testing.assert_array_equal(d2.numpy()[v], want_d2[v])
+    assert np.isfinite(d2.numpy()).all()
+
+
+JAX_NN_CASES = [c for c in NN_EDGE_CASES if c["jax"]]
+
+
+@pytest.mark.parametrize("case", JAX_NN_CASES, ids=[c["name"] for c in JAX_NN_CASES])
+def test_nn_search_plain_edge_cases_match_pallas(case):
+    """Against `nn_search_pallas` (interpret mode) on the edge cases whose
+    sizes it takes: d^2 within 1e-6 relative (XLA on the CPU may contract
+    d^2's multiply-adds; on the exact grid they are equal) and idx equal
+    where the nearest is unique.  The JAX kernel keeps the first minimum it
+    meets across its two passes, not the lowest index, so ties are held to
+    numpy alone (above)."""
+    idx_j, d2_j = pallas_kernels.nn_search_pallas(
+        jnp.asarray(case["query"]), jnp.asarray(case["target"]), jnp.asarray(case["tmask"]),
+        interpret=True)
+    idx, d2 = cuda_kernels.nn_search(*(torch.as_tensor(case[k]) for k in
+                                       ("query", "target", "tmask", "qmask")))
+    _i, want_d2, d = _nn_numpy(case)
+    v = case["qmask"]
+    unique = (d <= want_d2[:, None]).sum(1) == 1
+    np.testing.assert_array_equal(idx.numpy()[v & unique], np.asarray(idx_j)[v & unique])
+    np.testing.assert_allclose(d2.numpy()[v], np.asarray(d2_j)[v], rtol=1e-6, atol=0.0)
+    if case["exact_d2"]:
+        np.testing.assert_array_equal(d2.numpy()[v], np.asarray(d2_j)[v])

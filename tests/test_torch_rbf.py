@@ -8,7 +8,9 @@ interpret mode; the cases follow tests/test_pallas_linearize.py (plain,
 features and the plain version f32, so the f64 dense reference is the
 arbiter: the plain version is held to it elementwise in every case, and to
 the Pallas kernel elementwise where the kernel itself meets that tolerance
-against f64 (the plain case, as test_pallas_linearize.py checks it)."""
+against f64 (the plain case, as test_pallas_linearize.py checks it).  The
+adversarial inputs of `utils.synthetic.rbf_moments_edge_cases` hold the
+plain version to f64 and to the Pallas kernel's own bf16 contract."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,7 @@ import torch
 from fast_gicp_tpu.ops import covariance as jcov
 from fast_gicp_tpu.ops import pallas_kernels
 from fast_gicp_tpu_torch.ops import covariance, cuda_kernels
+from fast_gicp_tpu_torch.utils import synthetic
 
 N = 2048
 KW, MD = 0.5, 3.0
@@ -130,3 +133,64 @@ def test_rbf_covariances_wide_extent_match_f64():
     live = mask & (ref[0] > 1.0)
     assert np.isfinite(got).all()
     assert np.abs(got - _covs(ref))[live].max() <= 5e-3
+
+
+RBF_EDGE_CASES = synthetic.rbf_moments_edge_cases()
+
+
+def _edge_args(case):
+    return (*(torch.as_tensor(case[k]) for k in ("query", "qmask", "target", "tmask", "center")),
+            case["kernel_width"], case["max_dist"])
+
+
+def _edge_numpy(case):
+    """(16, Nq) f64 moments with the range test on f32 d^2 rounded in the
+    kernels' order, and sum |w f| of each entry (the scale of its terms)."""
+    yq = (case["query"] - case["center"]).astype(np.float32)
+    yt = (case["target"] - case["center"]).astype(np.float32)
+    d = synthetic._sq_dist_f32(yq, yt)
+    md2 = np.float32(case["max_dist"] * case["max_dist"])
+    w = np.where((d <= md2) & case["tmask"][None, :],
+                 np.exp(-case["kernel_width"] * d.astype(np.float64)), 0.0)
+    y = yt.astype(np.float64)
+    f = np.concatenate([np.ones((len(y), 1)), y, (y[:, :, None] * y[:, None, :]).reshape(-1, 9),
+                        np.zeros((len(y), 3))], axis=1)
+    return (w @ f).T, (w @ np.abs(f)).T
+
+
+@pytest.mark.parametrize("case", RBF_EDGE_CASES, ids=[c["name"] for c in RBF_EDGE_CASES])
+def test_rbf_moments_plain_edge_cases_match_f64(case):
+    """The plain version (the card's reference) on the adversarial inputs of
+    `rbf_moments_edge_cases` (pairs exactly on the radius, masked targets
+    in range, nq != nt, nt < 128, a block with nothing in range, kernel
+    width 0) against f64 moments that take the same f32 range decisions:
+    rtol 5e-3 with atol 1e-4 / 2e-2 / 5e-2 on the valid queries."""
+    got = cuda_kernels.rbf_moments(*_edge_args(case)).numpy()
+    ref, _scale = _edge_numpy(case)
+    v = case["qmask"]
+    for rows, atol in MOMENT_TOLS:
+        np.testing.assert_allclose(got[rows][:, v], ref[rows][:, v], rtol=5e-3, atol=atol)
+    np.testing.assert_array_equal(got[13:], 0.0)
+    if case["name"] == "block_nothing_in_range":
+        np.testing.assert_array_equal(got[:, :128], 0.0)
+
+
+JAX_RBF_CASES = [c for c in RBF_EDGE_CASES if c["jax"]]
+
+
+@pytest.mark.parametrize("case", JAX_RBF_CASES, ids=[c["name"] for c in JAX_RBF_CASES])
+def test_rbf_moments_plain_edge_cases_match_pallas(case):
+    """Against `rbf_cross_moments_centered_T` (interpret mode) on the edge
+    cases whose sizes it takes.  The Pallas kernel rounds each weight to
+    bf16 for its matmul (half an ulp is 2^-8 of it), so its contract is
+    looser than the plain version's f32: each entry is held within 2^-7 of
+    the sum of its terms' magnitudes, sum |w f| (one bf16 ulp, leaving room
+    for the f32 accumulation), on the valid queries."""
+    want = np.asarray(pallas_kernels.rbf_cross_moments_centered_T(
+        jnp.asarray(case["query"]), jnp.asarray(case["qmask"]), jnp.asarray(case["target"]),
+        jnp.asarray(case["tmask"]), case["kernel_width"], case["max_dist"],
+        jnp.asarray(case["center"]), interpret=True))
+    got = cuda_kernels.rbf_moments(*_edge_args(case)).numpy()
+    _ref, scale = _edge_numpy(case)
+    v = case["qmask"]
+    assert (np.abs(got - want)[:, v] <= 2.0 ** -7 * scale[:, v] + 1e-6).all()

@@ -107,7 +107,7 @@ def test_vgicp_objective_on_jax_map_matches_jax(pair):
     jlin, _jerr = jvgicp.make_vgicp_objective(
         jnp.asarray(src), jnp.asarray(sm), scov, jmap, jnp.asarray(offs), cfg)
     tmap = convert.raw_grid_from_numpy(jmap.rows, jmap.grid8, jmap.origin,
-                                       jmap.resolution)
+                                       jmap.resolution, device="cpu")
     lin, err_fn, _f, _lf = vgicp.make_vgicp_objective(
         torch.as_tensor(src), torch.as_tensor(sm),
         soa.sym_cols_from_covs(torch.tensor(np.asarray(scov))), tmap, offs,

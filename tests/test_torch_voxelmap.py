@@ -94,7 +94,7 @@ def test_raw_grid_from_numpy_round_trips_the_jax_map():
     dims = voxelmap.auto_grid_dims(pts[mask], RES)
     jmap, tmap = _both(pts, covs, mask, dims)
     cmap = convert.raw_grid_from_numpy(jmap.rows, jmap.grid8, jmap.origin,
-                                       jmap.resolution)
+                                       jmap.resolution, device="cpu")
     q = torch.as_tensor(voxelmap.voxel_coord(torch.as_tensor(pts), RES))
     a = voxelmap.lookup_raw_rows_cols(cmap, dims, q[:, 0], q[:, 1], q[:, 2])
     b = voxelmap.lookup_raw_rows_cols(tmap, dims, q[:, 0], q[:, 1], q[:, 2])

@@ -1,6 +1,7 @@
-"""The work the `radius_count` and `knn_slab` kernels walk on the full-size
-synthetic pair (the pair `chip_smoke.py` registers), counted on the CPU
-from the same packing, boxes and slabs the kernels get.
+"""The work the `radius_count`, `knn_slab`, `nn_search` and `rbf_moments`
+kernels walk on the full-size synthetic pair (the pair `chip_smoke.py`
+registers), counted on the CPU from the same packing, boxes and slabs the
+kernels get.
 
     python tests/torch_kernel_work.py
 
@@ -14,6 +15,10 @@ slab order, one warp step of 32 positions at a time, without and with the
 kernel's first-pass bound (the k-th smallest of the 32 lane minima), on
 the target and the source cloud at C = 16 x 256 (the MIN_EIG path) and on
 every 8th query tile of the exact search (C = T x 128, index order).
+For the 1-NN search at the GICP path's first re-search and the RBF moments
+of the target cloud (VGICP): the pairs the first designs' 128 x 128 tile
+culls visited, and the pairs the chunked kernels visit
+(`chip_smoke.nn_search_emulated`, `chip_smoke.rbf_visited_pairs`).
 A few minutes on the CPU."""
 
 import pathlib
@@ -24,6 +29,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
+from fast_gicp_tpu_torch import se3  # noqa: E402
 from fast_gicp_tpu_torch.ops import cuda_kernels  # noqa: E402
 from fast_gicp_tpu_torch.ops.covariance import default_radius_ladder, masked_mean  # noqa: E402
 from fast_gicp_tpu_torch.ops.neighbors import (  # noqa: E402
@@ -91,8 +97,67 @@ def slab_hits(points, k=20, exact=False, every=1):
             float(bounded.max()))
 
 
+def tile_nn_visits(q4, t4, tile=128):
+    """Pairs the first `nn_search` design visited: blocks of 128 queries
+    walk the 128-target tiles whose box (masked targets included) touches
+    the box of their valid queries, then those with 0 < gap^2 <= the
+    block's worst best d^2, which it lowered after every visited tile."""
+    q, t = q4[:, :3], t4[:, :3]
+    valid = q4[:, 3] != 0
+    nt = t.shape[0]
+    qlo, qhi = chip_smoke._boxes(q, valid, tile)
+    alo, ahi = chip_smoke._boxes(q, torch.ones_like(valid), tile)
+    none = ~valid.reshape(-1, tile).any(1)  # a block of masked rows boxes them all
+    qlo, qhi = torch.where(none[:, None], alo, qlo), torch.where(none[:, None], ahi, qhi)
+    counts = torch.where(none[:, None], True, valid.reshape(-1, tile)).reshape(-1)
+    tlo, thi = chip_smoke._boxes(t, torch.ones(nt, dtype=torch.bool), tile)
+    gap = chip_smoke._gap2(qlo, qhi, tlo, thi)
+    tmin = torch.stack([cuda_kernels._sq_dist(q[:, None, :], t[None, s:s + tile]).amin(1)
+                        for s in range(0, nt, tile)], 1)  # (nq, tiles)
+    best = torch.full((q.shape[0],), float("inf"))
+    visits = 0
+    for pass_ in range(2):
+        for tt in range(tlo.shape[0]):
+            bound = torch.where(counts, best, 0.0).reshape(-1, tile).amax(1)
+            g = gap[:, tt]
+            visit = g <= 0 if pass_ == 0 else (g > 0) & (g <= bound)
+            visits += int(visit.sum())
+            best = torch.where(visit.repeat_interleave(tile), torch.minimum(best, tmin[:, tt]),
+                               best)
+    return visits * tile * tile
+
+
+def nn_rbf_work(source, target):
+    """Pairs `nn_search` (the GICP path's first re-search, as chip_smoke.py
+    checks it) and `rbf_moments` (the target cloud about its mean) visit
+    under the first designs' tile culls and the chunked kernels'."""
+    sp, sm = (torch.as_tensor(a) for a in pad_points(source))
+    tp, tm = (torch.as_tensor(a) for a in pad_points(target))
+    c = masked_mean(tp, tm)
+    x = se3.se3_exp(torch.tensor([0.002, -0.001, 0.003, 0.02, -0.01, 0.005]))
+    q = se3.transform_points(x, sp - c)
+    q4 = torch.cat([q, sm.to(q.dtype)[:, None]], 1)
+    t4 = cuda_kernels._pack_masked(tp - c, tm)
+    _idx, _d2, chunked = chip_smoke.nn_search_emulated(q4, t4)
+    print(f"nn_search: {tile_nn_visits(q4, t4)} pairs visited by 128 x 128 tiles in two "
+          f"passes; {chunked} by {chip_smoke.NN_GROUPS} groups of {chip_smoke.NN_QUERIES} "
+          f"threads over "
+          f"{chip_smoke.CHUNK}-target chunks")
+    p4 = cuda_kernels._pack(tp, tm, c)
+    md2 = cuda_kernels._constants(0.5, 3.0)[1]
+    tiles = int(chip_smoke.culled_tiles(p4, torch.cat(chip_smoke._boxes(
+        p4[:, :3], tm, 128), 1).reshape(-1), md2).sum()) * 128 * 128
+    y = (tp - c)[tm]
+    in_range = sum(int((cuda_kernels._sq_dist(y[s:s + 1024, None], y[None]) <= md2).sum())
+                   for s in range(0, y.shape[0], 1024))
+    print(f"rbf_moments: {in_range} pairs within 3 m; {tiles} visited by 128 x 128 tiles; "
+          f"{chip_smoke.rbf_visited_pairs(p4, p4, md2)} by blocks of 32 queries over "
+          f"{chip_smoke.CHUNK}-target chunks")
+
+
 def main():
     source, target, _gt = chip_smoke.synthetic_pair()
+    nn_rbf_work(source, target)
     count_work(target)
     for name, pts, exact, every in (("target, C = 16 x 256", target, False, 1),
                                     ("source, C = 16 x 256", source, False, 1),

@@ -13,10 +13,15 @@ world, 0.3 m downsample, 6,144 padded points) this prints:
   * `gicp_register_fresh` of both packages with the adaptive estimator and
     with kNN covariances under MIN_EIG: iterations, t_err, r_err and the
     largest pose difference.
+With --full it runs only the adaptive registration (plane), on the
+full-size pair `chip_smoke.py` registers (the default 1.4M-point world,
+0.1 m downsample, 22,528 padded points), and prints the same four figures
+(about a minute and a half on the CPU).
 
-Usage: JAX_PLATFORMS=cpu python tests/torch_knn_adaptive_parity.py
+Usage: JAX_PLATFORMS=cpu python tests/torch_knn_adaptive_parity.py [--full]
 """
 
+import argparse
 import os
 import sys
 
@@ -40,13 +45,42 @@ def pose_errors(T, T_gt):
     return np.linalg.norm(d[:3, 3]), np.degrees(np.arccos(cos))
 
 
-def main():
+def compare_registrations(sp, sm, tp, tm, T_gt, method, reg):
+    """`gicp_register_fresh` of both packages from the identity: iterations,
+    t_err and r_err of each, and the largest pose difference."""
+    eye = np.eye(4, dtype=np.float32)
+    kw = dict(method=method, regularization=reg)
+    res = gicp.gicp_register_fresh(sp, sm, tp, tm, eye, device="cpu", **kw)[0]
+    jres = jgicp.gicp_register_fresh(*(jnp.asarray(a) for a in (sp, sm, tp, tm, eye)), **kw)[0]
+    T, T_j = res.transformation.numpy(), np.asarray(jres.transformation)
+    for name, r, pose in (("port", res, T), ("jax cpu", jres, T_j)):
+        t_err, r_err = pose_errors(pose, T_gt)
+        print(f"gicp_register_fresh {method}/{reg} {name}: {int(r.iterations)} "
+              f"iterations, t_err {t_err * 1e3:.3f} mm, r_err {r_err:.6f} deg")
+    print(f"gicp_register_fresh {method}/{reg} pose difference (max abs): "
+          f"{np.abs(T - T_j).max():.3e}")
+
+
+def pair(n_world, voxel):
+    """Frames 31 (source) and 30 (target) of the seed-0 drive, downsampled
+    and padded, with the ground-truth target <- source pose."""
     rng = np.random.default_rng(0)
-    world = synthetic.drive_world(rng, n=400_000)
+    world = synthetic.drive_world(rng, n=n_world)
     scans, gt = synthetic.drive_scans(rng, n_frames=32, world=world)
     T_gt = np.linalg.inv(gt[30]) @ gt[31]
-    sp, sm = padding.pad_points(downsample.voxel_downsample(scans[31], 0.3))
-    tp, tm = padding.pad_points(downsample.voxel_downsample(scans[30], 0.3))
+    sp, sm = padding.pad_points(downsample.voxel_downsample(scans[31], voxel))
+    tp, tm = padding.pad_points(downsample.voxel_downsample(scans[30], voxel))
+    return sp, sm, tp, tm, T_gt
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--full", action="store_true",
+                    help="adaptive registration on the full-size pair only")
+    if ap.parse_args().full:
+        compare_registrations(*pair(1_400_000, 0.1), "adaptive", "plane")
+        return
+    sp, sm, tp, tm, T_gt = pair(400_000, 0.3)
 
     for name, p, m in (("source", sp, sm), ("target", tp, tm)):
         idx, _sq, cert = (a.numpy() for a in neighbors.knn_search_culled(p, p, m, 20,
@@ -66,19 +100,8 @@ def main():
               f"{(diff <= 1e-4).mean():.4f}, within 1e-3 on {(diff <= 1e-3).mean():.4f} "
               f"of valid; max {diff.max():.3e}")
 
-    eye = np.eye(4, dtype=np.float32)
     for method, reg in (("adaptive", "plane"), ("knn", "min_eig")):
-        kw = dict(method=method, regularization=reg)
-        res = gicp.gicp_register_fresh(sp, sm, tp, tm, eye, device="cpu", **kw)[0]
-        jres = jgicp.gicp_register_fresh(*(jnp.asarray(a) for a in (sp, sm, tp, tm, eye)),
-                                         **kw)[0]
-        T, T_j = res.transformation.numpy(), np.asarray(jres.transformation)
-        for name, r, pose in (("port", res, T), ("jax cpu", jres, T_j)):
-            t_err, r_err = pose_errors(pose, T_gt)
-            print(f"gicp_register_fresh {method}/{reg} {name}: {int(r.iterations)} "
-                  f"iterations, t_err {t_err * 1e3:.2f} mm, r_err {r_err:.4f} deg")
-        print(f"gicp_register_fresh {method}/{reg} pose difference (max abs): "
-              f"{np.abs(T - T_j).max():.3e}")
+        compare_registrations(sp, sm, tp, tm, T_gt, method, reg)
 
 
 if __name__ == "__main__":
