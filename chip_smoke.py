@@ -339,6 +339,34 @@ def rbf_visited_pairs(q4, t4, md2):
     return int(((listed & reach).long() * clen[None]).sum()) * 32
 
 
+def window_visited_pairs(q4, chunk_boxes, r2q, nt):
+    """The pairs the warp-per-query `radius_window` kernel visits: for each
+    query, the 32-target chunks whose box (of the valid targets,
+    `radius_inputs`) its point reaches within its own window, gap^2 rounded
+    as `csrc/tile_cull.cuh` rounds it, times the chunk's length."""
+    b = chunk_boxes.reshape(-1, 6)
+    clen = torch.clamp(nt - torch.arange(b.shape[0], device=q4.device) * CHUNK, max=CHUNK)
+    total = 0
+    for s in range(0, q4.shape[0], 4096):
+        q = q4[s:s + 4096, :3]
+        listed = _gap2(q, q, b[:, :3], b[:, 3:]) <= r2q[s:s + 4096, None]
+        total += int((listed.long() * clen[None]).sum())
+    return total
+
+
+def block_window_visited_pairs(q4, boxes, r2q, tile=128):
+    """The pairs the first `radius_window` design visited: a block
+    of 128 queries walked every 128-target tile whose box lay within its
+    valid queries' largest window of its valid queries' box."""
+    valid = q4[:, 3] != 0
+    pad = -q4.shape[0] % tile
+    bound = torch.cat([torch.where(valid, r2q, float("-inf")),
+                       r2q.new_full((pad,), float("-inf"))]).reshape(-1, tile).amax(1)
+    qlo, qhi = _boxes(q4[:, :3], valid, tile)
+    b = boxes.reshape(-1, 6)
+    return int((_gap2(qlo, qhi, b[:, :3], b[:, 3:]) <= bound[:, None]).sum()) * tile * tile
+
+
 def check_nn_edge_cases(dev):
     """`nn_search` bit-equal to its plain version on the valid queries of
     every adversarial case of `utils.synthetic.nn_search_edge_cases` (d^2
@@ -390,6 +418,68 @@ def check_rbf_edge_cases(dev):
         require(bool(torch.equal(got, again)), f"{name}: a repeat launch differs")
     log(f"[kernels] edge cases: rbf_moments within tolerance and repeat-identical on all "
         f"{len(cases)} ({', '.join(c['name'] for c in cases)})")
+    return len(cases)
+
+
+def check_knn_moments_edge_cases(dev):
+    """`knn_moments` against its plain version on every adversarial case of
+    `utils.synthetic.knn_moments_edge_cases` (ties within one key step at
+    the k-th place, exact ties, fewer than k valid candidates, a wholly
+    masked slab, tile ids -1 and T, masked queries, k in {1, 20, 32, 48},
+    4,096-wide slabs): kth bit-equal on every query, mom within 1e-4 of
+    each row's largest |entry|, and a repeat launch bit-identical.
+    Returns the number of cases."""
+    from fast_gicp_tpu_torch.ops import cuda_kernels
+    from fast_gicp_tpu_torch.utils import synthetic
+
+    cases = synthetic.knn_moments_edge_cases()
+    for case in cases:
+        args = [torch.as_tensor(case[key], device=dev)
+                for key in ("query", "qmask", "target", "tmask", "cidx")]
+        mom, kth = cuda_kernels.knn_moments(*args, case["k"], case["cand_tile"])
+        mom2, kth2 = cuda_kernels.knn_moments(*args, case["k"], case["cand_tile"])
+        mom_w, kth_w = cuda_kernels.knn_moments_plain(*args, case["k"], case["cand_tile"])
+        torch.cuda.synchronize()
+        name = f"knn_moments edge case {case['name']}"
+        require(bool(torch.equal(kth, kth_w)), f"{name}: {int((kth != kth_w).sum())} kth differ")
+        scale = mom_w.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+        check_close(f"{name} mom", mom / scale, mom_w / scale, 0.0, 1e-4)
+        require(bool(torch.equal(mom, mom2) and torch.equal(kth, kth2)),
+                f"{name}: a repeat launch differs")
+    log(f"[kernels] edge cases: knn_moments kth bit-equal, mom within 1e-4 and "
+        f"repeat-identical on all {len(cases)} ({', '.join(c['name'] for c in cases)})")
+    return len(cases)
+
+
+def check_window_edge_cases(dev):
+    """`radius_window` against its plain version on the valid queries of
+    every adversarial case of `utils.synthetic.radius_window_edge_cases`
+    (r2q = 0, windows on pairs' d^2 among duplicates, the largest rung
+    beside the smallest in every warp, masked points, nq and nt not
+    multiples of 32, nt < 32): row 0 equal, rows 1-12 within
+    WINDOW_REL_TOL of each query's largest |entry|, and a repeat launch
+    bit-identical.  Returns the number of cases."""
+    from fast_gicp_tpu_torch.ops import cuda_kernels
+    from fast_gicp_tpu_torch.utils import synthetic
+
+    cases = synthetic.radius_window_edge_cases()
+    for case in cases:
+        args = [torch.as_tensor(case[key], device=dev)
+                for key in ("query", "qmask", "target", "tmask", "center", "r2q")]
+        got = cuda_kernels.radius_window(*args)
+        again = cuda_kernels.radius_window(*args)
+        want = cuda_kernels.radius_window_plain(*args)
+        torch.cuda.synchronize()
+        m = args[1]
+        name = f"radius_window edge case {case['name']}"
+        require(bool(torch.equal(got[0, m], want[0, m])),
+                f"{name}: {int((got[0] != want[0])[m].sum())} valid windows differ in n")
+        g, w = got[1:13][:, m], want[1:13][:, m]
+        scale = w.abs().amax(0, keepdim=True).clamp(min=1e-30)
+        check_close(f"{name} rows", g / scale, w / scale, 0.0, WINDOW_REL_TOL)
+        require(bool(torch.equal(got, again)), f"{name}: a repeat launch differs")
+    log(f"[kernels] edge cases: radius_window n equal, rows within {WINDOW_REL_TOL:g} and "
+        f"repeat-identical on all {len(cases)} ({', '.join(c['name'] for c in cases)})")
     return len(cases)
 
 
@@ -598,32 +688,55 @@ def phase_gicp_kernels(dev, pair):
     # -- knn_moments: the target cloud's covariances, k = 20 --------------
     k, ct, C = 20, 128, 16
     Q = n // cuda_kernels.KNN_TILE
-    cidx, _excluded = select_candidate_tiles(
-        tgt.reshape(Q, cuda_kernels.KNN_TILE, 3),
-        _masked_target(tgt, tmask).reshape(n // ct, ct, 3), C)
-    ones = torch.ones_like(tmask)
-    args = (tgt, ones, tgt, tmask, cidx, k)
-    mom, kth = cuda_kernels.knn_moments(*args)
-    mom_w, kth_w = cuda_kernels.knn_moments_plain(*args)
-    torch.cuda.synchronize()
-    require(bool(torch.equal(kth, kth_w)),
-            f"knn_moments kth: {int((kth != kth_w).sum())} of {n} not bit-equal")
-    scale = mom_w.abs().amax(dim=1, keepdim=True)
-    err_mom = check_close("knn_moments mom", mom / scale, mom_w / scale, 0.0, 1e-4)
+
+    def knn_args(width, kk):
+        cidx, _excluded = select_candidate_tiles(
+            tgt.reshape(Q, cuda_kernels.KNN_TILE, 3),
+            _masked_target(tgt, tmask).reshape(n // ct, ct, 3), width)
+        return (tgt, torch.ones_like(tmask), tgt, tmask, cidx, kk)
+
+    def knn_check(label, a):
+        mom, kth = cuda_kernels.knn_moments(*a)
+        again = cuda_kernels.knn_moments(*a)
+        mom_w, kth_w = cuda_kernels.knn_moments_plain(*a)
+        torch.cuda.synchronize()
+        require(bool(torch.equal(kth, kth_w)),
+                f"knn_moments {label} kth: {int((kth != kth_w).sum())} of {n} not bit-equal")
+        scale = mom_w.abs().amax(dim=1, keepdim=True)
+        err = check_close(f"knn_moments {label} mom", mom / scale, mom_w / scale, 0.0, 1e-4)
+        # one warp a query, its sums by a fixed xor tree: no atomics
+        require(bool(torch.equal(mom, again[0]) and torch.equal(kth, again[1])),
+                f"knn_moments {label}: a repeat launch differs")
+        log(f"[kernels] knn_moments {label}: kth bit-equal on all {n}, a repeat launch "
+            f"bit-identical; mom max diff / row scale {err:.3e}")
+        return float((mom - mom_w).abs().max())
+
+    args = knn_args(C, k)
+    max_err = knn_check(f"C = {C} x {ct}, k = {k}", args)
+    # the widest slab the contract takes and the round-by-round form (k > 32)
+    wide, k48 = knn_args(32, k), knn_args(C, 48)
+    knn_check(f"C = 32 x {ct}, k = {k}", wide)
+    knn_check(f"C = {C} x {ct}, k = 48", k48)
+    edge_cases = check_knn_moments_edge_cases(dev)
     tm_ = timings(lambda: cuda_kernels.knn_moments(*args),
                   lambda: cuda_kernels.knn_moments_plain(*args),
                   "knn_moments_kernel", 50, 5)
+    wide_ms = device_ms(lambda: cuda_kernels.knn_moments(*wide), 20, "knn_moments_kernel")
+    k48_ms = device_ms(lambda: cuda_kernels.knn_moments(*k48), 5, "knn_moments_rounds_kernel")
     b_ms, b_by = bound_ms(n * 16 + n * 16 + Q * C * 4 + n * 11 * 4,
                           n * C * ct * KNN_OPS_PER_CANDIDATE + n * k * KNN_OPS_PER_NEIGHBOUR)
     records.append(dict(
         name="knn_moments", route="cuda",
         source="fast_gicp_tpu_torch/csrc/knn_moments.cu",
         replaces="fast_gicp_tpu/ops/pallas_kernels.py:302",
-        max_abs_err=float((mom - mom_w).abs().max()),
-        tolerance="kth bit-equal; mom within 1e-4 of each row's largest entry",
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, **tm_))
-    log(f"[kernels] knn_moments: kth bit-equal on all {n}; mom max diff / row scale "
-        f"{err_mom:.3e}")
+        max_abs_err=max_err,
+        tolerance=f"kth bit-equal; mom within 1e-4 of each row's largest entry (also at "
+                  f"C = 32 x 128, k = 48 and on {edge_cases} edge cases); a repeat launch "
+                  "bit-identical",
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, wide_slab_ms=wide_ms, k48_ms=k48_ms,
+        **tm_))
+    log(f"[kernels] knn_moments: C = 32 x 128 {wide_ms:.4f} ms, k = 48 (rounds) "
+        f"{k48_ms:.4f} ms")
 
     # -- nn_search at the first re-search of a solve: the transformed,
     # centered source against the centered target --------------------------
@@ -798,7 +911,7 @@ def phase_c2_kernels(dev, pair):
     in_range = pairs_within(y, y, float(r2[-1]))
     packed = cuda_kernels.radius_inputs(tgt, tmask, tgt, tmask, c)  # as radius_window_moments
     visited = int(culled_tiles(packed.q4, packed.boxes, float(r2.max())).sum()) * 128 * 128
-    # timed with the packing and the target's tile boxes, which the wrapper builds here
+    # timed with the target's tile boxes, which the wrapper builds here
     tm_ = timings(lambda: cuda_kernels.radius_count(*cargs),
                   lambda: cuda_kernels.radius_count_plain(*cargs),
                   ("tile_bbox_kernel", "radius_count_kernel"), 50, 2)
@@ -818,10 +931,13 @@ def phase_c2_kernels(dev, pair):
     r2q = window_radii(cnt, r2, 20)
     wargs = (tgt, tmask, tgt, tmask, c, r2q)
     got = cuda_kernels.radius_window(*wargs, packed)
+    again = cuda_kernels.radius_window(*wargs, packed)
     want = cuda_kernels.radius_window_plain(*wargs)
     torch.cuda.synchronize()
     require(bool(torch.equal(got[0, tmask], want[0, tmask])),
             f"radius_window n: {int((got[0] != want[0])[tmask].sum())} valid windows differ")
+    # one warp a query, its lanes' sums by a fixed xor tree: no atomics
+    require(bool(torch.equal(got, again)), "radius_window: a repeat launch differs")
     # rows 1-12 against each query's own largest |entry| (a near window's
     # sums are far smaller than a far one's); the reading against each
     # row's largest entry over all queries is logged beside it
@@ -831,21 +947,28 @@ def phase_c2_kernels(dev, pair):
     log(f"[kernels] radius_window rows 1-12: max diff / the query's largest entry "
         f"{float(((g - w).abs() / scale).max()):.3e}; / the row's largest entry {row_gap:.3e}")
     err = check_close("radius_window rows", g / scale, w / scale, 0.0, WINDOW_REL_TOL)
+    window_cases = check_window_edge_cases(dev)
     in_window = pairs_within(y, y, r2q[tmask])
-    tm_ = timings(lambda: cuda_kernels.radius_window(*wargs, packed),
+    visited = window_visited_pairs(packed.q4, packed.chunk_boxes, r2q, n)
+    block_visited = block_window_visited_pairs(packed.q4, packed.boxes, r2q)
+    # timed with the target's chunk boxes, which the wrapper builds here
+    tm_ = timings(lambda: cuda_kernels.radius_window(*wargs),
                   lambda: cuda_kernels.radius_window_plain(*wargs),
-                  "radius_window_kernel", 50, 3)
+                  ("chunk_bbox_kernel", "radius_window_kernel"), 50, 3)
     b_ms, b_by = bound_ms(n * 16 * 2 + n * 4 + n * 16 * 4, in_window * WINDOW_OPS_PER_PAIR)
     records.append(dict(
         name="radius_window", route="cuda", source="fast_gicp_tpu_torch/csrc/radius_window.cu",
         replaces="fast_gicp_tpu/ops/pallas_kernels.py:629",
         max_abs_err=float((got - want)[:, tmask].abs().max()),
         tolerance=f"row 0 (n) equal; rows 1-12 within {WINDOW_REL_TOL:g} of the query's "
-                  "largest |entry| in them, on each valid query",
+                  f"largest |entry| in them, on each valid query (and on {window_cases} edge "
+                  "cases); a repeat launch bit-identical",
         rel_err=err, rel_err_row_scale=row_gap, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, pairs_in_window=in_window, **tm_))
+        library_ms=None, pairs_in_window=in_window, pairs_visited=visited,
+        pairs_visited_block_cull=block_visited, **tm_))
     log(f"[kernels] radius_window: n equal on all valid queries; rows max diff / the "
-        f"query's scale {err:.3e}; {in_window} pairs in the windows")
+        f"query's scale {err:.3e}; {in_window} pairs in the windows, {visited} visited "
+        f"({visited / in_window:.2f}x; the 128-query block cull's {block_visited})")
     for r in records:
         log(f"[kernels] {r['name']}: max_abs_diff {r['max_abs_err']:.3e} "
             f"({r['tolerance']}), {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
@@ -1435,7 +1558,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("tolerance", "timing", "call_ms", "plain_call_ms", "launches_by_path")
     work = ("candidates", "exact_candidates", "exact_search_ms", "source_cloud_ms",
-            "pairs_visited", "pairs_in_range", "pairs_to_visit")
+            "pairs_visited", "pairs_in_range", "pairs_to_visit", "pairs_in_window",
+            "pairs_visited_block_cull", "wide_slab_ms", "k48_ms")
     kernels = [{k: r[k] for k in keys + extra + work if k in r} for r in records]
     require(all(math.isfinite(r["ms"]) for r in kernels), "kernel timings")
     print(smi)

@@ -18,13 +18,12 @@
 //     precision would leave O(1) relative error on the covariance.
 // Rows of masked queries carry no meaning.
 //
-// Shared by both: fgt_radius_boxes writes the bounding box of the valid
-// points of each 128-target tile, once a target cloud.  A block of 128
-// queries takes the box of its valid queries and visits only the tiles
-// whose squared box gap is <= its largest radius (the ladder's largest
-// rung for the count, its valid queries' largest r2q for the window); the
-// gap is rounded like d^2 (tile_cull.cuh), so the cull drops no pair
-// inside any radius.
+// fgt_radius_boxes writes, once a target cloud, the bounding box of the
+// valid points of each 128-target tile (the count's cull) and of each
+// 32-target chunk (the window's).  Every gap is rounded like d^2
+// (tile_cull.cuh), so no cull drops a pair inside its radius.  The count
+// takes the box of a block's 128 valid queries and visits only the tiles
+// whose squared box gap is <= the ladder's largest rung.
 //
 // radius_count.  Bound on an H100: the FP32 operations the function needs,
 // for each pair inside the largest radius d^2 (8), the rung it falls in (a
@@ -55,12 +54,21 @@
 // its rank: integer counts, exact in any order.
 //
 // radius_window.  Bound on an H100: for each pair inside its window d^2,
-// the compare, 6 products and 10 sums.  Design: one thread a query keeps
-// its 10 distinct moment sums in registers, adding the targets of each
-// visited tile (staged in shared memory, read by broadcast) in index order.
-// That leaves ~5 warps on an SM at full width (22,528 queries), so the scan
-// is bound by latency, not by the FP32 rate: 0.27 ms on an H100 at the
-// full-size synthetic pair, 410x its 0.67 us byte bound.
+// the compare, 6 products and 10 sums (553,523 pairs on the full-size
+// synthetic pair: its bytes bound it).  The first design (one thread a
+// query, a block of 128 culling 128-target tiles by its box and its
+// largest window) walked 57.3 M pairs for those 0.55 M, because the
+// windows spread from 0.18 to 34 m^2 and one far query set the walk of
+// 127 near ones, with ~5 warps an SM and two barriers a tile: 0.27 ms on
+// an H100.  Design: a warp a query, its lanes across the targets.  The
+// warp lists the 32-target chunks whose box lies within the query's own
+// window (a point-to-box gap a lane, one ballot a round of 32 chunks) and
+// walks them, each lane testing and adding one target of each chunk (two
+// chunks' loads in flight at a time) into its own ten sums: 14.9 M pairs
+// on that pair, 22 chunks a query.  Nothing is staged in shared memory and
+// nothing waits on a barrier (blocks of 8 warps, up to 64 warps an SM).
+// At the end the lanes' sums are added by a fixed xor tree, so two
+// launches return the same bits.
 
 #include <cuda_runtime.h>
 
@@ -68,8 +76,6 @@
 
 namespace {
 
-constexpr int kThreads = kTile;  // queries per block == targets per tile
-constexpr int kWarps = kTileWarps;
 constexpr int kMaxRungs = 32;
 constexpr int kCountGroups = 8;  // thread groups sharing one block's queries
 constexpr int kCountThreads = kCountGroups * kTile;
@@ -77,6 +83,9 @@ constexpr int kCountWarps = kCountThreads / 32;
 constexpr int kBatch = 8;  // pairs a thread keeps in flight
 // the histograms: (L + 1) buckets, the last one for "outside every rung"
 constexpr int kCountHistBytes = (kMaxRungs + 1) * kCountThreads * 4;
+
+constexpr int kWindowWarps = 8;  // queries a window block, one a warp
+constexpr int kWindowThreads = kWindowWarps * 32;
 
 // Barrier of the 128 threads of group g (ids 1..kCountGroups; 0 is
 // __syncthreads).
@@ -199,57 +208,70 @@ __global__ void __launch_bounds__(kCountThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    radius_window_kernel(const float4* __restrict__ q, const float4* __restrict__ t,
-                         const float* __restrict__ boxes, const float* __restrict__ r2q,
-                         int nq, int nt, float* __restrict__ out) {
-  __shared__ float4 tile[kThreads];
-  __shared__ float scratch[7][kWarps];
-  __shared__ float qbox[7];
+// Target y's ten window sums [n, y (3), upper sym-6 y y^T], y = target *
+// valid, added to acc when `inside`.
+__device__ __forceinline__ void add_window(float* acc, float4 y, bool inside) {
+  if (!inside) return;
+  const float v = y.w;
+  const float y0 = y.x * v, y1 = y.y * v, y2 = y.z * v;
+  acc[0] += v;
+  acc[1] += y0;
+  acc[2] += y1;
+  acc[3] += y2;
+  acc[4] += y0 * y0;
+  acc[5] += y0 * y1;
+  acc[6] += y0 * y2;
+  acc[7] += y1 * y1;
+  acc[8] += y1 * y2;
+  acc[9] += y2 * y2;
+}
 
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const float4 qi = i < nq ? q[i] : make_float4(0.f, 0.f, 0.f, 0.f);
-  const float r2 = i < nq ? r2q[i] : 0.f;
-  // the valid queries' box and, in qbox[6], their largest window
-  block_bbox<7>(qi, i < nq && qi.w != 0.f, scratch, qbox, r2);
-  const float bound = qbox[6];
+__global__ void __launch_bounds__(kWindowThreads)
+    radius_window_kernel(const float4* __restrict__ q, const float4* __restrict__ t,
+                         const float* __restrict__ chunk_boxes, const float* __restrict__ r2q,
+                         int nq, int nt, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kWindowWarps + (threadIdx.x >> 5);
+  if (i >= nq) return;  // uniform across the warp
+  const float4 qi = q[i];
+  const float r2 = r2q[i];
 
   float acc[10];
 #pragma unroll
   for (int a = 0; a < 10; ++a) acc[a] = 0.f;
-  const int tiles = (nt + kThreads - 1) / kThreads;
-  for (int tt = 0; tt < tiles; ++tt) {
-    if (!(box_gap2(qbox, boxes + 6 * tt) <= bound)) continue;  // uniform across the block
-    const int base = tt * kThreads;
-    const int j = base + threadIdx.x;
-    tile[threadIdx.x] = j < nt ? t[j] : make_float4(0.f, 0.f, 0.f, 0.f);
-    __syncthreads();
-    const int n = min(kThreads, nt - base);
-    for (int m = 0; m < n; ++m) {
-      const float4 y = tile[m];
-      if (sq_dist(qi, y) <= r2) {
-        const float v = y.w;
-        const float y0 = y.x * v, y1 = y.y * v, y2 = y.z * v;
-        acc[0] += v;
-        acc[1] += y0;
-        acc[2] += y1;
-        acc[3] += y2;
-        acc[4] += y0 * y0;
-        acc[5] += y0 * y1;
-        acc[6] += y0 * y2;
-        acc[7] += y1 * y1;
-        acc[8] += y1 * y2;
-        acc[9] += y2 * y2;
-      }
+  const int chunks = (nt + kChunk - 1) / kChunk;
+  for (int c0 = 0; c0 < chunks; c0 += 32) {
+    // the chunks of this round whose box lies within the window, a chunk a
+    // lane, by one ballot
+    const int c = c0 + lane;
+    unsigned listed =
+        __ballot_sync(0xffffffffu, c < chunks && point_gap2(qi, chunk_boxes + 6 * c) <= r2);
+    while (listed) {  // uniform across the warp
+      // two listed chunks at a time, both loads in flight before the adds
+      const int ca = __ffs(listed) - 1;
+      listed &= listed - 1;
+      const int cb = listed ? __ffs(listed) - 1 : -1;
+      listed &= listed - 1;
+      const int ja = (c0 + ca) * kChunk + lane;
+      const int jb = cb < 0 ? nt : (c0 + cb) * kChunk + lane;
+      const float4 ya = ja < nt ? t[ja] : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 yb = jb < nt ? t[jb] : make_float4(0.f, 0.f, 0.f, 0.f);
+      add_window(acc, ya, ja < nt && sq_dist(qi, ya) <= r2);
+      add_window(acc, yb, jb < nt && sq_dist(qi, yb) <= r2);
     }
-    __syncthreads();
   }
-  if (i < nq) {
-    // rows [n, y (3), yy^T row-major (9), 0 (3)]; y_a y_b == y_b y_a
-    const float rows[16] = {acc[0], acc[1], acc[2], acc[3], acc[4], acc[5], acc[6], acc[5],
-                            acc[7], acc[8], acc[6], acc[8], acc[9], 0.f,    0.f,    0.f};
+  // the lanes' sums by a fixed xor tree: two launches give the same bits
 #pragma unroll
-    for (int r = 0; r < 16; ++r) out[(size_t)r * nq + i] = rows[r];
+  for (int a = 0; a < 10; ++a)
+    for (int o = 16; o > 0; o >>= 1) acc[a] += __shfl_xor_sync(0xffffffffu, acc[a], o);
+  if (lane < 16) {
+    // rows [n, y (3), yy^T row-major (9), 0 (3)]; y_a y_b == y_b y_a; row
+    // `lane` from lane `lane`
+    const int src[16] = {0, 1, 2, 3, 4, 5, 6, 5, 7, 8, 6, 8, 9, -1, -1, -1};
+    float v = 0.f;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) v = lane == r && src[r] >= 0 ? acc[src[r]] : v;
+    out[(size_t)lane * nq + i] = v;
   }
 }
 
@@ -257,13 +279,20 @@ __global__ void __launch_bounds__(kThreads)
 
 // t: (nt, 4) float32 [x, y, z, valid] centered, masked targets parked at
 // MASK_COORD.  boxes: (6 * ceil(nt / 128),) float32, the box of each
-// 128-target tile's valid points, which the count and the window read.
-// One launch on `stream`; returns cudaGetLastError().
-extern "C" int fgt_radius_boxes(const float* t, int nt, float* boxes, void* stream) {
-  const int tiles = (nt + kThreads - 1) / kThreads;
-  if (tiles > 0)
-    tile_bbox_kernel<true><<<tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const float4*>(t), nt, boxes);
+// 128-target tile's valid points, which the count reads; chunk_boxes:
+// (6 * ceil(nt / 32),) float32, the box of each 32-target chunk's valid
+// points, which the window reads.  Two launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int fgt_radius_boxes(const float* t, int nt, float* boxes, float* chunk_boxes,
+                                void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tiles = (nt + kTile - 1) / kTile;
+  if (tiles > 0) {
+    tile_bbox_kernel<true><<<tiles, kTile, 0, s>>>(reinterpret_cast<const float4*>(t), nt,
+                                                      boxes);
+    chunk_bbox_kernel<true><<<tiles, kTile, 0, s>>>(reinterpret_cast<const float4*>(t), nt,
+                                                    chunk_boxes);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -288,16 +317,16 @@ extern "C" int fgt_radius_count(const float* q, const float* t, const float* box
   return static_cast<int>(cudaGetLastError());
 }
 
-// q, t and boxes as above; r2q: (nq,) float32 squared window radius a
-// query.  out: (16, nq) float32.  One launch on `stream`; returns
-// cudaGetLastError().
-extern "C" int fgt_radius_window(const float* q, const float* t, const float* boxes,
+// q and t as above, chunk_boxes from fgt_radius_boxes on t; r2q: (nq,)
+// float32 squared window radius a query.  out: (16, nq) float32.  One
+// launch on `stream`; returns cudaGetLastError().
+extern "C" int fgt_radius_window(const float* q, const float* t, const float* chunk_boxes,
                                  const float* r2q, int nq, int nt, float* out,
                                  void* stream) {
-  const int blocks = (nq + kThreads - 1) / kThreads;
+  const int blocks = (nq + kWindowWarps - 1) / kWindowWarps;
   if (blocks > 0 && nt > 0)
-    radius_window_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(t), boxes, r2q,
-        nq, nt, out);
+    radius_window_kernel<<<blocks, kWindowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(t), chunk_boxes,
+        r2q, nq, nt, out);
   return static_cast<int>(cudaGetLastError());
 }

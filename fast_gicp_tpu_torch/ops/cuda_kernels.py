@@ -51,7 +51,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _RBF_ARGS = (_P, _P, _I, _I, _F, _F, _P, _P, _P)
 _NN_ARGS = (_P, _P, _I, _I, _P, _P, _P, _P)
 _KNN_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P)
-_BOXES_ARGS = (_P, _I, _P, _P)
+_BOXES_ARGS = (_P, _I, _P, _P, _P)
 _COUNT_ARGS = (_P, _P, _P, _P, _I, _I, _I, _P, _P)
 _WINDOW_ARGS = (_P, _P, _P, _P, _I, _I, _P, _P)
 
@@ -59,11 +59,11 @@ _WINDOW_ARGS = (_P, _P, _P, _P, _I, _I, _P, _P)
 # f32 overflow (3.4e38) even after squaring differences of 1e9.
 MASK_COORD = 1.0e9
 KNN_TILE = 256  # queries sharing one candidate slab in `knn_moments`
-KNN_MAX_SLAB = 2048  # candidate positions a query tile may search
+KNN_MAX_SLAB = 4096  # candidate positions a query tile may search
 KNN_SLAB_MAX_K = 32  # neighbours a query may keep in `knn_slab`
 RADIUS_MAX_RUNGS = 32  # ladder rungs `radius_count` counts at once
-_RADIUS_TILE = 128  # targets per bounding box in `radius_*`
-_CHUNK = 32  # targets per bounding box in `nn_search`, `rbf_moments`
+_RADIUS_TILE = 128  # targets per bounding box in `radius_count`
+_CHUNK = 32  # targets per bounding box in `nn_search`, `rbf_moments`, `radius_window`
 
 
 def _pack(points, mask, center):
@@ -239,8 +239,8 @@ def knn_moments(query, qmask, target, tmask, cidx, k: int, cand_tile: int = 128)
     """Fused k-NN moments: (mom (10, Nq), kth_sq (Nq,)).
 
     Query tile i (KNN_TILE queries) searches the `cand_tile`-point target
-    tiles `cidx[i]`, each in [0, Nt / cand_tile) (on the card a tile index
-    outside that range reads as masked points); mom rows are [count, sum y (3), sym-6 sum y y^T] over
+    tiles `cidx[i]` (a tile index outside [0, Nt / cand_tile) reads as
+    masked points); mom rows are [count, sum y (3), sym-6 sum y y^T] over
     each query's k selected neighbours, y = x - (the tile's first query
     point), for the center-invariant covariance finalize only.
 
@@ -279,12 +279,17 @@ def knn_moments_plain(query, qmask, target, tmask, cidx, k: int,
     S = C * cand_tile
     q = _pack_masked(query, qmask)[:, :3].reshape(Q, KNN_TILE, 3)
     t4 = _pack_masked(target, tmask).reshape(-1, cand_tile, 4)
+    T = t4.shape[0]
+    parked = torch.tensor([MASK_COORD, MASK_COORD, MASK_COORD, 0.0], device=query.device)
     lane = torch.arange(S, dtype=torch.int32, device=query.device)
     moms, kths = [], []
     for start in range(0, Q, chunk):
         qq = q[start:start + chunk]  # (n, KNN_TILE, 3)
         n = qq.shape[0]
-        cand = t4[cidx[start:start + chunk].long()].reshape(n, S, 4)
+        ids = cidx[start:start + chunk]
+        inside = (ids >= 0) & (ids < T)
+        cand = torch.where(inside[..., None, None], t4[ids.clamp(0, T - 1).long()],
+                           parked).reshape(n, S, 4)
         d = _sq_dist(qq[:, :, None, :], cand[:, None, :, :])  # (n, KNN_TILE, S)
         keys = (d.view(torch.int32) & -4096) | lane
         top = torch.topk(keys, k, dim=2, largest=False, sorted=True)
@@ -402,18 +407,20 @@ def _pack_centered(query, qmask, target, tmask, center):
 class RadiusInputs(NamedTuple):
     """The radius kernels' inputs on the card: both clouds packed about the
     center ([p - center, valid], masked points parked at MASK_COORD; one
-    tensor when the query cloud is the target cloud) and the box of the
-    valid targets of each 128-point tile."""
+    tensor when the query cloud is the target cloud), the box of the valid
+    targets of each 128-point tile (`radius_count`'s cull) and of each
+    32-point chunk (`radius_window`'s)."""
 
     q4: torch.Tensor
     t4: torch.Tensor
     boxes: torch.Tensor
+    chunk_boxes: torch.Tensor
 
 
 def radius_inputs(query, qmask, target, tmask, center):
     """`RadiusInputs` of a pair of clouds for `radius_count` and
     `radius_window`, so that the two passes over them pack the clouds and
-    build the target's tile boxes once.  None for CPU tensors (the plain
+    build the target's tile and chunk boxes once.  None for CPU tensors (the plain
     versions pack their own and cull nothing)."""
     _check_cloud("query", query, qmask)
     _check_cloud("target", target, tmask)
@@ -426,10 +433,12 @@ def radius_inputs(query, qmask, target, tmask, center):
     q4 = t4 if query is target and qmask is tmask else _pack_masked(query - center, qmask)
     nt = t4.shape[0]
     boxes = torch.empty(6 * -(-nt // _RADIUS_TILE), dtype=torch.float32, device=dev)
+    chunk_boxes = torch.empty(6 * -(-nt // _CHUNK), dtype=torch.float32, device=dev)
     fn = _build.function("fgt_radius_boxes", _BOXES_ARGS)
     _build.check("fgt_radius_boxes", fn(
-        t4.data_ptr(), nt, boxes.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
-    return RadiusInputs(q4, t4, boxes)
+        t4.data_ptr(), nt, boxes.data_ptr(), chunk_boxes.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream))
+    return RadiusInputs(q4, t4, boxes, chunk_boxes)
 
 
 def _radius_launch_inputs(name, query, qmask, target, tmask, center, inputs, dev):
@@ -437,7 +446,7 @@ def _radius_launch_inputs(name, query, qmask, target, tmask, center, inputs, dev
     if inputs is None:
         return radius_inputs(query, qmask, target, tmask, center)
     if (inputs.q4.shape != (query.shape[0], 4) or inputs.t4.shape != (target.shape[0], 4)
-            or inputs.boxes.device != dev):
+            or inputs.boxes.device != dev or inputs.chunk_boxes.device != dev):
         raise ValueError(f"{name}: inputs are not radius_inputs of these clouds")
     return inputs
 
@@ -453,8 +462,8 @@ def radius_count(query, qmask, target, tmask, center, r2, inputs=None):
                         1, RADIUS_MAX_RUNGS)
     if dev.type == "cpu":
         return radius_count_plain(query, qmask, target, tmask, center, r2)
-    q4, t4, boxes = _radius_launch_inputs("radius_count", query, qmask, target, tmask,
-                                          center, inputs, dev)
+    q4, t4, boxes, _chunk_boxes = _radius_launch_inputs(
+        "radius_count", query, qmask, target, tmask, center, inputs, dev)
     r2 = r2.contiguous()
     nq, nt, L = q4.shape[0], t4.shape[0], r2.shape[0]
     cnt = torch.empty((L, nq), dtype=torch.float32, device=dev)
@@ -493,14 +502,14 @@ def radius_window(query, qmask, target, tmask, center, r2q, inputs=None):
                         query.shape[0], query.shape[0])
     if dev.type == "cpu":
         return radius_window_plain(query, qmask, target, tmask, center, r2q)
-    q4, t4, boxes = _radius_launch_inputs("radius_window", query, qmask, target, tmask,
-                                          center, inputs, dev)
+    q4, t4, _boxes, chunk_boxes = _radius_launch_inputs(
+        "radius_window", query, qmask, target, tmask, center, inputs, dev)
     r2q = r2q.contiguous()
     nq, nt = q4.shape[0], t4.shape[0]
     out = torch.empty((16, nq), dtype=torch.float32, device=dev)
     fn = _build.function("fgt_radius_window", _WINDOW_ARGS)
     _build.check("fgt_radius_window", fn(
-        q4.data_ptr(), t4.data_ptr(), boxes.data_ptr(), r2q.data_ptr(), nq, nt,
+        q4.data_ptr(), t4.data_ptr(), chunk_boxes.data_ptr(), r2q.data_ptr(), nq, nt,
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
     radius_window.launches += 1
     return out

@@ -216,6 +216,88 @@ def knn_slab_edge_cases(seed: int = 0):
     return cases
 
 
+def _key_step_ties(rng, n_queries: int, n_targets: int):
+    """(queries, targets): 64 cluster centres 10 m apart on integer
+    coordinates, each with 10 targets at d^2 = 0.25 exactly (duplicates) and
+    16 at d^2 = (1 + m 2^-16)^2, m = 0..15 (x offsets exact in f32, d^2 one
+    rounding in every order), which all fall in one 2^-11 key step; far
+    fillers complete the targets, shuffled; each query is a centre."""
+    centres = np.stack(np.meshgrid(np.arange(8), np.arange(8), [0], indexing="ij"),
+                       -1).reshape(-1, 3).astype(np.float32) * np.float32(10.0)
+    near = np.float32([[0.5, 0, 0]] * 3 + [[-0.5, 0, 0]] * 3 + [[0, 0.5, 0]] * 2
+                      + [[0, -0.5, 0]] * 2)
+    step = np.zeros((16, 3), np.float32)
+    step[:, 0] = 1.0 + np.arange(16, dtype=np.float32) * np.float32(2.0 ** -16)
+    offsets = np.concatenate([near, step])
+    cluster = (centres[:, None, :] + offsets[None]).reshape(-1, 3)
+    fill = _grid_points(rng, n_targets - len(cluster), 500) + np.float32([0, 0, 200.0])
+    targets = np.concatenate([cluster, fill]).astype(np.float32)
+    queries = centres[rng.integers(0, len(centres), n_queries)]
+    return queries, targets[rng.permutation(n_targets)]
+
+
+def knn_moments_edge_cases(seed: int = 0):
+    """Inputs for the fused k-NN moments (`ops.cuda_kernels.knn_moments`)
+    that stress its packed-key selection and its edges, made from `seed`:
+    candidates tied within one 2^-11 key step at the k-th place (the tie
+    goes to the lower slab position), exact d^2 ties (repeated points on an
+    exact grid), slabs with fewer than k valid targets, a query tile whose
+    whole slab is masked, tile ids -1 and T, masked queries, k in {1, 20,
+    32, 48} (k > 32 takes the kernel's round-by-round form) and 4,096-wide
+    slabs (C = 32 x 128).  1,024 queries (4 query tiles of 256),
+    cand_tile 128.  Returns a list of dicts: name, query, qmask, target,
+    tmask (numpy), cidx ((4, C) int32), k, cand_tile, `in_range` (every tile
+    id is in [0, T): the JAX package's `knn_moments_pallas` gathers other
+    ids by its own rules) and `exact_d2` (every d^2 of a valid pair is
+    exact, or rounded once, so XLA's contractions cannot move a key)."""
+    rng = np.random.default_rng(seed)
+    nq, ct = 1024, 128
+    cases = []
+
+    def add(name, k, C, query, target, qmask=None, tmask=None, cidx=None, exact_d2=True):
+        T = len(target) // ct
+        if cidx is None:
+            cidx = np.stack([rng.permutation(T)[:C] for _ in range(nq // 256)])
+        cases.append(dict(
+            name=name, query=query, target=target,
+            qmask=np.ones(nq, bool) if qmask is None else qmask,
+            tmask=np.ones(len(target), bool) if tmask is None else tmask,
+            cidx=np.ascontiguousarray(cidx, np.int32), k=k, cand_tile=ct,
+            in_range=bool(((cidx >= 0) & (cidx < T)).all()), exact_d2=exact_d2))
+
+    q_tie, t_tie = _key_step_ties(rng, nq, 2048)
+    add("ties_within_key_step_k20", 20, 16, q_tie, t_tie,
+        cidx=np.tile(np.arange(16), (nq // 256, 1)))
+    grid = _grid_points(rng, 2048, 400)
+    qgrid = np.concatenate([grid[rng.integers(0, 2048, nq // 2)],
+                            _grid_points(rng, nq // 2, 400)])
+    few = np.zeros(2048, bool)
+    few[rng.choice(2048, 40, replace=False)] = True  # ~2.5 valid a 128-point tile
+    add("few_valid_k20", 20, 4, qgrid, grid, tmask=few)
+    tmask = _mask(rng, 2048, 0.1)
+    tmask[:4 * ct] = False  # tiles 0-3 wholly masked: query tile 1's slab
+    cidx = np.stack([rng.permutation(16)[:4] for _ in range(nq // 256)])
+    cidx[1] = np.arange(4)
+    add("all_masked_slab_k20", 20, 4, qgrid, grid, tmask=tmask, cidx=cidx)
+    bad = np.stack([rng.permutation(16)[:6] for _ in range(nq // 256)])
+    bad[:, 2], bad[1:, 4] = -1, 16  # ids -1 and T read as masked points
+    add("tile_ids_out_of_range_k20", 20, 6, qgrid, grid, tmask=_mask(rng, 2048, 0.1),
+        cidx=bad)
+    add("k1_masked_queries", 1, 6, qgrid, grid, qmask=_mask(rng, nq, 0.2),
+        tmask=_mask(rng, 2048, 0.1))
+    add("k32_masked_queries", 32, 8, qgrid, grid, qmask=_mask(rng, nq, 0.15),
+        tmask=_mask(rng, 2048, 0.1))
+    add("k48_rounds", 48, 8, qgrid, grid, tmask=_mask(rng, 2048, 0.1))
+    street = _street_points(rng, 4096)
+    qstreet = street[rng.choice(4096, nq, replace=False)]
+    wide = np.tile(np.arange(32), (nq // 256, 1))
+    add("slab_4096_k20", 20, 32, qstreet, street, tmask=_mask(rng, 4096, 0.05), cidx=wide,
+        exact_d2=False)
+    add("slab_4096_k48", 48, 32, qstreet, street, tmask=_mask(rng, 4096, 0.05), cidx=wide,
+        exact_d2=False)
+    return cases
+
+
 def _ladder_from_pairs(rng, y, mask, rungs: int, r2_max: float):
     """`rungs` distinct squared radii below r2_max, each the f32 d^2 of a
     pair of valid points of y, ascending: the pairs sit exactly on rungs."""
@@ -261,6 +343,51 @@ def radius_count_edge_cases(seed: int = 0):
     add("grid_repeats_L20", grid, mask, center,
         np.sort(np.concatenate([ladder[:14], rng.choice(ladder[:14], 6)])), exact_d2=True)
     add("grid_on_rung_L1", grid, mask, center, ladder[11:12], exact_d2=True)
+    return cases
+
+
+def radius_window_edge_cases(seed: int = 0):
+    """Inputs for the hard-window moments (`ops.cuda_kernels.radius_window`)
+    that stress the window test, the chunk cull and the sums, made from
+    `seed`: r2q = 0 (exact duplicates only, the query itself included),
+    windows exactly on pairs' d^2 among repeated points, the default
+    ladder's largest rung beside its smallest in every warp of 32 queries,
+    masked queries and targets, a query cloud other than the target with nq
+    and nt not multiples of 32 or 128, and nt < 32.  Points on an exact
+    1/8 m grid centered on a grid point (every d^2 exact), or street-scale
+    ones whose d^2 rounds.  Returns a list of dicts: name, query, qmask,
+    target, tmask, center (numpy), r2q ((nq,) f32), `jax` (the sizes the
+    JAX package's `_window_kernel` takes: nq a multiple of 512, nt of
+    2,048) and `exact_d2`."""
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def add(name, query, target, center, r2q, qmask=None, tmask=None, exact_d2=True):
+        nq, nt = len(query), len(target)
+        cases.append(dict(
+            name=name, query=query, target=target, center=np.asarray(center, np.float32),
+            qmask=np.ones(nq, bool) if qmask is None else qmask,
+            tmask=_mask(rng, nt, 0.1) if tmask is None else tmask,
+            r2q=np.asarray(r2q, np.float32), jax=nq % 512 == 0 and nt % 2048 == 0,
+            exact_d2=exact_d2))
+
+    ladder = (0.04 * 1.3 ** np.arange(20)) ** 2  # the default ladder's rungs
+    grid = _grid_points(rng, 2048, 300)
+    on = np.float32([2.0, 2.0, 2.0])  # a grid point: centering stays exact
+    add("r2q_zero_duplicates", grid, grid, on, np.zeros(2048))
+    # squared distances of grid pairs: exact multiples of 1/64
+    on_pair = np.float32([1, 2, 3, 5, 8, 13, 25, 41]) / np.float32(64.0)
+    add("windows_on_pairs_duplicates", grid, grid, on, rng.choice(on_pair, 2048))
+    street = _street_points(rng, 2048)
+    center = street.astype(np.float64).mean(0).astype(np.float32)
+    mixed = np.where(np.arange(2048) % 2 == 0, ladder[-1], ladder[0])
+    add("largest_beside_smallest_in_warp", street, street, center, mixed, exact_d2=False)
+    add("masked_queries_and_targets", grid, grid, on, rng.choice(ladder[:12], 2048),
+        qmask=_mask(rng, 2048, 0.2), tmask=_mask(rng, 2048, 0.3))
+    add("nq_nt_not_multiples_of_32", street[rng.choice(2048, 1000, replace=False)],
+        street[:1500], center, rng.choice(ladder, 1000), exact_d2=False)
+    add("nt_below_32", street[rng.choice(2048, 300, replace=False)], street[:20], center,
+        np.full(300, ladder[-1]), exact_d2=False)
     return cases
 
 

@@ -171,6 +171,104 @@ def test_radius_count_edge_cases_match_pallas(name):
     assert sure.sum() >= 0.5 * mask.sum() * len(r2)
 
 
+WINDOW_CASES = {c["name"]: c for c in synthetic.radius_window_edge_cases()}
+
+
+def _window_d2(case):
+    """(nq, nt) f32 d^2 of the centered clouds, masked points parked at
+    MASK_COORD, every operation rounded on its own."""
+    park = np.float32(cuda_kernels.MASK_COORD)
+    yq = np.where(case["qmask"][:, None], case["query"] - case["center"], park)
+    yt = np.where(case["tmask"][:, None], case["target"] - case["center"], park)
+    return synthetic._sq_dist_f32(yq, yt)
+
+
+def _window_numpy(case):
+    """(16, nq) window rows in f64 over the targets with f32 d^2 <= r2q."""
+    v = case["tmask"].astype(np.float64)
+    y = (case["target"] - case["center"]).astype(np.float64) * v[:, None]
+    y0, y1, y2 = y[:, 0], y[:, 1], y[:, 2]
+    feats = np.stack([v, y0, y1, y2, y0 * y0, y0 * y1, y0 * y2, y1 * y0, y1 * y1, y1 * y2,
+                      y2 * y0, y2 * y1, y2 * y2], 1)
+    w = (_window_d2(case) <= case["r2q"][:, None]).astype(np.float64)
+    return np.concatenate([(w @ feats).T, np.zeros((3, w.shape[0]))])
+
+
+def _window_args(case):
+    return [torch.as_tensor(case[key]) for key in ("query", "qmask", "target", "tmask",
+                                                   "center", "r2q")]
+
+
+@pytest.mark.parametrize("name", WINDOW_CASES)
+def test_radius_window_plain_edge_cases_match_numpy(name):
+    """Every edge case of `synthetic.radius_window_edge_cases` (r2q = 0,
+    windows on pairs' d^2 among duplicates, the largest rung beside the
+    smallest in every warp, masked points, nq and nt not multiples of 32,
+    nt < 32): on the valid queries the plain version's count row equal to
+    the numpy window's and rows 1-12 within 1e-5 of each query's largest
+    |entry| of the f64 sums (WINDOW_REL_TOL of the card's check); rows
+    13-15 zero.  The r2q = 0 case counts each query's exact duplicates."""
+    case = WINDOW_CASES[name]
+    got = cuda_kernels.radius_window(*_window_args(case)).numpy()
+    want = _window_numpy(case)
+    m = case["qmask"]
+    np.testing.assert_array_equal(got[0, m], want[0, m])
+    g, w = got[1:13, m], want[1:13, m]
+    scale = np.abs(w).max(0, keepdims=True) + 1e-30
+    assert (np.abs(g - w) <= 1e-5 * scale).all(), (np.abs(g - w) / scale).max(1)
+    np.testing.assert_array_equal(got[13:], 0.0)
+    if name == "r2q_zero_duplicates":
+        dup = (case["query"][:, None, :] == case["target"][None]).all(-1) & case["tmask"]
+        np.testing.assert_array_equal(got[0, m], dup.sum(1)[m])
+
+
+@pytest.mark.parametrize("name", [n for n, c in WINDOW_CASES.items() if c["jax"]])
+def test_radius_window_plain_edge_cases_match_pallas(name):
+    """The edge cases of JAX's sizes against `_window_kernel` in interpret
+    mode at the same per-query r2q, every tile pair visited (the cull only
+    skips tiles with nothing in any window): on the valid queries the count
+    row equal and rows 1-12 within 1e-5 of each query's largest |entry|.
+    On the street cloud only the queries with no target within 1e-6 of the
+    window in d^2 are held (XLA on the CPU contracts d^2's multiply-adds,
+    so a pair on the window may fall on either side); at least half."""
+    case = WINDOW_CASES[name]
+    f32 = jnp.float32
+    q, qm, t, tm, c = (jnp.asarray(case[key]) for key in ("query", "qmask", "target",
+                                                          "tmask", "center"))
+    yt = t - c
+    tv = tm.astype(f32)
+    y0, y1, y2 = (yt[:, a] * tv for a in range(3))
+    zero = jnp.zeros_like(y0)
+    feats = jnp.stack([tv, y0, y1, y2, y0 * y0, y0 * y1, y0 * y2, y1 * y0, y1 * y1,
+                       y1 * y2, y2 * y0, y2 * y1, y2 * y2, zero, zero, zero])
+    rq, rt = pallas_kernels._RQT, pallas_kernels._RTT
+    nq, nt = q.shape[0], t.shape[0]
+    want = np.asarray(pl.pallas_call(
+        pallas_kernels._window_kernel,
+        grid=(nq // rq, nt // rt),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
+                  pl.BlockSpec((1, rq), lambda i, j: (0, i)),
+                  pl.BlockSpec((8, rq), lambda i, j: (0, i)),
+                  pl.BlockSpec((8, rt), lambda i, j: (0, j)),
+                  pl.BlockSpec((16, rt), lambda i, j: (0, j))],
+        out_specs=pl.BlockSpec((16, rq), lambda i, j: (0, i)),
+        out_shape=jax.ShapeDtypeStruct((16, nq), f32),
+        interpret=True,
+    )(jnp.ones((nq // rq, nt // rt), jnp.int32), jnp.asarray(case["r2q"])[None, :],
+      pallas_kernels._prep_transposed(q - c, qm), pallas_kernels._prep_transposed(yt, tm),
+      feats))
+    got = cuda_kernels.radius_window(*_window_args(case)).numpy()
+    sure = case["qmask"].copy()
+    if not case["exact_d2"]:
+        d, r2q = _window_d2(case), case["r2q"][:, None]
+        sure &= ~(np.abs(d - r2q) <= 1e-6 * r2q).any(1)
+        assert sure.sum() >= 0.5 * case["qmask"].sum()
+    np.testing.assert_array_equal(got[0, sure], want[0, sure])
+    g, w = got[1:13, sure], want[1:13, sure]
+    scale = np.abs(w).max(0, keepdims=True) + 1e-30
+    assert (np.abs(g - w) <= 1e-5 * scale).all(), (np.abs(g - w) / scale).max(1)
+
+
 @pytest.mark.parametrize("method", ["plane", "none"])
 def test_adaptive_radius_covariance_cols_matches_jax(method):
     """Against the JAX package's CPU `adaptive_radius_covariance_cols` (its

@@ -133,10 +133,12 @@ def _packed_key_kth(pts, mask, cidx, k, ct=128):
     return np.concatenate(out)
 
 
-@pytest.mark.parametrize("C", [8, 16])
+@pytest.mark.parametrize("C", [8, 16, 32])
 def test_knn_moments_plain_matches_pallas(C):
     """The packed-key selection and moments against `knn_moments_pallas`
-    (interpret mode, cand_tile 128) with the same cidx on 2,048 points.
+    (interpret mode, cand_tile 128) with the same cidx on 2,048 points,
+    and at C = 32 on 4,096 points (16 query tiles): the widest slab both
+    packages take, 4,096 positions (12 position bits in a key).
 
     kth: bit-equal to a numpy emulation of the packed-key rule, and within
     rtol 1e-6 of the Pallas kernel on all but at most 0.1% of the queries.
@@ -147,7 +149,7 @@ def test_knn_moments_plain_matches_pallas(C):
     Pallas kernel sums the moments as an f32 matmul, the plain version
     adds the k neighbours in order)."""
     rng = np.random.default_rng(11)
-    n, k = 2048, 20
+    n, k = max(2048, 128 * C), 20
     pts = _voxel_sorted_cloud(rng, n)
     mask = np.ones(n, bool)
     mask[-70:] = False
@@ -183,9 +185,101 @@ def test_knn_moments_rejects_bad_inputs():
     with pytest.raises(ValueError):
         cuda_kernels.knn_moments(p, m, p, m, cidx, 513)  # k > slab
     with pytest.raises(ValueError):
-        cuda_kernels.knn_moments(p, m, torch.zeros((4096, 3)),
-                                 torch.ones(4096, dtype=torch.bool),
-                                 torch.zeros((2, 32), dtype=torch.int32), 20)  # slab > 2048
+        cuda_kernels.knn_moments(p, m, torch.zeros((8192, 3)),
+                                 torch.ones(8192, dtype=torch.bool),
+                                 torch.zeros((2, 33), dtype=torch.int32), 20)  # slab > 4096
+
+
+KNN_EDGE_CASES = synthetic.knn_moments_edge_cases()
+
+
+def _knn_moments_numpy(case):
+    """The packed-key selection in numpy, every operation rounded on its
+    own: masked points parked at MASK_COORD, tile ids outside [0, T) read as
+    masked points, keys (bits of d^2) & -4096 | slab position, the k
+    smallest.  Returns (mom (10, nq) f64 about each query tile's first
+    query point, kth (nq,) f32, the number of a query's candidates in the
+    k-th key's 2^-11 step (nq,), the number of them it selects (nq,))."""
+    park = np.float32(cuda_kernels.MASK_COORD)
+    q = np.where(case["qmask"][:, None], case["query"], park)
+    tgt, tmask, cidx, k, ct = (case[key] for key in ("target", "tmask", "cidx", "k",
+                                                     "cand_tile"))
+    t = np.where(tmask[:, None], tgt, park).reshape(-1, ct, 3)
+    v = tmask.astype(np.float32).reshape(-1, ct)
+    T = t.shape[0]
+    moms, kths, in_step, taken = [], [], [], []
+    for i, row in enumerate(cidx):
+        inside = (row >= 0) & (row < T)
+        rr = np.clip(row, 0, T - 1)
+        cand = np.where(inside[:, None, None], t[rr], park).reshape(-1, 3)
+        cv = np.where(inside[:, None], v[rr], 0.0).reshape(-1)
+        qq = q[256 * i:256 * (i + 1)]
+        d = synthetic._sq_dist_f32(qq, cand)
+        keys = (d.view(np.int32) & np.int32(-4096)) | np.arange(d.shape[1], dtype=np.int32)
+        order = np.argsort(keys, axis=1)[:, :k]
+        kth_key = np.take_along_axis(keys, order[:, k - 1:], 1) & np.int32(-4096)
+        kths.append(np.maximum(kth_key[:, 0].view(np.float32), np.float32(0.0)))
+        step = (keys & np.int32(-4096)) == kth_key
+        in_step.append(step.sum(1))
+        taken.append(np.take_along_axis(step, order, 1).sum(1))
+        w = cv[order].astype(np.float64)
+        y = (cand[order].astype(np.float64) - qq[0].astype(np.float64)) * w[..., None]
+        y0, y1, y2 = y[..., 0], y[..., 1], y[..., 2]
+        moms.append(np.stack([w, y0, y1, y2, y0 * y0, y0 * y1, y0 * y2, y1 * y1, y1 * y2,
+                              y2 * y2]).sum(-1))
+    return (np.concatenate(moms, 1), np.concatenate(kths), np.concatenate(in_step),
+            np.concatenate(taken))
+
+
+def _knn_case_args(case):
+    return [torch.as_tensor(case[key]) for key in ("query", "qmask", "target", "tmask",
+                                                   "cidx")]
+
+
+@pytest.mark.parametrize("case", KNN_EDGE_CASES, ids=[c["name"] for c in KNN_EDGE_CASES])
+def test_knn_moments_plain_edge_cases_match_numpy(case):
+    """The plain version (the card's reference) on the adversarial inputs of
+    `knn_moments_edge_cases`: kth bit-equal to the numpy selection on every
+    query (masked ones included), the count row equal, and the moment rows
+    within 1e-5 of each query's largest |entry| of the f64 sums of the same
+    selection.  The key-step case really ties at the k-th place: its
+    queries select 10 of the 16 candidates in the k-th key's step."""
+    mom, kth = cuda_kernels.knn_moments(*_knn_case_args(case), case["k"], case["cand_tile"])
+    want, want_kth, in_step, taken = _knn_moments_numpy(case)
+    np.testing.assert_array_equal(kth.numpy(), want_kth)
+    np.testing.assert_array_equal(mom[0].numpy(), want[0])
+    scale = np.abs(want).max(0, keepdims=True)
+    assert (np.abs(mom.numpy() - want) <= 1e-5 * scale).all(), \
+        (np.abs(mom.numpy() - want) / scale).max(1)
+    if case["name"].startswith("ties_within_key_step"):
+        assert (in_step == 16).all() and (taken == 10).all()
+
+
+JAX_KNN_CASES = [c for c in KNN_EDGE_CASES if c["in_range"]]
+
+
+@pytest.mark.parametrize("case", JAX_KNN_CASES, ids=[c["name"] for c in JAX_KNN_CASES])
+def test_knn_moments_plain_edge_cases_match_pallas(case):
+    """Against `knn_moments_pallas` (interpret mode) on the edge cases whose
+    tile ids are all in range (it gathers others by its own rules): kth
+    bit-equal where every d^2 is exact or rounded once, else as
+    `test_knn_moments_plain_matches_pallas` holds it (at most 0.1% of the
+    queries one 2^-11 step off: XLA on the CPU contracts d^2's
+    multiply-adds); mom within rtol 1e-4, atol 1e-4."""
+    q, qm, t, tm, cidx = (jnp.asarray(case[key]) for key in ("query", "qmask", "target",
+                                                             "tmask", "cidx"))
+    mom_j, kth_j = pallas_kernels.knn_moments_pallas(q, qm, t, tm, cidx, case["k"],
+                                                     cand_tile=case["cand_tile"],
+                                                     interpret=True)
+    mom, kth = cuda_kernels.knn_moments(*_knn_case_args(case), case["k"], case["cand_tile"])
+    kth_j = np.asarray(kth_j)
+    if case["exact_d2"]:
+        np.testing.assert_array_equal(kth.numpy(), kth_j)
+    else:
+        off = np.abs(kth.numpy() - kth_j) > 1e-6 * np.abs(kth_j)
+        assert off.mean() <= 1e-3, np.nonzero(off)
+        np.testing.assert_allclose(kth.numpy()[off], kth_j[off], rtol=2.0 ** -11)
+    np.testing.assert_allclose(mom.numpy(), np.asarray(mom_j), rtol=1e-4, atol=1e-4)
 
 
 NN_EDGE_CASES = synthetic.nn_search_edge_cases()
