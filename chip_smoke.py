@@ -33,14 +33,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
 
 The last lines are the `nvidia-smi` name/power-limit line, one
 {"kernels": [...]} JSON line and the {"ok": true, ...} JSON line.
+
+    python3 chip_smoke.py --ndt-timing DIR
+
+times the NDT kernels of the package under DIR (an unpacked earlier
+checkout, say) on phase 3's NDT inputs and prints one JSON line, so two
+designs can be compared in one call on one card.
 This script imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import json
 import math
+import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -448,7 +457,6 @@ def check_knn_moments_edge_cases(dev):
                 f"{name}: a repeat launch differs")
     log(f"[kernels] edge cases: knn_moments kth bit-equal, mom within 1e-4 and "
         f"repeat-identical on all {len(cases)} ({', '.join(c['name'] for c in cases)})")
-    return len(cases)
 
 
 def check_window_edge_cases(dev):
@@ -480,7 +488,6 @@ def check_window_edge_cases(dev):
         require(bool(torch.equal(got, again)), f"{name}: a repeat launch differs")
     log(f"[kernels] edge cases: radius_window n equal, rows within {WINDOW_REL_TOL:g} and "
         f"repeat-identical on all {len(cases)} ({', '.join(c['name'] for c in cases)})")
-    return len(cases)
 
 
 def check_edge_cases(dev):
@@ -1013,10 +1020,91 @@ def ndt_first_packs(dev, pair, x):
     return out
 
 
+NDT_LIN_KERNEL = "ndt_linearize_kernel<{d2d}, {raw}"  # the profiler's name, a prefix
+NDT_ERROR_PATH_LANES = {"d2d": "D2D fresh", "d2d_raw": "D2D align", "p2d_raw": "P2D"}
+
+
+def ndt_kernel_build_report():
+    """{kernel: (registers, stack frame bytes)} of the NDT kernels from the
+    ptxas lines of the library's build log, each logged."""
+    from fast_gicp_tpu_torch.ops import _build
+
+    report, name = {}, None
+    for line in _build.build_log().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            lin = re.search(r"ndt_linearize_kernelILb(\d)ELb(\d)E", m.group(1))
+            name = (None if not lin and "ndt_error_kernel" not in m.group(1) else
+                    "ndt_error" if not lin else
+                    "ndt_" + ("d2d" if lin.group(1) == "1" else "p2d")
+                    + ("_raw" if lin.group(2) == "1" else ""))
+            continue
+        if name is None:
+            continue
+        stack = re.search(r"(\d+) bytes stack frame", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if stack:
+            report[name] = (report.get(name, (None, None))[0], int(stack.group(1)))
+        if regs:
+            report[name] = (int(regs.group(1)), report[name][1])
+    for k, (regs, stack) in sorted(report.items()):
+        log(f"[build] {k}: {regs} registers, {stack} bytes stack frame")
+    return report
+
+
+def check_cos_bounded(dev):
+    """`cos_bounded`, the d2d_raw / p2d_raw kernels' cosine, against cosf on
+    every float with |a| < 105615 (2.4e9 of them): it must give the same bits."""
+    from fast_gicp_tpu_torch.ops import _build
+
+    bad = torch.zeros(1, dtype=torch.int32, device=dev)
+    fn = _build.function("fgt_cos_bounded_mismatches", (ctypes.c_void_p, ctypes.c_void_p))
+    _build.check("fgt_cos_bounded_mismatches",
+                 fn(bad.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
+    torch.cuda.synchronize()
+    require(int(bad) == 0, f"cos_bounded differs from cosf on {int(bad)} floats")
+    log("[kernels] cos_bounded equals cosf bit for bit on every float with |a| < 105615")
+
+
+def check_ndt_edge_cases(dev, check_lin, x, x2):
+    """d2d_raw and ndt_error against their plain versions on every case of
+    `utils.synthetic.ndt_kernel_edge_cases` (L = 7,007, 91 and 1, every lane
+    invalid, near-planar, coincident and empty voxels), ndt_error with its
+    source columns untiled, tiled and tiled as lanes of their own; each
+    bit-identical on a repeat launch."""
+    from fast_gicp_tpu_torch.ops import cuda_ndt
+    from fast_gicp_tpu_torch.utils import synthetic
+
+    cases = synthetic.ndt_kernel_edge_cases()
+    for case in cases:
+        name, k = f"edge case {case['name']}", case["offsets"]
+        p, ca, pack = (torch.as_tensor(case[key], device=dev) for key in ("p", "ca", "pack"))
+        pt, cat = p.repeat(1, k).contiguous(), ca.repeat(1, k).contiguous()
+        got = check_lin(f"ndt_d2d_raw {name}", pt, cat, pack, "d2d_raw", 1e-4)
+        aux = got[3]
+        want = cuda_ndt.ndt_error_plain(pt, aux, x2, 1.0)
+        calls = {"untiled": (p, k), "tiled": (pt, k), "lanes": (pt, 1)}
+        for how, (pp, kk) in calls.items():
+            e = cuda_ndt.ndt_error(pp, aux, x2, 1.0, offsets=kk)
+            again = cuda_ndt.ndt_error(pp, aux, x2, 1.0, offsets=kk)
+            torch.cuda.synchronize()
+            require(bool(torch.equal(e, again)), f"ndt_error {name} ({how}): repeat differs")
+            if not bool(aux[6].any()):
+                require(float(e) == 0.0 and float(want) == 0.0,
+                        f"ndt_error {name} ({how}): all lanes invalid, got {float(e)}")
+            else:
+                check_close(f"ndt_error {name} ({how})", e, want, 1e-5, 0.0)
+    log(f"[kernels] NDT edge cases: d2d_raw within tolerance and repeat-identical, "
+        f"ndt_error (untiled, tiled, tiled as lanes) within rtol 1e-5 and "
+        f"repeat-identical on all {len(cases)} ({', '.join(c['name'] for c in cases)})")
+
+
 def phase_ndt_kernels(dev, pair):
     """The four NDT linearize modes and the NDT error kernel against their
     plain versions, at the shapes their paths give them on the full-size
-    pair."""
+    pair (the error kernel at each path's lane count), each bit-identical on
+    a repeat launch; the NDT edge cases; cos_bounded against cosf; the NDT
+    kernels' registers and stack frames."""
     from fast_gicp_tpu_torch import se3
     from fast_gicp_tpu_torch.ops import cuda_ndt
 
@@ -1024,9 +1112,13 @@ def phase_ndt_kernels(dev, pair):
     x2 = se3.se3_exp(torch.tensor([-0.001, 0.002, 0.0, 0.01, 0.02, -0.02], device=dev))
     c_sq = 1.0
     records = []
+    build = ndt_kernel_build_report()
 
     def rel_to_max(name, a, b, tol):
         m = float(b.abs().max())
+        if m == 0.0:  # every lane invalid: exact zeros
+            require(not bool(a.any()), f"{name}: nonzero where the plain version is 0")
+            return 0.0
         return check_close(name, a / m, b / m, 0.0, tol) * m
 
     def check_aux(name, got, want, tol):
@@ -1041,13 +1133,23 @@ def phase_ndt_kernels(dev, pair):
         err_mu = check_close(f"{name} aux mu", got[7:10], want[7:10], 1e-6, 1e-6)
         return max(err_m, err_mu)
 
+    def check_lin(name, p, ca, pack, mode, m_tol):
+        got = cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, mode)
+        again = cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, mode)
+        want = cuda_ndt.ndt_linearize_plain(p, ca, x, pack, c_sq, mode)
+        torch.cuda.synchronize()
+        require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                f"{name}: a repeat launch differs")
+        errs = [rel_to_max(f"{name} err", got[0].reshape(1), want[0].reshape(1), 1e-5),
+                rel_to_max(f"{name} H", got[1], want[1], 1e-5),
+                rel_to_max(f"{name} b", got[2], want[2], 1e-5),
+                check_aux(name, got[3], want[3], m_tol)]
+        return got + (max(errs),)
+
     packs = ndt_first_packs(dev, pair, x)
     auxes = {}
     for mode, (p, ca, pack) in packs.items():
         L = p.shape[1]
-        got = cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, mode)
-        want = cuda_ndt.ndt_linearize_plain(p, ca, x, pack, c_sq, mode)
-        torch.cuda.synchronize()
         d2d, raw = mode.startswith("d2d"), mode.endswith("_raw")
         # M of a raw pack goes through the eigenvalue clamp and the inverse of
         # a near-planar voxel's covariance, which magnify a last-bit difference
@@ -1056,13 +1158,10 @@ def phase_ndt_kernels(dev, pair):
         # CPU-built inputs, up to 4.75e-5 on card-built maps (H100, full-size
         # pair).  A wrong clamp moves M by O(1) of it.
         m_tol = 1e-4 if raw else 1e-5
-        errs = [rel_to_max(f"ndt_{mode} err", got[0].reshape(1), want[0].reshape(1), 1e-5),
-                rel_to_max(f"ndt_{mode} H", got[1], want[1], 1e-5),
-                rel_to_max(f"ndt_{mode} b", got[2], want[2], 1e-5),
-                check_aux(f"ndt_{mode}", got[3], want[3], m_tol)]
+        got = check_lin(f"ndt_{mode}", p, ca, pack, mode, m_tol)
         tm_ = timings(lambda: cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, mode),
                       lambda: cuda_ndt.ndt_linearize_plain(p, ca, x, pack, c_sq, mode),
-                      f"ndt_linearize_kernel<{str(d2d).lower()}, {str(raw).lower()}>",
+                      NDT_LIN_KERNEL.format(d2d=str(d2d).lower(), raw=str(raw).lower()),
                       200, 20)
         # each source point read once (the kernel reads p and ca tiled over
         # the offsets), the pack's data fields a lane (finalized [mu, cov or
@@ -1074,42 +1173,94 @@ def phase_ndt_kernels(dev, pair):
         nops = L * ((NDT_LINEARIZE_OPS if d2d else NDT_P2D_LINEARIZE_OPS)
                     + (NDT_RAW_OPS if raw else 0))
         b_ms, b_by = bound_ms(nbytes, nops)
+        regs, stack = build.get(f"ndt_{mode}", (None, None))
         records.append(dict(
             name=f"ndt_{mode}", route="cuda",
             source="fast_gicp_tpu_torch/csrc/ndt_linearize.cu",
             replaces="fast_gicp_tpu/ops/pallas_linearize.py:"
                      + {"d2d": "330", "p2d": "347", "d2d_raw": "492", "p2d_raw": "507"}[mode],
-            max_abs_err=max(errs),
+            max_abs_err=got[4],
             tolerance=f"err, H, b within 1e-5 of their largest entry; aux M within "
                       f"{m_tol} of each lane's largest |M|, valid equal, mu rtol 1e-6 "
-                      f"atol 1e-6",
-            bound_ms=b_ms, bound_by=b_by, library_ms=None, lanes=L, bytes=nbytes, **tm_))
+                      f"atol 1e-6; a repeat launch bit-identical",
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, lanes=L, bytes=nbytes,
+            registers=regs, stack_bytes=stack, **tm_))
         auxes[mode] = got[3]
 
-    # the error kernel at the largest lane count, on the P2D raw aux
-    p, aux = packs["p2d_raw"][0], auxes["p2d_raw"]
-    L = p.shape[1]
-    e_got = cuda_ndt.ndt_error(p, aux, x2, 1.0)
-    e_want = cuda_ndt.ndt_error_plain(p, aux, x2, c_sq)
-    torch.cuda.synchronize()
-    e_err = check_close("ndt_error", e_got, e_want, 1e-5, 0.0)
-    tm_ = timings(lambda: cuda_ndt.ndt_error(p, aux, x2, 1.0),
-                  lambda: cuda_ndt.ndt_error_plain(p, aux, x2, c_sq),
-                  "ndt_error_kernel", 200, 20)
-    nbytes = L // NDT_OFFSETS * 12 + L * 40 + 64 + 4
-    b_ms, b_by = bound_ms(nbytes, L * NDT_ERROR_OPS)
+    # the error kernel at each path's lane count (28,672 on D2D fresh, 57,344
+    # on D2D align, 157,696 on P2D), as the NDT objective calls it: the tiled
+    # source columns read through their first N, offsets = 7
+    by_lanes = {}
+    for mode, path in NDT_ERROR_PATH_LANES.items():
+        p, aux = packs[mode][0], auxes[mode]
+        L = p.shape[1]
+        e_got = cuda_ndt.ndt_error(p, aux, x2, 1.0, offsets=NDT_OFFSETS)
+        e_again = cuda_ndt.ndt_error(p, aux, x2, 1.0, offsets=NDT_OFFSETS)
+        e_want = cuda_ndt.ndt_error_plain(p, aux, x2, c_sq)
+        torch.cuda.synchronize()
+        require(bool(torch.equal(e_got, e_again)), f"ndt_error at L = {L}: repeat differs")
+        e_err = check_close(f"ndt_error at L = {L}", e_got, e_want, 1e-5, 0.0)
+        tm_ = timings(lambda: cuda_ndt.ndt_error(p, aux, x2, 1.0, offsets=NDT_OFFSETS),
+                      lambda: cuda_ndt.ndt_error_plain(p, aux, x2, c_sq),
+                      "ndt_error_kernel", 200, 20)
+        nbytes = L // NDT_OFFSETS * 12 + L * 40 + 64 + 4
+        b_ms, b_by = bound_ms(nbytes, L * NDT_ERROR_OPS)
+        by_lanes[L] = dict(path=path, max_abs_err=e_err, bound_ms=b_ms, bound_by=b_by,
+                           bytes=nbytes, **tm_)
+    L = packs["p2d_raw"][0].shape[1]  # the record reads P2D's, the most launches
+    regs, stack = build.get("ndt_error", (None, None))
     records.append(dict(
         name="ndt_error", route="cuda", source="fast_gicp_tpu_torch/csrc/ndt_linearize.cu",
-        replaces="fast_gicp_tpu/ops/pallas_linearize.py:580", max_abs_err=e_err,
-        tolerance="rtol 1e-5", bound_ms=b_ms, bound_by=b_by, library_ms=None, lanes=L,
-        bytes=nbytes, **tm_))
+        replaces="fast_gicp_tpu/ops/pallas_linearize.py:580",
+        tolerance="rtol 1e-5; a repeat launch bit-identical", library_ms=None, lanes=L,
+        registers=regs, stack_bytes=stack,
+        by_lanes={n: {k: v for k, v in r.items() if k in ("path", "ms", "plain_ms",
+                                                          "bound_ms", "call_ms")}
+                  for n, r in by_lanes.items()},
+        **{k: v for k, v in by_lanes[L].items() if k != "path"}))
+    check_cos_bounded(dev)
+    check_ndt_edge_cases(dev, check_lin, x, x2)
     for r in records:
         log(f"[kernels] {r['name']} at L = {r['lanes']}: max_abs_diff "
             f"{r['max_abs_err']:.3e} ({r['tolerance']}), {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms ({r['timing']}); per call with the host's enqueue: "
             f"{r['call_ms']:.4f} ms, plain {r['plain_call_ms']:.4f} ms; bound "
-            f"{r['bound_ms']:.3e} ms ({r['bound_by']}, {r['bytes']} bytes)")
+            f"{r['bound_ms']:.3e} ms ({r['bound_by']}, {r['bytes']} bytes); "
+            f"{r['registers']} registers, {r['stack_bytes']} bytes stack frame")
+    for n, r in sorted(by_lanes.items()):
+        log(f"[kernels] ndt_error at L = {n} ({r['path']}): {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.3e} ms ({r['bound_by']})")
     return records
+
+
+def ndt_timing(dev, pair):
+    """Device time of the NDT kernels of whichever package is imported, on
+    phase_ndt_kernels' inputs: the four linearize modes at their paths'
+    lanes and ndt_error at each NDT path's lane count; no checks.  Run by
+    `--ndt-timing DIR` to time another checkout (an earlier design) in the
+    same call as this one."""
+    import inspect
+
+    from fast_gicp_tpu_torch import se3
+    from fast_gicp_tpu_torch.ops import cuda_ndt
+
+    x = se3.se3_exp(torch.tensor([0.002, -0.001, 0.003, 0.02, -0.01, 0.005], device=dev))
+    x2 = se3.se3_exp(torch.tensor([-0.001, 0.002, 0.0, 0.01, 0.02, -0.02], device=dev))
+    kw = ({"offsets": NDT_OFFSETS}
+          if "offsets" in inspect.signature(cuda_ndt.ndt_error).parameters else {})
+    packs = ndt_first_packs(dev, pair, x)
+    out, auxes = {"registers": ndt_kernel_build_report()}, {}
+    for mode, (p, ca, pack) in packs.items():
+        auxes[mode] = cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, mode)[3]
+        name = NDT_LIN_KERNEL.format(d2d=str(mode.startswith("d2d")).lower(),
+                                     raw=str(mode.endswith("_raw")).lower())
+        out[f"ndt_{mode}"] = device_ms(
+            lambda: cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, mode), 200, name)
+    for mode in NDT_ERROR_PATH_LANES:
+        p, aux = packs[mode][0], auxes[mode]
+        out[f"ndt_error_L{p.shape[1]}"] = device_ms(
+            lambda: cuda_ndt.ndt_error(p, aux, x2, 1.0, **kw), 200, "ndt_error_kernel")
+    return out
 
 
 def counters():
@@ -1506,6 +1657,12 @@ def phase_profile(dev, pair, path, n_regs=5):
 
 
 def main() -> int:
+    timing_only = len(sys.argv) == 3 and sys.argv[1] == "--ndt-timing"
+    if timing_only:  # time the NDT kernels of the package under DIR
+        sys.path.insert(0, str(pathlib.Path(sys.argv[2]).resolve()))
+    elif len(sys.argv) > 1:
+        print("usage: chip_smoke.py [--ndt-timing DIR]", file=sys.stderr)
+        return 2
     # phase 1: device
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1531,6 +1688,12 @@ def main() -> int:
             log(f"[build] {line.strip()}")
 
     pair = synthetic_pair()
+    if timing_only:
+        import fast_gicp_tpu_torch
+
+        print(json.dumps({"package": str(pathlib.Path(fast_gicp_tpu_torch.__file__).parent),
+                          "ndt_timing": ndt_timing(dev, pair)}))
+        return 0
     records = (phase_kernels(dev, pair) + phase_gicp_kernels(dev, pair)
                + phase_ndt_kernels(dev, pair) + phase_c2_kernels(dev, pair))
     summary = {}
@@ -1556,7 +1719,8 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("tolerance", "timing", "call_ms", "plain_call_ms", "launches_by_path")
+    extra = ("tolerance", "timing", "call_ms", "plain_call_ms", "launches_by_path",
+             "registers", "stack_bytes", "by_lanes")
     work = ("candidates", "exact_candidates", "exact_search_ms", "source_cloud_ms",
             "pairs_visited", "pairs_in_range", "pairs_to_visit", "pairs_in_window",
             "pairs_visited_block_cull", "wide_slab_ms", "k48_ms")

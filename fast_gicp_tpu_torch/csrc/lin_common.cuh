@@ -1,6 +1,7 @@
 // Device code shared by the linearize kernels (linearize.cu, ndt_linearize.cu):
-// the cross-block sum, the pose, the in-kernel transform and covariance
-// rotation, the clamped sym-6 inverse and the 28 sums of one correspondence.
+// the cross-block sums, the grid of one wave, the pose, the in-kernel
+// transform and covariance rotation, the clamped sym-6 inverse and the 28
+// sums of one correspondence.
 // Every expression keeps the order of the plain PyTorch versions (ops/soa.py);
 // the sources that include this file are built with -fmad=false so that the
 // products and sums round as those do.
@@ -23,7 +24,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 // gridDim.x * NT floats; *ticket must be 0 on entry and is 0 again on exit.
 // Each block reduces with warp shuffles into a scratch row of its own; the
 // last block to finish (ticket counter after a __threadfence) adds the rows
-// in block order, so the sum's order does not depend on scheduling.
+// in block order, so the sum's order does not depend on scheduling.  The
+// GICP kernels (linearize.cu) use it; the NDT kernels take grid_sum_tree.
 template <int NT>
 __device__ void grid_sum(const float (&v)[NT], float* partials,
                          unsigned int* ticket, float* out) {
@@ -54,6 +56,139 @@ __device__ void grid_sum(const float (&v)[NT], float* partials,
     }
     if (threadIdx.x == 0) *ticket = 0u;
   }
+}
+
+// One step of a butterfly reduce-scatter: lanes with bit W clear keep
+// columns [0, W) of their 2W, the others [W, 2W), each adding its partner's.
+template <int W>
+__device__ __forceinline__ void butterfly_step(float (&v)[32], int lane) {
+  const bool upper = lane & W;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const float send = upper ? v[i] : v[i + W];
+    const float keep = upper ? v[i + W] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, W);
+  }
+}
+
+// The warp's sum of column `lane` of the 32 columns v: 31 shuffles, where a
+// shuffle tree a column takes 5 a column.
+__device__ __forceinline__ float warp_sum_scatter32(float (&v)[32]) {
+  const int lane = threadIdx.x & 31;
+  butterfly_step<16>(v, lane);
+  butterfly_step<8>(v, lane);
+  butterfly_step<4>(v, lane);
+  butterfly_step<2>(v, lane);
+  butterfly_step<1>(v, lane);
+  return v[0];
+}
+
+// Sums v[0..NT) (NT = 1, or up to 32) over the whole grid into out[0..NT)
+// in a fixed order, so a repeat launch on the same grid gives the same
+// bits, with no serial walk over the blocks.  partials holds gridDim.x * NT
+// floats; *ticket must be 0 on entry and is 0 again on exit.  Each block
+// sums its warps (a shuffle tree for NT = 1, else a butterfly that leaves
+// column l in lane l) and adds the warps in order into a row of its own;
+// the last block to take a ticket (after a __threadfence) adds the G =
+// gridDim.x rows with all its threads: kGroups = kThreads / NT groups of NT
+// threads, group g adding rows g, g + kGroups, ... in turn (up to 32 loads in
+// flight a thread), then the groups in order (NT > 1) or by a shuffle tree a
+// warp and the warps in order (NT = 1).
+template <int NT>
+__device__ void grid_sum_tree(const float (&v)[NT], float* partials,
+                              unsigned int* ticket, float* out) {
+  static_assert(NT == 1 || (NT > 1 && NT <= 32), "NT: 1 or 2..32");
+  constexpr int kGroups = kThreads / NT;
+  constexpr int kBatch = NT == 1 ? 8 : 32;  // loads in flight a thread
+  __shared__ float s[kWarps][NT == 1 ? 1 : 32];
+  __shared__ float grp[kGroups * NT];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned int G = gridDim.x;
+  if constexpr (NT == 1) {
+    const float r = warp_sum(v[0]);
+    if (lane == 0) s[warp][0] = r;
+  } else {
+    float c[32];
+#pragma unroll
+    for (int k = 0; k < 32; ++k) c[k] = k < NT ? v[k] : 0.f;
+    s[warp][lane] = warp_sum_scatter32(c);
+  }
+  __syncthreads();
+  if (threadIdx.x < NT) {
+    float r = 0.f;
+    for (int w = 0; w < kWarps; ++w) r += s[w][threadIdx.x];
+    partials[blockIdx.x * NT + threadIdx.x] = r;
+    __threadfence();  // the row is visible device-wide before the ticket
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == G - 1;
+  __syncthreads();
+  if (!last) return;
+  if (threadIdx.x < kGroups * NT) {
+    const unsigned int g = threadIdx.x / NT, k = threadIdx.x % NT;
+    float r = 0.f;
+    for (unsigned int b0 = g; b0 < G; b0 += kBatch * kGroups) {
+      float t[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const unsigned int b = b0 + i * kGroups;
+        t[i] = b < G ? __ldcg(partials + b * NT + k) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) r += t[i];
+    }
+    grp[threadIdx.x] = r;
+  }
+  __syncthreads();
+  if constexpr (NT == 1) {
+    const float r = warp_sum(grp[threadIdx.x]);
+    if (lane == 0) s[warp][0] = r;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float t = 0.f;
+      for (int w = 0; w < kWarps; ++w) t += s[w][0];
+      out[0] = t;
+    }
+  } else if (threadIdx.x < NT) {
+    float t = 0.f;
+    for (int g = 0; g < kGroups; ++g) t += grp[g * NT + threadIdx.x];
+    out[threadIdx.x] = t;
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
+}
+
+// The grid of a kernel whose blocks take per_block of n items a pass: the
+// blocks the items need, at most one wave (the device's SMs times the
+// blocks of `kernel` that fit on one, asked of the runtime once a device;
+// kId names the kernel's cache), a grid-stride loop taking the rest; at
+// least 1.  0, with the error left for cudaGetLastError, if the runtime
+// refuses.
+constexpr int kMaxDevices = 16;
+
+// The error code of a launch that wave_grid refused (never 0).
+inline int refused() {
+  const cudaError_t e = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : cudaErrorInvalidConfiguration);
+}
+
+template <int kId>
+inline int wave_grid(const void* kernel, long long n, int per_block) {
+  static int waves[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  int wave = dev < kMaxDevices ? waves[dev] : 0;
+  if (wave == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0) !=
+            cudaSuccess)
+      return 0;
+    wave = sms * (per_sm < 1 ? 1 : per_sm);
+    if (dev < kMaxDevices) waves[dev] = wave;
+  }
+  const long long need = (n + per_block - 1) / per_block;
+  return static_cast<int>(need < 1 ? 1 : (need < wave ? need : wave));
 }
 
 struct Pose {

@@ -117,20 +117,37 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// Number of blocks the wrappers size their partials scratch for.
-extern "C" int fgt_reduce_blocks(int L) {
+// Grid of the GICP kernels (and of their grid_sum) for L correspondences.
+static int reduce_blocks(int L) {
   const int blocks = (L + kThreads - 1) / kThreads;
   return blocks < 1 ? 1 : (blocks > 264 ? 264 : blocks);
 }
 
+// Most blocks any linearize or error kernel of this library launches on the
+// current device, so rows of partials a scratch needs: one wave of
+// kThreads-blocks filling every SM (ndt_linearize.cu sizes its grids to a
+// wave), and at least the 264 of the GICP kernels.  -1 if the runtime
+// refuses.
+extern "C" int fgt_max_reduce_blocks() {
+  int dev = 0, sms = 0, threads = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&threads, cudaDevAttrMaxThreadsPerMultiProcessor, dev) !=
+          cudaSuccess)
+    return -1;
+  const int wave = sms * (threads / kThreads);
+  return wave > 264 ? wave : 264;
+}
+
 // p (3, L), ca (6, L), x (4, 4), rows (L, 16), valid (L,): float32; rows
-// raw ([count, sum mu, sum cov9, pad]).  partials: fgt_reduce_blocks(L) * 28
-// floats; ticket: one zeroed uint32.  out: 28 floats; aux: (10, L).
+// raw ([count, sum mu, sum cov9, pad]).  partials: fgt_max_reduce_blocks()
+// * 28 floats; ticket: one uint32, 0 on entry and left 0.  out: 28 floats;
+// aux: (10, L).
 extern "C" int fgt_linearize_raw(const float* p, const float* ca, const float* x,
                                  const float* rows, const float* valid, int L,
                                  float* partials, unsigned int* ticket, float* out,
                                  float* aux, void* stream) {
-  linearize_kernel<true><<<fgt_reduce_blocks(L), kThreads, 0,
+  linearize_kernel<true><<<reduce_blocks(L), kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       p, ca, x, reinterpret_cast<const float4*>(rows), valid, L, partials, ticket,
       out, aux);
@@ -142,19 +159,20 @@ extern "C" int fgt_linearize(const float* p, const float* ca, const float* x,
                              const float* rows, const float* valid, int L,
                              float* partials, unsigned int* ticket, float* out,
                              float* aux, void* stream) {
-  linearize_kernel<false><<<fgt_reduce_blocks(L), kThreads, 0,
+  linearize_kernel<false><<<reduce_blocks(L), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       p, ca, x, reinterpret_cast<const float4*>(rows), valid, L, partials, ticket,
       out, aux);
   return static_cast<int>(cudaGetLastError());
 }
 
-// p (3, L), x (4, 4), aux (10, L): float32.  partials: fgt_reduce_blocks(L)
-// floats; ticket: one zeroed uint32; out: 1 float.
+// p (3, L), x (4, 4), aux (10, L): float32.  partials:
+// fgt_max_reduce_blocks() floats; ticket: one uint32, 0 on entry and left 0;
+// out: 1 float.
 extern "C" int fgt_error(const float* p, const float* x, const float* aux, int L,
                          float* partials, unsigned int* ticket, float* out,
                          void* stream) {
-  error_kernel<<<fgt_reduce_blocks(L), kThreads, 0,
+  error_kernel<<<reduce_blocks(L), kThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>(p, x, aux, L, partials,
                                                       ticket, out);
   return static_cast<int>(cudaGetLastError());

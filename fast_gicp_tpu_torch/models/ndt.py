@@ -159,7 +159,8 @@ def make_ndt_objective(src_means, src_mask, src_covs, vmap, offsets) -> NdtObjec
         return linearize_frozen(x, freeze(x))
 
     def error(x, aux):
-        return cuda_ndt.ndt_error(P_flat, aux, x, res)
+        # the kernel reads the first N columns of the tiled P_flat only
+        return cuda_ndt.ndt_error(P_flat, aux, x, res, offsets=k)
 
     def pack_from_aux(aux):
         # aux [M (6), valid, mu (3)] -> the M-direct pack [mu, M, valid, pad]

@@ -26,6 +26,7 @@ without its (8, N) sublane padding):
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -55,15 +56,25 @@ def _check_cuda(tensors):
         raise ValueError(f"unsupported device {dev}")
 
 
-def _reduce_scratch(L, width, device):
-    """Per-block partial sums and the zeroed ticket of the kernels'
-    cross-block reduction.  They are freed when the wrapper returns, before
-    the kernel has run; that is safe because the caching allocator hands
-    the memory out again only to work queued after it on the same stream."""
-    blocks = _build.function("fgt_reduce_blocks", (_I,))(L)
-    partials = torch.empty(blocks * width, dtype=torch.float32, device=device)
-    ticket = torch.zeros(1, dtype=torch.int32, device=device)
-    return partials, ticket
+@functools.cache
+def _scratch(device_index, stream_handle):
+    device = torch.device("cuda", device_index)
+    rows = _build.function("fgt_max_reduce_blocks", ())()
+    if rows < 1:
+        raise RuntimeError("fgt_max_reduce_blocks: the CUDA runtime refused")
+    return (torch.empty(rows * 28, dtype=torch.float32, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device))
+
+
+def _reduce_scratch(device):
+    """(partials, ticket, stream handle) of the kernels' cross-block sums
+    on the current stream of `device`, made once a device and stream:
+    partials for the most blocks any linearize or error kernel launches
+    (`fgt_max_reduce_blocks()` x 28 floats) and a ticket zeroed once, which
+    every kernel leaves at 0 again.  Kernels on one stream run in turn, so
+    they share both, and a launch needs no allocation and no fill."""
+    stream = torch.cuda.current_stream(device)
+    return _scratch(stream.device_index, stream.cuda_stream) + (stream.cuda_stream,)
 
 
 def _linearize(wrapper, entry, plain, p, ca, x, rows, valid):
@@ -81,11 +92,10 @@ def _linearize(wrapper, entry, plain, p, ca, x, rows, valid):
     _check_cuda([p, ca, x, rows, valid])
     if rows.data_ptr() % 16:
         raise ValueError("rows must be 16-byte aligned (read as float4)")
-    partials, ticket = _reduce_scratch(L, 28, p.device)
+    partials, ticket, stream = _reduce_scratch(p.device)
     out = torch.empty(28, dtype=torch.float32, device=p.device)
     aux = torch.empty((AUX_ROWS, L), dtype=torch.float32, device=p.device)
     fn = _build.function(entry, _LIN_ARGS)
-    stream = torch.cuda.current_stream(p.device).cuda_stream
     _build.check(entry, fn(
         p.data_ptr(), ca.data_ptr(), x.data_ptr(), rows.data_ptr(),
         valid.data_ptr(), L, partials.data_ptr(), ticket.data_ptr(),
@@ -129,10 +139,9 @@ def error(p, x, aux):
     if p.device.type == "cpu":
         return error_plain(p, x, aux)
     _check_cuda([p, x, aux])
-    partials, ticket = _reduce_scratch(L, 1, p.device)
+    partials, ticket, stream = _reduce_scratch(p.device)
     out = torch.empty(1, dtype=torch.float32, device=p.device)
     fn = _build.function("fgt_error", _ERR_ARGS)
-    stream = torch.cuda.current_stream(p.device).cuda_stream
     _build.check("fgt_error", fn(
         p.data_ptr(), x.data_ptr(), aux.data_ptr(), L, partials.data_ptr(),
         ticket.data_ptr(), out.data_ptr(), stream))

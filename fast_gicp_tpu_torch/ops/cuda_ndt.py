@@ -12,8 +12,10 @@ count.
 
 Layouts (L = K * N correspondences, offset-major, without the JAX package's
 (8, L) sublane padding and (8, 128) pose tile):
-  * p (3, L): untransformed source columns; ca (6, L): unrotated source
-    sym-6 covariance columns (D2D only) -- both loop-invariant over a solve;
+  * p (3, L): untransformed source columns, tiled over the offsets (the
+    error reads only its first N = L / offsets columns, or takes them as
+    (3, N)); ca (6, L): unrotated source sym-6 covariance columns (D2D
+    only) -- both loop-invariant over a solve;
   * x (4, 4): the pose, applied inside the kernel;
   * pack (L, 16), rows-major: finalized modes [mu (3), cov_B (D2D) or
     M = cov_B^-1 (P2D) sym-6 (6), valid, pad (6)]; raw modes [voxel corner
@@ -38,7 +40,7 @@ from .voxelmap import MIN_EIG
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LIN_ARGS = (_P, _P, _P, _P, _F, _I, _P, _P, _P, _P, _P)
-_ERR_ARGS = (_P, _P, _P, _F, _I, _P, _P, _P, _P)
+_ERR_ARGS = (_P, _I, _I, _P, _P, _F, _I, _P, _P, _P, _P)
 
 MODES = ("d2d", "p2d", "d2d_raw", "p2d_raw")
 
@@ -64,12 +66,11 @@ def _linearize(wrapper, mode, p, ca, x, pack, resolution):
     _check_cuda([p, x, pack] + ([ca] if mode.startswith("d2d") else []))
     if pack.data_ptr() % 16:
         raise ValueError("pack must be 16-byte aligned (read as float4)")
-    partials, ticket = _reduce_scratch(L, 28, p.device)
+    partials, ticket, stream = _reduce_scratch(p.device)
     out = torch.empty(28, dtype=torch.float32, device=p.device)
     aux = torch.empty((AUX_ROWS, L), dtype=torch.float32, device=p.device)
     entry = f"fgt_ndt_linearize_{mode}"
     fn = _build.function(entry, _LIN_ARGS)
-    stream = torch.cuda.current_stream(p.device).cuda_stream
     _build.check(entry, fn(
         p.data_ptr(), ca.data_ptr() if mode.startswith("d2d") else None,
         x.data_ptr(), pack.data_ptr(), c_sq, L, partials.data_ptr(),
@@ -121,25 +122,34 @@ def ndt_linearize(p, ca, x, pack, resolution, mode):
     return _BY_MODE[mode](p, ca, x, pack, resolution)
 
 
-def ndt_error(p, aux, x, resolution):
-    """Sum of w e^T M e at trial pose x against the frozen NDT aux, the
-    Cauchy weight taken at x (scalar).  CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
-    L = p.shape[-1]
-    _check("p", p, (3, L))
-    _check("x", x, (4, 4))
+def ndt_error(p, aux, x, resolution, offsets=1):
+    """Sum of w e^T M e at trial pose x against the frozen NDT aux (10, L),
+    the Cauchy weight taken at x (scalar).  Lanes are `offsets` blocks of
+    N = L / offsets, lane k * N + i reading source column i: p is (3, N), or
+    (3, L) tiled over the offsets, of which only the first N columns are
+    read.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    L = aux.shape[-1]
     _check("aux", aux, (AUX_ROWS, L))
+    _check("x", x, (4, 4))
+    if offsets < 1 or L % offsets:
+        raise ValueError(f"offsets={offsets} does not divide L={L}")
+    N = L // offsets
+    if p.dim() == 2 and p.shape[-1] == L:
+        p = p[:, :N]
+    _check("p", p, (3, N))
     c_sq = _c_sq(resolution)
     if p.device.type == "cpu":
-        return ndt_error_plain(p, aux, x, c_sq)
-    _check_cuda([p, x, aux])
-    partials, ticket = _reduce_scratch(L, 1, p.device)
+        return ndt_error_plain(p.repeat(1, offsets), aux, x, c_sq)
+    _check_cuda([aux, x])
+    if p.device != aux.device or (N > 1 and p.stride(1) != 1):
+        raise ValueError("p must lie on the device of aux, its columns contiguous")
+    partials, ticket, stream = _reduce_scratch(p.device)
     out = torch.empty(1, dtype=torch.float32, device=p.device)
     fn = _build.function("fgt_ndt_error", _ERR_ARGS)
-    stream = torch.cuda.current_stream(p.device).cuda_stream
     _build.check("fgt_ndt_error", fn(
-        p.data_ptr(), x.data_ptr(), aux.data_ptr(), c_sq, L, partials.data_ptr(),
-        ticket.data_ptr(), out.data_ptr(), stream))
+        p.data_ptr(), p.stride(0), N, x.data_ptr(), aux.data_ptr(), c_sq, L,
+        partials.data_ptr(), ticket.data_ptr(), out.data_ptr(), stream))
     ndt_error.launches += 1
     return out[0]
 

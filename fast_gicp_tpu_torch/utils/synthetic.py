@@ -481,3 +481,62 @@ def rbf_moments_edge_cases(seed: int = 0):
     add("block_nothing_in_range", far, street, center, 0.5, 3.0, exact_d2=False)
     add("kernel_width_0", grid, grid, on, 0.0, 1.5)
     return cases
+
+
+_DIRECT7 = np.array([[0, 0, 0], [1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0], [0, 0, 1],
+                     [0, 0, -1]], np.float32)
+
+
+def _raw_ndt_rows(rng, corners, kinds, counts):
+    """Raw NDT rows (L, 16) [corner (3), count, sum d (3), sum d d^T (6),
+    valid 0, pad (2)] about each 1 m voxel's corner: `kinds` 0 a blob filling
+    the voxel, 1 near-planar (z spread 1e-3 m), 2 coincident points (C = 0);
+    count 0 leaves the voxel empty.  Sums in float64, stored as float32."""
+    L, cap = len(kinds), int(max(counts.max(), 1))
+    d = rng.random((L, cap, 3))
+    d[kinds == 1, :, 2] = 0.5 + 1e-3 * rng.standard_normal((int((kinds == 1).sum()), cap))
+    d[kinds == 2] = d[kinds == 2, :1]
+    d *= (np.arange(cap)[None, :] < counts[:, None])[..., None]
+    dd = np.einsum("lni,lnj->lij", d, d)
+    rows = np.zeros((L, 16))
+    rows[:, 0:3] = corners
+    rows[:, 3] = counts
+    rows[:, 4:7] = d.sum(1)
+    rows[:, 7:13] = dd[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]]
+    return rows.astype(np.float32)
+
+
+def ndt_kernel_edge_cases(seed: int = 0):
+    """Inputs for the NDT linearize and error kernels (`ops.cuda_ndt`) that
+    stress their edges, made from `seed`: L = K N not a multiple of 4 (the
+    error kernel's vector width) nor of a block, L below one block, L = 1,
+    every lane invalid, and a raw pack of near-planar voxels (an eigenvalue
+    ~1e-6 below MIN_EIG), voxels of coincident points (C = 0) and empty
+    voxels.  1 m voxels about the source points' DIRECT7 neighbours.
+    Returns a list of dicts: name, p (3, N) source columns, ca (6, N)
+    sym-6 source covariance columns, pack (K N, 16) raw rows with `valid`
+    set where count > 6 and the source is valid, and offsets K."""
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def add(name, n, k, kinds_p, valid_share=0.9, min_count=0):
+        src = (rng.random((n, 3)) * 10.0 - 5.0).astype(np.float32)
+        A = rng.normal(size=(n, 3, 3))
+        covs = A @ np.swapaxes(A, 1, 2) * 0.01 + 0.01 * np.eye(3)
+        ca = covs[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]].T.astype(np.float32)
+        L = n * k
+        corners = np.floor(np.tile(src, (k, 1)) + np.repeat(_DIRECT7[:k], n, axis=0))
+        kinds = rng.choice(4, size=L, p=kinds_p)  # 3: empty
+        counts = np.where(kinds == 3, 0, rng.integers(max(min_count, 1), 41, L))
+        pack = _raw_ndt_rows(rng, corners, np.minimum(kinds, 2), counts)
+        src_valid = np.tile(rng.random(n) < valid_share, k)
+        pack[:, 13] = (src_valid & (counts > 6)).astype(np.float32)
+        cases.append(dict(name=name, p=np.ascontiguousarray(src.T), ca=ca, pack=pack,
+                          offsets=k))
+
+    add("ragged_L_7007", 1001, 7, [0.5, 0.3, 0.1, 0.1])
+    add("below_one_block_L_91", 13, 7, [0.6, 0.4, 0.0, 0.0])
+    add("one_lane", 1, 1, [1.0, 0.0, 0.0, 0.0], valid_share=1.0, min_count=7)
+    add("all_lanes_invalid", 512, 7, [0.5, 0.3, 0.1, 0.1], valid_share=0.0)
+    add("near_planar_coincident_empty", 2048, 7, [0.2, 0.4, 0.2, 0.2])
+    return cases

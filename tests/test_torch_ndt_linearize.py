@@ -27,6 +27,7 @@ from fast_gicp_tpu_torch import convert
 from fast_gicp_tpu_torch.models import ndt
 from fast_gicp_tpu_torch.ops import cuda_linearize, cuda_ndt
 from fast_gicp_tpu_torch.ops.voxelmap import auto_grid_dims, neighbor_offsets
+from fast_gicp_tpu_torch.utils.synthetic import ndt_kernel_edge_cases
 from tests.torch_cpu import warm_intra_op_threads
 
 N = 2048
@@ -201,3 +202,113 @@ def test_ndt_linearize_rejects_bad_input():
         cuda_ndt.ndt_linearize(p, None, x, pack, 1.0, "d2d")
     err, H, b, aux = cuda_ndt.ndt_linearize(p, None, x, pack, 1.0, "p2d_raw")
     assert float(err) == 0.0 and aux.shape == (10, 16) and not aux[6].any()
+
+
+EDGE_CASES = ndt_kernel_edge_cases()
+_X_EDGE = np.asarray(jse3.se3_exp(jnp.float32([0.02, -0.01, 0.03, 0.1, -0.2, 0.05])))
+_X2_EDGE = np.asarray(jse3.se3_exp(jnp.float32([-0.01, 0.02, 0.0, 0.05, 0.1, -0.1])))
+
+
+def _padded(a, rows):
+    """a (R, L) zero-padded to (rows, L rounded up to a multiple of the
+    Pallas kernels' 2,048 lanes): the zero lanes are empty, invalid voxels."""
+    out = np.zeros((rows, -(-a.shape[1] // 2048) * 2048), np.float32)
+    out[:a.shape[0], :a.shape[1]] = a
+    return out
+
+
+def _edge_linearize(case):
+    """The port's d2d_raw plain version on an edge case at _X_EDGE:
+    (err, H, b, aux) as numpy."""
+    k = case["offsets"]
+    p = torch.as_tensor(np.tile(case["p"], (1, k)))
+    ca = torch.as_tensor(np.tile(case["ca"], (1, k)))
+    out = cuda_ndt.ndt_linearize(p, ca, torch.as_tensor(_X_EDGE), torch.as_tensor(case["pack"]),
+                                 1.0, "d2d_raw")
+    return tuple(t.numpy() for t in out)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=lambda c: c["name"])
+def test_ndt_d2d_raw_edge_cases_match_pallas(case):
+    """d2d_raw's plain version against `ndt_linearize_pallas(mode="d2d_raw",
+    interpret=True)` on the same raw pack, its lanes padded to the Pallas
+    tile with empty voxels: ragged and tiny L, L = 1, every lane invalid,
+    near-planar, coincident and empty voxels.  Tolerances of the module
+    docstring; an all-invalid pack gives exact zeros."""
+    k = case["offsets"]
+    L = case["pack"].shape[0]
+    e, H, b, aux = _edge_linearize(case)
+    e_j, H_j, b_j, aux_j = pallas_linearize.ndt_linearize_pallas(
+        jnp.asarray(_padded(np.tile(case["p"], (1, k)), 8)),
+        jnp.asarray(_padded(np.tile(case["ca"], (1, k)), 8)), jnp.asarray(_X_EDGE),
+        jnp.asarray(_padded(case["pack"].T, 16)), 1.0, "d2d_raw", interpret=True)
+    aux_j = np.asarray(aux_j)[:10, :L]
+    np.testing.assert_array_equal(aux[6], aux_j[6])
+    np.testing.assert_array_equal(aux[6], case["pack"][:, 13] * (case["pack"][:, 3] > 0))
+    np.testing.assert_allclose(aux[7:10], aux_j[7:10], rtol=1e-5, atol=1e-5)
+    scale = np.maximum(np.abs(aux_j[:6]).max(0), 1e-30)
+    np.testing.assert_allclose(aux[:6] / scale, aux_j[:6] / scale, rtol=0, atol=1e-4)
+    if not aux[6].any():
+        assert float(e) == 0.0 and not H.any() and not b.any() and not aux[:6].any()
+        return
+    np.testing.assert_allclose(float(e), float(e_j), rtol=1e-4)
+    _close_to_max(H, H_j, 1e-4)
+    _close_to_max(b, b_j, 1e-4)
+
+
+def _error_f64(p, aux, x, k):
+    """sum w e^T M e in float64 from the same float32 inputs."""
+    p, aux, x = (np.asarray(a, np.float64) for a in (p, aux, x))
+    pt = np.tile(x[:3, :3] @ p + x[:3, 3:], (1, k))
+    e = aux[7:10] - pt
+    m00, m01, m02, m11, m12, m22 = aux[:6]
+    me = np.stack([m00 * e[0] + m01 * e[1] + m02 * e[2],
+                   m01 * e[0] + m11 * e[1] + m12 * e[2],
+                   m02 * e[0] + m12 * e[1] + m22 * e[2]])
+    w = 1.0 / (1.0 + (e * e).sum(0)) * aux[6]
+    return float((w * (e * me).sum(0)).sum())
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=lambda c: c["name"])
+def test_ndt_error_edge_cases_match_pallas_and_float64(case):
+    """ndt_error's plain version (untiled source columns, offsets=K) on the
+    aux of the d2d_raw linearization, at a trial pose, against
+    `ndt_error_pallas(interpret=True)` on the padded lanes and against a
+    float64 numpy sum.  Every term is >= 0 (M is the inverse of an SPD
+    matrix), so the float32 sums agree to rtol 1e-5 (the Pallas body fuses
+    multiply-adds: rtol 1e-4, as above); all-invalid lanes give exactly 0."""
+    k = case["offsets"]
+    aux = _edge_linearize(case)[3]
+    got = float(cuda_ndt.ndt_error(torch.as_tensor(case["p"]), torch.as_tensor(aux),
+                                   torch.as_tensor(_X2_EDGE), 1.0, offsets=k))
+    if not aux[6].any():
+        assert got == 0.0
+        return
+    np.testing.assert_allclose(got, _error_f64(case["p"], aux, _X2_EDGE, k), rtol=1e-5)
+    want = pallas_linearize.ndt_error_pallas(
+        jnp.asarray(_padded(np.tile(case["p"], (1, k)), 8)), jnp.asarray(_padded(aux, 16)),
+        jnp.asarray(_X2_EDGE), 1.0, interpret=True)
+    np.testing.assert_allclose(got, float(want), rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES, ids=lambda c: c["name"])
+def test_ndt_error_untiled_and_tiled_calls_agree(case):
+    """The offsets keyword: source columns (3, N), the same tiled to (3, K N)
+    read through their first N columns, and the tiled columns as K N lanes
+    of their own (offsets=1) give the same bits on the CPU."""
+    k = case["offsets"]
+    aux = torch.as_tensor(_edge_linearize(case)[3])
+    x = torch.as_tensor(_X2_EDGE)
+    p = torch.as_tensor(case["p"])
+    tiled = p.repeat(1, k)
+    untiled = cuda_ndt.ndt_error(p, aux, x, 1.0, offsets=k)
+    assert torch.equal(cuda_ndt.ndt_error(tiled, aux, x, 1.0, offsets=k), untiled)
+    assert torch.equal(cuda_ndt.ndt_error(tiled, aux, x, 1.0), untiled)
+
+
+def test_ndt_error_rejects_offsets_that_do_not_divide_the_lanes():
+    aux = torch.zeros((10, 21))
+    with pytest.raises(ValueError, match="offsets=4 does not divide L=21"):
+        cuda_ndt.ndt_error(torch.zeros((3, 21)), aux, torch.eye(4), 1.0, offsets=4)
+    with pytest.raises(ValueError, match="p: expected"):
+        cuda_ndt.ndt_error(torch.zeros((3, 5)), aux, torch.eye(4), 1.0, offsets=7)
