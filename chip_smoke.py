@@ -11,8 +11,8 @@ and P2D (NDTCuda's fresh align: finalized maps prepared per cloud) and
 `ndt_align` D2D and P2D (raw target grid, two-phase solve).
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device: CUDA must be present; prints the card's name and power limit;
-  2. build: compiles the fifteen CUDA kernels from `fast_gicp_tpu_torch/csrc`
-     (one nvcc per source, all started together);
+  2. build: compiles the CUDA kernels from `fast_gicp_tpu_torch/csrc` (one
+     nvcc per source, all started together);
   3. kernels: each kernel against its plain PyTorch version on the same
      inputs, at the shapes its path gives it on the full-size synthetic
      pair (22,528 padded points per cloud), with the stated tolerances,
@@ -28,17 +28,26 @@ Phases, each fatal on failure (exit code != 0, no result line):
      pair's 1 m voxels hold too few points for NDT's > 6 gate);
   6. bench protocol: registrations of each path through a 1e-5 rigid
      jitter of both clouds (bench.py's protocol), after a warm-up;
-  7. profile: stage wall times and a torch.profiler trace of a few
-     registrations of each path (device time by kernel, device busy share).
+  7. profile: stage wall times, each registration's device span from CUDA
+     events on the stream, and a torch.profiler trace of a few
+     registrations of each path (device time by kernel, device busy share,
+     device ops).
+Phase 3 also holds the LM trial launch (`lm_step`: the trial step, the
+error and the LM schedule in one kernel) bit for bit to the unfused trial
+on a seeded sweep at four paths' first linearization (`phase_trial`), and
+phase 4 checks that every LM trial of every path is one such launch and one
+flag read.
 
 The last lines are the `nvidia-smi` name/power-limit line, one
 {"kernels": [...]} JSON line and the {"ok": true, ...} JSON line.
 
     python3 chip_smoke.py --ndt-timing DIR
+    python3 chip_smoke.py --trial-timing DIR
 
-times the NDT kernels of the package under DIR (an unpacked earlier
-checkout, say) on phase 3's NDT inputs and prints one JSON line, so two
-designs can be compared in one call on one card.
+time the NDT kernels, or an LM trial's kernels (the trial launch, or the
+lm_trial and error launches of a package before it), of the package under
+DIR (an unpacked earlier checkout, say) on phase 3's inputs and print one
+JSON line, so two designs can be compared in one call on one card.
 This script imports nothing of JAX or of the JAX package.
 """
 
@@ -1024,9 +1033,16 @@ NDT_LIN_KERNEL = "ndt_linearize_kernel<{d2d}, {raw}"  # the profiler's name, a p
 NDT_ERROR_PATH_LANES = {"d2d": "D2D fresh", "d2d_raw": "D2D align", "p2d_raw": "P2D"}
 
 
-def ndt_kernel_build_report():
-    """{kernel: (registers, stack frame bytes)} of the NDT kernels from the
-    ptxas lines of the library's build log, each logged."""
+# error_kernel<kCauchy, kTrial> of csrc/trial_error.cu by its template flags
+ERROR_KERNELS = {("0", "0"): "error", ("1", "0"): "ndt_error", ("0", "1"): "lm_step_gicp",
+                 ("1", "1"): "lm_step_ndt"}
+
+
+def kernel_build_report():
+    """{kernel: (registers, stack frame bytes)} of the NDT linearize kernels
+    and the error kernels (trial off and on) from the ptxas lines of the
+    library's build log, each logged.  A package before the merged error
+    kernel reports its `ndt_error_kernel` as "ndt_error"."""
     from fast_gicp_tpu_torch.ops import _build
 
     report, name = {}, None
@@ -1034,10 +1050,11 @@ def ndt_kernel_build_report():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             lin = re.search(r"ndt_linearize_kernelILb(\d)ELb(\d)E", m.group(1))
-            name = (None if not lin and "ndt_error_kernel" not in m.group(1) else
-                    "ndt_error" if not lin else
-                    "ndt_" + ("d2d" if lin.group(1) == "1" else "p2d")
-                    + ("_raw" if lin.group(2) == "1" else ""))
+            err = re.search(r"12error_kernelILb(\d)ELb(\d)E", m.group(1))
+            name = ("ndt_" + ("d2d" if lin.group(1) == "1" else "p2d")
+                    + ("_raw" if lin.group(2) == "1" else "") if lin else
+                    ERROR_KERNELS[err.groups()] if err else
+                    "ndt_error" if "ndt_error_kernel" in m.group(1) else None)
             continue
         if name is None:
             continue
@@ -1112,7 +1129,7 @@ def phase_ndt_kernels(dev, pair):
     x2 = se3.se3_exp(torch.tensor([-0.001, 0.002, 0.0, 0.01, 0.02, -0.02], device=dev))
     c_sq = 1.0
     records = []
-    build = ndt_kernel_build_report()
+    build = kernel_build_report()
 
     def rel_to_max(name, a, b, tol):
         m = float(b.abs().max())
@@ -1202,7 +1219,7 @@ def phase_ndt_kernels(dev, pair):
         e_err = check_close(f"ndt_error at L = {L}", e_got, e_want, 1e-5, 0.0)
         tm_ = timings(lambda: cuda_ndt.ndt_error(p, aux, x2, 1.0, offsets=NDT_OFFSETS),
                       lambda: cuda_ndt.ndt_error_plain(p, aux, x2, c_sq),
-                      "ndt_error_kernel", 200, 20)
+                      "error_kernel", 200, 20)
         nbytes = L // NDT_OFFSETS * 12 + L * 40 + 64 + 4
         b_ms, b_by = bound_ms(nbytes, L * NDT_ERROR_OPS)
         by_lanes[L] = dict(path=path, max_abs_err=e_err, bound_ms=b_ms, bound_by=b_by,
@@ -1249,7 +1266,7 @@ def ndt_timing(dev, pair):
     kw = ({"offsets": NDT_OFFSETS}
           if "offsets" in inspect.signature(cuda_ndt.ndt_error).parameters else {})
     packs = ndt_first_packs(dev, pair, x)
-    out, auxes = {"registers": ndt_kernel_build_report()}, {}
+    out, auxes = {"registers": kernel_build_report()}, {}
     for mode, (p, ca, pack) in packs.items():
         auxes[mode] = cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, mode)[3]
         name = NDT_LIN_KERNEL.format(d2d=str(mode.startswith("d2d")).lower(),
@@ -1259,7 +1276,306 @@ def ndt_timing(dev, pair):
     for mode in NDT_ERROR_PATH_LANES:
         p, aux = packs[mode][0], auxes[mode]
         out[f"ndt_error_L{p.shape[1]}"] = device_ms(
-            lambda: cuda_ndt.ndt_error(p, aux, x2, 1.0, **kw), 200, "ndt_error_kernel")
+            lambda: cuda_ndt.ndt_error(p, aux, x2, 1.0, **kw), 200, "error_kernel")
+    return out
+
+
+TRIAL_FLOATS = 98  # the trial step reads 59 floats (H, b, lambda, x) and writes 39
+TRIAL_SWEEP = 24  # sweep points a path, besides the first-trial, NaN and ragged ones
+
+
+def trial_inputs(dev, pair):
+    """{path: (y0, H, b, aux, cost)} at the first linearization (pose I, the
+    target-centroid frame) of VGICP (22,528 lanes), GICP (22,528), NDT D2D
+    fresh (7 x 4,096) and P2D fresh (7 x 22,528) on the full-size pair, as
+    each path's objective builds them on the card; `cost` is the objective's
+    error (a TrialCost in this package, a closure in packages before it)."""
+    from fast_gicp_tpu_torch.models.gicp import GICPConfig, make_gicp_objective
+    from fast_gicp_tpu_torch.models.ndt import ndt_path_objective
+    from fast_gicp_tpu_torch.models.vgicp import VGICPConfig, make_vgicp_objective
+    from fast_gicp_tpu_torch.ops.covariance import (
+        knn_covariance_cols, masked_mean, rbf_covariance_cols,
+    )
+    from fast_gicp_tpu_torch.ops.voxelmap import (
+        auto_grid_dims, build_raw_grid, neighbor_offsets,
+    )
+    from fast_gicp_tpu_torch.utils.padding import pad_points
+
+    source, target, _gt = pair
+    sp, sm = pad_points(source)
+    tp, tm = pad_points(target)
+    src, smask, tgt, tmask = (torch.as_tensor(a, device=dev) for a in (sp, sm, tp, tm))
+    c = masked_mean(tgt, tmask)
+    x = torch.eye(4, device=dev)
+    out = {}
+    dims = auto_grid_dims(target, 1.0)
+    vmap = build_raw_grid(tgt - c, tmask, 1.0, rbf_covariance_cols(tgt - c, tmask), dims)
+    lin, cost, _f, _lf = make_vgicp_objective(
+        src - c, smask, rbf_covariance_cols(src - c, smask), vmap, neighbor_offsets("direct1"),
+        VGICPConfig(grid_dims=dims, refresh_iterations=2))
+    out["vgicp_register"] = lin(x) + (cost,)
+    lin, cost = make_gicp_objective(src - c, smask, knn_covariance_cols(src, smask), tgt - c,
+                                    tmask, knn_covariance_cols(tgt, tmask), GICPConfig())
+    out["gicp_register_fresh"] = lin(x) + (cost,)
+    for path in ("ndt_d2d_fresh", "ndt_p2d_fresh"):
+        cfg = PATHS[path][0](source, target).config
+        obj, _c = ndt_path_objective(sp, sm, tp, tm, cfg, fresh=True, device=dev)
+        out[path] = obj.linearize(x) + (obj.error,)
+    return out
+
+
+def ragged(aux, cost):
+    """The same objective cut to a lane count that is no multiple of 4 (the
+    kernel's lane-by-lane path): GICP form L - 3 lanes; NDT form N - 1
+    sources a offset, every offset block cut alike."""
+    L = aux.shape[1]
+    if cost.resolution is None:
+        n = L - 3
+        return aux[:, :n].contiguous(), cost._replace(p=cost.p[:, :n].contiguous())
+    k = cost.offsets
+    N = L // k
+    aux = aux.reshape(10, k, N)[:, :, :N - 1].reshape(10, -1).contiguous()
+    return aux, cost._replace(p=cost.p[:, :N - 1].contiguous())
+
+
+def check_schedule_traps(dev):
+    """The ATen behaviour the trial kernel's schedule copies, checked on the
+    card: a float32 CUDA tensor divided by a Python float eps (the
+    convergence test's epsilons) is its product with f32(1 / eps), the
+    reciprocal taken in double (on 2^20 random floats in [0, 4 eps) and on
+    67,109 floats whose exact product is a tie between two floats); a
+    Python float times a tensor is the product with its float32 rounding
+    (the lambda init); `u ** 3` is u * u * u; clamp keeps NaN.  Returns how
+    many quotients a float32 division by f32(eps) would have rounded
+    otherwise, and how many the product with the float32 reciprocal of
+    f32(eps) would."""
+    from fast_gicp_tpu_torch.ops import cuda_solver
+    from fast_gicp_tpu_torch.solver import LsqConfig
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    # q 2^-20 with q odd and 125 q in [2^24, 2^25): q 2^-20 x 500 (or 2,000)
+    # is 125 q times a power of two, a 25-bit odd number: a tie
+    ties = torch.arange(134219, 268436, 2, device=dev, dtype=torch.float64) * 2.0 ** -20
+    epsilons = (LsqConfig().rotation_epsilon, LsqConfig().transformation_epsilon)
+    differ = {}
+    for eps in epsilons:
+        v = torch.cat([torch.rand(1 << 20, device=dev, generator=g) * 4 * eps,
+                       ties.float()])
+        by_scalar = v / eps
+        require(torch.equal(by_scalar, v * cuda_solver._inverse_f32(eps)),
+                f"tensor / {eps} is not its product with f32(1 / {eps})")
+        differ[eps] = (int((by_scalar != v / torch.tensor(eps, device=dev)).sum()),
+                       int((by_scalar != v * float(np.float32(1) / np.float32(eps))).sum()))
+    t = torch.rand(1 << 20, device=dev, generator=g) * 1e4
+    require(torch.equal(1e-9 * t, t * torch.tensor(np.float32(1e-9), device=dev)),
+            "1e-9 * tensor is not the product with f32(1e-9)")
+    u = torch.randn(1 << 20, device=dev, generator=g)
+    require(torch.equal(u ** 3, u * u * u), "u ** 3 is not u * u * u")
+    require(bool(torch.isnan(torch.clamp(torch.tensor(float("nan"), device=dev),
+                                         min=1.0 / 3.0))), "clamp drops NaN")
+    log(f"[trial] ATen on the card: tensor / eps == tensor * f32(1 / eps) for eps in "
+        f"{epsilons} on 2^20 random floats and 67,109 ties (a float32 division by "
+        f"f32(eps), and a product with 1 / f32(eps), would differ on {differ}); 1e-9 * t == "
+        f"t * f32(1e-9); u ** 3 == u * u * u; clamp keeps NaN")
+    return differ
+
+
+def phase_trial(dev, pair):
+    """The LM trial launch (`cuda_solver.lm_step`) at the first linearization
+    of VGICP, GICP, D2D and P2D fresh:
+    1. bit for bit against the unfused trial (the standalone `lm_trial`
+       launch, the trial-off error launch, the eager schedule:
+       `lm_step_plain` on the card) on a seeded sweep of lambda, trial poses
+       and rho (y0 set from the trial's own error and denominator), with
+       first trials, a NaN error and a ragged lane count: every float of the
+       state (x, lambda, nu, the flags, xi, delta, d, denom, yi, the lambda
+       used);
+    2. within today's tolerances of its plain twin (`lm_trial_plain`, the
+       plain cost, the eager schedule);
+    3. a repeat launch bit-identical;
+    then times the trial launch, the trial-off error launch and the
+    standalone `lm_trial` at each path's lanes.  The sweep must hit accept,
+    accept at the 1/3 clamp, reject, conv_reject, a NaN yi, a first trial
+    and a ragged L."""
+    from fast_gicp_tpu_torch import se3
+    from fast_gicp_tpu_torch.ops import cuda_solver as cs
+    from fast_gicp_tpu_torch.solver import LsqConfig
+
+    cfg = LsqConfig()
+    trap_differ = check_schedule_traps(dev)
+    inputs = trial_inputs(dev, pair)
+    hits = dict.fromkeys(("accept", "accept_clamp", "reject", "conv_reject", "nan_yi",
+                          "first", "ragged"), 0)
+    points, max_err = 0, 0.0
+
+    def plain_trial(H, b, lam, x):
+        return cs.lm_trial_plain(H, b, lam.reshape(()), x)
+
+    def run_point(init, H, b, y0, aux, cost, first):
+        """(fused state, unfused state); checks 1-3 on one point."""
+        nonlocal points, max_err
+        fused, again, unfused, plain = (init.clone() for _ in range(4))
+        cs.lm_step(fused, H, b, y0, aux, cost, first, cfg)
+        cs.lm_step(again, H, b, y0, aux, cost, first, cfg)
+        cs.lm_step_plain(unfused, H, b, y0, aux, cost, first, cfg)
+        cs.lm_step_plain(plain, H, b, y0, aux, cost.plain, first, cfg, trial=plain_trial)
+        torch.cuda.synchronize()
+        bits = (fused.view(torch.int32), unfused.view(torch.int32))
+        require(torch.equal(*bits), f"trial launch differs from the unfused trial in "
+                f"{int((bits[0] != bits[1]).sum())} state floats: "
+                f"{fused.tolist()} vs {unfused.tolist()}")
+        require(torch.equal(fused.view(torch.int32), again.view(torch.int32)),
+                "a repeat trial launch differs")
+        if not bool(torch.isnan(fused[cs.STATE_YI])):
+            max_err = max(
+                max_err,
+                check_close("trial d", fused[cs.STATE_D], plain[cs.STATE_D], 1e-5, 1e-7),
+                check_close("trial delta", fused[cs.STATE_DELTA], plain[cs.STATE_DELTA], 1e-5,
+                            1e-6),
+                check_close("trial xi", fused[cs.STATE_XI], plain[cs.STATE_XI], 1e-5, 1e-6),
+                check_close("trial denom", fused[cs.STATE_DENOM], plain[cs.STATE_DENOM], 1e-4,
+                            1e-10),
+                check_close("trial yi", fused[cs.STATE_YI], plain[cs.STATE_YI], 1e-4, 0.0))
+        points += 1
+        return fused
+
+    def classify(st, first, ragged_lanes):
+        done, accepted = bool(st[cs.STATE_DONE]), torch.equal(st[cs.STATE_X], st[cs.STATE_XI])
+        lam, used = float(st[cs.STATE_LAM]), float(st[cs.STATE_LAM_USED])
+        hits["first"] += first
+        hits["ragged"] += ragged_lanes
+        hits["nan_yi"] += bool(torch.isnan(st[cs.STATE_YI]))
+        if accepted:
+            clamp = lam == float(np.float32(used) * np.float32(1.0 / 3.0))
+            hits["accept_clamp" if clamp else "accept"] += 1
+        else:
+            hits["conv_reject" if done else "reject"] += 1
+
+    records = {}
+    for path, (y0, H, b, aux, cost) in inputs.items():
+        rng = np.random.default_rng(len(records))
+        x = torch.eye(4, device=dev)
+        dmax = float(torch.diagonal(H).abs().max())
+        conv_lam = 1e5 * float(b.abs().max())  # a step under the convergence test's bounds
+
+        def init_state(lam, pose, nu=4.0):
+            st = cs.lm_state(pose)
+            st[cs.STATE_LAM] = lam
+            st[cs.STATE_NU] = nu
+            return st
+
+        def y0_at(st, rho, a, c, first):
+            """y0 that puts the trial from st at rho (its own yi and denom)."""
+            probe = st.clone()
+            cs.lm_step_plain(probe, H, b, y0, a, c, first, cfg)
+            return (probe[cs.STATE_YI] + rho * probe[cs.STATE_DENOM]).reshape(())
+
+        for k in range(TRIAL_SWEEP):
+            scale = (1e-9, 1e-6, 1e-3, 1.0, 1e3, None)[k % 6]
+            rho = (None, 1.0, 0.3, -0.5)[k // 6]
+            lam = conv_lam if scale is None else scale * dmax * 10 ** rng.uniform(-0.5, 0.5)
+            twist = torch.as_tensor(rng.normal(size=6) * 1e-3 * (k % 3), dtype=torch.float32)
+            pose = (se3.se3_exp(twist).to(dev) @ x).contiguous()
+            init = init_state(lam, pose)
+            yy = y0 if rho is None else y0_at(init, rho, aux, cost, False)
+            classify(run_point(init, H, b, yy, aux, cost, False), False, False)
+        # the first trial after a linearization: lambda unset, nu reset
+        for rho in (None, 1.0, -0.5):
+            init = init_state(-1.0, x, nu=16.0)
+            yy = y0 if rho is None else y0_at(init, rho, aux, cost, True)
+            classify(run_point(init, H, b, yy, aux, cost, True), True, False)
+        # a NaN in one lane's M: yi is NaN, the trial rejected
+        bad = aux.clone()
+        bad[0, 5] = float("nan")
+        classify(run_point(init_state(1e-6 * dmax, x), H, b, y0, bad, cost, False), False, False)
+        # a ragged lane count (no multiple of 4): the lane-by-lane loads
+        ra, rc = ragged(aux, cost)
+        for rho in (1.0, -0.5):
+            init = init_state(1e-6 * dmax, x)
+            classify(run_point(init, H, b, y0_at(init, rho, ra, rc, False), ra, rc, False),
+                     False, True)
+
+        # timing at the path's lanes: the trial launch (state reset by a copy,
+        # which the kernel filter leaves out), the trial-off error launch,
+        # the standalone lm_trial, and the plain twin (every op)
+        L = aux.shape[1]
+        ndt = cost.resolution is not None
+        init = init_state(1e-6 * dmax, x)
+        st = init.clone()
+        lam1 = init[cs.STATE_LAM:cs.STATE_LAM + 1]
+        xi = cs.lm_trial(H, b, lam1, x)[0]
+        # each timed call launches one error kernel (with the trial or
+        # without); the state's reset is a device-to-device copy
+        fused_ms = device_ms(lambda: (st.copy_(init), cs.lm_step(st, H, b, y0, aux, cost,
+                                                                 False, cfg)),
+                             200, "error_kernel")
+        error_ms = device_ms(lambda: cost(xi, aux), 200, "error_kernel")
+        trial_ms = device_ms(lambda: cs.lm_trial(H, b, lam1, x), 200, "lm_trial_kernel")
+        unfused_ms = device_ms(lambda: (st.copy_(init), cs.lm_step_plain(
+            st, H, b, y0, aux, cost, False, cfg)), 50)
+        plain_ms = device_ms(lambda: (st.copy_(init), cs.lm_step_plain(
+            st, H, b, y0, aux, cost.plain, False, cfg, trial=plain_trial)), 20)
+        call_ms = cuda_ms(lambda: cs.lm_step(st, H, b, y0, aux, cost, False, cfg), 200)
+        require(min(fused_ms, error_ms, trial_ms) > 0.0, f"{path}: no kernel time in the trace")
+        n_src = L // cost.offsets
+        nbytes = n_src * 12 + L * 40 + 64 + 4 + TRIAL_FLOATS * 4
+        b_ms, b_by = bound_ms(nbytes, L * (NDT_ERROR_OPS if ndt else ERROR_OPS) + LM_TRIAL_OPS)
+        records[path] = dict(lanes=L, ms=fused_ms, trial_off_error_ms=error_ms,
+                             prologue_ms=fused_ms - error_ms, lm_trial_ms=trial_ms,
+                             unfused_ms=unfused_ms, plain_ms=plain_ms, call_ms=call_ms,
+                             bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+        log(f"[trial] {path} (L = {L}): trial launch {fused_ms:.5f} ms, trial-off error "
+            f"{error_ms:.5f} ms (prologue {fused_ms - error_ms:+.5f}), lm_trial {trial_ms:.5f} "
+            f"ms; unfused trial (all ops) {unfused_ms:.5f} ms, plain {plain_ms:.5f} ms; "
+            f"bound {b_ms:.3e} ms ({b_by}); per call with the host's enqueue {call_ms:.4f} ms")
+    require(all(hits.values()), f"the trial sweep missed a case: {hits}")
+    log(f"[trial] {points} points, every state float bit-equal to the unfused trial, a "
+        f"repeat launch bit-identical, d/delta/xi within rtol 1e-5 and yi within 1e-4 of "
+        f"the plain twin; cases hit {hits}")
+    main = records["ndt_d2d_fresh"]  # the most launches a registration
+    regs = {k: v for k, v in kernel_build_report().items() if k.startswith("lm_step")}
+    return dict(
+        name="lm_step", own_path="ndt_d2d_fresh", registers=regs, route="cuda", source="fast_gicp_tpu_torch/csrc/trial_error.cu",
+        replaces="fast_gicp_tpu/ops/pallas_solver.py:127 with "
+                 "fast_gicp_tpu/ops/pallas_linearize.py:633 (GICP, VGICP) or :580 (NDT)",
+        max_abs_err=max_err,
+        tolerance=f"every state float bit-equal to lm_trial + the trial-off error launch + "
+                  f"the eager schedule on {points} points ({hits}); d, delta, xi rtol 1e-5, "
+                  "denom 1e-4, yi 1e-4 of the plain twin; a repeat launch bit-identical",
+        library_ms=None, timing="profiler device time", by_path=records,
+        aten_traps_differ=trap_differ,
+        **{k: v for k, v in main.items() if k != "bytes"})
+
+
+def trial_timing(dev, pair):
+    """Device time a trial on trial_inputs, for whichever package is
+    imported: with `cuda_solver.lm_step`, the trial launch and beside it
+    the trial-off error launch and the standalone lm_trial; without it (a
+    package before the trial launch), the lm_trial launch and the error
+    launch a trial then made.  No checks.  Run by `--trial-timing DIR` to
+    time another checkout in the same call as this one."""
+    from fast_gicp_tpu_torch.ops import cuda_solver as cs
+    from fast_gicp_tpu_torch.solver import LsqConfig
+
+    cfg, out = LsqConfig(), {}
+    fused = hasattr(cs, "lm_step")
+    for path, (y0, H, b, aux, cost) in trial_inputs(dev, pair).items():
+        x = torch.eye(4, device=dev)
+        lam = (1e-6 * torch.diagonal(H).abs().max()).reshape(1)
+        xi = cs.lm_trial(H, b, lam, x)[0]
+        row = {"lanes": aux.shape[1],
+               "lm_trial_ms": device_ms(lambda: cs.lm_trial(H, b, lam, x), 200,
+                                        "lm_trial_kernel"),
+               "error_ms": device_ms(lambda: cost(xi, aux), 200, "error_kernel")}
+        if fused:
+            init = cs.lm_state(x)
+            init[cs.STATE_LAM] = lam[0]
+            init[cs.STATE_NU] = 4.0
+            st = init.clone()
+            row["trial_launch_ms"] = device_ms(
+                lambda: (st.copy_(init), cs.lm_step(st, H, b, y0, aux, cost, False, cfg)),
+                200, "error_kernel")
+        out[path] = row
     return out
 
 
@@ -1279,6 +1595,7 @@ def counters():
         "ndt_d2d_raw": cuda_ndt.ndt_linearize_d2d_raw,
         "ndt_p2d_raw": cuda_ndt.ndt_linearize_p2d_raw,
         "ndt_error": cuda_ndt.ndt_error,
+        "lm_step": cuda_solver.lm_step,
         "knn_slab": cuda_kernels.knn_slab,
         "radius_count": cuda_kernels.radius_count,
         "radius_window": cuda_kernels.radius_window,
@@ -1379,28 +1696,31 @@ GICP_ESTIMATORS = {"gicp_register_fresh": ("knn", "plane"),
                    "gicp_min_eig_fresh": ("knn", "min_eig")}
 P2D_LIMITS = (0.10, 2.0)  # twice the reference's, as tests/test_registration.py holds P2D
 
-# path -> (make(source, target) -> Path, kernels the path must launch, limits)
+# path -> (make(source, target) -> Path, kernels the path must launch, limits);
+# every LM trial is one `lm_step` launch (the trial step, the path's error
+# body, the schedule)
 PATHS = {
-    "vgicp_register": (vgicp_path, ("rbf_moments", "linearize_raw", "error", "lm_trial"),
-                       D2D_LIMITS),
+    "vgicp_register": (vgicp_path, ("rbf_moments", "linearize_raw", "lm_step"), D2D_LIMITS),
     "gicp_register_fresh": (gicp_path(*GICP_ESTIMATORS["gicp_register_fresh"]),
-                            ("knn_moments", "nn_search", "linearize", "error", "lm_trial"),
-                            D2D_LIMITS),
-    "ndt_d2d_fresh": (ndt_fresh_path("d2d"), ("ndt_d2d", "ndt_error", "lm_trial"),
-                      D2D_LIMITS),
-    "ndt_p2d_fresh": (ndt_fresh_path("p2d"), ("ndt_p2d", "ndt_error", "lm_trial"),
+                            ("knn_moments", "nn_search", "linearize", "lm_step"), D2D_LIMITS),
+    "ndt_d2d_fresh": (ndt_fresh_path("d2d"), ("ndt_d2d", "lm_step"), D2D_LIMITS),
+    "ndt_p2d_fresh": (ndt_fresh_path("p2d"), ("ndt_p2d", "lm_step"), P2D_LIMITS),
+    "ndt_d2d_align": (ndt_align_path("d2d"), ("ndt_d2d_raw", "lm_step"), D2D_LIMITS),
+    "ndt_p2d_align": (ndt_align_path("p2d"), ("ndt_p2d_raw", "ndt_p2d", "lm_step"),
                       P2D_LIMITS),
-    "ndt_d2d_align": (ndt_align_path("d2d"), ("ndt_d2d_raw", "ndt_error", "lm_trial"),
-                      D2D_LIMITS),
-    "ndt_p2d_align": (ndt_align_path("p2d"), ("ndt_p2d_raw", "ndt_p2d", "ndt_error",
-                                              "lm_trial"), P2D_LIMITS),
     "gicp_adaptive_fresh": (gicp_path(*GICP_ESTIMATORS["gicp_adaptive_fresh"]),
                             ("radius_count", "radius_window", "nn_search", "linearize",
-                             "error", "lm_trial"), D2D_LIMITS),
+                             "lm_step"), D2D_LIMITS),
     "gicp_min_eig_fresh": (gicp_path(*GICP_ESTIMATORS["gicp_min_eig_fresh"]),
-                           ("knn_slab", "nn_search", "linearize", "error", "lm_trial"),
-                           D2D_LIMITS),
+                           ("knn_slab", "nn_search", "linearize", "lm_step"), D2D_LIMITS),
 }
+# the standalone launches the trial launch replaces inside the LM solve, and
+# the paths whose trials carry each one's body
+TRIAL_CARRIED = {"lm_trial": tuple(PATHS),
+                 "error": ("vgicp_register", "gicp_register_fresh", "gicp_adaptive_fresh",
+                           "gicp_min_eig_fresh"),
+                 "ndt_error": ("ndt_d2d_fresh", "ndt_p2d_fresh", "ndt_d2d_align",
+                               "ndt_p2d_align")}
 NDT_PATHS = tuple(p for p in PATHS if p.startswith("ndt_"))
 
 
@@ -1440,6 +1760,12 @@ def phase_main_path(dev, pair, path):
     require(t_err < t_lim and r_err < r_lim, f"{path}: pose error {t_err} m {r_err} deg")
     require(all(launches[k] > 0 for k in kernels),
             f"{path}: a kernel of the path was not launched: {launches}")
+    # one trial launch and one flag read a trial, no standalone trial step
+    # or error launch inside the solve
+    require(launches["lm_step"] == syncs, f"{path}: {launches['lm_step']} trial launches "
+            f"for {syncs} trials")
+    require(all(launches[k] == 0 for k in TRIAL_CARRIED),
+            f"{path}: a standalone trial or error launch in the LM solve: {launches}")
     return launches, dict(t_err_m=t_err, r_err_deg=r_err, iterations=iters,
                           host_syncs=syncs, wall_ms=wall_ms, fitness=fitness)
 
@@ -1637,31 +1963,51 @@ def phase_profile(dev, pair, path, n_regs=5):
     log(f"[profile] {path} stage wall ms/registration: "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    def spans_ms():
+        """Host wall a registration, and each registration's device span:
+        CUDA events recorded on the stream before and after it (the time
+        from the device reaching its first op to finishing its last, idle
+        gaps included)."""
+        marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(n_regs)]
         t0 = time.perf_counter()
-        for _ in range(n_regs):
+        for start, end in marks:
+            start.record()
             register(sp, sm, tp, tm, guess, dev)
+            end.record()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n_regs
+        return wall, [start.elapsed_time(end) for start, end in marks]
+
+    wall_untraced, spans_untraced = spans_ms()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall, spans = spans_ms()
     events = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n_regs
     launches = sum(e.count for e in events) / n_regs
-    log(f"[profile] {path}, traced {n_regs} registrations: wall {wall:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms ({100 * busy_ms / wall:.1f}%), device ops "
-        f"{launches:.0f} per registration")
+    span = sum(spans) / n_regs
+    log(f"[profile] {path}, traced {n_regs} registrations: wall {wall:.3f} ms, device span "
+        f"(CUDA events) {span:.3f} ms (each {', '.join(f'{v:.3f}' for v in spans)}), device "
+        f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall:.1f}% of the wall, "
+        f"{100 * busy_ms / span:.1f}% of the span), device ops {launches:.1f} per "
+        f"registration; untraced: wall {wall_untraced:.3f} ms, device span "
+        f"{sum(spans_untraced) / n_regs:.3f} ms")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3 / n_regs:9.4f} ms  "
             f"x{e.count / n_regs:5.1f}  {e.key[:90]}")
-    return dict(stage_wall_ms=stages, traced_wall_ms=wall, device_busy_ms=busy_ms,
-                device_ops_per_registration=launches)
+    return dict(stage_wall_ms=stages, traced_wall_ms=wall, device_span_ms=span,
+                device_busy_ms=busy_ms, device_ops_per_registration=launches,
+                untraced_wall_ms=wall_untraced,
+                untraced_device_span_ms=sum(spans_untraced) / n_regs)
 
 
 def main() -> int:
-    timing_only = len(sys.argv) == 3 and sys.argv[1] == "--ndt-timing"
-    if timing_only:  # time the NDT kernels of the package under DIR
+    timing = {"--ndt-timing": ndt_timing, "--trial-timing": trial_timing}
+    timing_only = len(sys.argv) == 3 and sys.argv[1] in timing
+    if timing_only:  # time the kernels of the package under DIR
         sys.path.insert(0, str(pathlib.Path(sys.argv[2]).resolve()))
     elif len(sys.argv) > 1:
-        print("usage: chip_smoke.py [--ndt-timing DIR]", file=sys.stderr)
+        print("usage: chip_smoke.py [--ndt-timing DIR | --trial-timing DIR]", file=sys.stderr)
         return 2
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1691,11 +2037,13 @@ def main() -> int:
     if timing_only:
         import fast_gicp_tpu_torch
 
+        fn = timing[sys.argv[1]]
         print(json.dumps({"package": str(pathlib.Path(fast_gicp_tpu_torch.__file__).parent),
-                          "ndt_timing": ndt_timing(dev, pair)}))
+                          fn.__name__: fn(dev, pair)}))
         return 0
     records = (phase_kernels(dev, pair) + phase_gicp_kernels(dev, pair)
-               + phase_ndt_kernels(dev, pair) + phase_c2_kernels(dev, pair))
+               + phase_ndt_kernels(dev, pair) + phase_c2_kernels(dev, pair)
+               + [phase_trial(dev, pair)])
     summary = {}
     path_launches = {}
     for path in PATHS:
@@ -1711,16 +2059,31 @@ def main() -> int:
     for path in PATHS:
         summary[path]["profile"] = phase_profile(dev, pair, path)
     for r in records:
-        # a kernel's launches on its own path (the first path that runs it)
-        own = next(p for p, (_make, ks, _lim) in PATHS.items() if r["name"] in ks)
-        r["launches"] = path_launches[own][r["name"]]
-        r["launches_by_path"] = {p: path_launches[p][r["name"]] for p in PATHS}
+        name = r["name"]
+        if name in TRIAL_CARRIED:
+            # run inside the trial launch on the main paths: its launches are
+            # the trial launches that carry its body, its own wrapper's 0
+            carriers = TRIAL_CARRIED[name]
+            r["launches_by_path"] = {p: path_launches[p]["lm_step"] if p in carriers else 0
+                                     for p in PATHS}
+            r["launches"] = r["launches_by_path"][carriers[0]]
+            r["launched_in"] = "lm_step"
+            r["standalone_launches_by_path"] = {p: path_launches[p][name] for p in PATHS}
+            continue
+        # a kernel's launches on its own path (the first path that runs it,
+        # unless the record names one)
+        own = r.get("own_path") or next(p for p, (_make, ks, _lim) in PATHS.items()
+                                         if name in ks)
+        r["launches"] = path_launches[own][name]
+        r["launches_by_path"] = {p: path_launches[p][name] for p in PATHS}
     log("[summary] " + json.dumps(summary))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("tolerance", "timing", "call_ms", "plain_call_ms", "launches_by_path",
-             "registers", "stack_bytes", "by_lanes")
+             "launched_in", "standalone_launches_by_path", "registers", "stack_bytes",
+             "by_lanes", "by_path", "lanes", "trial_off_error_ms", "prologue_ms",
+             "lm_trial_ms", "unfused_ms", "aten_traps_differ")
     work = ("candidates", "exact_candidates", "exact_search_ms", "source_cloud_ms",
             "pairs_visited", "pairs_in_range", "pairs_to_visit", "pairs_in_window",
             "pairs_visited_block_cull", "wide_slab_ms", "k48_ms")

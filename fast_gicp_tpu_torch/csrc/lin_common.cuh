@@ -25,7 +25,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 // Each block reduces with warp shuffles into a scratch row of its own; the
 // last block to finish (ticket counter after a __threadfence) adds the rows
 // in block order, so the sum's order does not depend on scheduling.  The
-// GICP kernels (linearize.cu) use it; the NDT kernels take grid_sum_tree.
+// GICP linearize kernels (linearize.cu) use it; the NDT kernels and the
+// error kernel take grid_sum_tree.
 template <int NT>
 __device__ void grid_sum(const float (&v)[NT], float* partials,
                          unsigned int* ticket, float* out) {
@@ -93,9 +94,10 @@ __device__ __forceinline__ float warp_sum_scatter32(float (&v)[32]) {
 // gridDim.x rows with all its threads: kGroups = kThreads / NT groups of NT
 // threads, group g adding rows g, g + kGroups, ... in turn (up to 32 loads in
 // flight a thread), then the groups in order (NT > 1) or by a shuffle tree a
-// warp and the warps in order (NT = 1).
+// warp and the warps in order (NT = 1).  Returns whether this block was the
+// last, whose thread 0 (NT = 1) or threads 0..NT-1 wrote out.
 template <int NT>
-__device__ void grid_sum_tree(const float (&v)[NT], float* partials,
+__device__ bool grid_sum_tree(const float (&v)[NT], float* partials,
                               unsigned int* ticket, float* out) {
   static_assert(NT == 1 || (NT > 1 && NT <= 32), "NT: 1 or 2..32");
   constexpr int kGroups = kThreads / NT;
@@ -124,7 +126,7 @@ __device__ void grid_sum_tree(const float (&v)[NT], float* partials,
   __syncthreads();
   if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == G - 1;
   __syncthreads();
-  if (!last) return;
+  if (!last) return false;
   if (threadIdx.x < kGroups * NT) {
     const unsigned int g = threadIdx.x / NT, k = threadIdx.x % NT;
     float r = 0.f;
@@ -156,13 +158,15 @@ __device__ void grid_sum_tree(const float (&v)[NT], float* partials,
     out[threadIdx.x] = t;
   }
   if (threadIdx.x == 0) *ticket = 0u;
+  return true;
 }
 
 // The grid of a kernel whose blocks take per_block of n items a pass: the
 // blocks the items need, at most one wave (the device's SMs times the
 // blocks of `kernel` that fit on one, asked of the runtime once a device;
-// kId names the kernel's cache), a grid-stride loop taking the rest; at
-// least 1.  0, with the error left for cudaGetLastError, if the runtime
+// kId names the kernel's cache, one id a kernel across all sources:
+// ndt_linearize.cu takes 0-3, trial_error.cu 4-5), a grid-stride loop taking
+// the rest; at least 1.  0, with the error left for cudaGetLastError, if the runtime
 // refuses.
 constexpr int kMaxDevices = 16;
 

@@ -1,8 +1,8 @@
-// GICP/VGICP linearization and trial error, one thread per correspondence.
+// GICP/VGICP linearization, one thread per correspondence.
 //
-// Replaces fast_gicp_tpu/ops/pallas_linearize.py::_linearize_raw_kernel,
-// ::_linearize_kernel (both with their shared core _lin_body) and
-// ::_error_kernel.
+// Replaces fast_gicp_tpu/ops/pallas_linearize.py::_linearize_raw_kernel and
+// ::_linearize_kernel (both with their shared core _lin_body).  The trial
+// error that reads their aux, ::_error_kernel, is trial_error.cu's.
 //
 // linearize_raw / linearize, per correspondence n (L of them):
 //   unpack the gathered target row: raw voxel rows [count, sum mu (3),
@@ -14,12 +14,10 @@
 //   w = sqrt(count) * valid; accumulate the 28 sums [err, H (21 unique),
 //   b (6)] of w e^T M e, w J^T M J, w J^T M e with J = [skew(p) | -I];
 //   write aux (10, L) = [M (6), w, mu_B (3)].
-// error, per correspondence: sum of w e^T M e at a trial pose, reading the
-//   frozen aux.
 //
 // Bound on an H100: device-memory bytes, and in practice launch latency.  At
-// L = 22,528 a linearize moves about 3.2 MB (about 1 us at 3.35 TB/s) and an
-// error call about 1.2 MB; each is a few hundred flops per correspondence.
+// L = 22,528 a linearize moves about 3.2 MB (about 1 us at 3.35 TB/s), a few
+// hundred flops per correspondence.
 // The design reads every input once with coalesced loads, keeps the 28 sums
 // in registers and reduces them inside the kernel (lin_common.cuh's
 // grid_sum, whose order does not depend on scheduling).
@@ -97,27 +95,10 @@ __global__ void __launch_bounds__(kThreads)
   grid_sum<28>(acc, partials, ticket, out);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    error_kernel(const float* __restrict__ p, const float* __restrict__ xp,
-                 const float* __restrict__ aux, int L, float* partials,
-                 unsigned int* ticket, float* __restrict__ out) {
-  const Pose x = load_pose(xp);
-  float acc[1] = {0.f};
-  for (int n = blockIdx.x * kThreads + threadIdx.x; n < L; n += gridDim.x * kThreads) {
-    float p0, p1, p2;
-    transform(x, p, L, n, p0, p1, p2);
-    const Sym6 m = {aux[n], aux[L + n], aux[2 * L + n],
-                    aux[3 * L + n], aux[4 * L + n], aux[5 * L + n]};
-    const float w = aux[6 * L + n];
-    acc[0] += w * mahalanobis(p0, p1, p2, aux[7 * L + n], aux[8 * L + n],
-                              aux[9 * L + n], m);
-  }
-  grid_sum<1>(acc, partials, ticket, out);
-}
-
 }  // namespace
 
-// Grid of the GICP kernels (and of their grid_sum) for L correspondences.
+// Grid of the GICP linearize kernels (and of their grid_sum) for L
+// correspondences.
 static int reduce_blocks(int L) {
   const int blocks = (L + kThreads - 1) / kThreads;
   return blocks < 1 ? 1 : (blocks > 264 ? 264 : blocks);
@@ -125,9 +106,9 @@ static int reduce_blocks(int L) {
 
 // Most blocks any linearize or error kernel of this library launches on the
 // current device, so rows of partials a scratch needs: one wave of
-// kThreads-blocks filling every SM (ndt_linearize.cu sizes its grids to a
-// wave), and at least the 264 of the GICP kernels.  -1 if the runtime
-// refuses.
+// kThreads-blocks filling every SM (ndt_linearize.cu and trial_error.cu size
+// their grids to a wave), and at least the 264 of the GICP linearize
+// kernels.  -1 if the runtime refuses.
 extern "C" int fgt_max_reduce_blocks() {
   int dev = 0, sms = 0, threads = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -163,17 +144,5 @@ extern "C" int fgt_linearize(const float* p, const float* ca, const float* x,
                             static_cast<cudaStream_t>(stream)>>>(
       p, ca, x, reinterpret_cast<const float4*>(rows), valid, L, partials, ticket,
       out, aux);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// p (3, L), x (4, 4), aux (10, L): float32.  partials:
-// fgt_max_reduce_blocks() floats; ticket: one uint32, 0 on entry and left 0;
-// out: 1 float.
-extern "C" int fgt_error(const float* p, const float* x, const float* aux, int L,
-                         float* partials, unsigned int* ticket, float* out,
-                         void* stream) {
-  error_kernel<<<reduce_blocks(L), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(p, x, aux, L, partials,
-                                                      ticket, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,7 +8,9 @@ linearization re-searches exact 1-NN correspondences of the transformed
 source (the `nn_search` kernel), gathers the matched target rows
 [mu, cov9, count = 1, pad] with one index, and freezes the Mahalanobis
 M = (C_B + R C_A R^T)^-1 for the trials that follow (the `linearize`
-kernel); every LM trial runs the `error` and `lm_trial` kernels.
+kernel); every LM trial is one launch of the trial kernel (the trial
+step, the `error` body at the trial pose and the LM schedule,
+`cuda_solver.lm_step`).
 Correspondences farther than max_correspondence_distance are dropped.
 
 Ported here: `GICPConfig`, the objective, `gicp_align` (with the two-phase
@@ -24,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from .. import device as _device
-from ..ops import cuda_linearize, soa
+from ..ops import cuda_linearize, cuda_solver, soa
 from ..ops.covariance import estimate_covariance_cols
 from ..ops.neighbors import nn_search
 from ..precision import f32_matmuls
@@ -92,8 +94,8 @@ def make_gicp_objective(source, source_mask, source_covs, target, target_mask,
     def linearize(x):
         return linearize_frozen(x, freeze(x))
 
-    def error(x, aux):
-        return cuda_linearize.error(P, x, aux)
+    # the trial cost the LM steps launch: the weight is aux row 6
+    error = cuda_solver.TrialCost(P)
 
     if with_freeze:
         return linearize, error, freeze, linearize_frozen

@@ -9,12 +9,13 @@ against target voxels with M = cov_B^-1; D2D scores the source's own voxel
 Gaussians with M = (cov_B + R C_A R^T)^-1.  Both use the Cauchy weight
 w = c^2 / (c^2 + |e|^2), c = the voxel resolution.  M is frozen at each
 linearization; the LM trials recompute w at the trial pose (the `ndt_error`
-kernel).
+body).
 
 Correspondences are (neighbor offset x source) lanes flattened offset-major
 to L = K * N; each linearization is one voxel-row gather and one
-`ndt_linearize` launch, each LM trial one `ndt_error` launch
-(ops/cuda_ndt.py; their plain versions for CPU tensors).
+`ndt_linearize` launch (ops/cuda_ndt.py), each LM trial one launch of the
+trial kernel with the `ndt_error` body (`cuda_solver.lm_step`); their plain
+versions for CPU tensors.
 
 Ported here: `NDTConfig`, the objective (the JAX package's fused form,
 `_make_ndt_objective_fused`), `ndt_align`, `ndt_prepare_cloud`,
@@ -31,7 +32,7 @@ import torch
 
 from .. import device as _device
 from .. import se3
-from ..ops import cuda_ndt, soa
+from ..ops import cuda_ndt, cuda_solver, soa
 from ..ops.covariance import masked_mean
 from ..ops.voxelmap import (
     RawNdtGrid,
@@ -105,7 +106,7 @@ class NdtObjective(NamedTuple):
     reads besides the pose and the pack."""
 
     linearize: Callable  # x -> (err, H, b, aux)
-    error: Callable  # (x, aux) -> err
+    error: cuda_solver.TrialCost  # (x, aux) -> err, and the trial launch's form
     freeze: Callable  # x -> pack (L, 16)
     linearize_frozen: Callable  # (x, pack) -> (err, H, b, aux)
     pack_from_aux: Callable | None  # aux -> _FinPack (P2D only)
@@ -158,9 +159,9 @@ def make_ndt_objective(src_means, src_mask, src_covs, vmap, offsets) -> NdtObjec
     def linearize(x):
         return linearize_frozen(x, freeze(x))
 
-    def error(x, aux):
-        # the kernel reads the first N columns of the tiled P_flat only
-        return cuda_ndt.ndt_error(P_flat, aux, x, res, offsets=k)
+    # the trial cost the LM steps launch (the Cauchy weight at the trial
+    # pose); it reads the first N columns of the tiled P_flat only
+    error = cuda_solver.TrialCost(P_flat, offsets=k, resolution=res)
 
     def pack_from_aux(aux):
         # aux [M (6), valid, mu (3)] -> the M-direct pack [mu, M, valid, pad]

@@ -6,7 +6,8 @@ are (source point x neighbor voxel) over the configured offsets; each
 linearization freezes the per-pair Mahalanobis (cov_voxel + R C_src R^T)^-1
 and the weight w = sqrt(voxel count) (fast_vgicp_impl.hpp:149) for the LM
 trials that follow.  The per-correspondence math runs in the
-`cuda_linearize` kernels (their plain versions for CPU tensors).
+`cuda_linearize` kernel and, each LM trial, in one launch of the trial
+kernel (`cuda_solver.lm_step`); their plain versions for CPU tensors.
 
 Ported here: the raw-grid objective and the two-phase `vgicp_align` /
 `vgicp_register`.  The hash map (grid_dims=None), the non-additive
@@ -20,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from .. import device as _device
-from ..ops import cuda_linearize, soa
+from ..ops import cuda_linearize, cuda_solver, soa
 from ..ops.covariance import rbf_covariance_cols
 from ..ops.voxelmap import (
     DenseRawGridMap,
@@ -91,8 +92,8 @@ def make_vgicp_objective(source, source_mask, source_covs, vmap, offsets,
     def linearize(x):
         return linearize_frozen(x, freeze(x))
 
-    def error(x, aux):
-        return cuda_linearize.error(P_flat, x, aux)
+    # the trial cost the LM steps launch: the weight is aux row 6
+    error = cuda_solver.TrialCost(P_flat)
 
     return linearize, error, freeze, linearize_frozen
 

@@ -1,25 +1,54 @@
-"""One Levenberg-Marquardt trial step: the CUDA kernel of
-`csrc/lm_trial.cu` and its plain PyTorch version (port of
-`fast_gicp_tpu.ops.pallas_solver`).
+"""Levenberg-Marquardt trials: the CUDA kernels of `csrc/lm_trial.cu` and
+of `csrc/trial_error.cu`'s trial launch, with their plain PyTorch versions
+(port of `fast_gicp_tpu.ops.pallas_solver` and of the LM schedule of
+`fast_gicp_tpu.solver`).
 
 `lm_trial` is the counterpart of `lm_trial_pallas` (kernel
 `_lm_trial_kernel`, `pallas_solver.py:127`): solve (H + lambda I) d = -b
 with one refinement step, delta = se3_exp(d), xi = delta x and
 denom = d . (lambda d - b).  lambda stays a device tensor, so a trial never
 copies it to the host.
+
+`lm_step` is a whole LM trial in one launch: the trial step, the
+objective's error at xi (`_error_kernel`, `pallas_linearize.py:633`, or
+`_ndt_error_kernel`, `:580`, given as a `TrialCost`) and the LM schedule
+(the lambda init, rho, the NaN-safe accept, the convergence test, lambda,
+nu, x and the two flags the host reads), on a solve's state buffer
+(`lm_state`), which it updates in place.  `lm_step_plain` is the same
+trial as eager ops.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import se3
-from . import _build
+from . import _build, cuda_linearize, cuda_ndt, soa
+from .cuda_linearize import AUX_ROWS, _check_cuda, _reduce_scratch
 
-_P = ctypes.c_void_p
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TRIAL_ARGS = (_P, _P, _P, _P, _P, _P)
+_STEP_ARGS = (_P, _P, _P, _P, _I, _F, _F, _F, _P, _I, _I, _P, _I, _F, _I, _P, _P, _P)
+
+# A solve's LM state (csrc/lm_step.cuh kState*), float32: the pose, lambda
+# (< 0: not yet set), nu, the flags of the last trial (1.0 / 0.0), and that
+# trial's xi, delta, d, denom, error and the lambda it ran with.
+STATE_X = slice(0, 16)
+STATE_LAM = 16
+STATE_NU = 17
+STATE_DONE = 18
+STATE_CONV = 19
+STATE_XI = slice(20, 36)
+STATE_DELTA = slice(36, 52)
+STATE_D = slice(52, 58)
+STATE_DENOM = 58
+STATE_YI = 59
+STATE_LAM_USED = 60
+STATE_FLOATS = 64
 
 
 def _check(name, t, numel):
@@ -67,3 +96,148 @@ def lm_trial_plain(H, b, lam, x):
     d = _solve_refined(H + lam * torch.eye(6, dtype=H.dtype, device=H.device), -b)
     delta = se3.se3_exp(d)
     return delta @ x, delta, d, torch.dot(d, lam * d - b)
+
+
+class TrialCost(NamedTuple):
+    """An objective's cost at a trial pose, in the form the trial launch
+    reads: the sum over L = offsets * N lanes of w e^T M e against a
+    linearization's frozen aux (10, L) [M (6), a, mu (3)], lane k N + i
+    reading source column i of p ((3, N), or (3, L) tiled over the offsets,
+    of which the first N columns are read).  w is a (GICP, VGICP: the
+    linearize's weight) or, with `resolution` set (NDT), the Cauchy weight
+    c^2 / (c^2 + |mu - p|^2) * a with c = resolution.  Called as
+    `cost(x, aux)`, it is the objective's error function: one launch of
+    `cuda_linearize.error` or `cuda_ndt.ndt_error`."""
+
+    p: torch.Tensor
+    offsets: int = 1
+    resolution: float | None = None
+
+    def __call__(self, x, aux):
+        if self.resolution is None:
+            return cuda_linearize.error(self.p, x, aux)
+        return cuda_ndt.ndt_error(self.p, aux, x, self.resolution, offsets=self.offsets)
+
+    def columns(self, L):
+        """(p's first N = L / offsets columns (3, N), N)."""
+        if self.resolution is None and self.offsets != 1:
+            raise ValueError("the GICP weight takes one offset (lanes = columns of p)")
+        if self.offsets < 1 or L % self.offsets:
+            raise ValueError(f"offsets={self.offsets} does not divide L={L}")
+        N = L // self.offsets
+        p = self.p[:, :N] if self.p.dim() == 2 and self.p.shape[-1] == L else self.p
+        cuda_linearize._check("p", p, (3, N))
+        return p, N
+
+    def plain(self, x, aux):
+        """Plain PyTorch version of the cost, both weights in one form."""
+        p, _N = self.columns(aux.shape[-1])
+        p_t = soa.transform_cols(x, p.repeat(1, self.offsets))
+        mu, a = aux[7:10], aux[6]
+        if self.resolution is not None:
+            a = cuda_ndt._cauchy(cuda_ndt._c_sq(self.resolution), p_t, mu, a)
+        return soa.error_cols(p_t, mu, aux[:6], a)
+
+
+def lm_state(x0):
+    """A solve's LM state (STATE_FLOATS,) on x0's device: the pose x0 (4, 4)
+    and lambda unset; a solve's steps update it in place.  Two ops: a fill
+    and a copy, neither of which waits on the host."""
+    state = torch.full((STATE_FLOATS,), -1.0, dtype=x0.dtype, device=x0.device)
+    state[STATE_X].copy_(x0.reshape(16))
+    return state
+
+
+def _inverse_f32(v):
+    """The float32 rounding of 1 / v taken in double: a float32 CUDA tensor
+    divided by a Python float v is its product with this (checked on the
+    card by chip_smoke.py)."""
+    return float(np.float32(1.0 / v))
+
+
+def lm_step(state, H, b, y0, aux, cost, first, config):
+    """One LM trial on `state` (`lm_state`), updated in place: the trial step
+    from the state's pose and lambda with H (6, 6), b (6,) and y0 () of the
+    last linearization, `cost` (a `TrialCost`) at the trial pose against
+    `aux`, then the schedule; `first` marks the first trial after a
+    linearization (lambda init, nu = 2).  config: the solve's `LsqConfig`.
+    The host then reads state[STATE_DONE] and state[STATE_CONV].
+
+    CPU tensors take the plain version (any callable `cost(x, aux)`); CUDA
+    tensors launch the trial kernel, one launch a trial."""
+    _check("state", state, STATE_FLOATS)
+    _check("H", H, 36)
+    _check("b", b, 6)
+    _check("y0", y0, 1)
+    for t in (H, b, y0) + ((aux,) if isinstance(aux, torch.Tensor) else ()):
+        if t.device != state.device:
+            raise ValueError(f"tensors on several devices: {t.device} vs {state.device}")
+    if state.device.type == "cpu":
+        return lm_step_plain(state, H, b, y0, aux, cost, first, config)
+    if not isinstance(cost, TrialCost):
+        raise ValueError("the trial launch takes the objective's cost as a TrialCost, "
+                         f"not {type(cost).__name__}")
+    L = aux.shape[-1]
+    cuda_linearize._check("aux", aux, (AUX_ROWS, L))
+    p, N = cost.columns(L)
+    _check_cuda([state, H, b, y0, aux])
+    if p.device != state.device or (N > 1 and p.stride(1) != 1):
+        raise ValueError("p must lie on the state's device, its columns contiguous")
+    partials, ticket, stream = _reduce_scratch(state.device)
+    ndt = cost.resolution is not None
+    fn = _build.function("fgt_lm_step", _STEP_ARGS)
+    _build.check("fgt_lm_step", fn(
+        H.data_ptr(), b.data_ptr(), y0.data_ptr(), state.data_ptr(), int(first),
+        float(np.float32(config.lm_init_lambda_factor)), _inverse_f32(config.rotation_epsilon),
+        _inverse_f32(config.transformation_epsilon), p.data_ptr(), p.stride(0), N,
+        aux.data_ptr(), int(ndt), cuda_ndt._c_sq(cost.resolution) if ndt else 0.0, L,
+        partials.data_ptr(), ticket.data_ptr(), stream))
+    lm_step.launches += 1
+
+
+lm_step.launches = 0
+
+
+def lm_step_plain(state, H, b, y0, aux, cost, first, config, trial=lm_trial):
+    """Plain PyTorch version of `lm_step`: `trial` (`lm_trial`, the standalone
+    kernel on CUDA tensors), `cost(xi, aux)`, then the LM schedule as eager
+    device ops, written into `state`."""
+    from ..solver import is_converged  # solver imports this module
+
+    x = state[STATE_X].view(4, 4)
+    lam = state[STATE_LAM:STATE_LAM + 1]
+    nu = state[STATE_NU]
+    if first:
+        lam = torch.where(
+            lam < 0.0,
+            config.lm_init_lambda_factor * torch.max(torch.abs(torch.diagonal(H))),
+            lam,
+        ).reshape(1)
+        nu = torch.full((), 2.0, dtype=state.dtype, device=state.device)
+    xi, delta, d, denom = trial(H, b, lam, x)
+    yi = cost(xi, aux)
+    rho = (y0 - yi) / denom
+    # NaN-safe accept: `rho < 0` is False for NaN, which would accept a
+    # poisoned pose; only a provably improving finite trial is accepted.
+    reject = ~(rho >= 0.0)
+    delta_conv = is_converged(delta, config.rotation_epsilon, config.transformation_epsilon)
+    conv_reject = reject & delta_conv
+    accept = ~reject
+    new_lam = torch.where(
+        accept,
+        lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0),
+        torch.where(conv_reject, lam, nu * lam),
+    )
+    nu = torch.where(reject & ~conv_reject, 2.0 * nu, nu)
+    x_new = torch.where(accept, xi, x)
+    state[STATE_XI] = xi.reshape(16)
+    state[STATE_DELTA] = delta.reshape(16)
+    state[STATE_D] = d
+    state[STATE_DENOM] = denom
+    state[STATE_YI] = yi
+    state[STATE_LAM_USED] = lam[0]
+    state[STATE_LAM] = new_lam[0]
+    state[STATE_NU] = nu
+    state[STATE_X] = x_new.reshape(16)
+    state[STATE_DONE] = accept | conv_reject
+    state[STATE_CONV] = delta_conv

@@ -4,10 +4,13 @@
 The JAX solve is two nested `lax.while_loop`s inside one jit.  Here the
 loops run eagerly in Python, but every scalar of the LM schedule -- the
 lambda init, rho, accept, nu, the convergence test and the Hessian select
--- stays on the device as a float32 tensor with the JAX package's exact
-arithmetic, so the iteration path is the same.  The only host reads are
-the loop exits: one small flag tensor per LM inner trial (per outer
-iteration for GN).  `lsq_solve.host_syncs` counts them.
+-- stays on the device in float32 with the JAX package's exact
+arithmetic, so the iteration path is the same.  An LM trial is one
+`cuda_solver.lm_step` on the solve's state buffer: on the card one launch
+of the trial kernel (trial step, error, schedule), on the CPU its plain
+version.  The only host reads are the loop exits: the state's two flags
+per LM inner trial (per outer iteration for GN).  `lsq_solve.host_syncs`
+counts them.
 
 Semantics (lsq_registration_impl.hpp:53-168):
   * lambda init = lm_init_lambda_factor * max|diag H|, carried across
@@ -23,7 +26,9 @@ Semantics (lsq_registration_impl.hpp:53-168):
 
 `linearize_fn(x) -> (y0, H, b, aux)` freezes what the error
 re-evaluations reuse into `aux`; `error_fn(x, aux)` evaluates the
-objective at a trial pose against it.
+objective at a trial pose against it.  On the card `error_fn` is the
+objective's `cuda_solver.TrialCost`, which the trial launch reads; on the
+CPU any callable does.
 """
 
 from __future__ import annotations
@@ -98,17 +103,15 @@ def lsq_solve(
         # a fill kernel, not a host-to-device copy (which would synchronise)
         return torch.full((), v, dtype=dt, device=device)
 
-    def converged_fn(delta):
-        return is_converged(
-            delta, config.rotation_epsilon, config.transformation_epsilon
-        )
-
-    def read_flags(*flags):
+    def read_flags(flags):
+        # the loop's one host read a trial (an outer iteration for GN)
         lsq_solve.host_syncs += 1
-        return torch.stack(flags).tolist()
+        return [bool(v) for v in flags.tolist()]
 
-    x = x0.to(dtype).contiguous()
-    lam = scalar(-1.0)
+    # the solve's own buffer: the steps update it in place, and x0 (which
+    # may be the pose an earlier solve returned) is never written
+    state = cuda_solver.lm_state(x0.to(dtype))
+    x = state[cuda_solver.STATE_X].view(4, 4)
     H_out = torch.eye(6, dtype=dtype, device=device)
     y = scalar(0.0)
     converged = scalar(False, torch.bool)
@@ -117,36 +120,19 @@ def lsq_solve(
     while i < config.max_iterations:
         y0, H, b, aux = linearize_fn(x)
         if config.optimizer == "lm":
-            lam = torch.where(
-                lam < 0.0,
-                config.lm_init_lambda_factor * torch.max(torch.abs(torch.diagonal(H))),
-                lam,
-            ).reshape(1)
-            nu = scalar(2.0)
             done, conv = False, False
             for j in range(config.lm_max_iterations):
-                xi, delta, d, denom = cuda_solver.lm_trial(H, b, lam, x)
-                yi = error_fn(xi, aux)
-                rho = (y0 - yi) / denom
+                cuda_solver.lm_step(state, H, b, y0, aux, error_fn, j == 0, config)
                 if config.debug_print:
+                    yi = state[cuda_solver.STATE_YI]
+                    rho = (y0 - yi) / state[cuda_solver.STATE_DENOM]
+                    d = state[cuda_solver.STATE_D]
                     print(f"lm trial {j}: y0={float(y0)} yi={float(yi)} "
-                          f"rho={float(rho)} lambda={float(lam)} "
+                          f"rho={float(rho)} "
+                          f"lambda={float(state[cuda_solver.STATE_LAM_USED])} "
                           f"|d|={float(torch.linalg.vector_norm(d))}")
-                # NaN-safe accept: `rho < 0` is False for NaN, which would
-                # accept a poisoned pose; only a provably improving finite
-                # trial is accepted.
-                reject = ~(rho >= 0.0)
-                delta_conv = converged_fn(delta)
-                conv_reject = reject & delta_conv
-                accept = ~reject
-                lam = torch.where(
-                    accept,
-                    lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0),
-                    torch.where(conv_reject, lam, nu * lam),
-                )
-                nu = torch.where(reject & ~conv_reject, 2.0 * nu, nu)
-                x = torch.where(accept, xi, x)
-                done, conv = read_flags(accept | conv_reject, delta_conv)
+                done, conv = read_flags(
+                    state[cuda_solver.STATE_DONE:cuda_solver.STATE_CONV + 1])
                 if done:
                     break
             success = done
@@ -156,7 +142,8 @@ def lsq_solve(
             )
             x = xi
             success = True
-            (conv,) = read_flags(converged_fn(delta))
+            (conv,) = read_flags(is_converged(
+                delta, config.rotation_epsilon, config.transformation_epsilon).reshape(1))
         converged = scalar(conv and success, torch.bool)
         # final_hessian_ only updates on a successful step (impl:117, :163).
         if success:

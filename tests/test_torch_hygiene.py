@@ -147,6 +147,54 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
     assert all(fn.launches == 0 for fn in wrappers)
 
 
+def _lm_step_inputs(device, n=256):
+    """A state, normal equations and a GICP trial cost on `device`."""
+    from fast_gicp_tpu_torch.ops import cuda_solver
+
+    p, _ca, x, _pack = _ndt_inputs(device, n)
+    aux = torch.zeros((10, n), device=device)
+    aux[[0, 3, 5, 6]] = 1.0
+    return (cuda_solver.lm_state(x), torch.eye(6, device=device),
+            torch.zeros(6, device=device), torch.zeros((), device=device), aux,
+            cuda_solver.TrialCost(p))
+
+
+def test_lm_step_takes_plain_version_on_cpu_without_counting():
+    from fast_gicp_tpu_torch.ops import cuda_linearize, cuda_solver
+    from fast_gicp_tpu_torch.solver import LsqConfig
+
+    wrappers = (cuda_solver.lm_step, cuda_solver.lm_trial, cuda_linearize.error)
+    for fn in wrappers:
+        fn.launches = 0
+    state, H, b, y0, aux, cost = _lm_step_inputs("cpu")
+    cuda_solver.lm_step(state, H, b, y0, aux, cost, True, LsqConfig())
+    # b = 0: a zero step, delta = I, converged; yi = y0 = 0 accepts it
+    assert state[cuda_solver.STATE_DONE].item() == 1.0
+    assert state[cuda_solver.STATE_CONV].item() == 1.0
+    assert torch.equal(state[cuda_solver.STATE_X], torch.eye(4).reshape(16))
+    assert all(fn.launches == 0 for fn in wrappers)
+
+
+def test_lm_step_raises_for_tensors_on_other_devices():
+    """No fallback: a state that is not on the CPU never takes the plain
+    version; a mix of devices, another device than CUDA and a cost that is
+    not a TrialCost are refused."""
+    from fast_gicp_tpu_torch.ops import cuda_solver
+    from fast_gicp_tpu_torch.solver import LsqConfig
+
+    cfg = LsqConfig()
+    state, H, b, y0, aux, cost = _lm_step_inputs("meta")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        cuda_solver.lm_step(state, H, b, y0, aux, cost, True, cfg)
+    cpu_state, cpu_H = _lm_step_inputs("cpu")[:2]
+    with pytest.raises(ValueError, match="several devices"):
+        cuda_solver.lm_step(state, cpu_H, b, y0, aux, cost, True, cfg)
+    with pytest.raises(ValueError, match="several devices"):
+        cuda_solver.lm_step(cpu_state, H, b, y0, aux, cost, True, cfg)
+    with pytest.raises(ValueError, match="TrialCost"):
+        cuda_solver.lm_step(state, H, b, y0, aux, lambda x, a: x.sum(), True, cfg)
+
+
 def test_ndt_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from fast_gicp_tpu_torch.models import ndt
 
