@@ -36,18 +36,26 @@ Phase 3 also holds the LM trial launch (`lm_step`: the trial step, the
 error and the LM schedule in one kernel) bit for bit to the unfused trial
 on a seeded sweep at four paths' first linearization (`phase_trial`), and
 phase 4 checks that every LM trial of every path is one such launch and one
-flag read.
+flag read.  The GICP and VGICP linearizes read their target rows by index
+(the idx form): phase 3 holds it bit for bit to the gathered form and to a
+repeat launch, at the paths' inputs and on `linearize_edge_cases`, and
+times it at 7 x the path's lanes (a grid-stride loop); phase 4 checks that every
+linearize launch of those paths is the idx form.
 
 The last lines are the `nvidia-smi` name/power-limit line, one
 {"kernels": [...]} JSON line and the {"ok": true, ...} JSON line.
 
     python3 chip_smoke.py --ndt-timing DIR
     python3 chip_smoke.py --trial-timing DIR
+    python3 chip_smoke.py --lin-timing DIR [REF]
 
-time the NDT kernels, or an LM trial's kernels (the trial launch, or the
-lm_trial and error launches of a package before it), of the package under
-DIR (an unpacked earlier checkout, say) on phase 3's inputs and print one
-JSON line, so two designs can be compared in one call on one card.
+time the NDT kernels, an LM trial's kernels (the trial launch, or the
+lm_trial and error launches of a package before it), or the GICP, VGICP and
+NDT linearizes, of the package under DIR (an unpacked earlier checkout,
+say) on phase 3's inputs and print one JSON line, so two designs can be
+compared in one call on one card; `--lin-timing` also prints digests of the
+linearizes' outputs, and with REF (a file holding such a line) whether each
+equals REF's.
 This script imports nothing of JAX or of the JAX package.
 """
 
@@ -538,6 +546,150 @@ def check_edge_cases(dev):
     return len(slab) + len(counts)
 
 
+def rel_to_max(name, a, b, tol=1e-5):
+    """|a - b| within `tol` of b's largest |entry|; where b is all 0, a must
+    be exactly 0.  Returns max |a - b|."""
+    m = float(b.abs().max())
+    if m == 0.0:
+        require(not bool(a.any()), f"{name}: nonzero where the plain version is 0")
+        return 0.0
+    return check_close(name, a / m, b / m, 0.0, tol) * m
+
+
+# linearize.cu's kernels in the profiler, a prefix that ndt_linearize_kernel never holds
+LIN_KERNEL = "::linearize_kernel<{raw}"
+LIN_TOLERANCE = {
+    "elementwise": "err rtol 1e-4; H, b rtol 3e-3 atol 0.5; aux rtol 1e-5 atol 1e-5",
+    "rel_max": "err, H, b within 1e-5 of their largest entry; aux rtol 1e-5 atol 1e-5",
+}
+
+
+def lin_wrappers(raw):
+    """(wrapper, plain version) of linearize_raw (raw rows) or linearize."""
+    from fast_gicp_tpu_torch.ops import cuda_linearize as cl
+
+    return (cl.linearize_raw, cl.linearize_raw_plain) if raw else (cl.linearize,
+                                                                   cl.linearize_plain)
+
+
+def check_lin_outputs(name, got, want, tol):
+    """err, H, b and aux of a linearize launch against its plain version:
+    `tol` "elementwise" (VGICP's) or "rel_max" (GICP's), LIN_TOLERANCE;
+    H exactly symmetric.  Returns max |diff|."""
+    require(bool(torch.equal(got[1], got[1].T)), f"{name}: H is not exactly symmetric")
+    if tol == "elementwise":
+        errs = [check_close(f"{name} err", got[0], want[0], 1e-4, 0.0),
+                check_close(f"{name} H", got[1], want[1], 3e-3, 0.5),
+                check_close(f"{name} b", got[2], want[2], 3e-3, 0.5)]
+    else:
+        errs = [rel_to_max(f"{name} err", got[0].reshape(1), want[0].reshape(1)),
+                rel_to_max(f"{name} H", got[1], want[1]),
+                rel_to_max(f"{name} b", got[2], want[2])]
+    return max(errs + [check_close(f"{name} aux", got[3], want[3], 1e-5, 1e-5)])
+
+
+def check_linearize(name, raw, P, CA, x, table, valid, ids, tol):
+    """linearize_raw (raw) or linearize in the idx form (correspondence n
+    reads row ids[n] of table): bit-equal to the gathered form (table[ids]
+    first) and to a repeat launch, within `tol` of the plain version, H
+    exactly symmetric.  Returns (outputs, max |diff|)."""
+    fn, plain = lin_wrappers(raw)
+    require(bool(((ids >= 0) & (ids < table.shape[0])).all()), f"{name}: ids out of range")
+    rows = table[ids]
+    got = fn(P, CA, x, table, valid, ids)
+    again = fn(P, CA, x, table, valid, ids)
+    gathered = fn(P, CA, x, rows, valid)
+    want = plain(P, CA, x, rows, valid)
+    torch.cuda.synchronize()
+    require(all(bool(torch.equal(a, b)) for a, b in zip(got, gathered)),
+            f"{name}: the idx form differs from the gathered form")
+    require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+            f"{name}: a repeat launch differs")
+    return got, check_lin_outputs(name, got, want, tol)
+
+
+def check_linearize_edge_cases(dev):
+    """Both linearize kernels on every case of
+    `utils.synthetic.linearize_edge_cases` (L = 1,001, 91, 1 and 157,696,
+    every lane invalid or a miss, a singular C_B + R C_A R^T, repeated ids),
+    with int64 and int32 ids: as check_linearize, int32 and int64 bit-equal,
+    at each kernel's tolerance (the singular case's sums, ~1e20, relative to
+    their largest entry for both), and err, H, b exactly 0 where no lane
+    counts.  Returns the number of cases."""
+    from fast_gicp_tpu_torch.utils import synthetic
+
+    cases = synthetic.linearize_edge_cases()
+    for case in cases:
+        t = {k: torch.as_tensor(case[k], device=dev)
+             for k in ("p", "ca", "x", "raw", "fin", "ids", "valid")}
+        singular = case["name"] == "singular"
+        for raw in (True, False):
+            name = f"{'linearize_raw' if raw else 'linearize'} edge case {case['name']}"
+            tol = "elementwise" if raw and not singular else "rel_max"
+            outs = [check_linearize(f"{name} ({dt})", raw, t["p"], t["ca"], t["x"],
+                                    t["raw" if raw else "fin"], t["valid"], t["ids"].to(dt),
+                                    tol)[0]
+                    for dt in (torch.int64, torch.int32)]
+            require(all(bool(torch.equal(a, b)) for a, b in zip(*outs)),
+                    f"{name}: int32 and int64 ids differ")
+            if case["name"] == "all_invalid_or_miss":
+                require(not any(bool(o.any()) for o in outs[0][:3]),
+                        f"{name}: err, H, b not exactly 0")
+    log(f"[kernels] linearize edge cases: both kernels, int32 and int64 ids, bit-equal to "
+        f"the gathered form and a repeat, within tolerance, H symmetric, on all "
+        f"{len(cases)} ({', '.join(c['name'] for c in cases)})")
+    return len(cases)
+
+
+def linearize_record(raw, P, CA, x, table, valid, ids, max_err, tol, build):
+    """The record of linearize_raw (raw) or linearize at its path's inputs
+    (the idx form): its device time and the plain version's (which gathers
+    first), the gathered form's time, the device time of all the ops from
+    ids to the normal equations (the idx form; a gather and the gathered
+    form), and the idx form at 7 L (a grid-stride loop), checked against
+    the plain version and a repeat launch first; the bound counts the rows
+    the ids name once."""
+    fn, plain = lin_wrappers(raw)
+    name = "linearize_raw" if raw else "linearize"
+    kname = LIN_KERNEL.format(raw=str(raw).lower())
+    L = P.shape[1]
+    rows = table[ids]
+    tm_ = timings(lambda: fn(P, CA, x, table, valid, ids),
+                  lambda: plain(P, CA, x, table[ids], valid), kname, 200, 50)
+    forms = dict(
+        gathered_ms=device_ms(lambda: fn(P, CA, x, rows, valid), 200, kname),
+        idx_ops_ms=device_ms(lambda: fn(P, CA, x, table, valid, ids), 200),
+        gather_and_gathered_ops_ms=device_ms(
+            lambda: fn(P, CA, x, table[ids.long()], valid), 200))
+    P7, CA7 = P.repeat(1, 7).contiguous(), CA.repeat(1, 7).contiguous()
+    ids7, v7 = ids.repeat(7).contiguous(), valid.repeat(7).contiguous()
+    got, again = fn(P7, CA7, x, table, v7, ids7), fn(P7, CA7, x, table, v7, ids7)
+    want = plain(P7, CA7, x, table[ids7], v7)
+    torch.cuda.synchronize()
+    require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+            f"{name} at L = {7 * L}: a repeat launch differs")
+    check_lin_outputs(f"{name} at L = {7 * L}", got, want, tol)
+    forms["grid_stride_lanes"] = 7 * L
+    forms["grid_stride_ms"] = device_ms(lambda: fn(P7, CA7, x, table, v7, ids7), 200, kname)
+    unique_rows = int(torch.unique(ids).numel())
+    nbytes = (L * (12 + 24 + 4 + 40 + ids.element_size()) + unique_rows * 64 + 64
+              + 43 * 4)
+    b_ms, b_by = bound_ms(nbytes, L * LINEARIZE_OPS)
+    regs, stack = build.get(f"{name}<{'i64' if ids.element_size() == 8 else 'i32'}>",
+                            (None, None))
+    log(f"[kernels] {name} at L = {7 * L} (grid-stride): {forms['grid_stride_ms']:.5f} ms "
+        f"a launch")
+    return dict(
+        name=name, route="cuda", source="fast_gicp_tpu_torch/csrc/linearize.cu",
+        replaces="fast_gicp_tpu/ops/pallas_linearize.py:" + ("193" if raw else "180"),
+        max_abs_err=max_err,
+        tolerance=LIN_TOLERANCE[tol] + "; idx form bit-equal to the gathered form and to a "
+                  "repeat launch; H exactly symmetric",
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, lanes=L, bytes=nbytes,
+        unique_rows=unique_rows, registers=regs, stack_bytes=stack,
+        **forms, **tm_)
+
+
 def phase_kernels(dev, pair):
     """Each kernel against its plain version at the main path's shapes."""
     from fast_gicp_tpu_torch import se3
@@ -610,30 +762,15 @@ def phase_kernels(dev, pair):
     lin, err_fn, freeze, lin_frozen = make_vgicp_objective(
         src - c, smask, scov, vmap, neighbor_offsets("direct1"), cfg)
     x = torch.eye(4, device=dev)
-    rows = freeze(x)
+    ids = freeze(x)  # int64 row ids into vmap.rows, as the path passes them
     P = (src - c).T.contiguous()
     CA = scov.contiguous()
     valid = smask.to(torch.float32)
     L = P.shape[1]
-    got = cuda_linearize.linearize_raw(P, CA, x, rows, valid)
-    want = cuda_linearize.linearize_raw_plain(P, CA, x, rows, valid)
-    torch.cuda.synchronize()
-    errs = [
-        check_close("linearize err", got[0], want[0], 1e-4, 0.0),
-        check_close("linearize H", got[1], want[1], 3e-3, 0.5),
-        check_close("linearize b", got[2], want[2], 3e-3, 0.5),
-        check_close("linearize aux", got[3], want[3], 1e-5, 1e-5),
-    ]
-    tm = timings(lambda: cuda_linearize.linearize_raw(P, CA, x, rows, valid),
-                 lambda: cuda_linearize.linearize_raw_plain(P, CA, x, rows, valid),
-                 "linearize_kernel<true>", 200, 50)
-    b_ms, b_by = bound_ms(L * (12 + 24 + 64 + 4 + 40) + 64 + 28 * 4, L * LINEARIZE_OPS)
-    records.append(dict(
-        name="linearize_raw", route="cuda",
-        source="fast_gicp_tpu_torch/csrc/linearize.cu",
-        replaces="fast_gicp_tpu/ops/pallas_linearize.py:193",
-        max_abs_err=max(errs), tolerance="err rtol 1e-4; H, b rtol 3e-3 atol 0.5; aux rtol 1e-5 atol 1e-5",
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, **tm))
+    got, max_err = check_linearize("linearize_raw", True, P, CA, x, vmap.rows, valid, ids,
+                                   "elementwise")
+    records.append(linearize_record(True, P, CA, x, vmap.rows, valid, ids, max_err,
+                                    "elementwise", kernel_build_report()))
 
     aux = got[3]
     x2 = se3.se3_exp(torch.tensor([0.002, -0.001, 0.003, 0.02, -0.01, 0.005],
@@ -688,8 +825,10 @@ def phase_gicp_kernels(dev, pair):
     """The GICP path's kernels against their plain versions, at the shapes
     `gicp_register_fresh` gives them on the full-size pair."""
     from fast_gicp_tpu_torch import se3
-    from fast_gicp_tpu_torch.models.gicp import GICPConfig, make_gicp_objective
-    from fast_gicp_tpu_torch.ops import cuda_kernels, cuda_linearize
+    from fast_gicp_tpu_torch.models.gicp import (
+        GICPConfig, make_gicp_objective, target_rows16,
+    )
+    from fast_gicp_tpu_torch.ops import cuda_kernels
     from fast_gicp_tpu_torch.ops.covariance import knn_covariance_cols, masked_mean
     from fast_gicp_tpu_torch.ops.neighbors import _masked_target, select_candidate_tiles
     from fast_gicp_tpu_torch.utils.padding import pad_points
@@ -804,35 +943,15 @@ def phase_gicp_kernels(dev, pair):
     tcov = knn_covariance_cols(tgt, tmask)
     _lin, _err, freeze, _lin_frozen = make_gicp_objective(
         src_c, smask, scov, tgt_c, tmask, tcov, GICPConfig(), with_freeze=True)
-    rows, valid = freeze(x)
+    idx, valid = freeze(x)  # int32 target indices, as the path passes them
     P = src_c.T.contiguous()
     CA = scov.contiguous()
-    L = P.shape[1]
-    got = cuda_linearize.linearize(P, CA, x, rows, valid)
-    want = cuda_linearize.linearize_plain(P, CA, x, rows, valid)
-    torch.cuda.synchronize()
-
-    def rel_to_max(name, a, b):
-        m = float(b.abs().max())
-        return check_close(name, a / m, b / m, 0.0, 1e-5) * m
-
-    errs = [
-        rel_to_max("linearize err", got[0].reshape(1), want[0].reshape(1)),
-        rel_to_max("linearize H", got[1], want[1]),
-        rel_to_max("linearize b", got[2], want[2]),
-        check_close("linearize aux", got[3], want[3], 1e-5, 1e-5),
-    ]
-    tm_ = timings(lambda: cuda_linearize.linearize(P, CA, x, rows, valid),
-                  lambda: cuda_linearize.linearize_plain(P, CA, x, rows, valid),
-                  "linearize_kernel<false>", 200, 50)
-    b_ms, b_by = bound_ms(L * (12 + 24 + 64 + 4 + 40) + 64 + 28 * 4, L * LINEARIZE_OPS)
-    records.append(dict(
-        name="linearize", route="cuda",
-        source="fast_gicp_tpu_torch/csrc/linearize.cu",
-        replaces="fast_gicp_tpu/ops/pallas_linearize.py:180",
-        max_abs_err=max(errs),
-        tolerance="err, H, b within 1e-5 of their largest entry; aux rtol 1e-5 atol 1e-5",
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, **tm_))
+    table = target_rows16(tgt_c, tcov)
+    _got, max_err = check_linearize("linearize", False, P, CA, x, table, valid, idx,
+                                    "rel_max")
+    records.append(linearize_record(False, P, CA, x, table, valid, idx, max_err,
+                                    "rel_max", kernel_build_report()))
+    records[-1]["edge_cases"] = check_linearize_edge_cases(dev)
     for r in records:
         log(f"[kernels] {r['name']}: max_abs_diff {r['max_abs_err']:.3e} "
             f"({r['tolerance']}), {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
@@ -1038,12 +1157,27 @@ ERROR_KERNELS = {("0", "0"): "error", ("1", "0"): "ndt_error", ("0", "1"): "lm_s
                  ("1", "1"): "lm_step_ndt"}
 
 
+# linearize_kernel<kRaw, Id> of csrc/linearize.cu by its mangled template
+# arguments (a package before the idx form: <kRaw> alone)
+LIN_MANGLED = re.compile(r"16linearize_kernelILb(\d)E([ix])?E")
+
+
+@functools.cache
 def kernel_build_report():
-    """{kernel: (registers, stack frame bytes)} of the NDT linearize kernels
-    and the error kernels (trial off and on) from the ptxas lines of the
-    library's build log, each logged.  A package before the merged error
-    kernel reports its `ndt_error_kernel` as "ndt_error"."""
+    """{kernel: (registers, stack frame bytes)} of the GICP and NDT
+    linearize kernels and the error kernels (trial off and on) from the
+    ptxas lines of the library's build log, each logged (once a process).
+    linearize.cu's are named "linearize<i32>" (int32 ids or none),
+    "linearize_raw<i64>" and so on, and a package before the idx form
+    reports "linearize" and "linearize_raw"; a package before the merged error kernel reports its
+    `ndt_error_kernel` as "ndt_error"."""
     from fast_gicp_tpu_torch.ops import _build
+
+    def lin_name(m):
+        base = "linearize_raw" if m.group(1) == "1" else "linearize"
+        if m.group(2) is None:
+            return base
+        return f"{base}<{'i64' if m.group(2) == 'x' else 'i32'}>"
 
     report, name = {}, None
     for line in _build.build_log().splitlines():
@@ -1051,9 +1185,11 @@ def kernel_build_report():
         if m:
             lin = re.search(r"ndt_linearize_kernelILb(\d)ELb(\d)E", m.group(1))
             err = re.search(r"12error_kernelILb(\d)ELb(\d)E", m.group(1))
+            gicp = LIN_MANGLED.search(m.group(1))
             name = ("ndt_" + ("d2d" if lin.group(1) == "1" else "p2d")
                     + ("_raw" if lin.group(2) == "1" else "") if lin else
                     ERROR_KERNELS[err.groups()] if err else
+                    lin_name(gicp) if gicp else
                     "ndt_error" if "ndt_error_kernel" in m.group(1) else None)
             continue
         if name is None:
@@ -1131,13 +1267,6 @@ def phase_ndt_kernels(dev, pair):
     records = []
     build = kernel_build_report()
 
-    def rel_to_max(name, a, b, tol):
-        m = float(b.abs().max())
-        if m == 0.0:  # every lane invalid: exact zeros
-            require(not bool(a.any()), f"{name}: nonzero where the plain version is 0")
-            return 0.0
-        return check_close(name, a / m, b / m, 0.0, tol) * m
-
     def check_aux(name, got, want, tol):
         # M relative to each lane's largest |M| entry (near-planar voxels
         # reach |M| ~ 1e3); valid exact; mu elementwise
@@ -1157,6 +1286,7 @@ def phase_ndt_kernels(dev, pair):
         torch.cuda.synchronize()
         require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
                 f"{name}: a repeat launch differs")
+        require(bool(torch.equal(got[1], got[1].T)), f"{name}: H is not exactly symmetric")
         errs = [rel_to_max(f"{name} err", got[0].reshape(1), want[0].reshape(1), 1e-5),
                 rel_to_max(f"{name} H", got[1], want[1], 1e-5),
                 rel_to_max(f"{name} b", got[2], want[2], 1e-5),
@@ -1278,6 +1408,111 @@ def ndt_timing(dev, pair):
         out[f"ndt_error_L{p.shape[1]}"] = device_ms(
             lambda: cuda_ndt.ndt_error(p, aux, x2, 1.0, **kw), 200, "error_kernel")
     return out
+
+
+def lin_inputs(dev, pair):
+    """The GICP and VGICP linearizes' inputs at the first linearization
+    (pose I, the target-centroid frame) on the full-size pair, made with
+    functions that every package since the first slice has, so that two
+    checkouts get the same bits: seeded SPD covariances (numpy), GICP's
+    row table and its nn_search ids (int32; the kernel is bit-equal), the
+    VGICP raw grid and its row ids (int64) built on the CPU.
+    {"linearize": (P, CA, table, valid, ids), "linearize_raw": (...)}."""
+    from fast_gicp_tpu_torch.ops import soa
+    from fast_gicp_tpu_torch.ops.covariance import masked_mean
+    from fast_gicp_tpu_torch.ops.neighbors import nn_search
+    from fast_gicp_tpu_torch.ops.voxelmap import (
+        _lookup_ids, auto_grid_dims, build_raw_grid, voxel_coord,
+    )
+    from fast_gicp_tpu_torch.utils.padding import pad_points
+
+    source, target, _gt = pair
+    sp, sm = pad_points(source)
+    tp, tm = pad_points(target)
+    rng = np.random.default_rng(0)
+
+    def spd_cols(n):
+        A = rng.normal(size=(n, 3, 3))
+        C = A @ np.swapaxes(A, 1, 2) * 0.01 + 0.001 * np.eye(3)
+        return torch.as_tensor(C[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]].T.astype(np.float32))
+
+    scov, tcov = spd_cols(len(sp)).contiguous(), spd_cols(len(tp)).contiguous()
+    src, smask, tgt, tmask = (torch.as_tensor(a) for a in (sp, sm, tp, tm))
+    c = masked_mean(tgt, tmask)
+    src_c, tgt_c = src - c, tgt - c
+    P = src_c.T.contiguous()
+    valid = smask.to(torch.float32)
+    nt = tgt_c.shape[0]
+    table = torch.cat([tgt_c, soa.sym_cols_to_rows9(tcov), torch.ones((nt, 1)),
+                       torch.zeros((nt, 3))], dim=1)
+    idx, _d2 = nn_search(src_c.to(dev), tgt_c.to(dev), tmask.to(dev), smask.to(dev))
+    dims = auto_grid_dims(target, 1.0)
+    vmap = build_raw_grid(tgt_c, tmask, 1.0, tcov, dims)
+    coords = voxel_coord(P, 1.0)
+    ids = _lookup_ids(vmap.grid, vmap.origin, dims, vmap.rows.shape[0] - 1, *coords)
+    on = lambda *ts: tuple(t.to(dev).contiguous() for t in ts)  # noqa: E731
+    return {"linearize": on(P, scov, table, valid) + (idx,),
+            "linearize_raw": on(P, scov, vmap.rows, valid, ids)}
+
+
+def lin_timing(dev, pair):
+    """Device time of the GICP and VGICP linearizes and the four NDT
+    linearizes of whichever package is imported, on inputs that do not
+    depend on the package (lin_inputs, ndt_first_packs), and digests of
+    their outputs; no checks.  Each GICP kernel: its launch on gathered
+    rows (the form every package takes) and the device ops from ids to the
+    normal equations: table[ids] (after ids.long(), int32 ids) and that
+    launch, and the idx form's launch where the package has it.  Each NDT
+    mode: its launch, and all its call's device ops.  Digests (sha256 of
+    the float32 bytes): the GICP kernels' aux, the NDT modes' [err, H, b].
+    Run by `--lin-timing DIR` to time another checkout in the same call as
+    this one; `--lin-timing DIR REF` also compares the digests with REF, the
+    JSON line such a run printed."""
+    import hashlib
+    import inspect
+
+    from fast_gicp_tpu_torch import se3
+    from fast_gicp_tpu_torch.ops import cuda_linearize, cuda_ndt
+
+    def digest(*ts):
+        return hashlib.sha256(b"".join(t.detach().reshape(-1).cpu().numpy().tobytes()
+                                       for t in ts)).hexdigest()
+
+    out = {"registers": kernel_build_report()}
+    x = torch.eye(4, device=dev)
+    for name, (P, CA, table, valid, ids) in lin_inputs(dev, pair).items():
+        fn = getattr(cuda_linearize, name)
+        rows = table[ids.long()]
+        kname = LIN_KERNEL.format(raw=str(name == "linearize_raw").lower())
+        row = {"lanes": P.shape[1],
+               "kernel_ms": device_ms(lambda: fn(P, CA, x, rows, valid), 200, kname),
+               "gather_and_call_ops_ms": device_ms(
+                   lambda: fn(P, CA, x, table[ids.long()], valid), 200),
+               "aux_sha256": digest(fn(P, CA, x, rows, valid)[3])}
+        if "idx" in inspect.signature(fn).parameters:
+            row["idx_kernel_ms"] = device_ms(lambda: fn(P, CA, x, table, valid, ids), 200,
+                                             kname)
+            row["idx_call_ops_ms"] = device_ms(lambda: fn(P, CA, x, table, valid, ids), 200)
+        out[name] = row
+    xn = se3.se3_exp(torch.tensor([0.002, -0.001, 0.003, 0.02, -0.01, 0.005], device=dev))
+    for mode, (p, ca, pack) in ndt_first_packs(dev, pair, xn).items():
+        name = NDT_LIN_KERNEL.format(d2d=str(mode.startswith("d2d")).lower(),
+                                     raw=str(mode.endswith("_raw")).lower())
+        call = lambda: cuda_ndt.ndt_linearize(p, ca, xn, pack, 1.0, mode)  # noqa: E731
+        err, H, b, _aux = call()
+        out[f"ndt_{mode}"] = {"lanes": p.shape[1], "kernel_ms": device_ms(call, 200, name),
+                              "call_ops_ms": device_ms(call, 200),
+                              "normal_eq_sha256": digest(err.reshape(1), H, b)}
+    return out
+
+
+def compare_digests(result, ref_path):
+    """{output: equal} of every digest in a lin_timing result against the
+    JSON line (`{"lin_timing": {...}}`) in ref_path."""
+    ref = json.loads(pathlib.Path(ref_path).read_text().strip().splitlines()[-1])
+    ref = ref["lin_timing"]
+    return {f"{k}.{d}": v[d] == ref[k][d] for k, v in result.items() if k != "registers"
+            for d in v if d.endswith("sha256")}
 
 
 TRIAL_FLOATS = 98  # the trial step reads 59 floats (H, b, lambda, x) and writes 39
@@ -1722,6 +1957,8 @@ TRIAL_CARRIED = {"lm_trial": tuple(PATHS),
                  "ndt_error": ("ndt_d2d_fresh", "ndt_p2d_fresh", "ndt_d2d_align",
                                "ndt_p2d_align")}
 NDT_PATHS = tuple(p for p in PATHS if p.startswith("ndt_"))
+# the wrappers that also count their launches that read rows by index
+IDX_COUNTED = ("linearize", "linearize_raw")
 
 
 def phase_main_path(dev, pair, path):
@@ -1741,12 +1978,15 @@ def phase_main_path(dev, pair, path):
 
     for fn in counters().values():
         fn.launches = 0
+    for k in IDX_COUNTED:
+        counters()[k].idx_launches = 0
     lsq_solve.host_syncs = 0
     t0 = time.perf_counter()
     res = register(*inputs, guess, dev)
     T = res.transformation.cpu().numpy()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = {k: fn.launches for k, fn in counters().items()}
+    launches.update({f"{k}[idx]": counters()[k].idx_launches for k in IDX_COUNTED})
     syncs = lsq_solve.host_syncs
 
     require(T.shape == (4, 4) and np.isfinite(T).all(), f"{path}: non-finite pose")
@@ -1766,6 +2006,10 @@ def phase_main_path(dev, pair, path):
             f"for {syncs} trials")
     require(all(launches[k] == 0 for k in TRIAL_CARRIED),
             f"{path}: a standalone trial or error launch in the LM solve: {launches}")
+    # the GICP and VGICP solves read the target rows by index: every
+    # linearize launch of the path is the idx form, with no gather before it
+    require(all(launches[f"{k}[idx]"] == launches[k] for k in IDX_COUNTED if k in kernels),
+            f"{path}: a linearize launch on gathered rows: {launches}")
     return launches, dict(t_err_m=t_err, r_err_deg=r_err, iterations=iters,
                           host_syncs=syncs, wall_ms=wall_ms, fitness=fitness)
 
@@ -2002,12 +2246,15 @@ def phase_profile(dev, pair, path, n_regs=5):
 
 
 def main() -> int:
-    timing = {"--ndt-timing": ndt_timing, "--trial-timing": trial_timing}
-    timing_only = len(sys.argv) == 3 and sys.argv[1] in timing
+    timing = {"--ndt-timing": ndt_timing, "--trial-timing": trial_timing,
+              "--lin-timing": lin_timing}
+    timing_only = (len(sys.argv) == 3 and sys.argv[1] in timing
+                   or len(sys.argv) == 4 and sys.argv[1] == "--lin-timing")
     if timing_only:  # time the kernels of the package under DIR
         sys.path.insert(0, str(pathlib.Path(sys.argv[2]).resolve()))
     elif len(sys.argv) > 1:
-        print("usage: chip_smoke.py [--ndt-timing DIR | --trial-timing DIR]", file=sys.stderr)
+        print("usage: chip_smoke.py [--ndt-timing DIR | --trial-timing DIR | "
+              "--lin-timing DIR [REF]]", file=sys.stderr)
         return 2
     # phase 1: device
     if not torch.cuda.is_available():
@@ -2038,8 +2285,12 @@ def main() -> int:
         import fast_gicp_tpu_torch
 
         fn = timing[sys.argv[1]]
-        print(json.dumps({"package": str(pathlib.Path(fast_gicp_tpu_torch.__file__).parent),
-                          fn.__name__: fn(dev, pair)}))
+        result = fn(dev, pair)
+        line = {"package": str(pathlib.Path(fast_gicp_tpu_torch.__file__).parent),
+                fn.__name__: result}
+        if len(sys.argv) == 4:  # --lin-timing DIR REF: the digests against REF's
+            line["bit_equal_to_ref"] = compare_digests(result, sys.argv[3])
+        print(json.dumps(line))
         return 0
     records = (phase_kernels(dev, pair) + phase_gicp_kernels(dev, pair)
                + phase_ndt_kernels(dev, pair) + phase_c2_kernels(dev, pair)
@@ -2076,6 +2327,8 @@ def main() -> int:
                                          if name in ks)
         r["launches"] = path_launches[own][name]
         r["launches_by_path"] = {p: path_launches[p][name] for p in PATHS}
+        if name in IDX_COUNTED:
+            r["idx_launches_by_path"] = {p: path_launches[p][f"{name}[idx]"] for p in PATHS}
     log("[summary] " + json.dumps(summary))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2083,7 +2336,10 @@ def main() -> int:
     extra = ("tolerance", "timing", "call_ms", "plain_call_ms", "launches_by_path",
              "launched_in", "standalone_launches_by_path", "registers", "stack_bytes",
              "by_lanes", "by_path", "lanes", "trial_off_error_ms", "prologue_ms",
-             "lm_trial_ms", "unfused_ms", "aten_traps_differ")
+             "lm_trial_ms", "unfused_ms", "aten_traps_differ", "idx_launches_by_path",
+             "gathered_ms", "idx_ops_ms", "gather_and_gathered_ops_ms", "grid_stride_lanes",
+             "grid_stride_ms",
+             "unique_rows", "bytes", "edge_cases")
     work = ("candidates", "exact_candidates", "exact_search_ms", "source_cloud_ms",
             "pairs_visited", "pairs_in_range", "pairs_to_visit", "pairs_in_window",
             "pairs_visited_block_cull", "wide_slab_ms", "k48_ms")

@@ -1,5 +1,6 @@
-// Device code shared by the linearize kernels (linearize.cu, ndt_linearize.cu):
-// the cross-block sums, the grid of one wave, the pose, the in-kernel
+// Device code shared by the linearize kernels (linearize.cu, ndt_linearize.cu)
+// and the error kernels (trial_error.cu): the cross-block sums and the store
+// of the normal equations, the grid of one wave, the pose, the in-kernel
 // transform and covariance rotation, the clamped sym-6 inverse and the 28
 // sums of one correspondence.
 // Every expression keeps the order of the plain PyTorch versions (ops/soa.py);
@@ -18,45 +19,6 @@ constexpr int kWarps = kThreads / 32;
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Sums v[0..NT) over the whole grid into out[0..NT).  partials holds
-// gridDim.x * NT floats; *ticket must be 0 on entry and is 0 again on exit.
-// Each block reduces with warp shuffles into a scratch row of its own; the
-// last block to finish (ticket counter after a __threadfence) adds the rows
-// in block order, so the sum's order does not depend on scheduling.  The
-// GICP linearize kernels (linearize.cu) use it; the NDT kernels and the
-// error kernel take grid_sum_tree.
-template <int NT>
-__device__ void grid_sum(const float (&v)[NT], float* partials,
-                         unsigned int* ticket, float* out) {
-  __shared__ float s[kWarps][NT];
-  __shared__ bool last;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < NT; ++k) {
-    const float r = warp_sum(v[k]);
-    if (lane == 0) s[warp][k] = r;
-  }
-  __syncthreads();
-  if (threadIdx.x < NT) {
-    float r = 0.f;
-    for (int w = 0; w < kWarps; ++w) r += s[w][threadIdx.x];
-    partials[blockIdx.x * NT + threadIdx.x] = r;
-    __threadfence();  // the row is visible device-wide before the ticket
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (last) {
-    if (threadIdx.x < NT) {
-      float r = 0.f;
-      for (unsigned int b = 0; b < gridDim.x; ++b)
-        r += __ldcg(partials + b * NT + threadIdx.x);
-      out[threadIdx.x] = r;
-    }
-    if (threadIdx.x == 0) *ticket = 0u;
-  }
 }
 
 // One step of a butterfly reduce-scatter: lanes with bit W clear keep
@@ -84,9 +46,35 @@ __device__ __forceinline__ float warp_sum_scatter32(float (&v)[32]) {
   return v[0];
 }
 
-// Sums v[0..NT) (NT = 1, or up to 32) over the whole grid into out[0..NT)
-// in a fixed order, so a repeat launch on the same grid gives the same
-// bits, with no serial walk over the blocks.  partials holds gridDim.x * NT
+// The 43 floats [err, H (6 x 6 row-major, both triangles), b (6)] of the 28
+// sums [err, H (21 unique), b (6)] of the linearize kernels, in the layout
+// of pallas_linearize._unpack_out (ops/soa.py unpack28): store_normal_eq
+// writes sum k to its one or two places, so H is exactly symmetric.
+__device__ __forceinline__ void store_normal_eq(int k, float v, float* out) {
+  if (k == 0) {
+    out[0] = v;
+    return;
+  }
+  if (k >= 22) {
+    out[37 + (k - 22)] = v;  // b
+    return;
+  }
+  int i, j;
+  if (k <= 6 || k >= 16) {  // H11, H22: the upper triangle, row by row
+    const int u = k <= 6 ? k - 1 : k - 16, o = k <= 6 ? 0 : 3;
+    i = o + (u < 3 ? 0 : (u < 5 ? 1 : 2));
+    j = o + (u < 3 ? u : (u < 5 ? u - 2 : 2));
+  } else {  // H12, row-major
+    i = (k - 7) / 3;
+    j = 3 + (k - 7) % 3;
+  }
+  out[1 + 6 * i + j] = v;
+  out[1 + 6 * j + i] = v;
+}
+
+// Sums v[0..NT) (NT = 1, or up to 32) over the whole grid into out in a
+// fixed order, so a repeat launch on the same grid gives the same bits,
+// with no serial walk over the blocks.  partials holds gridDim.x * NT
 // floats; *ticket must be 0 on entry and is 0 again on exit.  Each block
 // sums its warps (a shuffle tree for NT = 1, else a butterfly that leaves
 // column l in lane l) and adds the warps in order into a row of its own;
@@ -94,12 +82,15 @@ __device__ __forceinline__ float warp_sum_scatter32(float (&v)[32]) {
 // gridDim.x rows with all its threads: kGroups = kThreads / NT groups of NT
 // threads, group g adding rows g, g + kGroups, ... in turn (up to 32 loads in
 // flight a thread), then the groups in order (NT > 1) or by a shuffle tree a
-// warp and the warps in order (NT = 1).  Returns whether this block was the
-// last, whose thread 0 (NT = 1) or threads 0..NT-1 wrote out.
-template <int NT>
+// warp and the warps in order (NT = 1); it writes out[0..NT), or with
+// kNormalEq (NT = 28) the 43 floats of store_normal_eq.  Returns whether
+// this block was the last, whose thread 0 (NT = 1) or threads 0..NT-1 wrote
+// out.
+template <int NT, bool kNormalEq = false>
 __device__ bool grid_sum_tree(const float (&v)[NT], float* partials,
                               unsigned int* ticket, float* out) {
   static_assert(NT == 1 || (NT > 1 && NT <= 32), "NT: 1 or 2..32");
+  static_assert(!kNormalEq || NT == 28, "the normal equations take the 28 sums");
   constexpr int kGroups = kThreads / NT;
   constexpr int kBatch = NT == 1 ? 8 : 32;  // loads in flight a thread
   __shared__ float s[kWarps][NT == 1 ? 1 : 32];
@@ -155,7 +146,11 @@ __device__ bool grid_sum_tree(const float (&v)[NT], float* partials,
   } else if (threadIdx.x < NT) {
     float t = 0.f;
     for (int g = 0; g < kGroups; ++g) t += grp[g * NT + threadIdx.x];
-    out[threadIdx.x] = t;
+    if constexpr (kNormalEq) {
+      store_normal_eq(threadIdx.x, t, out);
+    } else {
+      out[threadIdx.x] = t;
+    }
   }
   if (threadIdx.x == 0) *ticket = 0u;
   return true;
@@ -165,9 +160,9 @@ __device__ bool grid_sum_tree(const float (&v)[NT], float* partials,
 // blocks the items need, at most one wave (the device's SMs times the
 // blocks of `kernel` that fit on one, asked of the runtime once a device;
 // kId names the kernel's cache, one id a kernel across all sources:
-// ndt_linearize.cu takes 0-3, trial_error.cu 4-5), a grid-stride loop taking
-// the rest; at least 1.  0, with the error left for cudaGetLastError, if the runtime
-// refuses.
+// ndt_linearize.cu takes 0-3, trial_error.cu 4-5, linearize.cu 6-7), a
+// grid-stride loop taking the rest; at least 1.  0, with the error left for
+// cudaGetLastError, if the runtime refuses.
 constexpr int kMaxDevices = 16;
 
 // The error code of a launch that wave_grid refused (never 0).

@@ -5,8 +5,8 @@ fast_gicp_impl.hpp).
 Covariances for both clouds (kNN by default, or RBF or adaptive-radius
 windows, with any of the five regularizations), then an LM solve whose every
 linearization re-searches exact 1-NN correspondences of the transformed
-source (the `nn_search` kernel), gathers the matched target rows
-[mu, cov9, count = 1, pad] with one index, and freezes the Mahalanobis
+source (the `nn_search` kernel), reads the matched target rows
+[mu, cov9, count = 1, pad] by their index, and freezes the Mahalanobis
 M = (C_B + R C_A R^T)^-1 for the trials that follow (the `linearize`
 kernel); every LM trial is one launch of the trial kernel (the trial
 step, the `error` body at the trial pose and the LM schedule,
@@ -58,38 +58,44 @@ def _covs_rows9(covs):
     return soa.sym_cols_to_rows9(covs)
 
 
-def make_gicp_objective(source, source_mask, source_covs, target, target_mask,
-                        target_covs, config: GICPConfig, with_freeze: bool = False):
-    """(linearize, error) closures of the GICP objective; with
-    `with_freeze=True` also (freeze, linearize_frozen).
-
-    `freeze(x)` runs the 1-NN search at pose x and returns the matched
-    target rows (N, 16) and the correspondence validity (N,);
-    `linearize_frozen(x, frozen)` linearizes against them without a
-    re-search.  The source columns and covariance columns are
-    loop-invariant and the pose is applied inside the kernels."""
-    thr_sq = config.max_correspondence_distance ** 2
-    P = soa.cols_from_points(source).contiguous()  # (3, N)
-    C_A = soa.sym_cols_from_covs(source_covs).contiguous()  # (6, N)
+def target_rows16(target, target_covs):
+    """The GICP target's row table (M, 16) [mu (3) | cov 3x3 row-major (9) |
+    count = 1 | pad (3)], read by index in the linearize kernel; count 1
+    makes the kernel's sqrt(count) weight the GICP unit weight."""
     nt = target.shape[0]
-    # [mu (3) | cov 3x3 row-major (9) | count = 1 | pad (3)]: count 1 makes
-    # the kernel's sqrt(count) weight the GICP unit weight
-    target_pack16 = torch.cat(
+    return torch.cat(
         [target, _covs_rows9(target_covs),
          torch.ones((nt, 1), dtype=target.dtype, device=target.device),
          torch.zeros((nt, 3), dtype=target.dtype, device=target.device)],
         dim=1,
     ).contiguous()
 
+
+def make_gicp_objective(source, source_mask, source_covs, target, target_mask,
+                        target_covs, config: GICPConfig, with_freeze: bool = False):
+    """(linearize, error) closures of the GICP objective; with
+    `with_freeze=True` also (freeze, linearize_frozen).
+
+    `freeze(x)` runs the 1-NN search at pose x and returns the matched
+    target indices (N,) int32 and the correspondence validity (N,);
+    `linearize_frozen(x, frozen)` linearizes against them without a
+    re-search, the kernel reading each matched row of the target table
+    by index.  The source columns and covariance columns are
+    loop-invariant and the pose is applied inside the kernels."""
+    thr_sq = config.max_correspondence_distance ** 2
+    P = soa.cols_from_points(source).contiguous()  # (3, N)
+    C_A = soa.sym_cols_from_covs(source_covs).contiguous()  # (6, N)
+    table = target_rows16(target, target_covs)
+
     def freeze(x):
         p_t = soa.transform_cols(x, P)
         idx, sq_dist = nn_search(p_t.T.contiguous(), target, target_mask, source_mask)
         valid = (source_mask & (sq_dist < thr_sq)).to(source.dtype)
-        return target_pack16[idx.long()], valid
+        return idx, valid
 
     def linearize_frozen(x, frozen):
-        rows, valid = frozen
-        return cuda_linearize.linearize(P, C_A, x, rows, valid)
+        idx, valid = frozen
+        return cuda_linearize.linearize(P, C_A, x, table, valid, idx)
 
     def linearize(x):
         return linearize_frozen(x, freeze(x))

@@ -26,7 +26,7 @@ from ..ops.covariance import rbf_covariance_cols
 from ..ops.voxelmap import (
     DenseRawGridMap,
     build_raw_grid,
-    lookup_raw_rows_cols,
+    lookup_raw_ids_cols,
     neighbor_offsets,
     voxel_coord,
 )
@@ -64,9 +64,9 @@ def make_vgicp_objective(source, source_mask, source_covs, vmap, offsets,
     Correspondences are flattened offset-major to L = K * N columns, the
     layout of the kernels; the source columns and covariance columns are
     loop-invariant and the pose is applied inside the kernels.
-    `freeze(x)` gathers the voxel rows at pose x and
-    `linearize_frozen(x, rows)` linearizes against them without a
-    re-search.
+    `freeze(x)` looks up the voxel row ids (K * N,) int64 at pose x and
+    `linearize_frozen(x, ids)` linearizes against them without a
+    re-search, the kernel reading each row of the map by its id.
     """
     if not isinstance(vmap, DenseRawGridMap):
         raise NotImplementedError("only the dense raw grid map is ported")
@@ -83,11 +83,10 @@ def make_vgicp_objective(source, source_mask, source_covs, vmap, offsets,
             torch.stack([coords[a] + int(o[a]) for o in offsets])  # (K, N)
             for a in range(3)
         ]
-        rows = lookup_raw_rows_cols(vmap, config.grid_dims, *q)
-        return rows.reshape(-1, 16)
+        return lookup_raw_ids_cols(vmap, config.grid_dims, *q).reshape(-1)
 
-    def linearize_frozen(x, rows):
-        return cuda_linearize.linearize_raw(P_flat, CA_flat, x, rows, valid)
+    def linearize_frozen(x, ids):
+        return cuda_linearize.linearize_raw(P_flat, CA_flat, x, vmap.rows, valid, ids)
 
     def linearize(x):
         return linearize_frozen(x, freeze(x))

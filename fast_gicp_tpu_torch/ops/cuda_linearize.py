@@ -7,20 +7,25 @@
 `linearize_pallas` (kernel `_linearize_kernel`, `pallas_linearize.py:180`)
 and `error` of `error_pallas` (kernel `_error_kernel`,
 `pallas_linearize.py:633`).  The two linearizes share one device body and
-differ only in how they unpack the gathered target rows.
+differ only in how they unpack the target rows.
 
 Layouts (L correspondences, column-major like the JAX package's SoA math,
 without its (8, N) sublane padding):
   * p (3, L): untransformed source columns; ca (6, L): unrotated source
     sym-6 covariance columns -- both loop-invariant over a solve;
   * x (4, 4): the pose, applied inside the kernel;
-  * rows (L, 16): for `linearize_raw`, gathered raw voxel rows [count,
-    sum mu (3), sum cov (9 row-major), pad (3)], count 0 marking a miss;
-    for `linearize`, finalized rows [mu (3), cov (9 row-major), count,
-    pad (3)] (GICP's matched target points carry count 1);
+  * rows (T, 16), a row table, and idx (L,) int32 or int64: correspondence
+    n reads row idx[n] (the kernel reads it by index; the JAX package
+    gathers the rows first, as a TPU kernel cannot).  Without idx, rows is
+    (L, 16), already gathered.  For `linearize_raw`, raw voxel rows
+    [count, sum mu (3), sum cov (9 row-major), pad (3)], count 0 marking a
+    miss; for `linearize`, finalized rows [mu (3), cov (9 row-major),
+    count, pad (3)] (GICP's matched target points carry count 1);
   * valid (L,): 0/1 source (correspondence) validity;
   * aux (10, L) = [M (6), w, mu_B (3)]: written by both linearizes, read
     by `error`.  w = sqrt(count) * valid.
+The kernels write err, H and b into one 43-float buffer
+[err, H (6 x 6), b (6)]; the wrappers return views of it.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch
 from . import _build, soa
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_LIN_ARGS = (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P)
+_LIN_ARGS = (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P)
 _ERR_ARGS = (_P, _P, _P, _I, _P, _P, _P, _P)
 
 AUX_ROWS = 10
@@ -45,11 +50,17 @@ def _check(name, t, shape, dtype=torch.float32):
                          f"{tuple(t.shape)} {t.dtype}")
 
 
-def _check_cuda(tensors):
+def _same_device(tensors):
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"tensors on several devices: {t.device} vs {dev}")
+    return dev
+
+
+def _check_cuda(tensors):
+    dev = _same_device(tensors)
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
     if dev.type != "cuda":
@@ -77,55 +88,80 @@ def _reduce_scratch(device):
     return _scratch(stream.device_index, stream.cuda_stream) + (stream.cuda_stream,)
 
 
-def _linearize(wrapper, entry, plain, p, ca, x, rows, valid):
+def normal_equations(out):
+    """(err (), H (6, 6), b (6,)) as views of a kernel's 43-float
+    [err, H (6 x 6), b (6)] buffer: no device op."""
+    return out[0], out[1:37].view(6, 6), out[37:43]
+
+
+def _linearize(wrapper, entry, plain, p, ca, x, rows, valid, idx):
     """The shared body of the two linearize wrappers: checks, the plain
-    version for CPU tensors, else one launch of C entry `entry`, counted on
-    `wrapper`."""
+    version for CPU tensors (rows[idx] first when idx is given), else one
+    launch of C entry `entry`, counted on `wrapper` (and in
+    `wrapper.idx_launches` when it read rows by index)."""
     L = p.shape[-1]
     _check("p", p, (3, L))
     _check("ca", ca, (6, L))
     _check("x", x, (4, 4))
-    _check("rows", rows, (L, 16))
     _check("valid", valid, (L,))
-    if p.device.type == "cpu":
-        return plain(p, ca, x, rows, valid)
-    _check_cuda([p, ca, x, rows, valid])
+    tensors = [p, ca, x, rows, valid]
+    if idx is None:
+        _check("rows", rows, (L, 16))
+    else:
+        if rows.dim() != 2 or rows.shape[1] != 16 or rows.dtype != torch.float32:
+            raise ValueError(f"rows: expected (T, 16) {torch.float32}, got "
+                             f"{tuple(rows.shape)} {rows.dtype}")
+        if idx.dtype not in (torch.int32, torch.int64) or tuple(idx.shape) != (L,):
+            raise ValueError(f"idx: expected ({L},) int32 or int64, got "
+                             f"{tuple(idx.shape)} {idx.dtype}")
+        tensors.append(idx)
+    if _same_device(tensors).type == "cpu":
+        return plain(p, ca, x, rows if idx is None else rows[idx], valid)
+    _check_cuda(tensors)
     if rows.data_ptr() % 16:
         raise ValueError("rows must be 16-byte aligned (read as float4)")
     partials, ticket, stream = _reduce_scratch(p.device)
-    out = torch.empty(28, dtype=torch.float32, device=p.device)
+    out = torch.empty(43, dtype=torch.float32, device=p.device)
     aux = torch.empty((AUX_ROWS, L), dtype=torch.float32, device=p.device)
     fn = _build.function(entry, _LIN_ARGS)
     _build.check(entry, fn(
         p.data_ptr(), ca.data_ptr(), x.data_ptr(), rows.data_ptr(),
-        valid.data_ptr(), L, partials.data_ptr(), ticket.data_ptr(),
-        out.data_ptr(), aux.data_ptr(), stream))
+        None if idx is None else idx.data_ptr(), 0 if idx is None else idx.element_size(),
+        valid.data_ptr(), L, partials.data_ptr(), ticket.data_ptr(), out.data_ptr(),
+        aux.data_ptr(), stream))
     wrapper.launches += 1
-    return soa.unpack28(out) + (aux,)
+    if idx is not None:
+        wrapper.idx_launches += 1
+    return normal_equations(out) + (aux,)
 
 
-def linearize_raw(p, ca, x, rows, valid):
+def linearize_raw(p, ca, x, rows, valid, idx=None):
     """(err (), H (6, 6), b (6,), aux (10, L)) of the VGICP objective at
-    pose x against raw voxel rows.
+    pose x against raw voxel rows: row idx[n] of the table rows (T, 16)
+    for correspondence n, or row n of gathered rows (L, 16) without idx.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     return _linearize(linearize_raw, "fgt_linearize_raw", linearize_raw_plain,
-                      p, ca, x, rows, valid)
+                      p, ca, x, rows, valid, idx)
 
 
 linearize_raw.launches = 0
+linearize_raw.idx_launches = 0
 
 
-def linearize(p, ca, x, rows, valid):
+def linearize(p, ca, x, rows, valid, idx=None):
     """(err (), H (6, 6), b (6,), aux (10, L)) of the GICP objective at pose
-    x against finalized target rows [mu, cov9, count, pad].
+    x against finalized target rows [mu, cov9, count, pad]: row idx[n] of
+    the table rows (T, 16) for correspondence n, or row n of gathered rows
+    (L, 16) without idx.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     return _linearize(linearize, "fgt_linearize", linearize_plain,
-                      p, ca, x, rows, valid)
+                      p, ca, x, rows, valid, idx)
 
 
 linearize.launches = 0
+linearize.idx_launches = 0
 
 
 def error(p, x, aux):

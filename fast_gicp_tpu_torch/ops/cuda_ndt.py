@@ -35,7 +35,9 @@ import numpy as np
 import torch
 
 from . import _build, soa
-from .cuda_linearize import AUX_ROWS, _check, _check_cuda, _reduce_scratch
+from .cuda_linearize import (
+    AUX_ROWS, _check, _check_cuda, _reduce_scratch, normal_equations,
+)
 from .voxelmap import MIN_EIG
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -67,7 +69,7 @@ def _linearize(wrapper, mode, p, ca, x, pack, resolution):
     if pack.data_ptr() % 16:
         raise ValueError("pack must be 16-byte aligned (read as float4)")
     partials, ticket, stream = _reduce_scratch(p.device)
-    out = torch.empty(28, dtype=torch.float32, device=p.device)
+    out = torch.empty(43, dtype=torch.float32, device=p.device)
     aux = torch.empty((AUX_ROWS, L), dtype=torch.float32, device=p.device)
     entry = f"fgt_ndt_linearize_{mode}"
     fn = _build.function(entry, _LIN_ARGS)
@@ -76,7 +78,7 @@ def _linearize(wrapper, mode, p, ca, x, pack, resolution):
         x.data_ptr(), pack.data_ptr(), c_sq, L, partials.data_ptr(),
         ticket.data_ptr(), out.data_ptr(), aux.data_ptr(), stream))
     wrapper.launches += 1
-    return soa.unpack28(out) + (aux,)
+    return normal_equations(out) + (aux,)
 
 
 def ndt_linearize_d2d(p, ca, x, pack, resolution):

@@ -120,11 +120,17 @@ def _lookup_ids(grid, origin, grid_dims, n, cx, cy, cz):
     return torch.where(inside, grid[flat], n)
 
 
+def lookup_raw_ids_cols(dmap: DenseRawGridMap, grid_dims, cx, cy, cz):
+    """Row ids (...,) int64 into dmap.rows for integer coord columns (...,)
+    each; a miss gives the zero row's (count 0)."""
+    n = dmap.rows.shape[0] - 1
+    return _lookup_ids(dmap.grid, dmap.origin, grid_dims, n, cx, cy, cz)
+
+
 def lookup_raw_rows_cols(dmap: DenseRawGridMap, grid_dims, cx, cy, cz):
     """Gather raw accumulator rows (..., 16) for integer coord columns
     (...,) each; count 0 in a returned row means a miss."""
-    n = dmap.rows.shape[0] - 1
-    return dmap.rows[_lookup_ids(dmap.grid, dmap.origin, grid_dims, n, cx, cy, cz)]
+    return dmap.rows[lookup_raw_ids_cols(dmap, grid_dims, cx, cy, cz)]
 
 
 class RawNdtGrid(NamedTuple):

@@ -540,3 +540,74 @@ def ndt_kernel_edge_cases(seed: int = 0):
     add("all_lanes_invalid", 512, 7, [0.5, 0.3, 0.1, 0.1], valid_share=0.0)
     add("near_planar_coincident_empty", 2048, 7, [0.2, 0.4, 0.2, 0.2])
     return cases
+
+
+def _small_pose(rng, angle: float = 0.05, shift: float = 0.2):
+    """A 4x4 float32 pose: a rotation by up to `angle` rad about a random
+    axis (Rodrigues, in float64) and a shift of up to `shift` m an axis."""
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    K = np.array([[0.0, -axis[2], axis[1]], [axis[2], 0.0, -axis[0]],
+                  [-axis[1], axis[0], 0.0]])
+    a = rng.uniform(-angle, angle)
+    T = np.eye(4)
+    T[:3, :3] = np.eye(3) + np.sin(a) * K + (1.0 - np.cos(a)) * K @ K
+    T[:3, 3] = rng.uniform(-shift, shift, 3)
+    return T.astype(np.float32)
+
+
+LINEARIZE_GRID_STRIDE_LANES = 157_696  # 7 x 22,528: beyond one wave of every design
+
+
+def linearize_edge_cases(seed: int = 0, grid_stride: bool = True):
+    """Inputs for the GICP/VGICP linearize kernels (`ops.cuda_linearize`)
+    that stress their edges, made from `seed`: L = 1,001 (not a multiple of
+    4, 128 or 256), L = 91 (below one block) and L = 1; L = 157,696, a
+    grid-stride loop on every design's grid (left out with
+    `grid_stride=False`); every lane invalid or on a miss row; a singular
+    C_B + R C_A R^T (C_B = diag(1, 1, 0), C_A = 0: the determinant clamp);
+    and repeated ids (4,096 lanes on 3 rows).  Each case is a dict: name,
+    p (3, L) source columns, ca (6, L) sym-6 source covariance columns,
+    x (4, 4), raw (T, 16) raw voxel rows [count, sum mu (3), sum cov9, pad]
+    with about a tenth misses (count 0), fin (T, 16) the same statistics as
+    finalized rows [mu (3), cov9, count > 0, pad] (zeros on a miss), ids
+    (L,) int64 in [0, T) and valid (L,) float32."""
+    rng = np.random.default_rng(seed)
+    cases = []
+
+    def add(name, L, T, valid_share=0.9, singular=False, only_misses_valid=False):
+        p = (rng.normal(size=(3, L)) * 5.0).astype(np.float32)
+        A = rng.normal(size=(L, 3, 3))
+        covs_a = A @ np.swapaxes(A, 1, 2) * 0.01 + 0.01 * np.eye(3)
+        mu = rng.normal(size=(T, 3)) * 5.0
+        B = rng.normal(size=(T, 3, 3))
+        covs_b = B @ np.swapaxes(B, 1, 2) * 0.01 + 0.01 * np.eye(3)
+        if singular:
+            covs_a[:] = 0.0
+            covs_b[:] = np.diag([1.0, 1.0, 0.0])
+        count = rng.integers(1, 20, T).astype(np.float64)
+        count[rng.random(T) < 0.1] = 0.0
+        hit = (count > 0)[:, None]
+        raw = np.concatenate([count[:, None], mu * count[:, None],
+                              covs_b.reshape(T, 9) * count[:, None], np.zeros((T, 3))], axis=1)
+        fin = np.concatenate([mu * hit, covs_b.reshape(T, 9) * hit, hit, np.zeros((T, 3))],
+                             axis=1)
+        ids = rng.integers(0, T, L)
+        valid = rng.random(L) < valid_share
+        if only_misses_valid:
+            valid &= count[ids] == 0
+        ca = covs_a[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]].T
+        cases.append(dict(name=name, p=p, ca=np.ascontiguousarray(ca, np.float32),
+                          x=_small_pose(rng), raw=raw.astype(np.float32),
+                          fin=fin.astype(np.float32), ids=ids.astype(np.int64),
+                          valid=valid.astype(np.float32)))
+
+    add("ragged_L_1001", 1001, 500)
+    add("below_one_block_L_91", 91, 40)
+    add("one_lane", 1, 1, valid_share=1.0)
+    if grid_stride:
+        add("grid_stride_L_157696", LINEARIZE_GRID_STRIDE_LANES, 22_528)
+    add("all_invalid_or_miss", 2048, 700, valid_share=0.5, only_misses_valid=True)
+    add("singular", 2048, 700, singular=True)
+    add("repeated_ids", 4096, 3)
+    return cases

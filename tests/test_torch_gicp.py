@@ -157,6 +157,37 @@ def test_gicp_align_matches_jax(pair, jax_covs, refresh):
         assert t_err < 0.05 and r_err < 1.0, (t_err, r_err)
 
 
+@pytest.mark.parametrize("refresh", [None, 2])
+def test_gicp_align_reads_rows_by_index_as_gathered(pair, jax_covs, refresh, monkeypatch):
+    """The objective's freeze gives the linearize the target indices, and
+    the kernel reads the rows by index: gicp_align then gives the pose,
+    iterations and host syncs of the same solve with the rows gathered
+    first, bit for bit."""
+    from fast_gicp_tpu_torch.ops import cuda_linearize
+    from fast_gicp_tpu_torch.solver import lsq_solve
+
+    eye = np.eye(4, dtype=np.float32)
+    cfg = gicp.GICPConfig(refresh_iterations=refresh)
+    calls = []
+    by_index = cuda_linearize.linearize
+
+    def gathered(p, ca, x, rows, valid, idx=None):
+        calls.append(idx.dtype)
+        return by_index(p, ca, x, rows[idx.long()], valid)
+
+    def run():
+        lsq_solve.host_syncs = 0
+        res = gicp.gicp_align(*_port_args(pair, jax_covs), eye, cfg, device="cpu")
+        return res, lsq_solve.host_syncs
+
+    res, syncs = run()
+    monkeypatch.setattr(cuda_linearize, "linearize", gathered)
+    want, want_syncs = run()
+    assert calls and set(calls) == {torch.int32}
+    assert torch.equal(res.transformation, want.transformation)
+    assert int(res.iterations) == int(want.iterations) and syncs == want_syncs
+
+
 def test_gicp_register_fresh_matches_jax(pair):
     """The slice end to end.  Against the JAX package's fresh registration
     as its TPU path runs it (fused kNN covariances, here in interpret mode,

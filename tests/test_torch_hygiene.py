@@ -147,6 +147,60 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
     assert all(fn.launches == 0 for fn in wrappers)
 
 
+def _idx_inputs(device, n=256, t=64):
+    """GICP linearize inputs on `device` with a row table of t finalized rows
+    and int64 ids (n,) into it."""
+    rng = np.random.default_rng(1)
+    p = torch.as_tensor(rng.normal(size=(3, n)).astype(np.float32), device=device)
+    ca = torch.zeros((6, n), device=device)
+    ca[[0, 3, 5]] = 1.0
+    table = torch.zeros((t, 16), device=device)
+    table[:, 0:3] = torch.as_tensor(rng.normal(size=(t, 3)).astype(np.float32))
+    table[:, [3, 7, 11, 12]] = 1.0
+    ids = torch.as_tensor(rng.integers(0, t, n), device=device)
+    return p, ca, torch.eye(4, device=device), table, torch.ones(n, device=device), ids
+
+
+def test_idx_wrappers_take_plain_version_on_cpu_without_counting():
+    """The idx form of both linearize wrappers, int32 and int64 ids, on CPU
+    tensors: the plain version on table[ids], no launch counted."""
+    from fast_gicp_tpu_torch.ops import cuda_linearize
+
+    wrappers = (cuda_linearize.linearize, cuda_linearize.linearize_raw)
+    for fn in wrappers:
+        fn.launches = fn.idx_launches = 0
+    p, ca, x, table, valid, ids = _idx_inputs("cpu")
+    for fn in wrappers:
+        for dt in (torch.int32, torch.int64):
+            got = fn(p, ca, x, table, valid, ids.to(dt))
+            want = fn(p, ca, x, table[ids], valid)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            assert got[3].device.type == "cpu"
+    assert all(fn.launches == 0 and fn.idx_launches == 0 for fn in wrappers)
+
+
+def test_idx_wrappers_reject_bad_ids_and_mixed_devices():
+    """float, 2-D or short ids and a table whose rows are not 16 floats are
+    refused on every device; ids or a table on another device than the rest
+    are refused, never taken as CPU tensors."""
+    from fast_gicp_tpu_torch.ops import cuda_linearize
+
+    p, ca, x, table, valid, ids = _idx_inputs("cpu")
+    meta = _idx_inputs("meta")
+    for fn in (cuda_linearize.linearize, cuda_linearize.linearize_raw):
+        for bad in (ids.float(), ids.reshape(16, 16), ids[:-1], meta[5].float()):
+            with pytest.raises(ValueError, match="idx"):
+                fn(p, ca, x, table, valid, bad)
+        with pytest.raises(ValueError, match="rows"):
+            fn(p, ca, x, table[:, :13], valid, ids)
+        with pytest.raises(ValueError, match="several devices"):
+            fn(p, ca, x, table, valid, meta[5])
+        with pytest.raises(ValueError, match="several devices"):
+            fn(p, ca, x, meta[3], valid, ids)
+        with pytest.raises(ValueError, match="unsupported device meta"):
+            fn(*meta)
+
+
 def _lm_step_inputs(device, n=256):
     """A state, normal equations and a GICP trial cost on `device`."""
     from fast_gicp_tpu_torch.ops import cuda_solver

@@ -123,6 +123,40 @@ def test_vgicp_objective_on_jax_map_matches_jax(pair):
     np.testing.assert_allclose(float(err_fn(x, aux)), float(e), rtol=1e-5)
 
 
+@pytest.mark.parametrize("refresh", [None, 2])
+def test_vgicp_align_reads_rows_by_index_as_gathered(pair, refresh, monkeypatch):
+    """The objective's freeze gives the linearize the voxel row ids (int64),
+    and the kernel reads the map's rows by id: vgicp_align then gives the
+    pose, iterations and host syncs of the same solve with the rows gathered
+    first, bit for bit."""
+    from fast_gicp_tpu_torch.ops import cuda_linearize
+    from fast_gicp_tpu_torch.ops.covariance import rbf_covariance_cols
+    from fast_gicp_tpu_torch.solver import lsq_solve
+
+    cfg = convert.config_from_jax(pair["cfg"])._replace(refresh_iterations=refresh)
+    sp, sm, tp, tm = (torch.as_tensor(pair[k]) for k in ("sp", "sm", "tp", "tm"))
+    scov, tcov = rbf_covariance_cols(sp, sm), rbf_covariance_cols(tp, tm)
+    eye = np.eye(4, dtype=np.float32)
+    calls = []
+    by_index = cuda_linearize.linearize_raw
+
+    def gathered(p, ca, x, rows, valid, idx=None):
+        calls.append(idx.dtype)
+        return by_index(p, ca, x, rows[idx], valid)
+
+    def run():
+        lsq_solve.host_syncs = 0
+        res = vgicp.vgicp_align(sp, sm, scov, tp, tm, tcov, eye, cfg, device="cpu")
+        return res, lsq_solve.host_syncs
+
+    res, syncs = run()
+    monkeypatch.setattr(cuda_linearize, "linearize_raw", gathered)
+    want, want_syncs = run()
+    assert calls and set(calls) == {torch.int64}
+    assert torch.equal(res.transformation, want.transformation)
+    assert int(res.iterations) == int(want.iterations) and syncs == want_syncs
+
+
 def test_config_from_jax_and_back():
     cfg = jvgicp.VGICPConfig(grid_dims=(64, 64, 32), refresh_iterations=2)
     got = convert.config_from_jax(cfg)
