@@ -40,7 +40,15 @@ flag read.  The GICP and VGICP linearizes read their target rows by index
 (the idx form): phase 3 holds it bit for bit to the gathered form and to a
 repeat launch, at the paths' inputs and on `linearize_edge_cases`, and
 times it at 7 x the path's lanes (a grid-stride loop); phase 4 checks that every
-linearize launch of those paths is the idx form.
+linearize launch of those paths is the idx form.  The NDT linearizes look
+each lane's voxel up in the kernel (the lookup form; a frozen phase looks
+up at the pose it froze at): phase 3 holds it bit for bit, at one pose and
+with another lookup pose, to the eager freeze into a pack and the pack
+form, at the paths' inputs and on `ndt_lookup_edge_cases`, and D2D
+align's two-phase solve to the pack form's; phase 4 checks that every NDT
+linearize launch is the lookup form (P2D align's frozen phase, seeded from
+an aux, takes a pack), and phase 7 prints each path's device ops against
+PREDICTED_DEVICE_OPS.
 
 The last lines are the `nvidia-smi` name/power-limit line, one
 {"kernels": [...]} JSON line and the {"ok": true, ...} JSON line.
@@ -49,9 +57,11 @@ The last lines are the `nvidia-smi` name/power-limit line, one
     python3 chip_smoke.py --trial-timing DIR
     python3 chip_smoke.py --lin-timing DIR [REF]
 
-time the NDT kernels, an LM trial's kernels (the trial launch, or the
-lm_trial and error launches of a package before it), or the GICP, VGICP and
-NDT linearizes, of the package under DIR (an unpacked earlier checkout,
+time the NDT linearizes (the pack form's launch, and `obj.linearize(x)`
+from the pose to [err, H, b], which every package has: the eager freeze and
+the pack launch, or the lookup-form launch) and ndt_error, an LM trial's kernels
+(the trial launch, or the lm_trial and error launches of a package before
+it), or the GICP, VGICP and NDT linearizes, of the package under DIR (an unpacked earlier checkout,
 say) on phase 3's inputs and print one JSON line, so two designs can be
 compared in one call on one card; `--lin-timing` also prints digests of the
 linearizes' outputs, and with REF (a file holding such a line) whether each
@@ -84,9 +94,15 @@ ERROR_OPS = 43  # per correspondence: transform, e, M e, e^T M e, sum
 LM_TRIAL_OPS = 700  # two 6x6 Cholesky solves, residual, se3_exp, 4x4 product
 NDT_LINEARIZE_OPS = 310  # LINEARIZE_OPS and the Cauchy weight (D2D)
 NDT_P2D_LINEARIZE_OPS = 220  # no covariance rotation, no inverse
+# of NDT_LINEARIZE_OPS, the rotation and the inverse, which the kernel runs on
+# valid lanes only
+NDT_D2D_M_OPS = NDT_LINEARIZE_OPS - NDT_P2D_LINEARIZE_OPS
 NDT_RAW_OPS = 250  # raw finalize 25, eigenvalues 60 + acos and 2 cos, clamp 110
 NDT_ERROR_OPS = 52  # ERROR_OPS and the Cauchy weight
 NDT_OFFSETS = 7  # DIRECT7: the NDT kernels' lanes are 7 offsets x the source
+NDT_LOOKUP_OPS = 24  # the voxel lookup a lane: 3 divisions, 3 floors, 3 subtractions,
+# 3 offsets, 6 bounds compares, the flat index 4 and the corner 3 (raw maps)
+NDT_MODES = ("d2d", "p2d", "d2d_raw", "p2d_raw")
 NN_OPS_PER_PAIR = 8  # 3 differences, 3 squares, 2 adds
 KNN_OPS_PER_CANDIDATE = 11  # distance 8, key 2, one compare of a k-selection
 KNN_OPS_PER_NEIGHBOUR = 22  # local coordinates 6, moment products 6, sums 10
@@ -161,6 +177,20 @@ def device_ms(fn, reps, kernel=None):
     total = sum(e.self_device_time_total for e in device_events(prof)
                 if names is None or any(k in e.key for k in names))
     return total / 1e3 / reps
+
+
+def device_ops(fn, reps):
+    """Device ops (kernels, copies, fills) per call of `fn` from a
+    torch.profiler trace of `reps` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in device_events(prof)) / reps
 
 
 def device_events(prof):
@@ -1121,15 +1151,11 @@ def ndt_dims(source, target):
                                       np.maximum(source.max(0), target.max(0)), 1.0)
 
 
-def ndt_first_packs(dev, pair, x):
-    """For each NDT linearize mode, the inputs its path gives the kernel at
-    the first linearization, at pose x: {mode: (p (3, L), ca (6, L) or
-    None, pack (L, 16))}.  d2d / p2d: `ndt_register_fresh`'s prepared
-    per-cloud maps; d2d_raw / p2d_raw: `ndt_align`'s raw target grid; each
-    from `ndt_path_objective`, which prepares them as the entry point does.
-    They are built on the CPU and copied to the card: the card's map builds
-    sum with atomic scatter-adds, so their near-degenerate voxels, and with
-    them the clamp's worst case, would change from run to run."""
+def ndt_path_objectives(pair, device):
+    """{mode: NdtObjective} of each NDT linearize mode's path at its full
+    size, from `ndt_path_objective` on `device`: d2d / p2d
+    `ndt_register_fresh`'s prepared per-cloud maps, d2d_raw / p2d_raw
+    `ndt_align`'s raw target grid."""
     from fast_gicp_tpu_torch.models.ndt import ndt_path_objective
     from fast_gicp_tpu_torch.utils.padding import pad_points
 
@@ -1137,15 +1163,63 @@ def ndt_first_packs(dev, pair, x):
     sp, sm = pad_points(source)
     tp, tm = pad_points(target)
     out = {}
-    for mode in ("d2d", "p2d", "d2d_raw", "p2d_raw"):
+    for mode in NDT_MODES:
         fresh = not mode.endswith("_raw")
         make = ndt_fresh_path if fresh else ndt_align_path
         cfg = make(mode[:3])(source, target).config
-        obj, _c = ndt_path_objective(sp, sm, tp, tm, cfg, fresh=fresh, device="cpu")
+        obj, _c = ndt_path_objective(sp, sm, tp, tm, cfg, fresh=fresh, device=device)
         require(obj.mode == mode, f"ndt_path_objective gave mode {obj.mode} for {mode}")
-        out[mode] = tuple(None if t is None else t.to(dev)
-                          for t in (obj.p, obj.ca, obj.freeze(x.cpu())))
+        out[mode] = obj
     return out
+
+
+def eager_pack(obj, x):
+    """The frozen pack (L, 16) of the objective's voxels at pose x by the
+    eager freeze: `cuda_ndt.ndt_freeze_pack` where the package looks the
+    voxels up in the kernel, else the objective's own freeze (a package
+    before the lookup form)."""
+    from fast_gicp_tpu_torch.ops import cuda_ndt
+
+    if hasattr(cuda_ndt, "ndt_freeze_pack"):
+        return cuda_ndt.ndt_freeze_pack(obj.p, obj.mask, x, obj.vmap, obj.offsets, obj.mode)
+    return obj.freeze(x)
+
+
+def map_on(vmap, dev):
+    """A voxel map (NamedTuple) with its tensors on `dev`."""
+    return type(vmap)(*(t.to(dev) if isinstance(t, torch.Tensor) else t for t in vmap))
+
+
+def objective_on(obj, dev):
+    """An objective built on the CPU, rebuilt on `dev` from the same
+    source columns, mask, map and offsets (so its voxels are the CPU
+    build's, the same every run: the card's map builds sum with atomic
+    scatter-adds, so their near-degenerate voxels, and with them the
+    clamp's worst case, would change from run to run)."""
+    from fast_gicp_tpu_torch.models.ndt import make_ndt_objective
+
+    return make_ndt_objective(obj.p.T.to(dev), obj.mask.to(dev),
+                              None if obj.ca is None else obj.ca.to(dev),
+                              map_on(obj.vmap, dev), obj.offsets)
+
+
+def ndt_first_packs(dev, pair, x):
+    """For each NDT linearize mode, the pack form's inputs at its path's
+    first linearization, at pose x: {mode: (p, ca or None, pack (L, 16))}
+    on the card; p and ca the objective's source columns ((3, N) and
+    (6, N), or tiled to L in a package before the lookup form).  The maps
+    and the pack are built on the CPU (see objective_on)."""
+    out = {}
+    for mode, obj in ndt_path_objectives(pair, "cpu").items():
+        out[mode] = tuple(None if t is None else t.to(dev)
+                          for t in (obj.p, obj.ca, eager_pack(obj, x.cpu())))
+    return out
+
+
+def same_bits(got, want):
+    """Whether two tuples of float32 tensors hold the same bits."""
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
 
 
 NDT_LIN_KERNEL = "ndt_linearize_kernel<{d2d}, {raw}"  # the profiler's name, a prefix
@@ -1155,6 +1229,12 @@ NDT_ERROR_PATH_LANES = {"d2d": "D2D fresh", "d2d_raw": "D2D align", "p2d_raw": "
 # error_kernel<kCauchy, kTrial> of csrc/trial_error.cu by its template flags
 ERROR_KERNELS = {("0", "0"): "error", ("1", "0"): "ndt_error", ("0", "1"): "lm_step_gicp",
                  ("1", "1"): "lm_step_ndt"}
+
+
+# ndt_linearize_kernel<kD2D, kRaw, kForm> of csrc/ndt_linearize.cu by its
+# mangled template arguments (a package before the lookup form: <kD2D, kRaw>
+# alone)
+NDT_LIN_MANGLED = re.compile(r"ndt_linearize_kernelILb(\d)ELb(\d)E(?:Li(\d)E)?E")
 
 
 # linearize_kernel<kRaw, Id> of csrc/linearize.cu by its mangled template
@@ -1173,6 +1253,13 @@ def kernel_build_report():
     `ndt_error_kernel` as "ndt_error"."""
     from fast_gicp_tpu_torch.ops import _build
 
+    def ndt_lin_name(m):
+        base = ("ndt_" + ("d2d" if m.group(1) == "1" else "p2d")
+                + ("_raw" if m.group(2) == "1" else ""))
+        if m.group(3) is None:  # a package before the lookup form
+            return base
+        return f"{base}[{NDT_FORMS[int(m.group(3))]}]"
+
     def lin_name(m):
         base = "linearize_raw" if m.group(1) == "1" else "linearize"
         if m.group(2) is None:
@@ -1183,11 +1270,10 @@ def kernel_build_report():
     for line in _build.build_log().splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            lin = re.search(r"ndt_linearize_kernelILb(\d)ELb(\d)E", m.group(1))
+            lin = NDT_LIN_MANGLED.search(m.group(1))
             err = re.search(r"12error_kernelILb(\d)ELb(\d)E", m.group(1))
             gicp = LIN_MANGLED.search(m.group(1))
-            name = ("ndt_" + ("d2d" if lin.group(1) == "1" else "p2d")
-                    + ("_raw" if lin.group(2) == "1" else "") if lin else
+            name = (ndt_lin_name(lin) if lin else
                     ERROR_KERNELS[err.groups()] if err else
                     lin_name(gicp) if gicp else
                     "ndt_error" if "ndt_error_kernel" in m.group(1) else None)
@@ -1222,7 +1308,9 @@ def check_cos_bounded(dev):
 def check_ndt_edge_cases(dev, check_lin, x, x2):
     """d2d_raw and ndt_error against their plain versions on every case of
     `utils.synthetic.ndt_kernel_edge_cases` (L = 7,007, 91 and 1, every lane
-    invalid, near-planar, coincident and empty voxels), ndt_error with its
+    invalid, near-planar, coincident and empty voxels), d2d_raw's pack form
+    on untiled source columns bit-equal to the tiled ones (the lane's
+    offset by the multiply-high at N = 1,001, 13 and 1), ndt_error with its
     source columns untiled, tiled and tiled as lanes of their own; each
     bit-identical on a repeat launch."""
     from fast_gicp_tpu_torch.ops import cuda_ndt
@@ -1234,6 +1322,10 @@ def check_ndt_edge_cases(dev, check_lin, x, x2):
         p, ca, pack = (torch.as_tensor(case[key], device=dev) for key in ("p", "ca", "pack"))
         pt, cat = p.repeat(1, k).contiguous(), ca.repeat(1, k).contiguous()
         got = check_lin(f"ndt_d2d_raw {name}", pt, cat, pack, "d2d_raw", 1e-4)
+        untiled = cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, "d2d_raw")
+        torch.cuda.synchronize()
+        require(same_bits(untiled, got[:4]),
+                f"ndt_d2d_raw {name}: untiled source columns differ from tiled ones")
         aux = got[3]
         want = cuda_ndt.ndt_error_plain(pt, aux, x2, 1.0)
         calls = {"untiled": (p, k), "tiled": (pt, k), "lanes": (pt, 1)}
@@ -1248,15 +1340,224 @@ def check_ndt_edge_cases(dev, check_lin, x, x2):
             else:
                 check_close(f"ndt_error {name} ({how})", e, want, 1e-5, 0.0)
     log(f"[kernels] NDT edge cases: d2d_raw within tolerance and repeat-identical, "
-        f"ndt_error (untiled, tiled, tiled as lanes) within rtol 1e-5 and "
+        f"untiled bit-equal to tiled, ndt_error (untiled, tiled, tiled as lanes) within rtol 1e-5 and "
         f"repeat-identical on all {len(cases)} ({', '.join(c['name'] for c in cases)})")
+
+
+NDT_INVERSE_OPS = 30  # a sym-6 adjugate inverse (P2D, on valid lanes)
+
+
+def ndt_kernel_name(mode, form=None):
+    """The profiler's name (a prefix) of the mode's linearize kernel, of
+    every form or of one form (csrc/ndt_linearize.cu's template arguments)."""
+    name = NDT_LIN_KERNEL.format(d2d=str(mode.startswith("d2d")).lower(),
+                                 raw=str(mode.endswith("_raw")).lower())
+    if form is None:
+        return name
+    return f"{name}, {NDT_FORMS.index(form)}>"
+
+
+NDT_FORMS = ("pack", "lookup")
+
+
+def ndt_lin_bytes(mode, form, N, L, rows=0, cells=0):
+    """Bytes a linearize launch must move (each input once, each output
+    once): the source columns once (12 B, 24 B of covariance for D2D, and
+    1 B of mask for the lookup form), the target side (pack: a lane's data
+    fields, 40 B finalized or 56 B raw; lookup: each of the `cells` grid
+    entries (8 B) and `rows` table rows (the 40 B a row that the kernel
+    uses) that its lanes name, once), aux 40 B a lane, the pose and the 43
+    floats out."""
+    d2d, raw = mode.startswith("d2d"), mode.endswith("_raw")
+    src = N * (12 + (24 if d2d else 0) + (1 if form == "lookup" else 0))
+    target = rows * 40 + cells * 8 if form == "lookup" else L * (56 if raw else 40)
+    return src + target + L * 40 + 64 + 43 * 4
+
+
+def ndt_lin_ops(mode, form, L, valid):
+    """FP32 operations of a linearize launch with `valid` valid lanes of L:
+    the transform, the weight and the 28 sums (and the lookup) on every
+    lane; the raw finalize and clamp, D2D's rotation and inverse and P2D's
+    inverse from a map on the valid lanes only, which the kernel skips
+    elsewhere (the P2D pack form carries M)."""
+    d2d, raw = mode.startswith("d2d"), mode.endswith("_raw")
+    every = NDT_P2D_LINEARIZE_OPS + (NDT_LOOKUP_OPS if form == "lookup" else 0)
+    inverse = mode == "p2d_raw" or (mode == "p2d" and form == "lookup")
+    on_valid = ((NDT_RAW_OPS if raw else 0) + (NDT_D2D_M_OPS if d2d else 0)
+                + (NDT_INVERSE_OPS if inverse else 0))
+    return L * every + valid * on_valid
+
+
+def lookup_footprint(cpu_obj, x):
+    """(distinct table rows, distinct in-grid cells) that the lookup form's
+    lanes name at pose x, from the lookup on the CPU."""
+    from fast_gicp_tpu_torch.ops import cuda_ndt
+
+    vmap = cpu_obj.vmap
+    ids, q = cuda_ndt._lookup_plain(cpu_obj.p, x.cpu(), vmap, cpu_obj.offsets)
+    r = [qa.reshape(-1).long() - int(o) for qa, o in zip(q, vmap.origin)]
+    gx, gy, gz = vmap.dims
+    inside = ((r[0] >= 0) & (r[0] < gx) & (r[1] >= 0) & (r[1] < gy)
+              & (r[2] >= 0) & (r[2] < gz))
+    cells = (r[0] * gy + r[1]) * gz + r[2]
+    return int(torch.unique(ids).numel()), int(torch.unique(cells[inside]).numel())
+
+
+def ndt_checkers(x, build_tol_log=True):
+    """(check_aux, check_lin) of the NDT kernel checks: a pack-form launch
+    against its plain version and a repeat launch."""
+    from fast_gicp_tpu_torch.ops import cuda_ndt
+
+    def check_aux(name, got, want, tol):
+        # M relative to each lane's largest |M| entry (near-planar voxels
+        # reach |M| ~ 1e3); valid exact; mu elementwise
+        scale = want[:6].abs().amax(0).clamp(min=1e-30)
+        rel = (got[:6] - want[:6]).abs() / scale
+        if build_tol_log:
+            log(f"[kernels] {name} aux M: max diff {float(rel.max()):.2e} of the lane's "
+                f"largest |M|, {int((rel > 1e-5).sum())} of {rel.numel()} entries above 1e-5")
+        err_m = check_close(f"{name} aux M", got[:6] / scale, want[:6] / scale, 0.0, tol)
+        require(bool(torch.equal(got[6], want[6])), f"{name} aux valid differs")
+        err_mu = check_close(f"{name} aux mu", got[7:10], want[7:10], 1e-6, 1e-6)
+        return max(err_m, err_mu)
+
+    def check_lin(name, p, ca, pack, mode, m_tol, at=None, res=1.0):
+        at = x if at is None else at
+        got = cuda_ndt.ndt_linearize(p, ca, at, pack, res, mode)
+        again = cuda_ndt.ndt_linearize(p, ca, at, pack, res, mode)
+        want = cuda_ndt.ndt_linearize_plain(p, ca, at, pack, cuda_ndt._c_sq(res), mode)
+        torch.cuda.synchronize()
+        require(same_bits(got, again), f"{name}: a repeat launch differs")
+        require(bool(torch.equal(got[1], got[1].T)), f"{name}: H is not exactly symmetric")
+        errs = [rel_to_max(f"{name} err", got[0].reshape(1), want[0].reshape(1), 1e-5),
+                rel_to_max(f"{name} H", got[1], want[1], 1e-5),
+                rel_to_max(f"{name} b", got[2], want[2], 1e-5),
+                check_aux(name, got[3], want[3], m_tol)]
+        return got + (max(errs),)
+
+    return check_aux, check_lin
+
+
+def check_forms(name, obj, cpu_obj, x, x2, check_lin, m_tol):
+    """The lookup form (obj.linearize at x) and the frozen phase's form
+    (obj.freeze at x, then obj.linearize_frozen at x2: the lookup form with
+    x as its lookup pose) against the freeze-plus-pack form on the same
+    rows, bit for bit, and each against a repeat launch.  The pack form is
+    held to its plain version (check_lin, m_tol).  Returns (lookup form's
+    outputs, pack form's max |diff| against the plain version, the number
+    of row ids where the card's eager lookup differs from the CPU's)."""
+    from fast_gicp_tpu_torch.ops import cuda_ndt
+
+    res, mode = obj.vmap.resolution, obj.mode
+    pack = eager_pack(cpu_obj, x.cpu()).to(x.device)
+    want = check_lin(f"{name} pack form", obj.p, obj.ca, pack, mode, m_tol, at=x, res=res)
+    look, again = obj.linearize(x), obj.linearize(x)
+    frozen = obj.freeze(x)
+    fro, fro_again = obj.linearize_frozen(x2, frozen), obj.linearize_frozen(x2, frozen)
+    pack_x2 = cuda_ndt.ndt_linearize(obj.p, obj.ca, x2, pack, res, mode)
+    torch.cuda.synchronize()
+    require(same_bits(look, again), f"{name} lookup form: a repeat launch differs")
+    require(same_bits(look, want[:4]), f"{name}: the lookup form differs from the "
+            f"freeze-plus-pack form")
+    require(same_bits(fro, fro_again), f"{name} frozen lookup form: a repeat launch differs")
+    require(same_bits(fro, pack_x2), f"{name}: the lookup form with another lookup pose "
+            f"differs from the pack frozen at that pose")
+    ids_cpu = cuda_ndt._lookup_plain(cpu_obj.p, x.cpu(), cpu_obj.vmap, cpu_obj.offsets)[0]
+    ids_card = cuda_ndt._lookup_plain(obj.p, x, obj.vmap, obj.offsets)[0]
+    return look, want[4], int((ids_card.cpu() != ids_cpu).sum())
+
+
+def check_ndt_lookup_edge_cases(dev, check_lin, x2):
+    """check_forms on every scene of `utils.synthetic.ndt_lookup_edge_cases`
+    (a grid exactly the target's extent with negative coordinates, voxels
+    on its first cell and its last index on each axis, voxels of 6 and 7
+    points, a near-planar voxel, empty cells, sources outside the grid,
+    masked and zero-padded sources; 1 m and 0.3 m voxels, the latter with
+    sources on voxel faces), in all four modes (maps built on the CPU),
+    at the identity and at a small pose.  On the 0.3 m scene the card's
+    eager lookup (ATen divides by a Python float as a product with its
+    reciprocal) may bin face points elsewhere than the kernel and the CPU:
+    counted and logged."""
+    from fast_gicp_tpu_torch.models.ndt import make_ndt_objective
+    from fast_gicp_tpu_torch.ops import soa
+    from fast_gicp_tpu_torch.ops.voxelmap import (
+        build_ndt_grid_compact, build_ndt_raw_grid, neighbor_offsets,
+    )
+    from fast_gicp_tpu_torch.utils import synthetic
+
+    cases = synthetic.ndt_lookup_edge_cases()
+    x_small = torch.as_tensor(synthetic._small_pose(np.random.default_rng(3)), device=dev)
+    eager_differs = {}
+    for case in cases:
+        tgt, tm = torch.as_tensor(case["target"]), torch.as_tensor(case["tmask"])
+        res, dims = case["resolution"], case["dims"]
+        maps = {True: build_ndt_raw_grid(tgt, tm, res, dims),
+                False: build_ndt_grid_compact(tgt, tm, res, dims, budget=64)[0]}
+        src, sm = torch.as_tensor(case["source"]), torch.as_tensor(case["smask"])
+        covs = soa.sym_cols_from_covs(torch.as_tensor(case["covs"]))
+        for mode in NDT_MODES:
+            d2d, raw = mode.startswith("d2d"), mode.endswith("_raw")
+            oc = make_ndt_objective(src, sm, covs if d2d else None, maps[raw],
+                                    neighbor_offsets("direct7"))
+            obj = objective_on(oc, dev)
+            for pose, xn in (("identity", torch.eye(4, device=dev)), ("small pose", x_small)):
+                name = f"ndt_{mode} lookup edge case {case['name']} at the {pose}"
+                look, _err, differ = check_forms(name, obj, oc, xn, x2, check_lin,
+                                                 1e-4 if raw else 1e-5)
+                eager_differs.setdefault(mode, {})[f"{case['name']} at the {pose}"] = differ
+                valid = look[3][6]
+                require(bool(valid.any()) and not bool(valid.all()),
+                        f"{name}: expected valid and invalid lanes")
+    log(f"[kernels] NDT lookup edge cases: the lookup form, at one pose and with "
+        f"another lookup pose, bit-equal to the freeze-plus-pack form and "
+        f"repeat-identical on all {len(cases)} scenes x 4 modes x 2 poses "
+        f"({', '.join(c['name'] for c in cases)}); ids where the card's eager lookup "
+        f"differs: {eager_differs}")
+    return eager_differs
+
+
+def check_ndt_two_phase(dev, pair):
+    """D2D align's two-phase solve (refresh_iterations=3, `ndt_align`'s
+    config) on the card from the CPU-built objective: the lookup form, and
+    in the frozen phase the lookup form at the phase-1 pose, against the same
+    solve with the eager freeze into a pack and the pack form everywhere
+    (the freeze before the lookup form); the same pose and iterations, bit
+    for bit."""
+    from fast_gicp_tpu_torch.models import ndt
+    from fast_gicp_tpu_torch.ops import cuda_ndt
+
+    oc = ndt_path_objectives(pair, "cpu")["d2d_raw"]
+    obj = objective_on(oc, dev)
+    cfg = ndt_align_path("d2d")(*pair[:2]).config
+
+    def freeze(x):
+        return eager_pack(obj, x)
+
+    def frozen(x, pack):
+        return cuda_ndt.ndt_linearize(obj.p, obj.ca, x, pack, obj.vmap.resolution, obj.mode)
+
+    eager = obj._replace(linearize=lambda x: frozen(x, freeze(x)), freeze=freeze,
+                         linearize_frozen=frozen)
+    x0 = torch.eye(4, device=dev)
+    got, want = (ndt._two_phase_solve(o, x0, cfg) for o in (obj, eager))
+    require(bool(torch.equal(got.transformation, want.transformation))
+            and int(got.iterations) == int(want.iterations),
+            f"D2D align two-phase: the lookup form ends at another pose than the "
+            f"freeze-plus-pack form ({int(got.iterations)}, {int(want.iterations)} "
+            f"iterations)")
+    log(f"[kernels] D2D align two-phase solve on the CPU-built maps: the lookup form "
+        f"bit-equal to the freeze-plus-pack form ({int(got.iterations)} iterations)")
 
 
 def phase_ndt_kernels(dev, pair):
     """The four NDT linearize modes and the NDT error kernel against their
     plain versions, at the shapes their paths give them on the full-size
     pair (the error kernel at each path's lane count), each bit-identical on
-    a repeat launch; the NDT edge cases; cos_bounded against cosf; the NDT
+    a repeat launch; each mode's lookup form, at one pose and with another
+    lookup pose, bit for bit against the freeze-plus-pack form; the lookup
+    form on source columns tiled over the
+    offsets against the untiled ones it reads on the paths; D2D align's
+    two-phase solve; the NDT edge cases; cos_bounded against cosf; the NDT
     kernels' registers and stack frames."""
     from fast_gicp_tpu_torch import se3
     from fast_gicp_tpu_torch.ops import cuda_ndt
@@ -1266,38 +1567,15 @@ def phase_ndt_kernels(dev, pair):
     c_sq = 1.0
     records = []
     build = kernel_build_report()
+    _check_aux, check_lin = ndt_checkers(x)
 
-    def check_aux(name, got, want, tol):
-        # M relative to each lane's largest |M| entry (near-planar voxels
-        # reach |M| ~ 1e3); valid exact; mu elementwise
-        scale = want[:6].abs().amax(0).clamp(min=1e-30)
-        rel = (got[:6] - want[:6]).abs() / scale
-        log(f"[kernels] {name} aux M: max diff {float(rel.max()):.2e} of the lane's largest "
-            f"|M|, {int((rel > 1e-5).sum())} of {rel.numel()} entries above 1e-5")
-        err_m = check_close(f"{name} aux M", got[:6] / scale, want[:6] / scale, 0.0, tol)
-        require(bool(torch.equal(got[6], want[6])), f"{name} aux valid differs")
-        err_mu = check_close(f"{name} aux mu", got[7:10], want[7:10], 1e-6, 1e-6)
-        return max(err_m, err_mu)
-
-    def check_lin(name, p, ca, pack, mode, m_tol):
-        got = cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, mode)
-        again = cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, mode)
-        want = cuda_ndt.ndt_linearize_plain(p, ca, x, pack, c_sq, mode)
-        torch.cuda.synchronize()
-        require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
-                f"{name}: a repeat launch differs")
-        require(bool(torch.equal(got[1], got[1].T)), f"{name}: H is not exactly symmetric")
-        errs = [rel_to_max(f"{name} err", got[0].reshape(1), want[0].reshape(1), 1e-5),
-                rel_to_max(f"{name} H", got[1], want[1], 1e-5),
-                rel_to_max(f"{name} b", got[2], want[2], 1e-5),
-                check_aux(name, got[3], want[3], m_tol)]
-        return got + (max(errs),)
-
-    packs = ndt_first_packs(dev, pair, x)
-    auxes = {}
-    for mode, (p, ca, pack) in packs.items():
-        L = p.shape[1]
+    cpu_objs = ndt_path_objectives(pair, "cpu")
+    auxes, objs = {}, {}
+    for mode, oc in cpu_objs.items():
+        obj = objs[mode] = objective_on(oc, dev)
         d2d, raw = mode.startswith("d2d"), mode.endswith("_raw")
+        N, K = obj.p.shape[1], len(obj.offsets)
+        L = N * K
         # M of a raw pack goes through the eigenvalue clamp and the inverse of
         # a near-planar voxel's covariance, which magnify a last-bit difference
         # of acosf / cosf between the kernel and torch's ops: 2.46e-5 of the
@@ -1305,56 +1583,91 @@ def phase_ndt_kernels(dev, pair):
         # CPU-built inputs, up to 4.75e-5 on card-built maps (H100, full-size
         # pair).  A wrong clamp moves M by O(1) of it.
         m_tol = 1e-4 if raw else 1e-5
-        got = check_lin(f"ndt_{mode}", p, ca, pack, mode, m_tol)
-        tm_ = timings(lambda: cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, mode),
-                      lambda: cuda_ndt.ndt_linearize_plain(p, ca, x, pack, c_sq, mode),
-                      NDT_LIN_KERNEL.format(d2d=str(d2d).lower(), raw=str(raw).lower()),
-                      200, 20)
-        # each source point read once (the kernel reads p and ca tiled over
-        # the offsets), the pack's data fields a lane (finalized [mu, cov or
-        # M, valid] 40 B, raw [o, count, sum d, sum d d^T, valid] 56 B), aux
-        # written a lane
-        n_src = L // NDT_OFFSETS
-        nbytes = (n_src * (12 + (24 if d2d else 0)) + L * ((56 if raw else 40) + 40)
-                  + 64 + 28 * 4)
-        nops = L * ((NDT_LINEARIZE_OPS if d2d else NDT_P2D_LINEARIZE_OPS)
-                    + (NDT_RAW_OPS if raw else 0))
-        b_ms, b_by = bound_ms(nbytes, nops)
-        regs, stack = build.get(f"ndt_{mode}", (None, None))
+        look, max_err, _differ = check_forms(f"ndt_{mode}", obj, oc, x, x2, check_lin, m_tol)
+        auxes[mode] = look[3]
+        valid = int(look[3][6].sum())
+        valid_share = valid / L
+        args = (obj.p, obj.ca, obj.mask, x, obj.vmap, obj.offsets, mode)
+        pt = obj.p.repeat(1, K).contiguous()
+        cat = None if obj.ca is None else obj.ca.repeat(1, K).contiguous()
+        tiled_args = (pt, cat) + args[2:]
+        tiled = cuda_ndt.ndt_linearize_lookup(*tiled_args)
+        torch.cuda.synchronize()
+        require(same_bits(tiled, look), f"ndt_{mode}: tiled source columns differ")
+
+        plain_pack = lambda: cuda_ndt.ndt_freeze_pack(  # noqa: E731
+            obj.p, obj.mask, x, obj.vmap, obj.offsets, mode)
+        pack_dev = plain_pack()
+        tm_ = timings(lambda: obj.linearize(x),
+                      lambda: cuda_ndt.ndt_linearize_plain(obj.p, obj.ca, x, plain_pack(),
+                                                           c_sq, mode),
+                      ndt_kernel_name(mode, "lookup"), 200, 20)
+        frozen = obj.freeze(x)
+        extra = dict(
+            pack_ms=device_ms(lambda: cuda_ndt.ndt_linearize(obj.p, obj.ca, x, pack_dev, 1.0,
+                                                             mode), 200,
+                              ndt_kernel_name(mode, "pack")),
+            frozen_ms=device_ms(lambda: obj.linearize_frozen(x2, frozen), 200,
+                                ndt_kernel_name(mode, "lookup")),
+            tiled_ms=device_ms(lambda: cuda_ndt.ndt_linearize_lookup(*tiled_args), 200,
+                               ndt_kernel_name(mode, "lookup")),
+            pose_to_normal_eq_ms=device_ms(lambda: obj.linearize(x), 200),
+            eager_pose_to_normal_eq_ms=device_ms(
+                lambda: cuda_ndt.ndt_linearize(obj.p, obj.ca, x, plain_pack(), 1.0, mode),
+                200),
+            valid_share=valid_share)
+        rows, cells = lookup_footprint(oc, x)
+        nbytes = ndt_lin_bytes(mode, "lookup", N, L, rows, cells)
+        b_ms, b_by = bound_ms(nbytes, ndt_lin_ops(mode, "lookup", L, valid))
+        pack_bytes = ndt_lin_bytes(mode, "pack", N, L)
+        regs, stack = build.get(f"ndt_{mode}[lookup]", (None, None))
         records.append(dict(
             name=f"ndt_{mode}", route="cuda",
             source="fast_gicp_tpu_torch/csrc/ndt_linearize.cu",
             replaces="fast_gicp_tpu/ops/pallas_linearize.py:"
                      + {"d2d": "330", "p2d": "347", "d2d_raw": "492", "p2d_raw": "507"}[mode],
-            max_abs_err=got[4],
-            tolerance=f"err, H, b within 1e-5 of their largest entry; aux M within "
-                      f"{m_tol} of each lane's largest |M|, valid equal, mu rtol 1e-6 "
-                      f"atol 1e-6; a repeat launch bit-identical",
+            max_abs_err=max_err,
+            tolerance=f"the lookup form, at one pose and with another lookup pose, bit-equal "
+                      f"to the freeze-plus-pack form; "
+                      f"the pack form against the plain version: err, H, b within 1e-5 of "
+                      f"their largest entry, aux M within {m_tol} of each lane's largest "
+                      f"|M|, valid equal, mu rtol 1e-6 atol 1e-6; a repeat launch "
+                      f"bit-identical",
             bound_ms=b_ms, bound_by=b_by, library_ms=None, lanes=L, bytes=nbytes,
-            registers=regs, stack_bytes=stack, **tm_))
-        auxes[mode] = got[3]
+            unique_rows=rows, unique_cells=cells,
+            pack_bound_ms=bound_ms(pack_bytes, ndt_lin_ops(mode, "pack", L, valid))[0],
+            registers=regs, stack_bytes=stack,
+            form_registers={f: build.get(f"ndt_{mode}[{f}]") for f in NDT_FORMS},
+            **tm_, **extra))
+        log(f"[kernels] ndt_{mode} at L = {L}: valid lanes {100 * valid_share:.2f}%; lookup "
+            f"{tm_['ms']:.5f} ms (tiled {extra['tiled_ms']:.5f}), with another lookup pose "
+            f"{extra['frozen_ms']:.5f}, "
+            f"pack {extra['pack_ms']:.5f}; pose to [err, H, b], all device ops: "
+            f"{extra['pose_to_normal_eq_ms']:.5f} ms (eager freeze + pack form "
+            f"{extra['eager_pose_to_normal_eq_ms']:.5f})")
 
     # the error kernel at each path's lane count (28,672 on D2D fresh, 57,344
-    # on D2D align, 157,696 on P2D), as the NDT objective calls it: the tiled
-    # source columns read through their first N, offsets = 7
+    # on D2D align, 157,696 on P2D), as the NDT objective calls it: the
+    # untiled source columns, offsets = 7
     by_lanes = {}
     for mode, path in NDT_ERROR_PATH_LANES.items():
-        p, aux = packs[mode][0], auxes[mode]
-        L = p.shape[1]
+        p, aux = objs[mode].p, auxes[mode]
+        L = aux.shape[1]
         e_got = cuda_ndt.ndt_error(p, aux, x2, 1.0, offsets=NDT_OFFSETS)
         e_again = cuda_ndt.ndt_error(p, aux, x2, 1.0, offsets=NDT_OFFSETS)
-        e_want = cuda_ndt.ndt_error_plain(p, aux, x2, c_sq)
+        e_want = cuda_ndt.ndt_error_plain(p.repeat(1, NDT_OFFSETS), aux, x2, c_sq)
         torch.cuda.synchronize()
         require(bool(torch.equal(e_got, e_again)), f"ndt_error at L = {L}: repeat differs")
         e_err = check_close(f"ndt_error at L = {L}", e_got, e_want, 1e-5, 0.0)
         tm_ = timings(lambda: cuda_ndt.ndt_error(p, aux, x2, 1.0, offsets=NDT_OFFSETS),
-                      lambda: cuda_ndt.ndt_error_plain(p, aux, x2, c_sq),
+                      lambda: cuda_ndt.ndt_error_plain(p.repeat(1, NDT_OFFSETS), aux, x2,
+                                                       c_sq),
                       "error_kernel", 200, 20)
         nbytes = L // NDT_OFFSETS * 12 + L * 40 + 64 + 4
         b_ms, b_by = bound_ms(nbytes, L * NDT_ERROR_OPS)
         by_lanes[L] = dict(path=path, max_abs_err=e_err, bound_ms=b_ms, bound_by=b_by,
                            bytes=nbytes, **tm_)
-    L = packs["p2d_raw"][0].shape[1]  # the record reads P2D's, the most launches
+    L = auxes["p2d_raw"].shape[1]  # the record reads P2D's, the most launches
     regs, stack = build.get("ndt_error", (None, None))
     records.append(dict(
         name="ndt_error", route="cuda", source="fast_gicp_tpu_torch/csrc/ndt_linearize.cu",
@@ -1366,10 +1679,15 @@ def phase_ndt_kernels(dev, pair):
                   for n, r in by_lanes.items()},
         **{k: v for k, v in by_lanes[L].items() if k != "path"}))
     check_cos_bounded(dev)
+    check_ndt_two_phase(dev, pair)
     check_ndt_edge_cases(dev, check_lin, x, x2)
+    differ = check_ndt_lookup_edge_cases(dev, check_lin, x2)
+    for r in records:
+        if r["name"].startswith("ndt_") and r["name"] != "ndt_error":
+            r["edge_cases"] = {"lookup_eager_ids_differ": differ[r["name"][4:]]}
     for r in records:
         log(f"[kernels] {r['name']} at L = {r['lanes']}: max_abs_diff "
-            f"{r['max_abs_err']:.3e} ({r['tolerance']}), {r['ms']:.4f} ms, plain "
+            f"{r['max_abs_err']:.3e} ({r['tolerance']}), {r['ms']:.5f} ms, plain "
             f"{r['plain_ms']:.4f} ms ({r['timing']}); per call with the host's enqueue: "
             f"{r['call_ms']:.4f} ms, plain {r['plain_call_ms']:.4f} ms; bound "
             f"{r['bound_ms']:.3e} ms ({r['bound_by']}, {r['bytes']} bytes); "
@@ -1381,11 +1699,16 @@ def phase_ndt_kernels(dev, pair):
 
 
 def ndt_timing(dev, pair):
-    """Device time of the NDT kernels of whichever package is imported, on
-    phase_ndt_kernels' inputs: the four linearize modes at their paths'
-    lanes and ndt_error at each NDT path's lane count; no checks.  Run by
-    `--ndt-timing DIR` to time another checkout (an earlier design) in the
-    same call as this one."""
+    """Device time of the NDT linearizes of whichever package is imported,
+    on objectives `ndt_path_objective` builds on the card at each mode's
+    path: the pack form's launch on the eager freeze's pack (the same work
+    in every package), `obj.linearize(x)` (its kernel, and all its device
+    ops: pose to [err, H, b]), the freeze alone (all device ops) and the
+    frozen linearization's kernel; with the lookup form also the pack form
+    on untiled and the lookup form on tiled source columns; ndt_error at each NDT
+    path's lane count; D2D align's t_err over five registrations.  No
+    checks.  Run by `--ndt-timing DIR` to time another checkout (an earlier design)
+    in the same call as this one."""
     import inspect
 
     from fast_gicp_tpu_torch import se3
@@ -1395,18 +1718,56 @@ def ndt_timing(dev, pair):
     x2 = se3.se3_exp(torch.tensor([-0.001, 0.002, 0.0, 0.01, 0.02, -0.02], device=dev))
     kw = ({"offsets": NDT_OFFSETS}
           if "offsets" in inspect.signature(cuda_ndt.ndt_error).parameters else {})
-    packs = ndt_first_packs(dev, pair, x)
-    out, auxes = {"registers": kernel_build_report()}, {}
-    for mode, (p, ca, pack) in packs.items():
-        auxes[mode] = cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, mode)[3]
-        name = NDT_LIN_KERNEL.format(d2d=str(mode.startswith("d2d")).lower(),
-                                     raw=str(mode.endswith("_raw")).lower())
-        out[f"ndt_{mode}"] = device_ms(
-            lambda: cuda_ndt.ndt_linearize(p, ca, x, pack, 1.0, mode), 200, name)
+    lookup_form = hasattr(cuda_ndt, "ndt_linearize_lookup")
+    out, auxes = {"registers": kernel_build_report(), "lookup_form": lookup_form}, {}
+    objs = ndt_path_objectives(pair, dev)
+    for mode, obj in objs.items():
+        name = ndt_kernel_name(mode)
+        pack = eager_pack(obj, x)
+        frozen = obj.freeze(x)
+        K = pack.shape[0] // obj.p.shape[1]
+        # the pack form on the source columns tiled over the offsets, as every
+        # package takes them
+        tiled = (obj.p.repeat(1, K).contiguous(),
+                 None if obj.ca is None else obj.ca.repeat(1, K).contiguous())
+        row = {"lanes": pack.shape[0],
+               "pack_kernel_ms": device_ms(
+                   lambda: cuda_ndt.ndt_linearize(*tiled, x, pack, 1.0, mode), 200, name),
+               "linearize_device_ops": device_ops(lambda: obj.linearize(x), 50),
+               "freeze_device_ops": device_ops(lambda: obj.freeze(x), 50),
+               "linearize_kernel_ms": device_ms(lambda: obj.linearize(x), 200, name),
+               "pose_to_normal_eq_ms": device_ms(lambda: obj.linearize(x), 200),
+               "freeze_ops_ms": device_ms(lambda: obj.freeze(x), 200),
+               "frozen_kernel_ms": device_ms(lambda: obj.linearize_frozen(x2, frozen), 200,
+                                             name)}
+        if lookup_form:
+            args = (obj.p, obj.ca, obj.mask, x, obj.vmap, obj.offsets, mode)
+            row.update(
+                pack_untiled_kernel_ms=device_ms(
+                    lambda: cuda_ndt.ndt_linearize(obj.p, obj.ca, x, pack, 1.0, mode), 200,
+                    name),
+                tiled_kernel_ms=device_ms(
+                    lambda: cuda_ndt.ndt_linearize_lookup(*tiled, *args[2:]), 200, name))
+        auxes[mode] = obj.linearize(x)[3]
+        row["valid_share"] = float(auxes[mode][6].mean())
+        out[f"ndt_{mode}"] = row
     for mode in NDT_ERROR_PATH_LANES:
-        p, aux = packs[mode][0], auxes[mode]
-        out[f"ndt_error_L{p.shape[1]}"] = device_ms(
+        p, aux = objs[mode].p, auxes[mode]
+        out[f"ndt_error_L{aux.shape[1]}"] = device_ms(
             lambda: cuda_ndt.ndt_error(p, aux, x2, 1.0, **kw), 200, "error_kernel")
+    # t_err of D2D align over repeated registrations: the card's map builds
+    # sum with atomic scatter-adds, so the pose may move from run to run
+    from fast_gicp_tpu_torch.utils.padding import pad_points
+
+    source, target, gt = pair
+    sp, sm = pad_points(source)
+    tp, tm = pad_points(target)
+    inputs = [torch.as_tensor(a, device=dev) for a in (sp, sm, tp, tm)]
+    register = ndt_align_path("d2d")(source, target).register
+    out["ndt_d2d_align_t_err_mm"] = [
+        1e3 * pose_errors(register(*inputs, torch.eye(4, device=dev), dev)
+                          .transformation.cpu().numpy().astype(np.float64), gt)[0]
+        for _ in range(5)]
     return out
 
 
@@ -1959,6 +2320,12 @@ TRIAL_CARRIED = {"lm_trial": tuple(PATHS),
 NDT_PATHS = tuple(p for p in PATHS if p.startswith("ndt_"))
 # the wrappers that also count their launches that read rows by index
 IDX_COUNTED = ("linearize", "linearize_raw")
+# the NDT linearize wrappers, which also count their lookup-form launches
+# (the rest are pack-form launches)
+NDT_FORM_COUNTED = tuple(f"ndt_{m}" for m in NDT_MODES)
+# the pack-form launches a path may make: P2D align's frozen phase, seeded
+# from the last refresh linearization's aux (no freeze)
+NDT_PACK_ALLOWED = {("ndt_p2d_align", "ndt_p2d")}
 
 
 def phase_main_path(dev, pair, path):
@@ -1980,6 +2347,8 @@ def phase_main_path(dev, pair, path):
         fn.launches = 0
     for k in IDX_COUNTED:
         counters()[k].idx_launches = 0
+    for k in NDT_FORM_COUNTED:
+        counters()[k].lookup_launches = 0
     lsq_solve.host_syncs = 0
     t0 = time.perf_counter()
     res = register(*inputs, guess, dev)
@@ -1987,6 +2356,8 @@ def phase_main_path(dev, pair, path):
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = {k: fn.launches for k, fn in counters().items()}
     launches.update({f"{k}[idx]": counters()[k].idx_launches for k in IDX_COUNTED})
+    for k in NDT_FORM_COUNTED:
+        launches[f"{k}[lookup]"] = counters()[k].lookup_launches
     syncs = lsq_solve.host_syncs
 
     require(T.shape == (4, 4) and np.isfinite(T).all(), f"{path}: non-finite pose")
@@ -2010,6 +2381,16 @@ def phase_main_path(dev, pair, path):
     # linearize launch of the path is the idx form, with no gather before it
     require(all(launches[f"{k}[idx]"] == launches[k] for k in IDX_COUNTED if k in kernels),
             f"{path}: a linearize launch on gathered rows: {launches}")
+    # the NDT solves look their voxels up in the linearize kernel: every NDT
+    # linearize launch is the lookup form (no eager freeze), but P2D align's
+    # frozen phase, seeded from an aux as a pack
+    pack_launches = {k: launches[k] - launches[f"{k}[lookup]"] for k in NDT_FORM_COUNTED}
+    require(all(n == 0 for k, n in pack_launches.items() if (path, k) not in NDT_PACK_ALLOWED),
+            f"{path}: an NDT linearize launch on a frozen pack: {launches}")
+    if path in NDT_PATHS:
+        refresh = next(k for k in kernels if k in NDT_FORM_COUNTED)
+        require(launches[f"{refresh}[lookup]"] > 0,
+                f"{path}: no lookup-form launch: {launches}")
     return launches, dict(t_err_m=t_err, r_err_deg=r_err, iterations=iters,
                           host_syncs=syncs, wall_ms=wall_ms, fitness=fitness)
 
@@ -2171,6 +2552,17 @@ def _stages_ndt(dev, path, sp, sm, tp, tm, guess, wall_ms, fresh):
     return stages
 
 
+# Device ops a registration predicted for each path with the NDT voxel
+# lookup in the linearize kernel and D2D align's freeze returning its pose
+# (PERF.md section 6, written before the traced run that tests them): the
+# NDT paths' counts of the design before the lookup form less
+# tests/torch_ndt_freeze_ops.py's counts, the GICP and VGICP paths unchanged.
+PREDICTED_DEVICE_OPS = {"vgicp_register": 725.6, "gicp_register_fresh": 765.6,
+                        "gicp_adaptive_fresh": 727.4, "gicp_min_eig_fresh": 778.6,
+                        "ndt_d2d_fresh": 677.6, "ndt_p2d_fresh": 368.6,
+                        "ndt_d2d_align": 409.6, "ndt_p2d_align": 126.6}
+
+
 def phase_profile(dev, pair, path, n_regs=5):
     """Where a registration's time goes: host-clock stage times (each stage
     alone, synchronised), then a torch.profiler trace of `n_regs`
@@ -2236,11 +2628,15 @@ def phase_profile(dev, pair, path, n_regs=5):
         f"{100 * busy_ms / span:.1f}% of the span), device ops {launches:.1f} per "
         f"registration; untraced: wall {wall_untraced:.3f} ms, device span "
         f"{sum(spans_untraced) / n_regs:.3f} ms")
+    predicted = PREDICTED_DEVICE_OPS[path]
+    log(f"[profile] {path}: device ops {launches:.1f} a registration against the predicted "
+        f"{predicted} ({launches - predicted:+.1f})")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3 / n_regs:9.4f} ms  "
             f"x{e.count / n_regs:5.1f}  {e.key[:90]}")
     return dict(stage_wall_ms=stages, traced_wall_ms=wall, device_span_ms=span,
                 device_busy_ms=busy_ms, device_ops_per_registration=launches,
+                predicted_device_ops=predicted,
                 untraced_wall_ms=wall_untraced,
                 untraced_device_span_ms=sum(spans_untraced) / n_regs)
 
@@ -2329,6 +2725,9 @@ def main() -> int:
         r["launches_by_path"] = {p: path_launches[p][name] for p in PATHS}
         if name in IDX_COUNTED:
             r["idx_launches_by_path"] = {p: path_launches[p][f"{name}[idx]"] for p in PATHS}
+        if name in NDT_FORM_COUNTED:
+            r["form_launches_by_path"] = {
+                p: {"lookup": path_launches[p][f"{name}[lookup]"]} for p in NDT_PATHS}
     log("[summary] " + json.dumps(summary))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -2338,8 +2737,9 @@ def main() -> int:
              "by_lanes", "by_path", "lanes", "trial_off_error_ms", "prologue_ms",
              "lm_trial_ms", "unfused_ms", "aten_traps_differ", "idx_launches_by_path",
              "gathered_ms", "idx_ops_ms", "gather_and_gathered_ops_ms", "grid_stride_lanes",
-             "grid_stride_ms",
-             "unique_rows", "bytes", "edge_cases")
+             "grid_stride_ms", "pack_ms", "frozen_ms", "tiled_ms", "pose_to_normal_eq_ms",
+             "eager_pose_to_normal_eq_ms", "valid_share", "pack_bound_ms", "form_registers",
+             "form_launches_by_path", "unique_rows", "unique_cells", "bytes", "edge_cases")
     work = ("candidates", "exact_candidates", "exact_search_ms", "source_cloud_ms",
             "pairs_visited", "pairs_in_range", "pairs_to_visit", "pairs_in_window",
             "pairs_visited_block_cull", "wide_slab_ms", "k48_ms")

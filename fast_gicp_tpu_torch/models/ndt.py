@@ -12,10 +12,12 @@ linearization; the LM trials recompute w at the trial pose (the `ndt_error`
 body).
 
 Correspondences are (neighbor offset x source) lanes flattened offset-major
-to L = K * N; each linearization is one voxel-row gather and one
-`ndt_linearize` launch (ops/cuda_ndt.py), each LM trial one launch of the
-trial kernel with the `ndt_error` body (`cuda_solver.lm_step`); their plain
-versions for CPU tensors.
+to L = K * N; each linearization is one launch of the linearize kernel,
+which looks each lane's voxel up in the map itself
+(`cuda_ndt.ndt_linearize_lookup`; a frozen phase looks up at the pose it
+froze at), each LM trial one launch of the trial kernel with
+the `ndt_error` body (`cuda_solver.lm_step`); their plain versions for CPU
+tensors.
 
 Ported here: `NDTConfig`, the objective (the JAX package's fused form,
 `_make_ndt_objective_fused`), `ndt_align`, `ndt_prepare_cloud`,
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from .. import device as _device
@@ -35,18 +38,15 @@ from .. import se3
 from ..ops import cuda_ndt, cuda_solver, soa
 from ..ops.covariance import masked_mean
 from ..ops.voxelmap import (
+    NdtGridMap,
     RawNdtGrid,
     build_ndt_grid_compact,
     build_ndt_raw_grid,
-    lookup_ndt_cols,
     neighbor_offsets,
-    voxel_coord,
 )
 from ..precision import f32_matmuls
 from ..solver import LsqConfig, LsqResult, lsq_solve
 from .base import centered_frame_align, centered_frame_evaluate
-
-_MIN_VOXEL_POINTS = 6  # voxels with <= 6 points are skipped
 
 
 class NDTConfig(NamedTuple):
@@ -95,23 +95,29 @@ class NdtObjective(NamedTuple):
     """The NDT objective over L = K * N lanes (offset-major), as
     `make_ndt_objective` builds it.
 
-    `freeze(x)` gathers the voxel rows at pose x into the frozen (L, 16)
-    pack; `linearize_frozen(x, pack)` re-linearizes against it without a
-    re-search (D2D still re-freezes M from the current rotation, and the
-    Cauchy weight follows the pose); `linearize(x)` does both.
-    `pack_from_aux` (P2D only, else None) rebuilds a frozen state from a
-    linearize's aux: P2D's M does not depend on the pose, so the two-phase
-    solve seeds its frozen phase from the last refresh iteration instead of
-    re-searching.  `p`, `ca` and `mode` are what the `ndt_linearize` kernel
-    reads besides the pose and the pack."""
+    `linearize(x)` looks each lane's voxel up at pose x inside the
+    linearize kernel (`cuda_ndt.ndt_linearize_lookup`: one launch from the
+    pose and the map to [err, H, b] and aux).  `freeze(x)` returns the pose
+    x itself (no device op); `linearize_frozen(x, frozen)` re-linearizes
+    against the voxels looked up at that pose, in the same launch (D2D
+    still re-freezes M from the current rotation, and the Cauchy weight
+    follows the pose).  `pack_from_aux` (P2D only, else None) rebuilds a frozen
+    state from a linearize's aux: P2D's M does not depend on the pose, so
+    the two-phase solve seeds its frozen phase from the last refresh
+    iteration instead of re-searching; `linearize_frozen` takes it as a
+    `_FinPack` (the pack form).  `p`, `ca`, `mask`, `vmap`, `offsets` and
+    `mode` are what the kernels read besides the pose."""
 
     linearize: Callable  # x -> (err, H, b, aux)
     error: cuda_solver.TrialCost  # (x, aux) -> err, and the trial launch's form
-    freeze: Callable  # x -> pack (L, 16)
-    linearize_frozen: Callable  # (x, pack) -> (err, H, b, aux)
+    freeze: Callable  # x -> the lookup pose of the frozen phase
+    linearize_frozen: Callable  # (x, pose or _FinPack) -> (err, H, b, aux)
     pack_from_aux: Callable | None  # aux -> _FinPack (P2D only)
-    p: torch.Tensor  # (3, L) source columns
-    ca: torch.Tensor | None  # (6, L) source covariance columns (D2D only)
+    p: torch.Tensor  # (3, N) source columns
+    ca: torch.Tensor | None  # (6, N) source covariance columns (D2D only)
+    mask: torch.Tensor  # (N,) bool source validity
+    vmap: RawNdtGrid | NdtGridMap  # the target map
+    offsets: np.ndarray  # (K, 3) int32 neighbour offsets
     mode: str  # the `ndt_linearize` mode of `linearize`
 
 
@@ -120,48 +126,33 @@ def make_ndt_objective(src_means, src_mask, src_covs, vmap, offsets) -> NdtObjec
     is None for P2D, else the source voxel covariances as (6, N) sym-6
     columns."""
     n = src_means.shape[0]
+    offsets = np.ascontiguousarray(np.asarray(offsets, np.int32))
     k = len(offsets)
     L = n * k
     raw = isinstance(vmap, RawNdtGrid)
     d2d = src_covs is not None
     mode = ("d2d" if d2d else "p2d") + ("_raw" if raw else "")
     res = vmap.resolution
-    P = soa.cols_from_points(src_means)  # (3, N)
-    P_flat = P.repeat(1, k).contiguous()  # column k * N + i = P[:, i]
-    CA_flat = (soa.sym_cols_from_covs(src_covs).repeat(1, k).contiguous()
-               if d2d else None)
-    src_valid = src_mask.repeat(k)
-    zeros = torch.zeros((L, 6 if not raw else 2), dtype=P.dtype, device=P.device)
-
-    def freeze(x):
-        coords = voxel_coord(soa.transform_cols(x, P), res)
-        q = [torch.stack([coords[a] + int(o[a]) for o in offsets]) for a in range(3)]
-        ids = lookup_ndt_cols(vmap, *q).reshape(L)
-        if raw:
-            # [o (3), count, sum d (3), sum d d^T (6), valid, pad (2)]: the
-            # voxel corner comes from the query coordinate
-            rows = vmap.rows[ids]
-            valid = (src_valid & (rows[:, 0] > _MIN_VOXEL_POINTS)).to(P.dtype)
-            o = torch.stack([(qa.reshape(L).to(P.dtype) + 1.0) * res for qa in q], dim=1)
-            return torch.cat([o, rows, valid[:, None], zeros], dim=1).contiguous()
-        mu, cov6, count = soa.sym_cols_from_packed(vmap.packed[ids])
-        valid = (src_valid & (count > _MIN_VOXEL_POINTS)).to(P.dtype)
-        if not d2d:
-            # P2D: M = cov_B^-1 does not depend on the pose; invert at the freeze
-            cov6 = soa.inv_sym_cols(cov6)
-        return torch.cat([mu.T, cov6.T, valid[:, None], zeros], dim=1).contiguous()
-
-    def linearize_frozen(x, pack):
-        if isinstance(pack, _FinPack):
-            return cuda_ndt.ndt_linearize(P_flat, CA_flat, x, pack.pack, res, "p2d")
-        return cuda_ndt.ndt_linearize(P_flat, CA_flat, x, pack, res, mode)
+    P = soa.cols_from_points(src_means).contiguous()  # (3, N), read untiled
+    CA = soa.sym_cols_from_covs(src_covs).contiguous() if d2d else None
+    mask = src_mask.contiguous()
 
     def linearize(x):
-        return linearize_frozen(x, freeze(x))
+        return cuda_ndt.ndt_linearize_lookup(P, CA, mask, x, vmap, offsets, mode)
 
-    # the trial cost the LM steps launch (the Cauchy weight at the trial
-    # pose); it reads the first N columns of the tiled P_flat only
-    error = cuda_solver.TrialCost(P_flat, offsets=k, resolution=res)
+    def freeze(x):
+        # the frozen phase looks its voxels up at x, read at every launch:
+        # x itself, not a copy (phase 1's pose, which nothing writes again)
+        return x
+
+    def linearize_frozen(x, frozen):
+        if isinstance(frozen, _FinPack):
+            return cuda_ndt.ndt_linearize(P, CA, x, frozen.pack, res, "p2d")
+        return cuda_ndt.ndt_linearize_lookup(P, CA, mask, x, vmap, offsets, mode,
+                                             x_lookup=frozen)
+
+    # the trial cost the LM steps launch (the Cauchy weight at the trial pose)
+    error = cuda_solver.TrialCost(P, offsets=k, resolution=res)
 
     def pack_from_aux(aux):
         # aux [M (6), valid, mu (3)] -> the M-direct pack [mu, M, valid, pad]
@@ -174,13 +165,13 @@ def make_ndt_objective(src_means, src_mask, src_covs, vmap, offsets) -> NdtObjec
     # linearization, and the aux carries only M (the JAX package measured
     # 8 mm off the full re-search solve with an aux-seeded D2D freeze).
     return NdtObjective(linearize, error, freeze, linearize_frozen,
-                        None if d2d else pack_from_aux, P_flat, CA_flat, mode)
+                        None if d2d else pack_from_aux, P, CA, mask, vmap, offsets, mode)
 
 
 def _two_phase_solve(obj: NdtObjective, x0, config: NDTConfig) -> LsqResult:
     """R re-searching LM iterations, then the frozen phase: seeded from the
-    last refresh iteration's aux for P2D, re-frozen at the phase-1 pose for
-    D2D."""
+    last refresh iteration's aux for P2D (the pack form), looked up at the
+    phase-1 pose for D2D (the lookup form with that pose)."""
     R = config.refresh_iterations
     cfg1 = config.lsq._replace(max_iterations=R)
     cfg2 = config.lsq._replace(max_iterations=config.lsq.max_iterations - R)

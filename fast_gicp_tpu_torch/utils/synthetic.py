@@ -542,6 +542,104 @@ def ndt_kernel_edge_cases(seed: int = 0):
     return cases
 
 
+NDT_LOOKUP_CELL_MIN = (-6, -5, -4)  # ndt_lookup_edge_cases' grid: its first cell
+NDT_LOOKUP_CELL_MAX = (5, 4, 3)  # ... and its last index on each axis
+
+
+def _cell_points(rng, cell, count, res, planar=False):
+    """`count` points strictly inside voxel `cell` (voxel_coord
+    floor(p / res - 0.5) = cell), 5% of a voxel away from its faces; near-
+    planar (z spread 1e-3 voxels) with `planar`."""
+    u = 0.55 + 0.9 * rng.random((count, 3))
+    if planar:
+        u[:, 2] = 1.0 + 1e-3 * rng.standard_normal(count)
+    return ((np.asarray(cell, np.float64) + u) * res).astype(np.float32)
+
+
+def _split_faces(res, lo, hi):
+    """Coordinates within a few float32 steps of a voxel face in cells
+    lo..hi whose voxel_coord floor(p / res - 0.5) differs between the true
+    float32 division and the product with f32(1 / res) (how ATen divides a
+    CUDA tensor by a Python float)."""
+    res32, inv = np.float32(res), np.float32(1.0 / res)
+    base = ((np.arange(lo, hi + 1) + 0.5) * res).astype(np.float32)
+    out = []
+    for step in range(-4, 5):
+        q = base.copy()
+        for _ in range(abs(step)):
+            q = np.nextafter(q, np.float32(np.inf if step > 0 else -np.inf))
+        div = np.floor(q / res32 - np.float32(0.5))
+        prod = np.floor(q * inv - np.float32(0.5))
+        out.extend(q[div != prod].tolist())
+    return np.asarray(out, np.float32)
+
+
+def ndt_lookup_edge_cases(seed: int = 0):
+    """Scenes for the NDT linearize's voxel lookup (`ops.cuda_ndt`'s lookup
+    form) that stress its edges, made from `seed`: a target whose
+    dense grid is exactly NDT_LOOKUP_CELL_MIN .. NDT_LOOKUP_CELL_MAX (dims
+    given, negative coordinates), with occupied voxels on the grid's first
+    cell and on its last index on each axis, voxels of exactly 6 points
+    (below the > 6 gate) and 7 (just above it), a near-planar voxel and a
+    spread of others; sources near those voxels (so the DIRECT7 offsets
+    reach beyond the last index), in empty cells inside the grid, far
+    outside it, masked ones and a zero-padded masked tail.  Two scenes: 1 m
+    voxels, the paths' resolution, and 0.3 m with sources exactly on voxel
+    faces, among them faces where the float32 division and the product with
+    the reciprocal bin differently (`_split_faces`).  Returns a list of dicts: name, resolution, dims, target
+    (M, 3), tmask (M,), source (N, 3), smask (N,), covs (N, 3, 3) source
+    covariances for D2D; float32 points."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.array(NDT_LOOKUP_CELL_MIN), np.array(NDT_LOOKUP_CELL_MAX)
+    dims = tuple(int(d) for d in hi - lo + 1)
+    cases = []
+
+    def add(name, res, on_faces):
+        cells = [(lo, 20), (hi, 20), ((hi[0], 0, 0), 10), ((0, hi[1], 0), 10),
+                 ((0, 0, hi[2]), 10), ((1, 1, 1), 6), ((2, 1, 1), 7)]
+        special = np.array([c for c, _ in cells] + [(-2, 0, 0)])
+        others = np.unique(lo + rng.integers(0, hi - lo + 1, (24, 3)), axis=0)
+        others = others[~(others[:, None] == special[None]).all(-1).any(1)]
+        cells += [(c, int(m)) for c, m in zip(others, rng.integers(1, 31, len(others)))]
+        target = np.concatenate([_cell_points(rng, c, m, res) for c, m in cells]
+                                + [_cell_points(rng, (-2, 0, 0), 15, res, planar=True)])
+        tmask = np.ones(len(target), bool)
+        occupied = np.array([c for c, _ in cells] + [(-2, 0, 0)])
+        near = np.concatenate([_cell_points(rng, c, 6, res) for c in occupied])
+        empty = np.array([c for c in lo + rng.integers(0, hi - lo + 1, (200, 3))
+                          if not (c == occupied).all(1).any()][:40])
+        inside_empty = np.concatenate([_cell_points(rng, c, 2, res) for c in empty])
+        far = ((rng.random((40, 3)) - 0.5) * 80.0 * res
+               + np.where(rng.random((40, 1)) < 0.5, 60.0, -60.0) * res).astype(np.float32)
+        parts = [near, inside_empty, far]
+        if on_faces:
+            # sources exactly on the lower face of a voxel along one axis
+            faces = near[:60].copy()
+            axis = rng.integers(0, 3, 60)
+            cell = np.floor(faces[np.arange(60), axis] / res - 0.5)
+            faces[np.arange(60), axis] = ((cell + 0.5) * res).astype(np.float32)
+            split = np.concatenate([_split_faces(res, lo[a], hi[a]) for a in range(3)])
+            axes = np.concatenate([np.full(len(_split_faces(res, lo[a], hi[a])), a)
+                                   for a in range(3)])
+            on_split = near[rng.integers(0, len(near), len(split))].copy()
+            on_split[np.arange(len(split)), axes] = split
+            parts += [faces, on_split]
+        src = np.concatenate(parts).astype(np.float32)
+        smask = rng.random(len(src)) < 0.9
+        pad = (-len(src)) % 64 + 64
+        source = np.concatenate([src, np.zeros((pad, 3), np.float32)])
+        smask = np.concatenate([smask, np.zeros(pad, bool)])
+        A = rng.normal(size=(len(source), 3, 3))
+        covs = (A @ np.swapaxes(A, 1, 2) * 0.01 * res * res
+                + 0.01 * res * res * np.eye(3)).astype(np.float32)
+        cases.append(dict(name=name, resolution=res, dims=dims, target=target, tmask=tmask,
+                          source=source, smask=smask, covs=covs))
+
+    add("unit_voxels", 1.0, on_faces=False)
+    add("res_0.3_on_faces", 0.3, on_faces=True)
+    return cases
+
+
 def _small_pose(rng, angle: float = 0.05, shift: float = 0.2):
     """A 4x4 float32 pose: a rotation by up to `angle` rad about a random
     axis (Rodrigues, in float64) and a shift of up to `shift` m an axis."""

@@ -314,6 +314,83 @@ def test_wrappers_raise_for_tensors_on_other_devices():
         cuda_linearize.linearize(p, ca, x, pack, torch.ones(256, device="meta"))
 
 
+def _ndt_map_inputs(device, raw, n=64):
+    """Lookup-form inputs on `device`: p (3, n), ca, mask, x, a voxel map
+    built on the CPU from the source points and moved, offsets DIRECT7."""
+    from fast_gicp_tpu_torch.ops import voxelmap
+
+    p, ca, x, _pack = _ndt_inputs("cpu", n)
+    pts = torch.cat([p.T, p.T + 0.05, p.T - 0.05, p.T * 1.01] * 2)
+    mask = torch.ones(pts.shape[0], dtype=torch.bool)
+    dims = voxelmap.auto_grid_dims(pts.numpy(), 1.0)
+    if raw:
+        vmap = voxelmap.build_ndt_raw_grid(pts, mask, 1.0, dims)
+    else:
+        vmap = voxelmap.build_ndt_grid_compact(pts, mask, 1.0, dims, budget=128)[0]
+    vmap = type(vmap)(*(t.to(device) if isinstance(t, torch.Tensor) else t for t in vmap))
+    smask = torch.ones(n, dtype=torch.bool)
+    return (p.to(device), ca.to(device), smask.to(device), x.to(device), vmap,
+            voxelmap.neighbor_offsets("direct7"))
+
+
+def test_ndt_lookup_wrappers_take_plain_version_on_cpu_without_counting():
+    """The lookup form on CPU tensors, at one pose and with another lookup
+    pose: its plain version (the eager freeze, then `ndt_linearize_plain`),
+    no launch counted in any form."""
+    from fast_gicp_tpu_torch.ops import cuda_ndt
+
+    wrappers = [cuda_ndt._BY_MODE[m] for m in cuda_ndt.MODES]
+    for fn in wrappers:
+        fn.launches = fn.lookup_launches = 0
+    for mode in cuda_ndt.MODES:
+        p, ca, mask, x, vmap, offsets = _ndt_map_inputs("cpu", mode.endswith("_raw"))
+        got = cuda_ndt.ndt_linearize_lookup(p, ca, mask, x, vmap, offsets, mode)
+        assert got[3].shape == (10, 7 * 64) and got[3].device.type == "cpu"
+        assert got[3][6].sum() > 0
+        again = cuda_ndt.ndt_linearize_lookup(p, ca, mask, x, vmap, offsets, mode,
+                                              x_lookup=x.clone())
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(fn.launches == 0 and fn.lookup_launches == 0 for fn in wrappers)
+
+
+def test_ndt_lookup_wrappers_reject_bad_input_and_mixed_devices():
+    """Bad shapes and dtypes, a map of the other kind, too many offsets, a
+    bad lookup pose and tensors on several devices are refused on every
+    device; tensors that are not on the CPU never take the plain version."""
+    from fast_gicp_tpu_torch.ops import cuda_ndt
+
+    p, ca, mask, x, vmap, offsets = _ndt_map_inputs("cpu", raw=True)
+    fin = _ndt_map_inputs("cpu", raw=False)[4]
+    look = cuda_ndt.ndt_linearize_lookup
+    with pytest.raises(ValueError, match="mask"):
+        look(p, ca, mask.float(), x, vmap, offsets, "d2d_raw")
+    with pytest.raises(ValueError, match="p: expected"):
+        look(p[:, :-1], ca, mask, x, vmap, offsets, "d2d_raw")
+    with pytest.raises(ValueError, match="ca"):
+        look(p, None, mask, x, vmap, offsets, "d2d_raw")
+    with pytest.raises(ValueError, match="does not take a NdtGridMap"):
+        look(p, ca, mask, x, fin, offsets, "d2d_raw")
+    with pytest.raises(ValueError, match="does not take a RawNdtGrid"):
+        look(p, ca, mask, x, vmap, offsets, "p2d")
+    with pytest.raises(ValueError, match="offsets"):
+        look(p, ca, mask, x, vmap, np.zeros((513, 3), np.int32), "d2d_raw")
+    with pytest.raises(ValueError, match="unknown NDT linearize mode"):
+        look(p, ca, mask, x, vmap, offsets, "d2d_hash")
+    with pytest.raises(ValueError, match="x_lookup"):
+        look(p, ca, mask, x, vmap, offsets, "d2d_raw", x_lookup=x[:3])
+    with pytest.raises(ValueError, match="x_lookup"):
+        look(p, ca, mask, x, vmap, offsets, "d2d_raw", x_lookup=x.double())
+    meta = _ndt_map_inputs("meta", raw=True)
+    with pytest.raises(ValueError, match="several devices"):
+        look(p, ca, meta[2], x, vmap, offsets, "d2d_raw")
+    with pytest.raises(ValueError, match="several devices"):
+        look(p, ca, mask, x, vmap, offsets, "d2d_raw", x_lookup=meta[3])
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        look(*meta[:5], offsets, "d2d_raw")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        look(*meta[:5], offsets, "d2d_raw", x_lookup=meta[3].clone())
+
+
 def test_knn_and_adaptive_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from fast_gicp_tpu_torch.ops import covariance, neighbors
 

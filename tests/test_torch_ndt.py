@@ -27,6 +27,7 @@ from fast_gicp_tpu.models import ndt as jndt
 from fast_gicp_tpu.ops import pallas_linearize
 from fast_gicp_tpu_torch import convert, se3
 from fast_gicp_tpu_torch.models import ndt
+from fast_gicp_tpu_torch.ops import cuda_ndt
 from fast_gicp_tpu_torch.ops.voxelmap import NdtGridMap, auto_grid_dims_from_extent
 from fast_gicp_tpu_torch.solver import lsq_solve
 from fast_gicp_tpu_torch.utils import downsample, padding, synthetic
@@ -230,6 +231,32 @@ def test_ndt_path_objective_is_what_the_entry_point_solves(pair, fresh, mode):
         want = ndt.ndt_align(sp, sm, tp, tm, eye, cfg, device="cpu")
     torch.testing.assert_close(T, want.transformation, rtol=0, atol=1e-6)
     assert int(res.iterations) == int(want.iterations)
+
+
+@pytest.mark.parametrize("fresh", [True, False])
+def test_ndt_two_phase_ids_form_keeps_the_pack_semantics(pair, fresh):
+    """D2D's two-phase solve (refresh_iterations=3) with the lookup form and
+    the frozen phase looking its voxels up at the phase-1 pose, against the
+    same solve with the eager freeze into a pack and the pack form
+    everywhere (the JAX package's freeze): the same pose and iterations,
+    bit for bit.  D2D re-freezes M from cov_B at every frozen linearization
+    in both (the lookup form reads the rows again)."""
+    cfg = ndt.NDTConfig(grid_dims=pair["dims"], refresh_iterations=3)
+    sp, sm, tp, tm, eye = _args(pair)
+    obj, c = ndt.ndt_path_objective(sp, sm, tp, tm, cfg, fresh=fresh, device="cpu")
+
+    def freeze(x):
+        return cuda_ndt.ndt_freeze_pack(obj.p, obj.mask, x, obj.vmap, obj.offsets, obj.mode)
+
+    def frozen(x, pack):
+        return cuda_ndt.ndt_linearize(obj.p, obj.ca, x, pack, obj.vmap.resolution, obj.mode)
+
+    eager = obj._replace(linearize=lambda x: frozen(x, freeze(x)), freeze=freeze,
+                         linearize_frozen=frozen)
+    x0 = se3.conjugate_to_centered(torch.as_tensor(eye), c)
+    got, want = (ndt._two_phase_solve(o, x0, cfg) for o in (obj, eager))
+    assert torch.equal(got.transformation, want.transformation)
+    assert int(got.iterations) == int(want.iterations) > 3
 
 
 def test_ndt_hash_map_and_unknown_mode_raise(pair):

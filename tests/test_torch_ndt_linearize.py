@@ -26,8 +26,8 @@ from fast_gicp_tpu.ops import voxelmap as jvox
 from fast_gicp_tpu_torch import convert
 from fast_gicp_tpu_torch.models import ndt
 from fast_gicp_tpu_torch.ops import cuda_linearize, cuda_ndt
-from fast_gicp_tpu_torch.ops.voxelmap import auto_grid_dims, neighbor_offsets
-from fast_gicp_tpu_torch.utils.synthetic import ndt_kernel_edge_cases
+from fast_gicp_tpu_torch.ops.voxelmap import auto_grid_dims, lookup_ndt_cols, neighbor_offsets
+from fast_gicp_tpu_torch.utils.synthetic import ndt_kernel_edge_cases, ndt_lookup_edge_cases
 from tests.torch_cpu import warm_intra_op_threads
 
 N = 2048
@@ -70,8 +70,10 @@ def scene():
     return dict(src=src, mask=mask, covs=covs, dims=dims, maps=maps, x=x, x2=x2)
 
 
-def _objectives(scene, mode):
-    """(port objective, JAX fused objective, JAX SoA objective) for `mode`."""
+def _objectives(scene, mode, with_freeze=False):
+    """(port objective, JAX fused objective, JAX SoA objective) for `mode`;
+    with_freeze: the port's NdtObjective and the fused objective's five
+    functions (linearize, error, freeze, linearize_frozen, pack_from_aux)."""
     d2d, raw = mode.startswith("d2d"), mode.endswith("_raw")
     jmap, tmap = scene["maps"][raw]
     offsets = neighbor_offsets("direct7")
@@ -83,9 +85,12 @@ def _objectives(scene, mode):
     P = jsoa.cols_from_points(jnp.asarray(scene["src"]))
     C_A = None if covs is None else jsoa.sym_cols_from_covs(jnp.asarray(covs))
     joffs = jnp.asarray(offsets)
+    n = len(scene["src"])
     fused = jndt._make_ndt_objective_fused(
-        P, C_A, jnp.asarray(scene["mask"]), jmap, joffs.T[:, :, None], N, len(offsets),
-        lambda v: v, False, interpret=True)
+        P, C_A, jnp.asarray(scene["mask"]), jmap, joffs.T[:, :, None], n, len(offsets),
+        lambda v: v, with_freeze, interpret=True)
+    if with_freeze:
+        return obj, fused
     cfg = jndt.NDTConfig(resolution=1.0, grid_dims=scene["dims"])
     soa_obj = jndt.make_ndt_objective(jnp.asarray(scene["src"]), jnp.asarray(scene["mask"]),
                                       None if covs is None else jnp.asarray(covs), jmap,
@@ -312,3 +317,174 @@ def test_ndt_error_rejects_offsets_that_do_not_divide_the_lanes():
         cuda_ndt.ndt_error(torch.zeros((3, 21)), aux, torch.eye(4), 1.0, offsets=4)
     with pytest.raises(ValueError, match="p: expected"):
         cuda_ndt.ndt_error(torch.zeros((3, 5)), aux, torch.eye(4), 1.0, offsets=7)
+
+
+def _port_objective(scene, mode):
+    d2d, raw = mode.startswith("d2d"), mode.endswith("_raw")
+    covs = convert.covs_from_numpy(scene["covs"], device="cpu") if d2d else None
+    return ndt.make_ndt_objective(torch.as_tensor(scene["src"]), torch.as_tensor(scene["mask"]),
+                                  covs, scene["maps"][raw][1], neighbor_offsets("direct7"))
+
+
+def _assert_same(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_ndt_lookup_form_equals_freeze_and_pack(scene, mode):
+    """The lookup form (the voxel lookup in the kernel; on the CPU its plain
+    version) against the eager freeze into a pack and the pack form, at the
+    same pose: the same bits."""
+    obj = _port_objective(scene, mode)
+    x = torch.as_tensor(scene["x"])
+    got = cuda_ndt.ndt_linearize_lookup(obj.p, obj.ca, obj.mask, x, obj.vmap, obj.offsets, mode)
+    pack = cuda_ndt.ndt_freeze_pack(obj.p, obj.mask, x, obj.vmap, obj.offsets, mode)
+    _assert_same(got, cuda_ndt.ndt_linearize(obj.p, obj.ca, x, pack, 1.0, mode))
+    _assert_same(obj.linearize(x), got)
+    assert got[3][6].sum() > 1000
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_ndt_ids_form_after_a_freeze_at_another_pose(scene, mode):
+    """freeze(x) returns the pose x itself (nothing to launch); the frozen
+    linearization at x2 is the lookup form with x as its lookup pose and
+    equals the pack frozen at x and linearized at x2; the freeze's row ids
+    are `lookup_ndt_cols`' at x."""
+    obj = _port_objective(scene, mode)
+    x, x2 = torch.as_tensor(scene["x"]), torch.as_tensor(scene["x2"])
+    frozen = obj.freeze(x)
+    assert frozen is x
+    ids, q = cuda_ndt._lookup_plain(obj.p, x, obj.vmap, obj.offsets)
+    assert ids.shape == (7 * N,)
+    assert torch.equal(ids, lookup_ndt_cols(obj.vmap, *q).reshape(-1))
+    pack = cuda_ndt.ndt_freeze_pack(obj.p, obj.mask, x, obj.vmap, obj.offsets, mode)
+    want = cuda_ndt.ndt_linearize(obj.p, obj.ca, x2, pack, 1.0, mode)
+    _assert_same(obj.linearize_frozen(x2, frozen), want)
+    _assert_same(cuda_ndt.ndt_linearize_lookup(obj.p, obj.ca, obj.mask, x2, obj.vmap,
+                                               obj.offsets, mode, x_lookup=x), want)
+    assert not torch.equal(want[3], obj.linearize(x2)[3])  # x2 re-searches other voxels
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_ndt_frozen_phase_matches_pallas(scene, mode):
+    """The port's freeze at x and frozen linearization at x2 (the lookup
+    form at x; P2D also the aux-seeded pack form) against the JAX fused objective's
+    freeze and `linearize_frozen` (Pallas bodies in interpret mode), and
+    the trial error on that aux; tolerances of the module docstring."""
+    obj, (jlin, jerr, jfreeze, jfrozen, jfrom_aux) = _objectives(scene, mode, True)
+    x, x2 = torch.as_tensor(scene["x"]), torch.as_tensor(scene["x2"])
+    jx, jx2 = jnp.asarray(scene["x"]), jnp.asarray(scene["x2"])
+    pairs = [(obj.linearize_frozen(x2, obj.freeze(x)), jfrozen(jx2, jfreeze(jx)))]
+    if obj.pack_from_aux is not None:
+        pairs.append((obj.linearize_frozen(x2, obj.pack_from_aux(obj.linearize(x)[3])),
+                      jfrozen(jx2, jfrom_aux(jlin(jx)[3]))))
+    for (e, H, b, aux), (e_j, H_j, b_j, aux16) in pairs:
+        aux_j = np.asarray(aux16)[:10]
+        np.testing.assert_array_equal(aux[6].numpy(), aux_j[6])
+        np.testing.assert_allclose(aux[7:10].numpy(), aux_j[7:10], rtol=1e-5, atol=1e-5)
+        scale = np.maximum(np.abs(aux_j[:6]).max(0), 1e-30)
+        np.testing.assert_allclose(aux[:6].numpy() / scale, aux_j[:6] / scale, rtol=0,
+                                   atol=1e-4)
+        np.testing.assert_allclose(float(e), float(e_j), rtol=1e-4)
+        _close_to_max(H.numpy(), H_j, 1e-4)
+        _close_to_max(b.numpy(), b_j, 1e-4)
+        np.testing.assert_allclose(float(obj.error(x, aux)), float(jerr(jx, aux16)), rtol=1e-4)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_ndt_untiled_and_tiled_source_columns_agree(scene, mode):
+    """Source columns (3, N) read at column i of lane k N + i, and the same
+    tiled over the offsets to (3, L) read at column n: the same bits in the
+    lookup form (at one pose, and with another lookup pose) and the pack
+    form."""
+    obj = _port_objective(scene, mode)
+    x, x2 = torch.as_tensor(scene["x"]), torch.as_tensor(scene["x2"])
+    pt = obj.p.repeat(1, 7)
+    cat = None if obj.ca is None else obj.ca.repeat(1, 7)
+    _assert_same(cuda_ndt.ndt_linearize_lookup(pt, cat, obj.mask, x, obj.vmap, obj.offsets,
+                                               mode), obj.linearize(x))
+    frozen = obj.freeze(x)
+    _assert_same(cuda_ndt.ndt_linearize_lookup(pt, cat, obj.mask, x2, obj.vmap, obj.offsets,
+                                               mode, x_lookup=frozen),
+                 obj.linearize_frozen(x2, frozen))
+    pack = cuda_ndt.ndt_freeze_pack(pt, obj.mask, x, obj.vmap, obj.offsets, mode)
+    _assert_same(cuda_ndt.ndt_linearize(pt, cat, x2, pack, 1.0, mode),
+                 cuda_ndt.ndt_linearize(obj.p, obj.ca, x2, pack, 1.0, mode))
+
+
+LOOKUP_CASES = ndt_lookup_edge_cases()
+_LOOKUP_N = 2048  # the Pallas kernels' lane tile: 7 x 2,048 lanes
+
+
+def _lookup_scene(case, mode):
+    """The port's objective and the JAX fused objective on a lookup edge
+    case, the JAX-built map carried across by `convert`, the sources
+    zero-padded (masked) to 2,048."""
+    d2d, raw = mode.startswith("d2d"), mode.endswith("_raw")
+    n = len(case["source"])
+    pad = _LOOKUP_N - n
+    src = np.concatenate([case["source"], np.zeros((pad, 3), np.float32)])
+    mask = np.concatenate([case["smask"], np.zeros(pad, bool)])
+    covs = np.concatenate([case["covs"], np.tile(np.eye(3, dtype=np.float32), (pad, 1, 1))])
+    tgt, tmask, res, dims = (jnp.asarray(case["target"]), jnp.asarray(case["tmask"]),
+                             case["resolution"], case["dims"])
+    if raw:
+        jmap = jvox.build_ndt_raw_grid(tgt, tmask, res, dims)
+        tmap = convert.raw_ndt_grid_from_numpy(jmap.rows, jmap.grid8, jmap.origin, res,
+                                               jmap.grid.shape, device="cpu")
+    else:
+        jmap, _ = jvox.build_ndt_grid_compact(tgt, tmask, res, dims, budget=64)
+        tmap = convert.ndt_grid_map_from_numpy(jmap.packed, jmap.grid8, jmap.origin, res,
+                                               jmap.grid.shape, device="cpu")
+    assert tmap.dims == dims
+    offsets = neighbor_offsets("direct7")
+    obj = ndt.make_ndt_objective(
+        torch.as_tensor(src), torch.as_tensor(mask),
+        convert.covs_from_numpy(covs, device="cpu") if d2d else None, tmap, offsets)
+    fused = jndt._make_ndt_objective_fused(
+        jsoa.cols_from_points(jnp.asarray(src)),
+        jsoa.sym_cols_from_covs(jnp.asarray(covs)) if d2d else None, jnp.asarray(mask),
+        jmap, jnp.asarray(offsets).T[:, :, None], _LOOKUP_N, 7, lambda v: v, False,
+        interpret=True)
+    return obj, fused
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", LOOKUP_CASES, ids=lambda c: c["name"])
+def test_ndt_lookup_edge_cases_match_pallas(case, mode):
+    """The lookup form on `ndt_lookup_edge_cases` (grid exactly the target's
+    extent with negative coordinates, voxels on its first cell and on the
+    last index of each axis, voxels of 6 and 7 points, near-planar, empty
+    cells, sources far outside the grid, masked and zero-padded sources; a
+    0.3 m scene with sources on voxel faces) at the identity and at a small
+    pose, against the JAX fused objective (Pallas in interpret mode):
+    valid exactly, which also holds the gate (count 6 invalid, 7 valid),
+    the misses (zero row) and the masks; mu within 1e-5; M within 1e-4 of
+    each lane's largest |M|; err, H, b as the module docstring.  The
+    frozen phase's form at the same pose gives the same bits; lanes outside
+    the grid read the zero row."""
+    obj, (jlin, _jerr) = _lookup_scene(case, mode)
+    poses = [np.eye(4, dtype=np.float32), _X_EDGE]
+    for xn in poses:
+        x = torch.as_tensor(xn)
+        e, H, b, aux = obj.linearize(x)
+        e_j, H_j, b_j, aux16 = jlin(jnp.asarray(xn))
+        aux_j = np.asarray(aux16)[:10]
+        np.testing.assert_array_equal(aux[6].numpy(), aux_j[6])
+        np.testing.assert_allclose(aux[7:10].numpy(), aux_j[7:10], rtol=1e-5, atol=1e-5)
+        scale = np.maximum(np.abs(aux_j[:6]).max(0), 1e-30)
+        np.testing.assert_allclose(aux[:6].numpy() / scale, aux_j[:6] / scale, rtol=0,
+                                   atol=1e-4)
+        np.testing.assert_allclose(float(e), float(e_j), rtol=1e-4)
+        _close_to_max(H.numpy(), H_j, 1e-4)
+        _close_to_max(b.numpy(), b_j, 1e-4)
+        _assert_same(obj.linearize_frozen(x, obj.freeze(x)), (e, H, b, aux))
+        ids, q = cuda_ndt._lookup_plain(obj.p, x, obj.vmap, obj.offsets)
+        zero_row = obj.vmap.grid.new_tensor(obj.vmap[0].shape[0] - 1)
+        outside = [(qa < o) | (qa >= o + d) for qa, o, d in
+                   zip(q, obj.vmap.origin.long(), obj.vmap.dims)]
+        outside = (outside[0] | outside[1] | outside[2]).reshape(-1)
+        assert outside.any() and torch.equal(ids[outside], zero_row.expand(int(outside.sum())))
+    valid = aux[6].numpy().astype(bool)
+    assert valid.any() and not valid.all()
