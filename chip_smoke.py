@@ -8,7 +8,13 @@ forms (kNN covariances with PLANE, adaptive-radius covariances, kNN
 covariances with MIN_EIG; exact 1-NN correspondences re-searched at every
 linearization, LM solve), and NDT in four forms: `ndt_register_fresh` D2D
 and P2D (NDTCuda's fresh align: finalized maps prepared per cloud) and
-`ndt_align` D2D and P2D (raw target grid, two-phase solve).
+`ndt_align` D2D and P2D (raw target grid, two-phase solve).  Three class
+paths (`CLASS_PATHS`) drive the class API's swap workflow (set_input_*,
+align, swap_source_and_target, align, evaluate_cost, get_fitness_score):
+FastVGICP on the hash map (class defaults, grid_dims=None), FastVGICP on
+the sparse dense grid (multiplicative, DIRECT7) and FastGICP; phase 3
+holds the map builds on the card to the CPU and the `linearize` kernel to
+its plain and gathered forms on those maps' inputs.
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device: CUDA must be present; prints the card's name and power limit;
   2. build: compiles the CUDA kernels from `fast_gicp_tpu_torch/csrc` (one
@@ -34,7 +40,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
      device ops).
 Phase 3 also holds the LM trial launch (`lm_step`: the trial step, the
 error and the LM schedule in one kernel) bit for bit to the unfused trial
-on a seeded sweep at four paths' first linearization (`phase_trial`), and
+on a seeded sweep at the first linearization of four paths and of the
+FastVGICP class paths' hash and grid maps (`phase_trial`), and
 phase 4 checks that every LM trial of every path is one such launch and one
 flag read.  The GICP and VGICP linearizes read their target rows by index
 (the idx form): phase 3 holds it bit for bit to the gathered form and to a
@@ -85,6 +92,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_PER_S = 67e12  # FP32 outside the tensor cores, H100 SXM data sheet
 # FP32 operations each kernel needs, counted from its arithmetic:
@@ -1474,10 +1482,11 @@ def check_ndt_lookup_edge_cases(dev, check_lin, x2):
     points, a near-planar voxel, empty cells, sources outside the grid,
     masked and zero-padded sources; 1 m and 0.3 m voxels, the latter with
     sources on voxel faces), in all four modes (maps built on the CPU),
-    at the identity and at a small pose.  On the 0.3 m scene the card's
-    eager lookup (ATen divides by a Python float as a product with its
-    reciprocal) may bin face points elsewhere than the kernel and the CPU:
-    counted and logged."""
+    at the identity and at a small pose.  The card's eager lookup
+    (`voxelmap.voxel_coord`, a true division by a float32 tensor of the
+    resolution) must bin every point as the kernel and the CPU do, face
+    points of the 0.3 m scene included: the ids that differ are counted,
+    logged and required to be 0."""
     from fast_gicp_tpu_torch.models.ndt import make_ndt_objective
     from fast_gicp_tpu_torch.ops import soa
     from fast_gicp_tpu_torch.ops.voxelmap import (
@@ -1513,6 +1522,9 @@ def check_ndt_lookup_edge_cases(dev, check_lin, x2):
         f"repeat-identical on all {len(cases)} scenes x 4 modes x 2 poses "
         f"({', '.join(c['name'] for c in cases)}); ids where the card's eager lookup "
         f"differs: {eager_differs}")
+    require(all(n == 0 for by_case in eager_differs.values() for n in by_case.values()),
+            f"NDT lookup edge cases: the card's eager lookup bins ids elsewhere than the "
+            f"CPU: {eager_differs}")
     return eager_differs
 
 
@@ -1881,13 +1893,17 @@ TRIAL_SWEEP = 24  # sweep points a path, besides the first-trial, NaN and ragged
 
 
 def trial_inputs(dev, pair):
-    """{path: (y0, H, b, aux, cost)} at the first linearization (pose I, the
-    target-centroid frame) of VGICP (22,528 lanes), GICP (22,528), NDT D2D
-    fresh (7 x 4,096) and P2D fresh (7 x 22,528) on the full-size pair, as
-    each path's objective builds them on the card; `cost` is the objective's
-    error (a TrialCost in this package, a closure in packages before it)."""
+    """{path: (y0, H, b, aux, cost, n_src)} at the first linearization
+    (pose I, the target-centroid frame) of VGICP (22,528 lanes), GICP
+    (22,528), NDT D2D fresh (7 x 4,096) and P2D fresh (7 x 22,528) on the
+    full-size pair, and, in a package with the class API, of FastVGICP's
+    hash map (22,528) and sparse grid map (DIRECT7, 7 x 22,528 lanes with
+    misses), as each path's objective builds them on the card; `cost` is
+    the objective's error (a TrialCost in this package, a closure in
+    packages before it), `n_src` the source columns the lanes read."""
     from fast_gicp_tpu_torch.models.gicp import GICPConfig, make_gicp_objective
     from fast_gicp_tpu_torch.models.ndt import ndt_path_objective
+    from fast_gicp_tpu_torch.models import vgicp as vgicp_module
     from fast_gicp_tpu_torch.models.vgicp import VGICPConfig, make_vgicp_objective
     from fast_gicp_tpu_torch.ops.covariance import (
         knn_covariance_cols, masked_mean, rbf_covariance_cols,
@@ -1909,14 +1925,20 @@ def trial_inputs(dev, pair):
     lin, cost, _f, _lf = make_vgicp_objective(
         src - c, smask, rbf_covariance_cols(src - c, smask), vmap, neighbor_offsets("direct1"),
         VGICPConfig(grid_dims=dims, refresh_iterations=2))
-    out["vgicp_register"] = lin(x) + (cost,)
-    lin, cost = make_gicp_objective(src - c, smask, knn_covariance_cols(src, smask), tgt - c,
-                                    tmask, knn_covariance_cols(tgt, tmask), GICPConfig())
-    out["gicp_register_fresh"] = lin(x) + (cost,)
+    N = src.shape[0]
+    out["vgicp_register"] = lin(x) + (cost, N)
+    scov, tcov = knn_covariance_cols(src, smask), knn_covariance_cols(tgt, tmask)
+    lin, cost = make_gicp_objective(src - c, smask, scov, tgt - c, tmask, tcov, GICPConfig())
+    out["gicp_register_fresh"] = lin(x) + (cost, N)
     for path in ("ndt_d2d_fresh", "ndt_p2d_fresh"):
         cfg = PATHS[path][0](source, target).config
         obj, _c = ndt_path_objective(sp, sm, tp, tm, cfg, fresh=True, device=dev)
-        out[path] = obj.linearize(x) + (obj.error,)
+        y0, H, b, aux = obj.linearize(x)
+        out[path] = (y0, H, b, aux, obj.error, aux.shape[1] // obj.error.offsets)
+    if hasattr(vgicp_module, "FastVGICP"):
+        for name, (_m, _o, (lin, cost, _f, _lf), src_c, _sm, _sc) in (
+                class_map_objectives(dev, pair, scov, tcov).items()):
+            out[CLASS_MAP_PATHS[name]] = lin(x) + (cost, src_c.shape[0])
     return out
 
 
@@ -1978,7 +2000,8 @@ def check_schedule_traps(dev):
 
 def phase_trial(dev, pair):
     """The LM trial launch (`cuda_solver.lm_step`) at the first linearization
-    of VGICP, GICP, D2D and P2D fresh:
+    of VGICP, GICP, D2D and P2D fresh and of FastVGICP on the hash map and
+    on the sparse grid map (DIRECT7, 157,696 lanes with misses):
     1. bit for bit against the unfused trial (the standalone `lm_trial`
        launch, the trial-off error launch, the eager schedule:
        `lm_step_plain` on the card) on a seeded sweep of lambda, trial poses
@@ -2048,7 +2071,7 @@ def phase_trial(dev, pair):
             hits["conv_reject" if done else "reject"] += 1
 
     records = {}
-    for path, (y0, H, b, aux, cost) in inputs.items():
+    for path, (y0, H, b, aux, cost, n_src) in inputs.items():
         rng = np.random.default_rng(len(records))
         x = torch.eye(4, device=dev)
         dmax = float(torch.diagonal(H).abs().max())
@@ -2113,7 +2136,6 @@ def phase_trial(dev, pair):
             st, H, b, y0, aux, cost.plain, False, cfg, trial=plain_trial)), 20)
         call_ms = cuda_ms(lambda: cs.lm_step(st, H, b, y0, aux, cost, False, cfg), 200)
         require(min(fused_ms, error_ms, trial_ms) > 0.0, f"{path}: no kernel time in the trace")
-        n_src = L // cost.offsets
         nbytes = n_src * 12 + L * 40 + 64 + 4 + TRIAL_FLOATS * 4
         b_ms, b_by = bound_ms(nbytes, L * (NDT_ERROR_OPS if ndt else ERROR_OPS) + LM_TRIAL_OPS)
         records[path] = dict(lanes=L, ms=fused_ms, trial_off_error_ms=error_ms,
@@ -2155,7 +2177,7 @@ def trial_timing(dev, pair):
 
     cfg, out = LsqConfig(), {}
     fused = hasattr(cs, "lm_step")
-    for path, (y0, H, b, aux, cost) in trial_inputs(dev, pair).items():
+    for path, (y0, H, b, aux, cost, _n) in trial_inputs(dev, pair).items():
         x = torch.eye(4, device=dev)
         lam = (1e-6 * torch.diagonal(H).abs().max()).reshape(1)
         xi = cs.lm_trial(H, b, lam, x)[0]
@@ -2310,11 +2332,52 @@ PATHS = {
     "gicp_min_eig_fresh": (gicp_path(*GICP_ESTIMATORS["gicp_min_eig_fresh"]),
                            ("knn_slab", "nn_search", "linearize", "lm_step"), D2D_LIMITS),
 }
+
+
+def _fast_vgicp_hash(device):
+    """FastVGICP with the class defaults (kNN covariances, k = 20, plane,
+    DIRECT1, 1 m, additive) on the hash map (grid_dims=None)."""
+    from fast_gicp_tpu_torch.models.vgicp import FastVGICP
+
+    return FastVGICP(grid_dims=None, device=device)
+
+
+def _fast_vgicp_grid_mult(device):
+    """FastVGICP, multiplicative accumulation, DIRECT7, grid_dims "auto":
+    the sparse dense-grid map (`GridVoxelMap`)."""
+    from fast_gicp_tpu_torch.models.vgicp import FastVGICP
+
+    reg = FastVGICP(device=device)
+    reg.set_voxel_accumulation_mode("multiplicative")
+    reg.set_neighbor_search_method("DIRECT7")
+    return reg
+
+
+def _fast_gicp_class(device):
+    """FastGICP with the class defaults."""
+    from fast_gicp_tpu_torch.models.gicp import FastGICP
+
+    return FastGICP(device=device)
+
+
+# class path -> (make(device) -> Registration, kernels the path must launch,
+# the pair its card-against-CPU phase runs on: the CPU-test-sized pair for
+# FastGICP, the full-size one for FastVGICP, whose kNN-covariance solve on
+# the small pair's sparse 1 m voxels stalls short of the convergence test
+# (64 iterations in either package, now and then, tests/test_torch_classes.py)
+# or lands outside the reference's accuracy (multiplicative, DIRECT7: 67 mm))
+CLASS_PATHS = {
+    "fast_vgicp_hash": (_fast_vgicp_hash, ("knn_moments", "linearize", "lm_step"), "full"),
+    "fast_vgicp_grid_mult": (_fast_vgicp_grid_mult, ("knn_moments", "linearize", "lm_step"),
+                             "full"),
+    "fast_gicp_class": (_fast_gicp_class, ("knn_moments", "nn_search", "linearize", "lm_step"),
+                        "small"),
+}
 # the standalone launches the trial launch replaces inside the LM solve, and
 # the paths whose trials carry each one's body
-TRIAL_CARRIED = {"lm_trial": tuple(PATHS),
+TRIAL_CARRIED = {"lm_trial": tuple(PATHS) + tuple(CLASS_PATHS),
                  "error": ("vgicp_register", "gicp_register_fresh", "gicp_adaptive_fresh",
-                           "gicp_min_eig_fresh"),
+                           "gicp_min_eig_fresh") + tuple(CLASS_PATHS),
                  "ndt_error": ("ndt_d2d_fresh", "ndt_p2d_fresh", "ndt_d2d_align",
                                "ndt_p2d_align")}
 NDT_PATHS = tuple(p for p in PATHS if p.startswith("ndt_"))
@@ -2563,13 +2626,23 @@ PREDICTED_DEVICE_OPS = {"vgicp_register": 725.6, "gicp_register_fresh": 765.6,
                         "ndt_d2d_align": 409.6, "ndt_p2d_align": 126.6}
 
 
+def wall_ms(fn, reps=10):
+    """Host wall per call of `fn` over `reps` calls after a warm-up, closed
+    by a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
 def phase_profile(dev, pair, path, n_regs=5):
     """Where a registration's time goes: host-clock stage times (each stage
     alone, synchronised), then a torch.profiler trace of `n_regs`
     registrations for the device time by kernel and the device's busy
     share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
     from fast_gicp_tpu_torch.utils.padding import pad_points
 
     source, target, _gt = pair
@@ -2580,15 +2653,6 @@ def phase_profile(dev, pair, path, n_regs=5):
     sp, sm, tp, tm = (torch.as_tensor(a, device=dev) for a in (sp, sm, tp, tm))
     guess = torch.eye(4, device=dev)
 
-    def wall_ms(fn, reps=10):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / reps
-
     if path == "vgicp_register":
         stage_fn = _stages_vgicp
     elif path in GICP_ESTIMATORS:
@@ -2598,6 +2662,19 @@ def phase_profile(dev, pair, path, n_regs=5):
     stages = stage_fn(dev, made, sp, sm, tp, tm, guess, wall_ms)
     log(f"[profile] {path} stage wall ms/registration: "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    return dict(stage_wall_ms=stages,
+                **trace_registrations(path, lambda: register(sp, sm, tp, tm, guess, dev),
+                                      n_regs, PREDICTED_DEVICE_OPS[path]))
+
+
+def trace_registrations(path, run, n_regs, predicted, all_ops=False):
+    """Each of `n_regs` calls of `run` (one registration): its device span
+    from CUDA events recorded on the stream before and after it, untraced
+    and under torch.profiler, and the trace's device busy time, device ops
+    and top kernels; device ops against `predicted` (a number, or a
+    callable read after the runs); with `all_ops`, every device op's count
+    a registration, not only the top twelve by time."""
+    from torch.profiler import ProfilerActivity, profile
 
     def spans_ms():
         """Host wall a registration, and each registration's device span:
@@ -2609,7 +2686,7 @@ def phase_profile(dev, pair, path, n_regs=5):
         t0 = time.perf_counter()
         for start, end in marks:
             start.record()
-            register(sp, sm, tp, tm, guess, dev)
+            run()
             end.record()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n_regs
@@ -2622,23 +2699,377 @@ def phase_profile(dev, pair, path, n_regs=5):
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n_regs
     launches = sum(e.count for e in events) / n_regs
     span = sum(spans) / n_regs
+    if callable(predicted):
+        predicted = predicted()
     log(f"[profile] {path}, traced {n_regs} registrations: wall {wall:.3f} ms, device span "
         f"(CUDA events) {span:.3f} ms (each {', '.join(f'{v:.3f}' for v in spans)}), device "
         f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall:.1f}% of the wall, "
         f"{100 * busy_ms / span:.1f}% of the span), device ops {launches:.1f} per "
         f"registration; untraced: wall {wall_untraced:.3f} ms, device span "
         f"{sum(spans_untraced) / n_regs:.3f} ms")
-    predicted = PREDICTED_DEVICE_OPS[path]
     log(f"[profile] {path}: device ops {launches:.1f} a registration against the predicted "
         f"{predicted} ({launches - predicted:+.1f})")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:None if all_ops else 12]:
         log(f"[profile]   {e.self_device_time_total / 1e3 / n_regs:9.4f} ms  "
-            f"x{e.count / n_regs:5.1f}  {e.key[:90]}")
-    return dict(stage_wall_ms=stages, traced_wall_ms=wall, device_span_ms=span,
-                device_busy_ms=busy_ms, device_ops_per_registration=launches,
-                predicted_device_ops=predicted,
+            f"x{e.count / n_regs:5.1f}  {e.key[:90 if not all_ops else 160]}")
+    copies = {kind: sum(e.count for e in events if f"Memcpy {kind}" in e.key) / n_regs
+              for kind in ("HtoD", "DtoH")}
+    return dict(traced_wall_ms=wall, device_span_ms=span, device_busy_ms=busy_ms,
+                device_ops_per_registration=launches, predicted_device_ops=predicted,
+                copies_per_registration=copies,
                 untraced_wall_ms=wall_untraced,
                 untraced_device_span_ms=sum(spans_untraced) / n_regs)
+
+
+# -- the class API: FastVGICP on the hash and grid maps, FastGICP -----------
+
+# Device ops a class-path registration (clear_covariances + align, the fresh
+# path, and the result's one read) predicted before its first traced run
+# (PERF.md section 6), from `python tests/torch_class_ops.py`:
+# constant + per_linearization x iterations + per_trial x trials, at the
+# traced registration's own iterations and trials.  The hash constant was
+# 733.6 until the table build stopped resetting its parking slot (8 host
+# copies a build).
+PREDICTED_CLASS_OPS = {"fast_vgicp_hash": (725.6, 65, 2),
+                       "fast_vgicp_grid_mult": (692.6, 78, 2),
+                       "fast_gicp_class": (553.6, 34, 2)}
+
+
+def _rows_close(name, got, want, scale, tol):
+    """Each row of got (C, W) within tol x that row's scale (C,) of want's;
+    returns the largest |diff| / scale."""
+    rel = ((got - want).abs().amax(dim=1) / torch.clamp(scale, min=1e-30))
+    require(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
+    worst = float(rel.max()) if rel.numel() else 0.0
+    require(bool((rel <= tol).all()), f"{name}: {int((rel > tol).sum())} rows beyond "
+            f"{tol} of their scale (worst {worst:.3e})")
+    return worst
+
+
+def check_map_card_vs_cpu(name, pts, mask, covs, res, mode, dims, dev):
+    """`build_voxelmap` on the card against the same build on the CPU: the
+    integer fields (counts, coords, num_voxels; the table and lut, or the
+    grid and origin) exactly equal, the means within 1e-5 of each voxel's
+    largest |mean|, the covariances within 1e-5 of the voxel's scale (the
+    card's scatter-adds are atomic, so the sums differ in the last bits):
+    additive, the largest |cov| entry; raw, the largest |E[x x^T]| entry,
+    from which E[x x^T] - mu mu^T cancels; multiplicative, both scales x
+    kappa, the voxel's condition number (the information-form sums are
+    inverted: a last-bit difference in them grows by up to kappa).
+    Returns the worst row of each field."""
+    from fast_gicp_tpu_torch.ops.voxelmap import build_voxelmap
+
+    maps = [build_voxelmap(torch.as_tensor(pts), torch.as_tensor(mask), res,
+                           covs=None if covs is None else torch.as_tensor(covs), mode=mode,
+                           grid_dims=dims, device=d) for d in (dev, "cpu")]
+    card, cpu = maps
+    ints = ("counts", "coords", "num_voxels") + (
+        ("grid", "origin") if dims is not None else ("table", "lut"))
+    for f in ints:
+        require(bool(torch.equal(getattr(card, f).cpu(), getattr(cpu, f))),
+                f"{name}: {f} differs between card and CPU")
+    live = cpu.counts > 0
+    mu_c, mu = card.means.cpu()[live], cpu.means[live]
+    cov_c, cov = card.covs.cpu()[live].reshape(-1, 9), cpu.covs[live].reshape(-1, 9)
+    mu_scale, scale = mu.abs().amax(dim=1), cov.abs().amax(dim=1)
+    if mode == "raw":
+        scale = (cov + (mu[:, :, None] * mu[:, None, :]).reshape(-1, 9)).abs().amax(dim=1)
+    elif mode == "multiplicative":
+        w = torch.linalg.eigvalsh(cov.reshape(-1, 3, 3).double()).abs()
+        kappa = (w.amax(1) / torch.clamp(w.amin(1), min=1e-30)).float()
+        mu_scale, scale = mu_scale * kappa, scale * kappa
+    worst = dict(means=_rows_close(f"{name} means", mu_c, mu, mu_scale, 1e-5),
+                 covs=_rows_close(f"{name} covs", cov_c, cov, scale, 1e-5),
+                 voxels=int(cpu.num_voxels))
+    log(f"[kernels] {name}: card and CPU maps equal in {', '.join(ints)}; worst row "
+        f"means {worst['means']:.2e}, covs {worst['covs']:.2e} of its scale "
+        f"({worst['voxels']} voxels)")
+    return worst
+
+
+# the class path that runs each map of `class_map_objectives`
+CLASS_MAP_PATHS = {"hash": "fast_vgicp_hash", "grid": "fast_vgicp_grid_mult"}
+
+
+def class_map_objectives(dev, pair, scov, tcov):
+    """{"hash": ..., "grid": ...}: the VGICP objective of the FastVGICP class
+    paths' maps on the full-size pair in the target-centroid frame, as
+    `vgicp_align` builds it from the kNN covariances `scov`, `tcov` (6, N)
+    of the padded clouds: the hash map (the class defaults, DIRECT1,
+    additive) and the sparse dense-grid map (multiplicative, DIRECT7, the
+    auto grid).  Each is (map, offsets, (linearize, error, freeze,
+    linearize_frozen), source, source mask, source covariances)."""
+    from fast_gicp_tpu_torch.models.vgicp import (
+        VGICPConfig, _build_target_map, make_vgicp_objective,
+    )
+    from fast_gicp_tpu_torch.ops.covariance import masked_mean
+    from fast_gicp_tpu_torch.ops.voxelmap import auto_grid_dims, neighbor_offsets
+    from fast_gicp_tpu_torch.utils.padding import pad_points
+
+    source, target, _gt = pair
+    sp, sm = pad_points(source)
+    tp, tm = pad_points(target)
+    src, smask, tgt, tmask = (torch.as_tensor(a, device=dev) for a in (sp, sm, tp, tm))
+    c = masked_mean(tgt, tmask)
+    src_c, tgt_c = src - c, tgt - c
+    dims = auto_grid_dims(target, 1.0)
+    out = {}
+    for name, cfg in (("hash", VGICPConfig()),
+                      ("grid", VGICPConfig(voxel_accumulation="multiplicative",
+                                           neighbor_search_method="direct7", grid_dims=dims))):
+        offsets = neighbor_offsets(cfg.neighbor_search_method)
+        vmap = _build_target_map(tgt_c, tmask, tcov, cfg)
+        out[name] = (vmap, offsets, make_vgicp_objective(src_c, smask, scov, vmap, offsets, cfg),
+                     src_c, smask, scov)
+    return out
+
+
+def phase_class_kernels(dev, pair, records):
+    """The class paths' map builds and the `linearize` kernel on their maps.
+    The maps of `build_voxelmap` on the card against the CPU on the
+    full-size target (hash additive and raw, grid multiplicative; 1 m), and
+    on the 0.3 m face scene of `ndt_lookup_edge_cases` (hash, raw), where
+    a product with the reciprocal would bin face points elsewhere.  Then
+    the linearize kernel's idx form on the hash and grid maps' inputs at
+    each path's first linearization (`packed` rows by voxel id, ids
+    clamped, valid 0 on misses), bit for bit to the gathered form and a
+    repeat launch, within tolerance of its plain version, timed; added to
+    the linearize record as `class_maps`."""
+    from fast_gicp_tpu_torch.ops import cuda_linearize
+    from fast_gicp_tpu_torch.ops.covariance import knn_covariance_cols
+    from fast_gicp_tpu_torch.ops.voxelmap import auto_grid_dims
+    from fast_gicp_tpu_torch.utils import synthetic
+    from fast_gicp_tpu_torch.utils.padding import pad_points
+
+    source, target, _gt = pair
+    sp, sm = pad_points(source)
+    tp, tm = pad_points(target)
+    src, smask, tgt, tmask = (torch.as_tensor(a, device=dev) for a in (sp, sm, tp, tm))
+    scov = knn_covariance_cols(src, smask)
+    tcov = knn_covariance_cols(tgt, tmask)
+    dims = auto_grid_dims(target, 1.0)
+    tcov_cpu = tcov.cpu().numpy()
+    maps = {
+        "hash additive 1 m": check_map_card_vs_cpu("map hash additive 1 m", tp, tm, tcov_cpu,
+                                                   1.0, "additive", None, dev),
+        "hash raw 1 m": check_map_card_vs_cpu("map hash raw 1 m", tp, tm, None, 1.0, "raw",
+                                              None, dev),
+        "grid multiplicative 1 m": check_map_card_vs_cpu(
+            "map grid multiplicative 1 m", tp, tm, tcov_cpu, 1.0, "multiplicative", dims, dev),
+    }
+    for case in synthetic.ndt_lookup_edge_cases():
+        if case["resolution"] != 1.0:
+            pts = np.concatenate([case["target"], case["source"]]).astype(np.float32)
+            msk = np.concatenate([case["tmask"], case["smask"]])
+            maps[f"hash raw {case['name']}"] = check_map_card_vs_cpu(
+                f"map hash raw {case['name']}", pts, msk, None, case["resolution"], "raw",
+                None, dev)
+
+    x = torch.eye(4, device=dev)
+    lin = {}
+    for name, (vmap, offsets, (_l, _e, freeze, _lf), src_c, smask, scov) in (
+            class_map_objectives(dev, pair, scov, tcov).items()):
+        ids, valid = freeze(x)
+        K = len(offsets)
+        N = src_c.shape[0]
+        P = src_c.T.repeat(1, K).contiguous()
+        CA = scov.repeat(1, K).contiguous()
+        table = vmap.packed
+        require(table.is_contiguous() and table.data_ptr() % 16 == 0,
+                f"linearize ({name} map): packed rows not contiguous and 16-byte aligned")
+        _got, max_err = check_linearize(f"linearize ({name} map)", False, P, CA, x, table,
+                                        valid, ids, "rel_max")
+        src_lanes = smask.repeat(K)
+        misses = int((src_lanes & (valid == 0)).sum())
+        require(misses > 0 and bool(valid.any()),
+                f"linearize ({name} map): expected valid lanes and misses")
+        ms = device_ms(lambda: cuda_linearize.linearize(P, CA, x, table, valid, ids), 200,
+                       LIN_KERNEL.format(raw="false"))
+        unique_rows = int(torch.unique(ids[valid > 0]).numel())
+        # each source column and covariance once (P and CA tile them K
+        # times), a lane's valid, id and aux, each row the valid lanes name
+        nbytes = (N * (12 + 24) + P.shape[1] * (4 + 4 + 40) + unique_rows * 64 + 64
+                  + 43 * 4)
+        b_ms, b_by = bound_ms(nbytes, P.shape[1] * LINEARIZE_OPS)
+        lin[name] = dict(lanes=P.shape[1], source_columns=N, bytes=nbytes,
+                         valid_lanes=int((valid > 0).sum()),
+                         source_lanes_missing=misses, max_abs_err=max_err, ms=ms,
+                         bound_ms=b_ms, bound_by=b_by, unique_rows=unique_rows,
+                         rows=table.shape[0])
+        log(f"[kernels] linearize ({name} map, {vmap.__class__.__name__}) at L = "
+            f"{P.shape[1]}: idx form bit-equal to the gathered form and a repeat, "
+            f"max_abs_diff {max_err:.3e} (rel_max); {lin[name]['valid_lanes']} valid lanes, "
+            f"{misses} masked-in lanes missing; {ms:.5f} ms, bound {b_ms:.3e} ms ({b_by})")
+    rec = next(r for r in records if r["name"] == "linearize")
+    rec["class_maps"] = lin
+    return maps
+
+
+def class_workflow(reg, source, target):
+    """The class API's swap workflow: set_input_target / set_input_source,
+    align (the fresh path: both clouds' covariances and the map), then
+    swap_source_and_target and align (the cached covariances, `vgicp_align`
+    or `gicp_align`), evaluate_cost at that pose and get_fitness_score.
+    Returns (fresh pose, swapped pose, their iterations, cost, fitness)."""
+    reg.set_input_target(target)
+    reg.set_input_source(source)
+    T1 = reg.align()
+    it1 = reg.get_num_iterations()
+    require(reg._source.covs is not None and reg._target.covs is not None,
+            "the fresh align left no covariances in the cache")
+    reg.swap_source_and_target()
+    T2 = reg.align()
+    it2 = reg.get_num_iterations()
+    return T1, T2, (it1, it2), reg.evaluate_cost(T2), reg.get_fitness_score()
+
+
+def phase_class_main(dev, pair, path):
+    """A class path's workflow (`class_workflow`) on the full-size pair,
+    with every launch counter set to 0 just before it and read just after:
+    both poses against the ground truth and its inverse, every kernel of the
+    path launched, one trial launch a host sync, no standalone trial or
+    error launch, every linearize launch the idx form, none of
+    linearize_raw."""
+    from fast_gicp_tpu_torch.solver import lsq_solve
+
+    source, target, gt = pair
+    make, kernels, _pair = CLASS_PATHS[path]
+    class_workflow(make(dev), source, target)  # warm-up
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    for k in IDX_COUNTED:
+        counters()[k].idx_launches = 0
+    lsq_solve.host_syncs = 0
+    t0 = time.perf_counter()
+    T1, T2, its, cost, fitness = class_workflow(make(dev), source, target)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: fn.launches for k, fn in counters().items()}
+    launches.update({f"{k}[idx]": counters()[k].idx_launches for k in IDX_COUNTED})
+    syncs = lsq_solve.host_syncs
+    errs = [pose_errors(T1, gt), pose_errors(T2, np.linalg.inv(gt))]
+    log(f"[main] {path}: fresh t_err {errs[0][0]:.6f} m r_err {errs[0][1]:.6f} deg, "
+        f"swapped t_err {errs[1][0]:.6f} m r_err {errs[1][1]:.6f} deg, iterations {its}, "
+        f"host syncs {syncs}, cost at the swapped pose {cost:.3f}, fitness {fitness:.6f}, "
+        f"wall {wall_ms:.3f} ms (both aligns, evaluate_cost, fitness), launches {launches}")
+    t_lim, r_lim = D2D_LIMITS
+    require(all(np.isfinite(T).all() for T in (T1, T2)), f"{path}: non-finite pose")
+    require(all(t < t_lim and r < r_lim for t, r in errs), f"{path}: pose errors {errs}")
+    require(math.isfinite(cost) and math.isfinite(fitness), f"{path}: non-finite cost")
+    require(all(launches[k] > 0 for k in kernels),
+            f"{path}: a kernel of the path was not launched: {launches}")
+    require(launches["lm_step"] == syncs, f"{path}: {launches['lm_step']} trial launches "
+            f"for {syncs} trials")
+    require(all(launches[k] == 0 for k in TRIAL_CARRIED),
+            f"{path}: a standalone trial or error launch in the LM solve: {launches}")
+    require(launches["linearize[idx]"] == launches["linearize"] and launches["linearize_raw"] == 0,
+            f"{path}: a linearize launch on gathered rows or raw rows: {launches}")
+    return launches, dict(t_err_m=[e[0] for e in errs], r_err_deg=[e[1] for e in errs],
+                          iterations=list(its), host_syncs=syncs, wall_ms=wall_ms,
+                          cost=cost, fitness=fitness)
+
+
+def phase_class_card_vs_cpu(dev, pair, path):
+    """The class workflow's two aligns on the card against the same class
+    with device="cpu" (the plain versions), on `pair`: poses within 1e-3,
+    iterations within 1, the card's poses within the reference's limits."""
+    source, target, gt = pair
+    make = CLASS_PATHS[path][0]
+    gpu, cpu = (class_workflow(make(d), source, target) for d in (dev, "cpu"))
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(gpu[:2], cpu[:2])]
+    errs = [pose_errors(gpu[0], gt), pose_errors(gpu[1], np.linalg.inv(gt))]
+    log(f"[card vs cpu] {path}, {len(source)} source points: |T_gpu - T_cpu| max "
+        f"{diffs[0]:.3e} (fresh), {diffs[1]:.3e} (swapped); iterations gpu {gpu[2]} cpu "
+        f"{cpu[2]}; t_err {errs[0][0]:.6f}, {errs[1][0]:.6f} m")
+    require(max(diffs) <= 1e-3, f"{path} card vs cpu: pose diffs {diffs}")
+    require(all(abs(a - b) <= 1 for a, b in zip(gpu[2], cpu[2])),
+            f"{path} card vs cpu: iteration counts differ by more than 1")
+    t_lim, r_lim = D2D_LIMITS
+    require(all(t < t_lim and r < r_lim for t, r in errs), f"{path} card vs cpu: {errs}")
+    return dict(source_points=len(source), pose_diff=diffs, iterations_gpu=list(gpu[2]),
+                iterations_cpu=list(cpu[2]))
+
+
+def _fresh_class(dev, pair, path):
+    """A class instance of `path` holding the pair, and one registration of
+    it: clear_covariances, then align_async (the fresh path; the clouds are
+    not uploaded again)."""
+    source, target, _gt = pair
+    reg = CLASS_PATHS[path][0](dev)
+    reg.set_input_target(target)
+    reg.set_input_source(source)
+
+    def register():
+        reg.clear_covariances()
+        return reg.align_async()
+
+    return reg, register
+
+
+def phase_class_bench(dev, pair, path, n_regs=100):
+    """`n_regs` fresh class registrations after a warm-up (clear_covariances
+    + align_async, the class API's form of a fresh instance per align,
+    align.cpp:56-76), closed by a synchronise."""
+    from fast_gicp_tpu_torch.solver import lsq_solve
+
+    _reg, register = _fresh_class(dev, pair, path)
+    register()
+    torch.cuda.synchronize()
+    syncs0 = lsq_solve.host_syncs
+    t0 = time.perf_counter()
+    iters = [register().iterations for _ in range(n_regs)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n_regs
+    iters = torch.stack(iters).cpu().numpy()
+    syncs = (lsq_solve.host_syncs - syncs0) / n_regs
+    log(f"[bench] {path}, {n_regs} registrations: {ms:.4f} ms/registration "
+        f"({1e3 / ms:.2f} reg/s), iterations mean {iters.mean():.2f}, "
+        f"host syncs/registration {syncs:.2f}")
+    return dict(registrations=n_regs, ms_per_registration=ms, registrations_per_s=1e3 / ms,
+                mean_iterations=float(iters.mean()), host_syncs_per_registration=syncs)
+
+
+def phase_class_profile(dev, pair, path, n_regs=5):
+    """Stage wall times of a class path (a fresh align with its result read;
+    an align after a swap, on the cached covariances), then the trace of
+    `n_regs` fresh registrations (`trace_registrations`), its device ops
+    against PREDICTED_CLASS_OPS at the registrations' own iterations and
+    trials; the trace's host copies must be one a trial and the result's
+    read, none the other way."""
+    from fast_gicp_tpu_torch.solver import lsq_solve
+
+    reg, register = _fresh_class(dev, pair, path)
+
+    def swapped():
+        # the other way round on the cached covariances, then back
+        reg.swap_source_and_target()
+        reg.align()
+        reg.swap_source_and_target()
+
+    stages = {"fresh align": wall_ms(lambda: (register(), reg.get_final_transformation())),
+              "swapped align (cached covariances)": wall_ms(swapped)}
+    log(f"[profile] {path} stage wall ms/registration: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    syncs0, its = lsq_solve.host_syncs, []
+
+    def run():
+        register()
+        its.append(reg.get_num_iterations())
+
+    def predicted():
+        const, per_lin, per_trial = PREDICTED_CLASS_OPS[path]
+        trials = (lsq_solve.host_syncs - syncs0) / len(its)
+        return round(const + per_lin * sum(its) / len(its) + per_trial * trials, 1)
+
+    traced = trace_registrations(path, run, n_regs, predicted, all_ops=True)
+    # a copy either way waits for the queue: the only ones are the flag
+    # read a trial and the result's one read
+    trials = (lsq_solve.host_syncs - syncs0) / len(its)
+    require(traced["copies_per_registration"] == {"HtoD": 0, "DtoH": trials + 1},
+            f"{path}: host copies a registration {traced['copies_per_registration']} for "
+            f"{trials} trials")
+    return dict(stage_wall_ms=stages, iterations=sorted(set(its)),
+                trials_per_registration=(lsq_solve.host_syncs - syncs0) / len(its), **traced)
 
 
 def main() -> int:
@@ -2691,20 +3122,30 @@ def main() -> int:
     records = (phase_kernels(dev, pair) + phase_gicp_kernels(dev, pair)
                + phase_ndt_kernels(dev, pair) + phase_c2_kernels(dev, pair)
                + [phase_trial(dev, pair)])
-    summary = {}
+    summary = {"map_card_vs_cpu": phase_class_kernels(dev, pair, records)}
     path_launches = {}
     for path in PATHS:
         path_launches[path], main_stats = phase_main_path(dev, pair, path)
+        summary[path] = {"main_path": main_stats}
+    for path in CLASS_PATHS:
+        path_launches[path], main_stats = phase_class_main(dev, pair, path)
         summary[path] = {"main_path": main_stats}
     summary["ndt_budgets"] = phase_ndt_budgets(dev, pair)
     small = synthetic_pair(n_world=400_000, voxel=0.3)
     for path in PATHS:
         summary[path]["card_vs_cpu"] = phase_card_vs_cpu(
             dev, pair if path in NDT_PATHS else small, path)
+    for path, (_make, _kernels, which) in CLASS_PATHS.items():
+        summary[path]["card_vs_cpu"] = phase_class_card_vs_cpu(
+            dev, pair if which == "full" else small, path)
     for path in PATHS:
         summary[path]["bench"] = phase_bench(dev, pair, path)
+    for path in CLASS_PATHS:
+        summary[path]["bench"] = phase_class_bench(dev, pair, path)
     for path in PATHS:
         summary[path]["profile"] = phase_profile(dev, pair, path)
+    for path in CLASS_PATHS:
+        summary[path]["profile"] = phase_class_profile(dev, pair, path)
     for r in records:
         name = r["name"]
         if name in TRIAL_CARRIED:
@@ -2712,19 +3153,21 @@ def main() -> int:
             # the trial launches that carry its body, its own wrapper's 0
             carriers = TRIAL_CARRIED[name]
             r["launches_by_path"] = {p: path_launches[p]["lm_step"] if p in carriers else 0
-                                     for p in PATHS}
+                                     for p in path_launches}
             r["launches"] = r["launches_by_path"][carriers[0]]
             r["launched_in"] = "lm_step"
-            r["standalone_launches_by_path"] = {p: path_launches[p][name] for p in PATHS}
+            r["standalone_launches_by_path"] = {p: path_launches[p][name]
+                                                for p in path_launches}
             continue
         # a kernel's launches on its own path (the first path that runs it,
         # unless the record names one)
         own = r.get("own_path") or next(p for p, (_make, ks, _lim) in PATHS.items()
                                          if name in ks)
         r["launches"] = path_launches[own][name]
-        r["launches_by_path"] = {p: path_launches[p][name] for p in PATHS}
+        r["launches_by_path"] = {p: path_launches[p][name] for p in path_launches}
         if name in IDX_COUNTED:
-            r["idx_launches_by_path"] = {p: path_launches[p][f"{name}[idx]"] for p in PATHS}
+            r["idx_launches_by_path"] = {p: path_launches[p][f"{name}[idx]"]
+                                         for p in path_launches}
         if name in NDT_FORM_COUNTED:
             r["form_launches_by_path"] = {
                 p: {"lookup": path_launches[p][f"{name}[lookup]"]} for p in NDT_PATHS}
@@ -2739,12 +3182,14 @@ def main() -> int:
              "gathered_ms", "idx_ops_ms", "gather_and_gathered_ops_ms", "grid_stride_lanes",
              "grid_stride_ms", "pack_ms", "frozen_ms", "tiled_ms", "pose_to_normal_eq_ms",
              "eager_pose_to_normal_eq_ms", "valid_share", "pack_bound_ms", "form_registers",
-             "form_launches_by_path", "unique_rows", "unique_cells", "bytes", "edge_cases")
+             "form_launches_by_path", "unique_rows", "unique_cells", "bytes", "edge_cases",
+             "class_maps")
     work = ("candidates", "exact_candidates", "exact_search_ms", "source_cloud_ms",
             "pairs_visited", "pairs_in_range", "pairs_to_visit", "pairs_in_window",
             "pairs_visited_block_cull", "wide_slab_ms", "k48_ms")
     kernels = [{k: r[k] for k in keys + extra + work if k in r} for r in records]
     require(all(math.isfinite(r["ms"]) for r in kernels), "kernel timings")
+    log(f"[total] {time.perf_counter() - T_START:.1f} s from the start of the script")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

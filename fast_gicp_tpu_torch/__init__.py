@@ -1,9 +1,13 @@
 """fast_gicp_tpu_torch — the PyTorch/CUDA port of fast_gicp_tpu for Hopper.
 
-Three registration families run on the card:
+Three registration families run on the card, through functions and
+through the PCL-shaped class API (`FastGICP`, `FastGICPSingleThread`,
+`FastVGICP`, `FastVGICPCuda` on `models.base.Registration`):
   * `models.vgicp.vgicp_register`: RBF kernel-density covariances for both
     clouds, a dense raw voxel grid of the target and a two-phase
-    Levenberg-Marquardt solve;
+    Levenberg-Marquardt solve; `vgicp_register_fresh` and the class API
+    also on the hash-table and sparse-grid voxel maps
+    (`ops.voxelmap.build_voxelmap`, four accumulation modes);
   * `models.gicp.gicp_register_fresh`: kNN, RBF or adaptive-radius
     covariances for both clouds (five regularizations) and an LM solve with exact 1-NN correspondences re-searched at every
     linearization (FastGICP); `models.metrics.fitness_score` scores a pose;
@@ -19,7 +23,15 @@ This package imports torch and numpy only: never jax and never the JAX
 package `fast_gicp_tpu`, which stays the reference.
 """
 
-from .models.gicp import GICPConfig, gicp_align, gicp_register_fresh  # noqa: F401
+from .models.base import Registration  # noqa: F401
+from .models.gicp import (  # noqa: F401
+    FastGICP,
+    FastGICPSingleThread,
+    GICPConfig,
+    gicp_align,
+    gicp_evaluate,
+    gicp_register_fresh,
+)
 from .models.metrics import fitness_score  # noqa: F401
 from .models.ndt import (  # noqa: F401
     NDTConfig,
@@ -29,11 +41,29 @@ from .models.ndt import (  # noqa: F401
     ndt_prepare_cloud,
     ndt_register_fresh,
 )
-from .models.vgicp import VGICPConfig, vgicp_align, vgicp_register  # noqa: F401
+from .models.vgicp import (  # noqa: F401
+    FastVGICP,
+    FastVGICPCuda,
+    VGICPConfig,
+    vgicp_align,
+    vgicp_align_multires,
+    vgicp_evaluate,
+    vgicp_mahalanobis,
+    vgicp_register,
+    vgicp_register_fresh,
+)
 from .ops.covariance import (  # noqa: F401
     adaptive_radius_covariances,
+    covariances_from_neighbors,
     knn_covariances,
     rbf_covariances,
+)
+from .ops.voxelmap import (  # noqa: F401
+    GridVoxelMap,
+    VoxelMap,
+    build_voxelmap,
+    lookup_voxels,
+    lookup_voxels_cols,
 )
 from .ops.neighbors import knn_search, knn_search_culled  # noqa: F401
 from .solver import LsqConfig, LsqResult, lsq_solve  # noqa: F401

@@ -18,7 +18,7 @@ from .models.gicp import GICPConfig
 from .models.ndt import NDTConfig
 from .models.vgicp import VGICPConfig
 from .ops import soa
-from .ops.voxelmap import DenseRawGridMap, NdtGridMap, RawNdtGrid
+from .ops.voxelmap import DenseRawGridMap, GridVoxelMap, NdtGridMap, RawNdtGrid, VoxelMap
 from .solver import LsqConfig, LsqResult
 
 
@@ -61,6 +61,30 @@ def _grid_from_grid8(grid8, device):
     both layouts and is masked by every reader."""
     flat = np.asarray(grid8).reshape(-1)
     return torch.as_tensor(flat[: flat.shape[0] - 7].astype(np.int64), device=device)
+
+
+def _map_fields(vmap, kind, device):
+    """The fields of `kind` read from `vmap` by name: arrays as tensors of
+    their own dtype (int32, float32, bool), `resolution` as a float."""
+    fields = {}
+    for f in kind._fields:
+        a = np.asarray(getattr(vmap, f))
+        fields[f] = float(a) if f == "resolution" else torch.tensor(a, device=device)
+    return kind(**fields)
+
+
+def voxel_map_from_numpy(vmap, device="cuda"):
+    """A JAX hash-table `VoxelMap` (any object with its field names, its
+    arrays as numpy or array-likes) -> the port's `VoxelMap`: the same
+    statistics, table and lut."""
+    return _map_fields(vmap, VoxelMap, _device.resolve(device))
+
+
+def grid_voxel_map_from_numpy(gmap, device="cuda"):
+    """A JAX `GridVoxelMap` (any object with its field names) -> the port's
+    `GridVoxelMap`; its TPU lookup copy `grid8` is not carried (the port
+    indexes `grid`)."""
+    return _map_fields(gmap, GridVoxelMap, _device.resolve(device))
 
 
 def raw_ndt_grid_from_numpy(rows, grid8, origin, resolution, dims, device="cuda"):

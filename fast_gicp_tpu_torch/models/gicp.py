@@ -14,13 +14,14 @@ step, the `error` body at the trial pose and the LM schedule,
 Correspondences farther than max_correspondence_distance are dropped.
 
 Ported here: `GICPConfig`, the objective, `gicp_align` (with the two-phase
-refresh_iterations form), `gicp_evaluate` and `gicp_register_fresh`.  The
-`FastGICP` class waits for the `Registration` class API.
+refresh_iterations form), `gicp_evaluate`, `gicp_register_fresh` and the
+class API's `FastGICP` / `FastGICPSingleThread`.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
@@ -31,7 +32,8 @@ from ..ops.covariance import estimate_covariance_cols
 from ..ops.neighbors import nn_search
 from ..precision import f32_matmuls
 from ..solver import LsqConfig, LsqResult, lsq_solve
-from .base import centered_frame_align, centered_frame_evaluate
+from .base import (Cloud, CovarianceRegistration, centered_frame_align,
+                   centered_frame_evaluate)
 
 
 class GICPConfig(NamedTuple):
@@ -204,3 +206,32 @@ def gicp_register_fresh(source, source_mask, target, target_mask, guess,
     res = gicp_align(source, source_mask, scovs, target, target_mask, tcovs,
                      guess, config, device=dev)
     return res, scovs, tcovs
+
+
+@dataclass
+class FastGICP(CovarianceRegistration):
+    """Class-API GICP, for both `FastGICP` and `FastGICPSingleThread`: the
+    thread count means nothing on the card; `set_num_threads` is accepted
+    and ignored.  Covariances are estimated lazily per cloud and cached on
+    the `Cloud`, so loops that `swap_source_and_target()` reuse them as the
+    reference does (fast_gicp_impl.hpp:50-57, :107-112)."""
+
+    _register_fresh = staticmethod(gicp_register_fresh)
+    _align_cached = staticmethod(gicp_align)
+    _evaluate_at = staticmethod(gicp_evaluate)
+
+    def _config(self, target: Cloud = None) -> GICPConfig:
+        del target
+        return GICPConfig(
+            k_correspondences=self.k_correspondences,
+            regularization=self.regularization,
+            max_correspondence_distance=self.max_correspondence_distance,
+            lsq=self._lsq_config(),
+        )
+
+
+class FastGICPSingleThread(FastGICP):
+    """Name-parity alias of the reference's `FastGICPSingleThread`
+    (fast_gicp_st.hpp:20-65): the same objective and results; its anchor
+    re-search skip (fast_gicp_st_impl.hpp:46-54) is a CPU latency trick with
+    no counterpart here."""

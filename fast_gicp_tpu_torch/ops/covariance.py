@@ -238,6 +238,19 @@ def knn_covariances(points, mask, k: int = 20, method: str = "plane",
     return soa.sym_cols_to_rows9(cols).reshape(points.shape[0], 3, 3)
 
 
+def covariances_from_neighbors(points, neighbor_idx, method: str = "plane"):
+    """(N, 3, 3) covariances of (N, 3) points from externally supplied kNN
+    indices (N, k), on the points' device: the device half of the
+    reference's CPU_PARALLEL_KDTREE path (a host kd-tree feeds the
+    neighbour lists, fast_vgicp_cuda_impl.hpp:152-167): each neighbourhood's
+    second moment about its mean, divided by k, then `method`."""
+    idx = torch.as_tensor(neighbor_idx, device=points.device).long()
+    nbrs = points[idx]  # (N, k, 3)
+    centered = nbrs - nbrs.mean(dim=1, keepdim=True)
+    cov = (centered[..., :, None] * centered[..., None, :]).sum(dim=1) / idx.shape[1]
+    return regularize_covariances(cov, method)
+
+
 def default_radius_ladder(r0: float = 0.04, ratio: float = 1.3, num: int = 20):
     """Squared-radius ladder of the adaptive-radius estimator: geometric
     radii r0 * ratio^l (0.04 m .. ~5.9 m by default), squared, float32."""

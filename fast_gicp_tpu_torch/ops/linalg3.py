@@ -12,10 +12,11 @@ def symmetrize(A):
     return 0.5 * (A + A.transpose(-1, -2))
 
 
-def inv3(A):
-    """Adjugate inverse of (..., 3, 3), the JAX formula term for term and
-    without a determinant guard (a singular matrix gives inf/NaN, as
-    there)."""
+def inv3(A, eps: float = 0.0):
+    """Adjugate inverse of (..., 3, 3), the JAX formula term for term.
+    With eps > 0 a determinant of magnitude below eps is replaced by +-eps
+    (sign kept, 0 -> +eps); eps = 0, the default, has no guard (a singular
+    matrix gives inf/NaN, as there)."""
     c00 = A[..., 1, 1] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 1]
     c01 = A[..., 0, 2] * A[..., 2, 1] - A[..., 0, 1] * A[..., 2, 2]
     c02 = A[..., 0, 1] * A[..., 1, 2] - A[..., 0, 2] * A[..., 1, 1]
@@ -26,6 +27,9 @@ def inv3(A):
     c21 = A[..., 0, 1] * A[..., 2, 0] - A[..., 0, 0] * A[..., 2, 1]
     c22 = A[..., 0, 0] * A[..., 1, 1] - A[..., 0, 1] * A[..., 1, 0]
     det = A[..., 0, 0] * c00 + A[..., 0, 1] * c10 + A[..., 0, 2] * c20
+    if eps:
+        det = torch.where(torch.abs(det) < eps,
+                          torch.where(det < 0, -eps, eps).to(det.dtype), det)
     inv_det = 1.0 / det
     adj = torch.stack(
         [torch.stack([c00, c01, c02], dim=-1),

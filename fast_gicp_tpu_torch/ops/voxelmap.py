@@ -1,17 +1,26 @@
-"""Dense voxel grids for VGICP and NDT (port of the dense-grid part of
-`fast_gicp_tpu.ops.voxelmap`).
+"""Voxel maps for VGICP and NDT (port of `fast_gicp_tpu.ops.voxelmap`).
 
-Each map keeps its voxels in a compact (N + 1, width) table keyed by the
-lowest point index in each voxel, plus a dense (ncells + 1,) index grid
-from cell to that representative.  Row N of the table is an all-zero
-sentinel: misses (out of grid, empty cell, masked point) resolve there and
-read back count 0.  VGICP's `DenseRawGridMap` holds raw additive sums
-[count, sum mu (3), sum cov (9 row-major), pad (3)]; NDT's `RawNdtGrid`
+Dense grids: each map keeps its voxels in a compact (N + 1, width) table
+keyed by the lowest point index in each voxel, plus a dense (ncells + 1,)
+index grid from cell to that representative.  Row N of the table is an
+all-zero sentinel: misses (out of grid, empty cell, masked point) resolve
+there and read back count 0.  VGICP's `DenseRawGridMap` holds raw additive
+sums [count, sum mu (3), sum cov (9 row-major), pad (3)]; NDT's `RawNdtGrid`
 holds corner-relative moments and `NdtGridMap` finalized rows.  The JAX
 package's (ncells/8, 8) `grid8` reshape and lane pick are a TPU gather
-workaround; here the grid is a plain 1-D lookup.  The builds are plain
-PyTorch ops (a scatter-min claim, an `index_add_`, a prefix-sum
-compaction), as they were plain XLA ops in JAX.
+workaround; here the grid is a plain 1-D lookup.
+
+Gaussian voxel maps (`build_voxelmap`, any of the four accumulation
+modes): the hash-table `VoxelMap` (a lexicographic sort of the voxel
+coordinates, dense segment ids, a scatter-add of [1, mean, cov]
+contributions, then an open-addressing table filled by `MAX_PROBE`
+scatter-min claiming rounds) and the sparse dense-grid `GridVoxelMap`
+(the scatter-min claim of the dense grids).  Both keep finalized rows
+`packed` (C, 16) [mean (3), cov (9 row-major), count, pad (3)], the layout
+of GICP's target rows, which the `linearize` kernel reads by voxel id.
+
+The builds are plain PyTorch ops, as they were plain XLA ops in JAX.  No
+build or lookup reads a value to the host: the probe rounds all run.
 """
 
 from __future__ import annotations
@@ -21,9 +30,22 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import soa
+from .. import device as _device
+from . import linalg3, soa
 
+# Sentinel coordinate for masked points: sorts after all real coords.
 _COORD_SENTINEL = 2**30
+_EMPTY = 2**30  # empty hash slot marker (the scatter-min identity)
+
+# Linear-probe bound shared by the table's insert and its lookups: an
+# insert never moves a voxel further than a lookup probes.
+MAX_PROBE = 8
+
+ACCUMULATION_MODES = ("additive", "additive_weighted", "multiplicative", "raw")
+
+# Spatial hash primes (Teschner et al.); lookups verify the coordinates, so
+# any well-mixing hash works.
+_HP1, _HP2, _HP3 = 73856093, 19349669, 83492791
 
 # NDT voxel covariances: eigenvalues clamped to >= MIN_EIG (ndt_cuda.cu:120-140).
 # The finalized maps clamp here; the raw linearize kernels clamp in-kernel
@@ -32,12 +54,19 @@ _COORD_SENTINEL = 2**30
 MIN_EIG = 1e-3
 
 
-def voxel_coord(points, resolution):
-    """floor(p / resolution - 0.5) as int32 (fast_vgicp_voxel.hpp:158-160).
+def _resolution_on(points, resolution):
+    """The resolution as a 0-dim tensor on the points' own device, made by
+    a fill (a host-to-device copy would synchronise).  Dividing by it is a
+    true division on every device; ATen divides a CUDA tensor by a Python
+    float (or by a 0-dim CPU tensor) as the product with f32(1 / res),
+    which bins points on a voxel face into the next cell."""
+    return torch.full((), resolution, dtype=points.dtype, device=points.device)
 
-    A true division: multiplying by a reciprocal flips voxels at cell
-    boundaries."""
-    return torch.floor(points / resolution - 0.5).to(torch.int32)
+
+def voxel_coord(points, resolution):
+    """floor(p / resolution - 0.5) as int32 (fast_vgicp_voxel.hpp:158-160),
+    by a true division (`_resolution_on`)."""
+    return torch.floor(points / _resolution_on(points, resolution) - 0.5).to(torch.int32)
 
 
 class DenseRawGridMap(NamedTuple):
@@ -106,17 +135,17 @@ def build_raw_grid(points, mask, resolution, covs, grid_dims):
 
 
 def _lookup_ids(grid, origin, grid_dims, n, cx, cy, cz):
-    """Representative-or-n ids of integer coord columns (...,) each;
-    out-of-grid queries and empty cells give n, the zero row."""
+    """The entries of a flat grid (ncells or more,) at integer coord
+    columns (...,) each; out-of-grid queries give n (an empty cell holds
+    its own miss marker)."""
     gx, gy, gz = grid_dims
-    ncells = gx * gy * gz
     rx = (cx - origin[0]).to(torch.int64)
     ry = (cy - origin[1]).to(torch.int64)
     rz = (cz - origin[2]).to(torch.int64)
     inside = (
         (rx >= 0) & (rx < gx) & (ry >= 0) & (ry < gy) & (rz >= 0) & (rz < gz)
     )
-    flat = torch.where(inside, (rx * gy + ry) * gz + rz, ncells)
+    flat = torch.where(inside, (rx * gy + ry) * gz + rz, 0)
     return torch.where(inside, grid[flat], n)
 
 
@@ -227,7 +256,7 @@ def build_ndt_grid_compact(points, mask, resolution, grid_dims, budget: int,
     # each row's voxel corner from its representative point (fill rows read
     # point n - 1 and are masked by `valid`)
     rep = points[torch.clamp(idx, max=n - 1)].T
-    oc = (torch.floor(rep / resolution - 0.5) + 1.0) * resolution
+    oc = (torch.floor(rep / _resolution_on(rep, resolution) - 0.5) + 1.0) * resolution
     mu = (oc + dmu) * valid
     C6 = accT[4:10] * inv_n - torch.stack(
         [dmu[0] * dmu[0], dmu[0] * dmu[1], dmu[0] * dmu[2],
@@ -324,3 +353,297 @@ def neighbor_offsets(method: str, radius: float = 1.5):
     else:
         raise ValueError(f"unknown neighbor search method: {method}")
     return np.asarray(offs, np.int32)
+
+
+# -- Gaussian voxel maps: the hash table and the sparse dense grid ---------
+
+
+def _hash_coords(cx, cy, cz):
+    """The JAX package's uint32 hash (c_x * P1) ^ (c_y * P2) ^ (c_z * P3),
+    each coordinate taken as its uint32 two's complement, mod 2^32, of
+    integer coordinate columns (...,) each.  Torch has no uint32 multiply
+    on CUDA: the products run in int64 on c & 0xFFFFFFFF (at most 2^59) and
+    keep the same low 32 bits.  Returns int64 in [0, 2^32)."""
+    h = None
+    for c, prime in ((cx, _HP1), (cy, _HP2), (cz, _HP3)):
+        term = (c.to(torch.int64) & 0xFFFFFFFF) * prime
+        h = term if h is None else h ^ term
+    return h & 0xFFFFFFFF
+
+
+class VoxelMap(NamedTuple):
+    """Fixed-capacity Gaussian voxel map with an open-addressing table.
+
+    `packed` and `lut` duplicate the statistics and the table's coordinates
+    in the layouts their readers take: the linearize kernel reads a voxel's
+    16-float row by id, and a probe reads one [id, cx, cy, cz] row."""
+
+    means: torch.Tensor  # (C, 3) finalized voxel means
+    covs: torch.Tensor  # (C, 3, 3) finalized voxel covariances
+    counts: torch.Tensor  # (C,) int32 points per voxel
+    coords: torch.Tensor  # (C, 3) int32 voxel integer coords
+    table: torch.Tensor  # (T,) int32 open-addressing table -> voxel id or _EMPTY
+    num_voxels: torch.Tensor  # () int64
+    resolution: float
+    packed: torch.Tensor  # (C, 16) f32 [mean (3), cov (9), count, pad (3)]
+    lut: torch.Tensor  # (T, 4) int32 [voxel id, cx, cy, cz]
+
+
+class GridVoxelMap(NamedTuple):
+    """Gaussian voxel map with a dense index grid instead of a hash table:
+    a lookup is one index into `grid`, the build one scatter-min claim.
+    Voxel ids are the representative (lowest) point index of each voxel,
+    sparse in [0, N); voxels outside the grid, which starts at the cloud's
+    least voxel coordinate `origin`, are dropped at the build and miss at a
+    lookup.  For unbounded scenes use the hash-table `VoxelMap`."""
+
+    means: torch.Tensor  # (N, 3) finalized voxel means
+    covs: torch.Tensor  # (N, 3, 3) finalized voxel covariances
+    counts: torch.Tensor  # (N,) int32 points per voxel (0: no voxel)
+    coords: torch.Tensor  # (N, 3) int32 each point's voxel coord
+    num_voxels: torch.Tensor  # () int64
+    resolution: float
+    packed: torch.Tensor  # (N, 16) f32 [mean (3), cov (9), count, pad (3)]
+    grid: torch.Tensor  # (Dx, Dy, Dz) int32 -> voxel id or -1
+    origin: torch.Tensor  # (3,) int32 voxel coord of grid[0, 0, 0]
+
+
+def next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def segment_by_voxel(points, mask, resolution, capacity):
+    """Group (N, 3) points by voxel: a lexicographic sort of the integer
+    coordinates, boundary detection, dense segment ids.
+
+    Returns (vid (N,) each point's segment id in the original order --
+    `capacity` for masked and overflow points --, new_voxel (N,) the sorted
+    order's boundary flags, vid_sorted (N,), sorted_coords (N, 3),
+    num_voxels ()).  `jax.lax.sort(..., num_keys=3)` is stable, so ties
+    keep the point order; three stable sorts (z, then y, then x) give the
+    same permutation, and so voxel ids in the same lexicographic rank."""
+    n = points.shape[0]
+    coords = torch.where(mask[:, None], voxel_coord(points, resolution), _COORD_SENTINEL)
+    order = torch.arange(n, dtype=torch.int64, device=points.device)
+    for axis in (2, 1, 0):
+        order = order[torch.sort(coords[order, axis], stable=True).indices]
+    sc = coords[order]
+    valid_sorted = sc[:, 0] < _COORD_SENTINEL
+    changed = torch.ones(n, dtype=torch.bool, device=points.device)
+    changed[1:] = torch.any(sc[1:] != sc[:-1], dim=1)
+    new_voxel = changed & valid_sorted
+    vid_sorted = torch.cumsum(new_voxel.to(torch.int64), 0) - 1
+    num_voxels = new_voxel.sum()
+    # invalid points -> the overflow bucket `capacity` (sliced off later)
+    vid_sorted = torch.where(valid_sorted & (vid_sorted < capacity), vid_sorted, capacity)
+    vid = torch.empty_like(vid_sorted).scatter_(0, order, vid_sorted)
+    return vid, new_voxel, vid_sorted, sc, num_voxels
+
+
+def _mode_contrib(points, mask, covs, mode):
+    """(N, 13) accumulation rows [1 | mean contribution (3) | cov
+    contribution (9)], zero on masked points.  covs may be (N, 3, 3) or
+    (6, N) sym-6 columns."""
+    n = points.shape[0]
+    dtype = points.dtype
+    if covs is not None and covs.shape[-2:] != (3, 3):
+        covs = soa.sym_cols_to_rows9(covs).reshape(n, 3, 3)
+    if mode == "raw":
+        m_contrib = points
+        c_contrib = points[:, :, None] * points[:, None, :]
+    elif mode == "multiplicative":
+        if covs is None:
+            raise ValueError("multiplicative mode needs per-point covariances")
+        c_contrib = linalg3.inv3(covs, eps=1e-30)
+        m_contrib = torch.sum(c_contrib * points[:, None, :], dim=-1)
+    else:
+        if covs is None:
+            raise ValueError("additive mode needs per-point covariances")
+        m_contrib = points
+        c_contrib = covs
+    return torch.cat(
+        [torch.ones((n, 1), dtype=dtype, device=points.device), m_contrib,
+         c_contrib.reshape(n, 9)], dim=1,
+    ) * mask.to(dtype)[:, None]
+
+
+def _finalize(acc, mode):
+    """(C, 13) accumulated rows -> (means (C, 3), covs (C, 3, 3), counts
+    (C,) int32); empty rows finalize to zeros."""
+    c = acc.shape[0]
+    counts = acc[:, 0].to(torch.int32)
+    sum_means = acc[:, 1:4]
+    sum_covs = acc[:, 4:13].reshape(c, 3, 3)
+    n_f = torch.clamp(acc[:, 0:1], min=1.0)
+    if mode == "multiplicative":
+        covs = linalg3.inv3(sum_covs, eps=1e-30)
+        means = torch.sum(covs * sum_means[:, None, :], dim=-1)
+    elif mode == "raw":
+        means = sum_means / n_f
+        covs = sum_covs / n_f[..., None] - means[:, :, None] * means[:, None, :]
+    else:
+        means = sum_means / n_f
+        covs = sum_covs / n_f[..., None]
+    return means, covs, counts
+
+
+def _pack(means, covs, counts):
+    """(C, 16) rows [mean (3), cov (9), count, pad (3)], a fresh contiguous
+    (so 16-byte aligned) tensor, as the linearize kernel reads it."""
+    c = means.shape[0]
+    return torch.cat(
+        [means, covs.reshape(c, 9), counts.to(means.dtype)[:, None],
+         torch.zeros((c, 3), dtype=means.dtype, device=means.device)], dim=1,
+    ).contiguous()
+
+
+def _build_table(vcoords, num_voxels, capacity, table_size, max_probe):
+    """Open-addressing insert by `max_probe` scatter-min claiming rounds:
+    each round every still-pending voxel tries to claim its current slot
+    (only an empty slot can be claimed), the lowest id wins, the losers
+    move one slot on (linear probing).  Voxels still pending after the
+    last round are dropped.  Returns the (T,) int32 table of ids or
+    _EMPTY."""
+    device = vcoords.device
+    mask_t = table_size - 1
+    vids = torch.arange(capacity, dtype=torch.int64, device=device)
+    pending = vids < num_voxels
+    slot = _hash_coords(vcoords[:, 0], vcoords[:, 1], vcoords[:, 2]) & mask_t
+    table = torch.full((table_size + 1,), _EMPTY, dtype=torch.int64, device=device)
+    for _ in range(max_probe):
+        attempt = pending & (table[slot] == _EMPTY)
+        # non-attempts park on the extra slot, which no probe reads
+        table.scatter_reduce_(0, torch.where(attempt, slot, table_size), vids,
+                              reduce="amin", include_self=True)
+        pending = pending & ~(attempt & (table[slot] == vids))
+        slot = torch.where(pending, (slot + 1) & mask_t, slot)
+    return table[:table_size].to(torch.int32)
+
+
+def build_voxelmap(points, mask, resolution, covs=None, mode: str = "additive",
+                   capacity: int | None = None, table_factor: int = 8,
+                   grid_dims: tuple | None = None, device="cuda"):
+    """A Gaussian voxel map of (N, 3) points and per-point covariances
+    ((N, 3, 3) or (6, N) sym-6 columns; not needed for "raw").
+
+    mode: "additive" / "additive_weighted" (aliases, as in the reference:
+    the arithmetic mean of the member means and covariances), or
+    "multiplicative" (information form: sum C^-1 and C^-1 mu, inverted at
+    the finalize), or "raw" (mean E[x], covariance E[x x^T] - mu mu^T of
+    the points).  grid_dims (Dx, Dy, Dz) -> a `GridVoxelMap`; None -> the
+    hash-table `VoxelMap` with `capacity` voxels (default N) and a
+    power-of-two table of >= table_factor x capacity slots.  Runs on
+    `device` (CUDA unless the caller asks for the CPU)."""
+    if mode not in ACCUMULATION_MODES:
+        raise ValueError(f"unknown accumulation mode: {mode}")
+    dev = _device.resolve(device)
+    points, mask = _device.as_f32(points, dev), _device.as_bool(mask, dev)
+    if covs is not None:
+        covs = _device.as_f32(covs, dev)
+    if grid_dims is not None:
+        return _build_grid_voxelmap(points, mask, resolution, covs, mode, grid_dims)
+    n = points.shape[0]
+    dtype, device = points.dtype, points.device
+    capacity = capacity or n
+    table_size = next_pow2(table_factor * capacity)
+
+    vid, new_voxel, vid_sorted, sorted_coords, num_voxels = segment_by_voxel(
+        points, mask, resolution, capacity)
+    contrib = _mode_contrib(points, mask, covs, mode)
+    acc = torch.zeros((capacity + 1, 13), dtype=dtype, device=device)
+    acc.index_add_(0, vid, contrib)
+    means, covs_out, counts = _finalize(acc[:capacity], mode)
+
+    # each voxel's coords from its first sorted point (the rest park on the
+    # dropped row `capacity`)
+    vcoords = torch.zeros((capacity + 1, 3), dtype=torch.int32, device=device)
+    vcoords[torch.where(new_voxel, vid_sorted, capacity)] = sorted_coords
+    vcoords = vcoords[:capacity]
+
+    table = _build_table(vcoords, num_voxels, capacity, table_size, MAX_PROBE)
+    occupied = table != _EMPTY
+    lut_coords = torch.where(occupied[:, None], vcoords[torch.where(occupied, table, 0)],
+                             _COORD_SENTINEL)
+    lut = torch.cat([table[:, None], lut_coords], dim=1)
+    return VoxelMap(means=means, covs=covs_out, counts=counts, coords=vcoords, table=table,
+                    num_voxels=num_voxels, resolution=float(resolution),
+                    packed=_pack(means, covs_out, counts), lut=lut)
+
+
+def _build_grid_voxelmap(points, mask, resolution, covs, mode, grid_dims):
+    """The sparse dense-grid build: the dense grids' claim (each occupied
+    cell's lowest member point is its voxel id), then the mode's
+    scatter-add of contributions into rows keyed by that id."""
+    n = points.shape[0]
+    dtype, device = points.dtype, points.device
+    gx, gy, gz = grid_dims
+    coords, origin, inside, claim, vid = _claim(points, mask, resolution, grid_dims)
+    contrib = _mode_contrib(points, inside, covs, mode)
+    acc = torch.zeros((n + 1, 13), dtype=dtype, device=device)
+    acc.index_add_(0, vid, contrib)
+    means, covs_out, counts = _finalize(acc[:n], mode)
+    cells = claim[: gx * gy * gz]
+    grid = torch.where(cells < n, cells, -1).to(torch.int32).reshape(gx, gy, gz)
+    return GridVoxelMap(means=means, covs=covs_out, counts=counts, coords=coords,
+                        num_voxels=(counts > 0).sum(), resolution=float(resolution),
+                        packed=_pack(means, covs_out, counts), grid=grid, origin=origin)
+
+
+def _probe(lut, slot0, cx, cy, cz):
+    """Voxel ids (...,) int32, or -1, of coordinate columns (...,) each
+    whose probe chains start at slot0 (...,): the id of the first of the
+    `MAX_PROBE` slots that matches the coordinates, unless an empty slot
+    comes first (an insert leaves no hole inside a chain, so an empty slot
+    proves absence).  All rounds are gathered at once, so nothing is read
+    to the host; a resolved query ignores the later rounds, as JAX's early
+    exit skips them."""
+    table_size = lut.shape[0]
+    steps = torch.arange(MAX_PROBE, dtype=torch.int64, device=lut.device)
+    rows = lut[(slot0[..., None] + steps) & (table_size - 1)]  # (..., P, 4)
+    match = ((rows[..., 1] == cx[..., None]) & (rows[..., 2] == cy[..., None])
+             & (rows[..., 3] == cz[..., None]))
+    first = torch.argmax((match | (rows[..., 0] == _EMPTY)).to(torch.int32), dim=-1,
+                         keepdim=True)
+    hit = torch.gather(match, -1, first)[..., 0]
+    return torch.where(hit, torch.gather(rows[..., 0], -1, first)[..., 0], -1)
+
+
+def lookup_lut(lut, coords):
+    """Probe an open-addressing lut (T, 4) [vid, cx, cy, cz] for integer
+    coords (..., 3) -> voxel id (int32) or -1."""
+    cx, cy, cz = coords[..., 0], coords[..., 1], coords[..., 2]
+    slot0 = _hash_coords(cx, cy, cz) & (lut.shape[0] - 1)
+    return _probe(lut, slot0, cx, cy, cz)
+
+
+def _grid_lookup(vmap: GridVoxelMap, cx, cy, cz):
+    """One index into the dense grid; out-of-grid queries give -1."""
+    return _lookup_ids(vmap.grid.reshape(-1), vmap.origin, vmap.grid.shape, -1, cx, cy, cz)
+
+
+def lookup_voxels(vmap, query_coords):
+    """Integer coords (..., 3) -> voxel id (int32) or -1, on a `VoxelMap`
+    (verified hash probes, fast_vgicp_voxel.hpp:167-174) or a
+    `GridVoxelMap` (one bounds-checked index into the grid)."""
+    if isinstance(vmap, GridVoxelMap):
+        return _grid_lookup(vmap, query_coords[..., 0], query_coords[..., 1],
+                            query_coords[..., 2])
+    return lookup_lut(vmap.lut, query_coords)
+
+
+def lookup_voxels_cols(vmap, cx, cy, cz):
+    """`lookup_voxels` on integer coordinate columns (...,) each."""
+    if isinstance(vmap, GridVoxelMap):
+        return _grid_lookup(vmap, cx, cy, cz)
+    slot0 = _hash_coords(cx, cy, cz) & (vmap.lut.shape[0] - 1)
+    return _probe(vmap.lut, slot0, cx, cy, cz)
+
+
+def gather_voxel_stats(vmap, vids):
+    """(means (..., 3), covs (..., 3, 3), counts (...,) f32) of voxel ids
+    (...,) in one row gather of `packed`."""
+    rows = vmap.packed[vids]
+    return rows[..., 0:3], rows[..., 3:12].reshape(rows.shape[:-1] + (3, 3)), rows[..., 12]

@@ -26,6 +26,8 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import fast_gicp_tpu_torch.models.gicp, fast_gicp_tpu_torch.models.metrics\n"
         "import fast_gicp_tpu_torch.ops.neighbors, fast_gicp_tpu_torch.ops.covariance\n"
         "import fast_gicp_tpu_torch.ops.cuda_ndt, fast_gicp_tpu_torch.models.ndt\n"
+        "import fast_gicp_tpu_torch.native, fast_gicp_tpu_torch.models.base\n"
+        "import fast_gicp_tpu_torch.models.vgicp, fast_gicp_tpu_torch.ops.voxelmap\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -80,6 +82,63 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         fitness_score(eye, pts, mask, pts, mask)
 
 
+def test_classes_and_map_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    """The class API and the VGICP and voxel-map entry points of the hash
+    and grid maps run on the card unless the caller asks for the CPU."""
+    from fast_gicp_tpu_torch.models.gicp import FastGICP, FastGICPSingleThread
+    from fast_gicp_tpu_torch.models.vgicp import (
+        FastVGICP, FastVGICPCuda, VGICPConfig, vgicp_evaluate, vgicp_mahalanobis,
+        vgicp_register_fresh,
+    )
+    from fast_gicp_tpu_torch.ops.voxelmap import build_voxelmap
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.zeros((2048, 3), np.float32)
+    mask = np.ones(2048, bool)
+    eye = np.eye(4, dtype=np.float32)
+    covs = np.tile(np.eye(3, dtype=np.float32), (2048, 1, 1))
+    cfg = VGICPConfig()
+    calls = [
+        lambda **kw: FastGICP(**kw), lambda **kw: FastGICPSingleThread(**kw),
+        lambda **kw: FastVGICP(**kw), lambda **kw: FastVGICPCuda(**kw),
+        lambda **kw: vgicp_register_fresh(pts, mask, pts, mask, eye, cfg, **kw),
+        lambda **kw: vgicp_evaluate(pts, mask, covs, pts, mask, covs, eye, cfg, **kw),
+        lambda **kw: vgicp_mahalanobis(pts, mask, covs, pts, mask, covs, eye, cfg, **kw),
+        lambda **kw: build_voxelmap(pts, mask, 1.0, covs=covs, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    reg = FastVGICP(device="cpu")
+    assert reg.device == torch.device("cpu")
+    reg.set_input_source(pts[:100])
+    assert reg._source.points.device.type == "cpu"
+    vmap = build_voxelmap(pts, mask, 1.0, covs=covs, device="cpu")
+    assert vmap.packed.device.type == "cpu" and int(vmap.num_voxels) == 1
+
+
+class _HashFields:
+    """The fields of a JAX hash-table `VoxelMap`, as numpy."""
+
+    means = np.zeros((4, 3), np.float32)
+    covs = np.zeros((4, 3, 3), np.float32)
+    counts = np.zeros(4, np.int32)
+    coords = np.zeros((4, 3), np.int32)
+    table = np.full(32, 2**30, np.int32)
+    num_voxels = np.int32(0)
+    resolution = np.float32(1.0)
+    packed = np.zeros((4, 16), np.float32)
+    lut = np.zeros((32, 4), np.int32)
+
+
+class _GridFields(_HashFields):
+    """The fields of a JAX `GridVoxelMap`, as numpy (grid8 is not read)."""
+
+    grid = np.full((4, 4, 4), -1, np.int32)
+    grid8 = np.full((9, 8), -1, np.int32)
+    origin = np.zeros(3, np.int32)
+
+
 def test_convert_helpers_default_to_cuda_and_raise_without_it(monkeypatch):
     """The helpers that carry the JAX package's state into the port put
     their tensors on the card unless the caller asks for the CPU."""
@@ -97,6 +156,8 @@ def test_convert_helpers_default_to_cuda_and_raise_without_it(monkeypatch):
                                                      (4, 4, 4), **kw),
         lambda **kw: convert.ndt_stats_from_numpy(np.zeros((4, 3), np.float32), np.ones(4, bool),
                                                   np.zeros((6, 4), np.float32), **kw),
+        lambda **kw: convert.voxel_map_from_numpy(_HashFields(), **kw),
+        lambda **kw: convert.grid_voxel_map_from_numpy(_GridFields(), **kw),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
