@@ -14,7 +14,17 @@ align, swap_source_and_target, align, evaluate_cost, get_fitness_score):
 FastVGICP on the hash map (class defaults, grid_dims=None), FastVGICP on
 the sparse dense grid (multiplicative, DIRECT7) and FastGICP; phase 3
 holds the map builds on the card to the CPU and the `linearize` kernel to
-its plain and gathered forms on those maps' inputs.
+its plain and gathered forms on those maps' inputs.  Five more class paths
+run NDTCuda (D2D and P2D) on the dense "auto" grid (the lookup form) and
+on the hash map (set_grid_dims(None): an eager freeze and the pack form a
+linearization) and FastGICPMultiPoints (the exact k = 32 search a
+linearization, `linearize` on the averaged rows in the gathered form);
+`ndt_align_batch` and `vgicp_align_batch` run B = 4 consecutive pairs of
+the drive, each pair bit for bit against its single-pair call; and
+`pygicp.align_points` runs each of its four methods.  Phase 3 checks the
+pack form on the hash path's first freeze, `knn_slab` at k = 32 and the
+gathered `linearize` at FastGICPMultiPoints' first linearization, and the
+trial launch at every new path's first linearization.
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device: CUDA must be present; prints the card's name and power limit;
   2. build: compiles the CUDA kernels from `fast_gicp_tpu_torch/csrc` (one
@@ -1898,9 +1908,11 @@ def trial_inputs(dev, pair):
     (22,528), NDT D2D fresh (7 x 4,096) and P2D fresh (7 x 22,528) on the
     full-size pair, and, in a package with the class API, of FastVGICP's
     hash map (22,528) and sparse grid map (DIRECT7, 7 x 22,528 lanes with
-    misses), as each path's objective builds them on the card; `cost` is
-    the objective's error (a TrialCost in this package, a closure in
-    packages before it), `n_src` the source columns the lanes read."""
+    misses), and, in a package with NDTCuda, of the paths of
+    `new_path_trial_inputs`, as each path's objective builds them on the
+    card; `cost` is the objective's error (a TrialCost in this package, a
+    closure in packages before it), `n_src` the source columns the lanes
+    read."""
     from fast_gicp_tpu_torch.models.gicp import GICPConfig, make_gicp_objective
     from fast_gicp_tpu_torch.models.ndt import ndt_path_objective
     from fast_gicp_tpu_torch.models import vgicp as vgicp_module
@@ -1939,6 +1951,10 @@ def trial_inputs(dev, pair):
         for name, (_m, _o, (lin, cost, _f, _lf), src_c, _sm, _sc) in (
                 class_map_objectives(dev, pair, scov, tcov).items()):
             out[CLASS_MAP_PATHS[name]] = lin(x) + (cost, src_c.shape[0])
+    from fast_gicp_tpu_torch.models import ndt as ndt_module
+
+    if hasattr(ndt_module, "NDTCuda"):
+        out.update(new_path_trial_inputs(dev, pair))
     return out
 
 
@@ -2114,6 +2130,12 @@ def phase_trial(dev, pair):
             classify(run_point(init, H, b, y0_at(init, rho, ra, rc, False), ra, rc, False),
                      False, True)
 
+        if path in NEW_TRIAL_PATHS:
+            # the same bodies at the lane counts timed above (the NDT body at
+            # 28,672 and 157,696, GICP's at 22,528; NDT_CUDA's DIRECT1 at
+            # 4,096): checked, not timed again
+            records[path] = dict(lanes=aux.shape[1], timed=False)
+            continue
         # timing at the path's lanes: the trial launch (state reset by a copy,
         # which the kernel filter leaves out), the trial-off error launch,
         # the standalone lm_trial, and the plain twin (every op)
@@ -2360,6 +2382,32 @@ def _fast_gicp_class(device):
     return FastGICP(device=device)
 
 
+def _ndt_cuda(mode, hash_map):
+    """NDTCuda with its defaults (DIRECT7, 1 m, budgets 4,096 / 8,192) in
+    `mode` ("P2D"/"D2D", the reference's spelling): the dense "auto" grid
+    over both clouds (the lookup form), or after set_grid_dims(None) the
+    hash map (an eager freeze and a pack-form launch a linearization)."""
+
+    def make(device):
+        from fast_gicp_tpu_torch.models.ndt import NDTCuda
+
+        reg = NDTCuda(device=device)
+        reg.set_distance_mode(mode)
+        if hash_map:
+            reg.set_grid_dims(None)
+        return reg
+
+    return make
+
+
+def _fast_gicp_multipoints(device):
+    """FastGICPMultiPoints with its defaults (kNN covariances k = 20 plane,
+    radius 1 m over the exact 32 nearest neighbours)."""
+    from fast_gicp_tpu_torch.models.experimental import FastGICPMultiPoints
+
+    return FastGICPMultiPoints(device=device)
+
+
 # class path -> (make(device) -> Registration, kernels the path must launch,
 # the pair its card-against-CPU phase runs on: the CPU-test-sized pair for
 # FastGICP, the full-size one for FastVGICP, whose kNN-covariance solve on
@@ -2372,14 +2420,84 @@ CLASS_PATHS = {
                              "full"),
     "fast_gicp_class": (_fast_gicp_class, ("knn_moments", "nn_search", "linearize", "lm_step"),
                         "small"),
+    # NDTCuda: its card-against-CPU on the full-size pair (NDT's > 6 points
+    # gate); FastGICPMultiPoints on the small one (its CPU run searches all
+    # targets for each point at every linearization)
+    "ndt_d2d_class": (_ndt_cuda("D2D", False), ("ndt_d2d", "lm_step"), "full"),
+    "ndt_p2d_class": (_ndt_cuda("P2D", False), ("ndt_p2d", "lm_step"), "full"),
+    "ndt_d2d_hash": (_ndt_cuda("D2D", True), ("ndt_d2d", "lm_step"), "full"),
+    "ndt_p2d_hash": (_ndt_cuda("P2D", True), ("ndt_p2d", "lm_step"), "full"),
+    "fast_gicp_multipoints": (_fast_gicp_multipoints,
+                              ("knn_moments", "knn_slab", "linearize", "lm_step"), "small"),
+}
+NDT_CLASS_PATHS = tuple(p for p in CLASS_PATHS if p.startswith("ndt_"))
+# how each class path's linearizations must reach their kernel: the GICP and
+# VGICP classes read target rows by index ("idx"), FastGICPMultiPoints
+# passes the averaged rows gathered, NDTCuda looks its voxels up in the
+# kernel on the dense grid ("lookup") and freezes a pack eagerly on the
+# hash map ("pack")
+CLASS_LIN_FORM = {"ndt_d2d_class": "lookup", "ndt_p2d_class": "lookup",
+                  "ndt_d2d_hash": "pack", "ndt_p2d_hash": "pack",
+                  "fast_gicp_multipoints": "gathered"}
+CLASS_LIMITS = {"ndt_p2d_class": P2D_LIMITS, "ndt_p2d_hash": P2D_LIMITS}  # else D2D_LIMITS
+
+
+def _batch_path(kind):
+    """(run(arrays, device) -> stacked LsqResult) of `ndt_align_batch` (D2D,
+    NDTConfig's defaults: the hash map) or `vgicp_align_batch`
+    (VGICPConfig's defaults: DIRECT1 on the hash map, the kNN covariances
+    in the arrays), and the per-pair call each pair must equal bit for
+    bit."""
+    from fast_gicp_tpu_torch.models import batch, ndt, vgicp
+
+    if kind == "ndt":
+        cfg = ndt.NDTConfig()
+
+        def run(a, device):
+            return batch.ndt_align_batch(a["sp"], a["sm"], a["tp"], a["tm"], a["guess"], cfg,
+                                         device=device)
+
+        def one(a, i, device):
+            return ndt.ndt_align(a["sp"][i], a["sm"][i], a["tp"][i], a["tm"][i], a["guess"][i],
+                                 cfg, device=device)
+    else:
+        cfg = vgicp.VGICPConfig()
+
+        def run(a, device):
+            return batch.vgicp_align_batch(a["sp"], a["sm"], a["sc"], a["tp"], a["tm"], a["tc"],
+                                           a["guess"], cfg, device=device)
+
+        def one(a, i, device):
+            return vgicp.vgicp_align(a["sp"][i], a["sm"][i], a["sc"][i], a["tp"][i], a["tm"][i],
+                                     a["tc"][i], a["guess"][i], cfg, device=device)
+    return run, one
+
+
+# batch path -> (the batch of `_batch_path`, kernels the path must launch, limits)
+BATCH_PATHS = {"ndt_align_batch": ("ndt", ("ndt_d2d", "lm_step"), D2D_LIMITS),
+               "vgicp_align_batch": ("vgicp", ("linearize", "lm_step"), D2D_LIMITS)}
+BATCH_FRAMES = (30, 31, 32, 33, 34)  # B = 4 consecutive pairs of the drive
+# pygicp path -> (align_points method, kernels it must launch, the pair of its
+# card-against-CPU run, limits)
+PYGICP_PATHS = {
+    "pygicp_gicp": ("GICP", ("knn_moments", "nn_search", "linearize", "lm_step"), "small",
+                    D2D_LIMITS),
+    "pygicp_vgicp": ("VGICP", ("knn_moments", "linearize_raw", "lm_step"), "full", D2D_LIMITS),
+    "pygicp_vgicp_cuda": ("VGICP_CUDA", ("knn_moments", "linearize_raw", "lm_step"), "full",
+                          D2D_LIMITS),
+    "pygicp_ndt_cuda": ("NDT_CUDA", ("ndt_d2d", "lm_step"), "full", D2D_LIMITS),
 }
 # the standalone launches the trial launch replaces inside the LM solve, and
 # the paths whose trials carry each one's body
-TRIAL_CARRIED = {"lm_trial": tuple(PATHS) + tuple(CLASS_PATHS),
+TRIAL_CARRIED = {"lm_trial": tuple(PATHS) + tuple(CLASS_PATHS) + tuple(BATCH_PATHS)
+                 + tuple(PYGICP_PATHS),
                  "error": ("vgicp_register", "gicp_register_fresh", "gicp_adaptive_fresh",
-                           "gicp_min_eig_fresh") + tuple(CLASS_PATHS),
+                           "gicp_min_eig_fresh", "vgicp_align_batch", "pygicp_gicp",
+                           "pygicp_vgicp", "pygicp_vgicp_cuda")
+                 + tuple(p for p in CLASS_PATHS if p not in NDT_CLASS_PATHS),
                  "ndt_error": ("ndt_d2d_fresh", "ndt_p2d_fresh", "ndt_d2d_align",
-                               "ndt_p2d_align")}
+                               "ndt_p2d_align", "ndt_align_batch", "pygicp_ndt_cuda")
+                 + NDT_CLASS_PATHS}
 NDT_PATHS = tuple(p for p in PATHS if p.startswith("ndt_"))
 # the wrappers that also count their launches that read rows by index
 IDX_COUNTED = ("linearize", "linearize_raw")
@@ -2387,8 +2505,13 @@ IDX_COUNTED = ("linearize", "linearize_raw")
 # (the rest are pack-form launches)
 NDT_FORM_COUNTED = tuple(f"ndt_{m}" for m in NDT_MODES)
 # the pack-form launches a path may make: P2D align's frozen phase, seeded
-# from the last refresh linearization's aux (no freeze)
-NDT_PACK_ALLOWED = {("ndt_p2d_align", "ndt_p2d")}
+# from the last refresh linearization's aux (no freeze); and every NDT
+# launch on the hash map (NDTCuda after set_grid_dims(None), the batch's
+# maps), which the kernel cannot look up: each linearization there is an
+# eager freeze (`cuda_ndt.ndt_freeze_pack`) and one pack-form launch, as the
+# JAX package's fused objective runs it
+NDT_PACK_ALLOWED = {("ndt_p2d_align", "ndt_p2d"), ("ndt_d2d_hash", "ndt_d2d"),
+                    ("ndt_p2d_hash", "ndt_p2d"), ("ndt_align_batch", "ndt_d2d")}
 
 
 def phase_main_path(dev, pair, path):
@@ -2692,9 +2815,13 @@ def trace_registrations(path, run, n_regs, predicted, all_ops=False):
         wall = (time.perf_counter() - t0) * 1e3 / n_regs
         return wall, [start.elapsed_time(end) for start, end in marks]
 
+    from fast_gicp_tpu_torch.solver import lsq_solve
+
     wall_untraced, spans_untraced = spans_ms()
+    syncs0 = lsq_solve.host_syncs
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall, spans = spans_ms()
+    traced_syncs = (lsq_solve.host_syncs - syncs0) / n_regs
     events = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n_regs
     launches = sum(e.count for e in events) / n_regs
@@ -2707,8 +2834,9 @@ def trace_registrations(path, run, n_regs, predicted, all_ops=False):
         f"{100 * busy_ms / span:.1f}% of the span), device ops {launches:.1f} per "
         f"registration; untraced: wall {wall_untraced:.3f} ms, device span "
         f"{sum(spans_untraced) / n_regs:.3f} ms")
-    log(f"[profile] {path}: device ops {launches:.1f} a registration against the predicted "
-        f"{predicted} ({launches - predicted:+.1f})")
+    if predicted is not None:
+        log(f"[profile] {path}: device ops {launches:.1f} a registration against the "
+            f"predicted {predicted} ({launches - predicted:+.1f})")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:None if all_ops else 12]:
         log(f"[profile]   {e.self_device_time_total / 1e3 / n_regs:9.4f} ms  "
             f"x{e.count / n_regs:5.1f}  {e.key[:90 if not all_ops else 160]}")
@@ -2716,7 +2844,7 @@ def trace_registrations(path, run, n_regs, predicted, all_ops=False):
               for kind in ("HtoD", "DtoH")}
     return dict(traced_wall_ms=wall, device_span_ms=span, device_busy_ms=busy_ms,
                 device_ops_per_registration=launches, predicted_device_ops=predicted,
-                copies_per_registration=copies,
+                copies_per_registration=copies, traced_host_syncs=traced_syncs,
                 untraced_wall_ms=wall_untraced,
                 untraced_device_span_ms=sum(spans_untraced) / n_regs)
 
@@ -2905,22 +3033,44 @@ def phase_class_kernels(dev, pair, records):
     return maps
 
 
-def class_workflow(reg, source, target):
+def _cached(reg):
+    """[source, target] of what the clouds cache: NDTCuda's voxel map
+    entries (`ndt_cache`), else the covariances."""
+    ndt = hasattr(reg, "distance_mode")
+    return [c.ndt_cache if ndt else c.covs for c in (reg._source, reg._target)]
+
+
+def class_workflow(reg, source, target, scores=True):
     """The class API's swap workflow: set_input_target / set_input_source,
-    align (the fresh path: both clouds' covariances and the map), then
-    swap_source_and_target and align (the cached covariances, `vgicp_align`
-    or `gicp_align`), evaluate_cost at that pose and get_fitness_score.
-    Returns (fresh pose, swapped pose, their iterations, cost, fitness)."""
+    align (the fresh path: both clouds' covariances, or NDTCuda's maps, and
+    the align), then swap_source_and_target and align (on the cached state,
+    which the swap moved with the clouds: the second align rebuilds none of
+    it; P2D's fresh align prepares no source map, so its second align
+    builds the new target's), with `scores` evaluate_cost at that pose
+    (FastGICPMultiPoints has none, as in the JAX package) and
+    get_fitness_score.  Returns (fresh pose, swapped pose, their
+    iterations, cost, fitness, maps or covariances the second align
+    built)."""
     reg.set_input_target(target)
     reg.set_input_source(source)
     T1 = reg.align()
     it1 = reg.get_num_iterations()
-    require(reg._source.covs is not None and reg._target.covs is not None,
-            "the fresh align left no covariances in the cache")
+    before = _cached(reg)
+    p2d = getattr(reg, "distance_mode", None) == "p2d"
+    require(before[1] is not None and (p2d or before[0] is not None),
+            f"the fresh align left nothing in the cache: {[b is None for b in before]}")
     reg.swap_source_and_target()
     T2 = reg.align()
     it2 = reg.get_num_iterations()
-    return T1, T2, (it1, it2), reg.evaluate_cost(T2), reg.get_fitness_score()
+    after = _cached(reg)  # [the old target, the old source]
+    require(after[0] is before[1] and (before[0] is None or after[1] is before[0]),
+            "the align after the swap rebuilt a cloud's cached state")
+    built = sum(b is None and a is not None for a, b in zip(after, before[::-1]))
+    cost = fitness = None
+    if scores:
+        cost = None if hasattr(reg, "search_radius") else reg.evaluate_cost(T2)
+        fitness = reg.get_fitness_score()
+    return T1, T2, (it1, it2), cost, fitness, built
 
 
 def phase_class_main(dev, pair, path):
@@ -2936,58 +3086,114 @@ def phase_class_main(dev, pair, path):
     make, kernels, _pair = CLASS_PATHS[path]
     class_workflow(make(dev), source, target)  # warm-up
     torch.cuda.synchronize()
-    for fn in counters().values():
-        fn.launches = 0
-    for k in IDX_COUNTED:
-        counters()[k].idx_launches = 0
+    reset_counters()
     lsq_solve.host_syncs = 0
     t0 = time.perf_counter()
-    T1, T2, its, cost, fitness = class_workflow(make(dev), source, target)
+    T1, T2, its, cost, fitness, built = class_workflow(make(dev), source, target)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = {k: fn.launches for k, fn in counters().items()}
-    launches.update({f"{k}[idx]": counters()[k].idx_launches for k in IDX_COUNTED})
+    launches = read_counters()
     syncs = lsq_solve.host_syncs
     errs = [pose_errors(T1, gt), pose_errors(T2, np.linalg.inv(gt))]
     log(f"[main] {path}: fresh t_err {errs[0][0]:.6f} m r_err {errs[0][1]:.6f} deg, "
         f"swapped t_err {errs[1][0]:.6f} m r_err {errs[1][1]:.6f} deg, iterations {its}, "
-        f"host syncs {syncs}, cost at the swapped pose {cost:.3f}, fitness {fitness:.6f}, "
+        f"host syncs {syncs}, cost at the swapped pose {cost}, fitness {fitness:.6f}, "
+        f"cached states the second align built {built}, "
         f"wall {wall_ms:.3f} ms (both aligns, evaluate_cost, fitness), launches {launches}")
-    t_lim, r_lim = D2D_LIMITS
+    t_lim, r_lim = CLASS_LIMITS.get(path, D2D_LIMITS)
     require(all(np.isfinite(T).all() for T in (T1, T2)), f"{path}: non-finite pose")
     require(all(t < t_lim and r < r_lim for t, r in errs), f"{path}: pose errors {errs}")
-    require(math.isfinite(cost) and math.isfinite(fitness), f"{path}: non-finite cost")
+    require((cost is None or math.isfinite(cost)) and math.isfinite(fitness),
+            f"{path}: non-finite cost")
+    require(built == (1 if path in ("ndt_p2d_class", "ndt_p2d_hash") else 0),
+            f"{path}: the align after the swap built {built} cached states")
     require(all(launches[k] > 0 for k in kernels),
             f"{path}: a kernel of the path was not launched: {launches}")
     require(launches["lm_step"] == syncs, f"{path}: {launches['lm_step']} trial launches "
             f"for {syncs} trials")
     require(all(launches[k] == 0 for k in TRIAL_CARRIED),
             f"{path}: a standalone trial or error launch in the LM solve: {launches}")
-    require(launches["linearize[idx]"] == launches["linearize"] and launches["linearize_raw"] == 0,
-            f"{path}: a linearize launch on gathered rows or raw rows: {launches}")
+    check_lin_forms(path, launches, CLASS_LIN_FORM.get(path, "idx"))
     return launches, dict(t_err_m=[e[0] for e in errs], r_err_deg=[e[1] for e in errs],
                           iterations=list(its), host_syncs=syncs, wall_ms=wall_ms,
-                          cost=cost, fitness=fitness)
+                          cost=cost, fitness=fitness, second_align_built=built)
+
+
+def reset_counters():
+    """Every launch counter (and the idx and lookup form counters) to 0."""
+    for fn in counters().values():
+        fn.launches = 0
+    for k in IDX_COUNTED:
+        counters()[k].idx_launches = 0
+    for k in NDT_FORM_COUNTED:
+        counters()[k].lookup_launches = 0
+
+
+def read_counters():
+    """{counter: launches} with "name[idx]" and "name[lookup]" for the form
+    counters."""
+    launches = {k: fn.launches for k, fn in counters().items()}
+    launches.update({f"{k}[idx]": counters()[k].idx_launches for k in IDX_COUNTED})
+    launches.update({f"{k}[lookup]": counters()[k].lookup_launches for k in NDT_FORM_COUNTED})
+    return launches
+
+
+def check_lin_forms(path, launches, form):
+    """How the path's linearize launches reach the target side: "idx"
+    (every linearize launch reads its rows by index, none on raw rows),
+    "idx_raw" (every linearize_raw launch reads its raw rows by index, no
+    linearize launch), "gathered" (every linearize launch on gathered
+    rows), "lookup" (every NDT launch the lookup form) or "pack" (every
+    NDT launch the pack form, where NDT_PACK_ALLOWED allows it)."""
+    lin, idx = launches["linearize"], launches["linearize[idx]"]
+    raw, raw_idx = launches["linearize_raw"], launches["linearize_raw[idx]"]
+    ndt = {k: (launches[k], launches[f"{k}[lookup]"]) for k in NDT_FORM_COUNTED}
+    if form == "idx_raw":
+        require(raw_idx == raw and lin == 0 and not any(n for n, _l in ndt.values()),
+                f"{path}: a linearize launch not in the {form} form: {launches}")
+    elif form in ("idx", "gathered"):
+        require(idx == (lin if form == "idx" else 0) and raw == 0
+                and not any(n for n, _l in ndt.values()),
+                f"{path}: a linearize launch not in the {form} form: {launches}")
+    elif form == "lookup":
+        require(all(n == look for n, look in ndt.values()) and lin == 0,
+                f"{path}: an NDT linearize launch not in the lookup form: {launches}")
+    else:
+        require(all(look == 0 and (n == 0 or (path, k) in NDT_PACK_ALLOWED)
+                    for k, (n, look) in ndt.items()) and lin == 0,
+                f"{path}: an NDT linearize launch not in an allowed pack form: {launches}")
+
+
+# NDT on the hash map: `_ndt_voxelmap` sums raw moments E[x x^T] in the
+# cloud's frame (the JAX package's build), and P2D's M = cov_B^-1 of the
+# clamped near-planar voxels magnifies the last bits in which the card's
+# map differs from the CPU's (the atomic scatter-add order, the clamp's
+# acos / cos): the fresh poses land 1.5e-3 to 1.9e-3 apart (H100,
+# full-size pair; 1.7e-3 for P2D with deterministic scatter-adds too), where
+# the dense grids' corner-relative moments give 2e-6.
+HASH_POSE_TOL = 3e-3
 
 
 def phase_class_card_vs_cpu(dev, pair, path):
     """The class workflow's two aligns on the card against the same class
-    with device="cpu" (the plain versions), on `pair`: poses within 1e-3,
-    iterations within 1, the card's poses within the reference's limits."""
+    with device="cpu" (the plain versions), on `pair`: poses within 1e-3
+    (the hash-map NDT paths within HASH_POSE_TOL), iterations within 1,
+    the card's poses within the reference's limits."""
     source, target, gt = pair
     make = CLASS_PATHS[path][0]
-    gpu, cpu = (class_workflow(make(d), source, target) for d in (dev, "cpu"))
+    gpu, cpu = (class_workflow(make(d), source, target, scores=False) for d in (dev, "cpu"))
     diffs = [float(np.abs(a - b).max()) for a, b in zip(gpu[:2], cpu[:2])]
+    tol = HASH_POSE_TOL if CLASS_LIN_FORM.get(path) == "pack" else 1e-3
     errs = [pose_errors(gpu[0], gt), pose_errors(gpu[1], np.linalg.inv(gt))]
     log(f"[card vs cpu] {path}, {len(source)} source points: |T_gpu - T_cpu| max "
         f"{diffs[0]:.3e} (fresh), {diffs[1]:.3e} (swapped); iterations gpu {gpu[2]} cpu "
         f"{cpu[2]}; t_err {errs[0][0]:.6f}, {errs[1][0]:.6f} m")
-    require(max(diffs) <= 1e-3, f"{path} card vs cpu: pose diffs {diffs}")
+    require(max(diffs) <= tol, f"{path} card vs cpu: pose diffs {diffs}")
     require(all(abs(a - b) <= 1 for a, b in zip(gpu[2], cpu[2])),
             f"{path} card vs cpu: iteration counts differ by more than 1")
-    t_lim, r_lim = D2D_LIMITS
+    t_lim, r_lim = CLASS_LIMITS.get(path, D2D_LIMITS)
     require(all(t < t_lim and r < r_lim for t, r in errs), f"{path} card vs cpu: {errs}")
-    return dict(source_points=len(source), pose_diff=diffs, iterations_gpu=list(gpu[2]),
-                iterations_cpu=list(cpu[2]))
+    return dict(source_points=len(source), pose_diff=diffs, tolerance=tol,
+                iterations_gpu=list(gpu[2]), iterations_cpu=list(cpu[2]))
 
 
 def _fresh_class(dev, pair, path):
@@ -3057,19 +3263,398 @@ def phase_class_profile(dev, pair, path, n_regs=5):
         its.append(reg.get_num_iterations())
 
     def predicted():
+        if path not in PREDICTED_CLASS_OPS:
+            return None
         const, per_lin, per_trial = PREDICTED_CLASS_OPS[path]
         trials = (lsq_solve.host_syncs - syncs0) / len(its)
         return round(const + per_lin * sum(its) / len(its) + per_trial * trials, 1)
 
     traced = trace_registrations(path, run, n_regs, predicted, all_ops=True)
     # a copy either way waits for the queue: the only ones are the flag
-    # read a trial and the result's one read
-    trials = (lsq_solve.host_syncs - syncs0) / len(its)
+    # read a trial and the result's one read (the traced registrations'
+    # own trials: on the hash maps the atomic sums move the iterations
+    # from one registration to the next)
+    trials = traced["traced_host_syncs"]
     require(traced["copies_per_registration"] == {"HtoD": 0, "DtoH": trials + 1},
             f"{path}: host copies a registration {traced['copies_per_registration']} for "
             f"{trials} trials")
     return dict(stage_wall_ms=stages, iterations=sorted(set(its)),
                 trials_per_registration=(lsq_solve.host_syncs - syncs0) / len(its), **traced)
+
+# -- NDTCuda's hash map, FastGICPMultiPoints, the batch aligns, pygicp -------
+
+
+class _FirstTrial(Exception):
+    """Raised by `first_trial`'s stand-in trial launch to end the run."""
+
+
+def first_trial(run):
+    """The inputs (y0, H, b, aux, cost, n_src) of the first LM trial that
+    `run()` launches: its first linearization, as the path's objective
+    built it on the card; the run stops there."""
+    from fast_gicp_tpu_torch.ops import cuda_solver
+
+    launch, got = cuda_solver.lm_step, []
+
+    def capture(state, H, b, y0, aux, cost, first, config):
+        got.append((y0.clone(), H.clone(), b.clone(), aux.clone(), cost,
+                    aux.shape[1] // cost.offsets))
+        raise _FirstTrial
+
+    cuda_solver.lm_step = capture
+    try:
+        run()
+    except _FirstTrial:
+        pass
+    finally:
+        cuda_solver.lm_step = launch
+    require(len(got) == 1, "the run launched no LM trial")
+    return got[0]
+
+
+def padded(pair):
+    """(sp, sm, tp, tm) of a pair, padded, as numpy."""
+    from fast_gicp_tpu_torch.utils.padding import pad_points
+
+    source, target, _gt = pair
+    return pad_points(source) + pad_points(target)
+
+
+@functools.cache
+def batch_arrays():
+    """B = 4 consecutive full-size pairs of the drive (frames f -> target,
+    f + 1 -> source, f = 30..33, 0.1 m), padded to one size: numpy (sp, sm,
+    tp, tm) (B, M, ...), identity guesses (B, 4, 4) and ground truths."""
+    from fast_gicp_tpu_torch.utils.downsample import voxel_downsample
+    from fast_gicp_tpu_torch.utils.padding import bucket_size
+    from fast_gicp_tpu_torch.utils.synthetic import drive_scans, drive_world
+
+    rng = np.random.default_rng(0)
+    scans, gt = drive_scans(rng, n_frames=BATCH_FRAMES[-1] + 1, world=drive_world(rng))
+    clouds = [voxel_downsample(scans[f], 0.1) for f in BATCH_FRAMES]
+    m = bucket_size(max(len(c) for c in clouds))
+    pts = np.zeros((len(clouds), m, 3), np.float32)
+    mask = np.zeros((len(clouds), m), bool)
+    for i, c in enumerate(clouds):
+        pts[i, :len(c)], mask[i, :len(c)] = c, True
+    B = len(clouds) - 1
+    return dict(sp=pts[1:], sm=mask[1:], tp=pts[:-1], tm=mask[:-1],
+                guess=np.tile(np.eye(4, dtype=np.float32), (B, 1, 1)),
+                gt=np.stack([np.linalg.inv(gt[f]) @ gt[f + 1] for f in BATCH_FRAMES[:-1]]))
+
+
+def batch_on(dev):
+    """`batch_arrays` as tensors on `dev`, with the kNN covariances (6, M) of
+    every cloud made there (the VGICP batch's input)."""
+    from fast_gicp_tpu_torch.ops.covariance import knn_covariance_cols
+
+    a = {k: torch.as_tensor(v, device=dev) for k, v in batch_arrays().items() if k != "gt"}
+    for pk, mk, ck in (("sp", "sm", "sc"), ("tp", "tm", "tc")):
+        a[ck] = torch.stack([knn_covariance_cols(p, m) for p, m in zip(a[pk], a[mk])])
+    return a
+
+
+def pygicp_run(path, pair, device):
+    """align_points of the path's method on the (already downsampled)
+    pair, the rest of its arguments at their defaults."""
+    from fast_gicp_tpu_torch import pygicp
+
+    source, target, _gt = pair
+    return pygicp.align_points(target, source, method=PYGICP_PATHS[path][0], device=device)
+
+
+NEW_TRIAL_PATHS = ("ndt_d2d_hash", "ndt_p2d_hash", "fast_gicp_multipoints") + tuple(
+    BATCH_PATHS) + tuple(PYGICP_PATHS)
+
+
+def new_path_trial_inputs(dev, pair):
+    """{path: first_trial of the path} for NDTCuda on the hash map,
+    FastGICPMultiPoints, the two batch aligns (their first pair) and each
+    pygicp method, as each runs on the full-size pair.  NDTCuda on the dense
+    grid solves `ndt_register_fresh`'s objective, whose inputs
+    `trial_inputs` takes as ndt_d2d_fresh / ndt_p2d_fresh."""
+    source, target, _gt = pair
+    out = {}
+    for path in NEW_TRIAL_PATHS[:3]:
+        reg = CLASS_PATHS[path][0](dev)
+        reg.set_input_target(target)
+        reg.set_input_source(source)
+        out[path] = first_trial(reg.align)
+    arrays = batch_on(dev)
+    for path, (kind, _k, _l) in BATCH_PATHS.items():
+        out[path] = first_trial(lambda: _batch_path(kind)[0](arrays, dev))
+    for path in PYGICP_PATHS:
+        out[path] = first_trial(lambda: pygicp_run(path, pair, dev))
+    return out
+
+
+def phase_new_path_kernels(dev, pair, records):
+    """The kernels of the new paths against their plain versions at those
+    paths' own shapes, added to the kernels' records:
+    * ndt_d2d / ndt_p2d in the pack form on NDTCuda's hash-map path at its
+      first freeze (identity, the target-centroid frame; the maps built on
+      the CPU, see objective_on): the card's eager freeze equal to the
+      CPU's (valid equal, misses never valid), the pack-form launch within
+      the NDT tolerances of its plain version and bit-identical on a
+      repeat; timed with the freeze ("pose to [err, H, b]");
+    * knn_slab as the exact k = 32 search of FastGICPMultiPoints' first
+      linearization (the source at identity, every 128-point target tile a
+      candidate), idx equal and sq bit-equal to its plain version;
+    * linearize in the gathered form on that linearization's averaged rows
+      [q, cov_B, 1, pad], within GICP's tolerance of its plain version,
+      bit-identical on a repeat."""
+    from fast_gicp_tpu_torch.models.experimental import MultiPointConfig, averaged_rows
+    from fast_gicp_tpu_torch.models.ndt import NDTConfig, ndt_path_objective
+    from fast_gicp_tpu_torch.ops import cuda_kernels, cuda_linearize, cuda_ndt
+    from fast_gicp_tpu_torch.ops.covariance import knn_covariance_cols
+    from fast_gicp_tpu_torch.ops.neighbors import _center_clouds
+
+    by_name = {r["name"]: r for r in records}
+    x = torch.eye(4, device=dev)
+    sp, sm, tp, tm = padded(pair)
+    _check_aux, check_lin = ndt_checkers(x)
+    for mode in ("d2d", "p2d"):
+        oc, _c = ndt_path_objective(sp, sm, tp, tm, NDTConfig(distance_mode=mode), fresh=True,
+                                    device="cpu")
+        obj = objective_on(oc, dev)
+        pack = obj.freeze(x)
+        want_pack = oc.freeze(x.cpu())
+        require(bool(torch.equal(pack[:, 9].cpu(), want_pack[:, 9])),
+                f"ndt_{mode} hash freeze: valid differs from the CPU's")
+        check_close(f"ndt_{mode} hash freeze", pack.cpu(), want_pack, 1e-5, 1e-6)
+        got = check_lin(f"ndt_{mode} (hash map)", obj.p, obj.ca, pack, mode, 1e-5)
+        N, L = obj.p.shape[1], pack.shape[0]
+        valid = int(pack[:, 9].sum())
+        tm_ = timings(lambda: cuda_ndt.ndt_linearize(obj.p, obj.ca, x, pack, 1.0, mode),
+                      lambda: cuda_ndt.ndt_linearize_plain(obj.p, obj.ca, x, pack, 1.0, mode),
+                      ndt_kernel_name(mode, "pack"), 200, 20)
+        freeze_ms = device_ms(lambda: obj.freeze(x), 50)
+        nbytes = ndt_lin_bytes(mode, "pack", N, L)
+        b_ms, b_by = bound_ms(nbytes, ndt_lin_ops(mode, "pack", L, valid))
+        rec = dict(lanes=L, source_columns=N, valid_lanes=valid, max_abs_err=got[-1],
+                   pack_ms=tm_["ms"], plain_ms=tm_["plain_ms"], call_ms=tm_["call_ms"],
+                   freeze_ms=freeze_ms,
+                   pose_to_normal_eq_ms=device_ms(lambda: obj.linearize(x), 50),
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes, timing=tm_["timing"])
+        by_name[f"ndt_{mode}"]["hash_path"] = rec
+        log(f"[kernels] ndt_{mode} pack form on the hash path (NDTCuda, grid_dims None) at "
+            f"L = {L}: the card's freeze equal to the CPU's, within tolerance of the plain "
+            f"version ({got[-1]:.3e}), {tm_['ms']:.5f} ms, plain {tm_['plain_ms']:.4f} ms; "
+            f"eager freeze {freeze_ms:.5f} ms, pose to [err, H, b] "
+            f"{rec['pose_to_normal_eq_ms']:.5f} ms; bound {b_ms:.3e} ms ({b_by})")
+
+    # FastGICPMultiPoints' first linearization: the exact k = 32 search of the
+    # source at identity, then the linearize of the averaged rows
+    src, smask, tgt, tmask = (torch.as_tensor(a, device=dev) for a in (sp, sm, tp, tm))
+    scov, tcov = knn_covariance_cols(src, smask), knn_covariance_cols(tgt, tmask)
+    cfg = MultiPointConfig()
+    k, n = cfg.k_neighbors, src.shape[0]
+    q, t = _center_clouds(src, tgt, tmask)
+    T = n // 128
+    cidx = torch.arange(T, dtype=torch.int32, device=dev).expand(n // 256, T).contiguous()
+    ones = torch.ones_like(smask)
+    args = (q, ones, t, tmask, cidx, k, 128)
+    idx, sq = cuda_kernels.knn_slab(*args)
+    idx_w, sq_w = cuda_kernels.knn_slab_plain(*args)
+    torch.cuda.synchronize()
+    require(bool(torch.equal(sq, sq_w)) and bool(torch.equal(idx, idx_w)),
+            f"knn_slab (multipoint, k = {k}): {int((idx != idx_w).sum())} ids, "
+            f"{int((sq != sq_w).sum())} d^2 differ")
+    tm_ = timings(lambda: cuda_kernels.knn_slab(*args),
+                  lambda: cuda_kernels.knn_slab_plain(*args), "knn_slab_kernel", 20, 2)
+    b_ms, b_by = bound_ms(2 * n * 16 + cidx.numel() * 4 + n * k * 8,
+                          n * n * SLAB_OPS_PER_CANDIDATE)
+    by_name["knn_slab"]["multipoint"] = dict(
+        k=k, queries=n, candidates=n * n, max_abs_err=0.0, ms=tm_["ms"],
+        plain_ms=tm_["plain_ms"], call_ms=tm_["call_ms"], bound_ms=b_ms, bound_by=b_by,
+        timing=tm_["timing"])
+    log(f"[kernels] knn_slab exact k = {k} (FastGICPMultiPoints' search, {n} x {n}): idx "
+        f"equal, sq bit-equal; {tm_['ms']:.4f} ms, plain {tm_['plain_ms']:.3f} ms; bound "
+        f"{b_ms:.3e} ms ({b_by})")
+    # the objective's own averaging on these neighbours, then the
+    # gathered-form launch
+    rows, valid = averaged_rows(idx, sq, smask, torch.cat([tgt, tcov.T], dim=1),
+                                cfg.search_radius)
+    P, CA = src.T.contiguous(), scov.contiguous()
+    got = cuda_linearize.linearize(P, CA, x, rows, valid)
+    again = cuda_linearize.linearize(P, CA, x, rows, valid)
+    want = cuda_linearize.linearize_plain(P, CA, x, rows, valid)
+    torch.cuda.synchronize()
+    require(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+            "linearize (multipoint rows): a repeat launch differs")
+    err = check_lin_outputs("linearize (multipoint rows)", got, want, "rel_max")
+    ms = device_ms(lambda: cuda_linearize.linearize(P, CA, x, rows, valid), 200,
+                   LIN_KERNEL.format(raw="false"))
+    plain_ms = device_ms(lambda: cuda_linearize.linearize_plain(P, CA, x, rows, valid), 20)
+    nbytes = n * (12 + 24 + 64 + 4 + 40) + 64 + 43 * 4  # source, rows, valid, aux once
+    b_ms, b_by = bound_ms(nbytes, n * LINEARIZE_OPS)
+    by_name["linearize"]["multipoint"] = dict(
+        lanes=n, valid_lanes=int(valid.sum()), form="gathered", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+    log(f"[kernels] linearize, gathered form on FastGICPMultiPoints' averaged rows at L = "
+        f"{n}: within tolerance of the plain version ({err:.3e}), a repeat bit-identical; "
+        f"{ms:.5f} ms, plain {plain_ms:.4f} ms; bound {b_ms:.3e} ms ({b_by})")
+
+
+def _deterministic(fn):
+    """fn() with torch's deterministic algorithms on (a warning, not an
+    error, where an op has none): the maps' scatter-adds then sum in a
+    fixed order, so two runs of the same registration give the same bits."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def phase_batch_main(dev, path):
+    """A batch path on B = 4 consecutive full-size pairs, with every launch
+    counter set to 0 just before it and read just after: each pair's pose
+    against its ground truth, every kernel of the path launched, one trial
+    launch a host sync, the linearize forms; then each pair's result bit for
+    bit against the per-pair call (`ndt_align` / `vgicp_align` with the
+    same config), both run with deterministic scatter-adds."""
+    from fast_gicp_tpu_torch.solver import lsq_solve
+
+    kind, kernels, (t_lim, r_lim) = BATCH_PATHS[path]
+    run, one = _batch_path(kind)
+    arrays = batch_on(dev)
+    gts = batch_arrays()["gt"]
+    run(arrays, dev)  # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    lsq_solve.host_syncs = 0
+    t0 = time.perf_counter()
+    res = run(arrays, dev)
+    T = res.transformation.cpu().numpy()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = read_counters()
+    syncs = lsq_solve.host_syncs
+    errs = [pose_errors(T[i].astype(np.float64), gts[i]) for i in range(len(gts))]
+    iters = res.iterations.cpu().tolist()
+    log(f"[main] {path}, B = {len(gts)}: t_err {[round(e[0], 6) for e in errs]} m, r_err "
+        f"{[round(e[1], 6) for e in errs]} deg, iterations {iters}, host syncs {syncs}, wall "
+        f"{wall:.3f} ms, launches {launches}")
+    require(np.isfinite(T).all() and T.shape == (len(gts), 4, 4), f"{path}: poses")
+    require(all(t < t_lim and r < r_lim for t, r in errs), f"{path}: pose errors {errs}")
+    require(all(launches[k] > 0 for k in kernels),
+            f"{path}: a kernel of the path was not launched: {launches}")
+    require(launches["lm_step"] == syncs, f"{path}: {launches['lm_step']} trial launches "
+            f"for {syncs} trials")
+    require(all(launches[k] == 0 for k in TRIAL_CARRIED),
+            f"{path}: a standalone trial or error launch in the LM solve: {launches}")
+    check_lin_forms(path, launches, "pack" if kind == "ndt" else "idx")
+    got = _deterministic(lambda: run(arrays, dev))
+    for i in range(len(gts)):
+        want = _deterministic(lambda: one(arrays, i, dev))
+        require(all(bool(torch.equal(g[i], w)) for g, w in zip(got, want)),
+                f"{path}: pair {i} differs from the per-pair call")
+    log(f"[main] {path}: each pair's result (pose, Hessian, error, converged, iterations) "
+        f"bit-equal to the per-pair call, both with deterministic scatter-adds")
+    return launches, dict(pairs=len(gts), t_err_m=[e[0] for e in errs],
+                          r_err_deg=[e[1] for e in errs], iterations=iters, host_syncs=syncs,
+                          wall_ms=wall, bit_equal_to_pairs=True)
+
+
+def phase_batch_card_vs_cpu(dev, path):
+    """The batch on the card against the same call with device="cpu" on the
+    same inputs (the card's covariances carried over): poses within 1e-3
+    (the NDT batch, on the hash map, within HASH_POSE_TOL), iterations
+    within 1."""
+    kind = BATCH_PATHS[path][0]
+    tol = HASH_POSE_TOL if kind == "ndt" else 1e-3
+    run = _batch_path(kind)[0]
+    arrays = batch_on(dev)
+    gpu = run(arrays, dev)
+    cpu = run({k: v.cpu() for k, v in arrays.items()}, "cpu")
+    diff = float((gpu.transformation.cpu() - cpu.transformation).abs().max())
+    it_g, it_c = gpu.iterations.cpu().tolist(), cpu.iterations.tolist()
+    log(f"[card vs cpu] {path}: |T_gpu - T_cpu| max {diff:.3e}, iterations gpu {it_g} cpu "
+        f"{it_c}")
+    require(diff <= tol, f"{path} card vs cpu: pose diff {diff}")
+    require(all(abs(a - b) <= 1 for a, b in zip(it_g, it_c)),
+            f"{path} card vs cpu: iteration counts differ by more than 1")
+    return dict(pose_diff=diff, tolerance=tol, iterations_gpu=it_g, iterations_cpu=it_c)
+
+
+def phase_batch_timing(dev, path, n_batches=10):
+    """ms a registration over `n_batches` batch calls after a warm-up, then
+    a traced batch's device busy time and ops (per registration: / B)."""
+    from fast_gicp_tpu_torch.solver import lsq_solve
+
+    run = _batch_path(BATCH_PATHS[path][0])[0]
+    arrays = batch_on(dev)
+    B = arrays["sp"].shape[0]
+    run(arrays, dev)
+    torch.cuda.synchronize()
+    syncs0 = lsq_solve.host_syncs
+    t0 = time.perf_counter()
+    for _ in range(n_batches):
+        run(arrays, dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (n_batches * B)
+    syncs = (lsq_solve.host_syncs - syncs0) / (n_batches * B)
+    log(f"[bench] {path}, {n_batches} batches of {B}: {ms:.4f} ms/registration, host "
+        f"syncs/registration {syncs:.2f}")
+    traced = trace_registrations(path, lambda: run(arrays, dev), 3, None)
+    per_reg = {k: traced[k] / B for k in ("device_busy_ms", "device_ops_per_registration",
+                                         "device_span_ms", "traced_wall_ms")}
+    log(f"[profile] {path} per registration (a batch / {B}): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in per_reg.items()))
+    return dict(ms_per_registration=ms, host_syncs_per_registration=syncs, batch=B,
+                per_registration=per_reg, per_batch=traced)
+
+
+def phase_pygicp(dev, pair, small, path, n_regs=20):
+    """`pygicp.align_points` of the path's method on the full-size pair:
+    with every launch counter set to 0 just before it and read just after,
+    the pose against the ground truth, every kernel of the path launched,
+    one trial launch a host sync; then the same call with device="cpu" on
+    `PYGICP_PATHS`' pair (poses within 1e-3), `n_regs` calls timed, a few
+    traced."""
+    from fast_gicp_tpu_torch.solver import lsq_solve
+
+    method, kernels, which, (t_lim, r_lim) = PYGICP_PATHS[path]
+    gt = pair[2]
+    pygicp_run(path, pair, dev)  # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    lsq_solve.host_syncs = 0
+    t0 = time.perf_counter()
+    T = pygicp_run(path, pair, dev)
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = read_counters()
+    syncs = lsq_solve.host_syncs
+    t_err, r_err = pose_errors(T, gt)
+    log(f"[main] {path} (align_points {method!r}): t_err {t_err:.6f} m, r_err {r_err:.6f} "
+        f"deg, host syncs {syncs}, wall {wall:.3f} ms, launches {launches}")
+    require(np.isfinite(T).all() and t_err < t_lim and r_err < r_lim,
+            f"{path}: pose error {t_err} m {r_err} deg")
+    require(all(launches[k] > 0 for k in kernels),
+            f"{path}: a kernel of the path was not launched: {launches}")
+    require(launches["lm_step"] == syncs and all(launches[k] == 0 for k in TRIAL_CARRIED),
+            f"{path}: trial launches {launches}, {syncs} syncs")
+    check_lin_forms(path, launches, {"GICP": "idx", "NDT_CUDA": "lookup"}.get(method, "idx_raw"))
+    cvc = pair if which == "full" else small
+    T_gpu, T_cpu = (pygicp_run(path, cvc, d) for d in (dev, "cpu"))
+    diff = float(np.abs(T_gpu - T_cpu).max())
+    log(f"[card vs cpu] {path} ({which} pair): |T_gpu - T_cpu| max {diff:.3e}")
+    require(diff <= 1e-3, f"{path} card vs cpu: pose diff {diff}")
+    syncs0 = lsq_solve.host_syncs
+    t0 = time.perf_counter()
+    for _ in range(n_regs):
+        pygicp_run(path, pair, dev)
+    ms = (time.perf_counter() - t0) * 1e3 / n_regs
+    host_syncs = (lsq_solve.host_syncs - syncs0) / n_regs
+    log(f"[bench] {path}, {n_regs} align_points calls: {ms:.4f} ms/registration, host syncs "
+        f"{host_syncs:.2f}")
+    traced = trace_registrations(path, lambda: pygicp_run(path, pair, dev), 3, None)
+    return launches, dict(main_path=dict(t_err_m=t_err, r_err_deg=r_err, host_syncs=syncs,
+                                         wall_ms=wall),
+                          card_vs_cpu=dict(pair=which, pose_diff=diff),
+                          bench=dict(registrations=n_regs, ms_per_registration=ms,
+                                     host_syncs_per_registration=host_syncs),
+                          profile=traced)
 
 
 def main() -> int:
@@ -3120,9 +3705,13 @@ def main() -> int:
         print(json.dumps(line))
         return 0
     records = (phase_kernels(dev, pair) + phase_gicp_kernels(dev, pair)
-               + phase_ndt_kernels(dev, pair) + phase_c2_kernels(dev, pair)
-               + [phase_trial(dev, pair)])
+               + phase_ndt_kernels(dev, pair) + phase_c2_kernels(dev, pair))
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: kernel checks")
+    records.append(phase_trial(dev, pair))
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: trial checks")
     summary = {"map_card_vs_cpu": phase_class_kernels(dev, pair, records)}
+    phase_new_path_kernels(dev, pair, records)
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: kernels")
     path_launches = {}
     for path in PATHS:
         path_launches[path], main_stats = phase_main_path(dev, pair, path)
@@ -3130,22 +3719,37 @@ def main() -> int:
     for path in CLASS_PATHS:
         path_launches[path], main_stats = phase_class_main(dev, pair, path)
         summary[path] = {"main_path": main_stats}
+    for path in BATCH_PATHS:
+        path_launches[path], main_stats = phase_batch_main(dev, path)
+        summary[path] = {"main_path": main_stats}
     summary["ndt_budgets"] = phase_ndt_budgets(dev, pair)
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: main paths")
     small = synthetic_pair(n_world=400_000, voxel=0.3)
+    for path in PYGICP_PATHS:
+        path_launches[path], summary[path] = phase_pygicp(dev, pair, small, path)
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: pygicp")
     for path in PATHS:
         summary[path]["card_vs_cpu"] = phase_card_vs_cpu(
             dev, pair if path in NDT_PATHS else small, path)
     for path, (_make, _kernels, which) in CLASS_PATHS.items():
         summary[path]["card_vs_cpu"] = phase_class_card_vs_cpu(
             dev, pair if which == "full" else small, path)
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: card against CPU")
+    for path in BATCH_PATHS:
+        summary[path]["card_vs_cpu"] = phase_batch_card_vs_cpu(dev, path)
+        summary[path]["timing"] = phase_batch_timing(dev, path)
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: batches")
     for path in PATHS:
         summary[path]["bench"] = phase_bench(dev, pair, path)
     for path in CLASS_PATHS:
-        summary[path]["bench"] = phase_class_bench(dev, pair, path)
+        # the new paths' 50 fresh registrations keep the script's time down
+        summary[path]["bench"] = phase_class_bench(
+            dev, pair, path, n_regs=50 if path in CLASS_LIN_FORM else 100)
     for path in PATHS:
         summary[path]["profile"] = phase_profile(dev, pair, path)
     for path in CLASS_PATHS:
         summary[path]["profile"] = phase_class_profile(dev, pair, path)
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: bench and profile")
     for r in records:
         name = r["name"]
         if name in TRIAL_CARRIED:
@@ -3170,7 +3774,9 @@ def main() -> int:
                                          for p in path_launches}
         if name in NDT_FORM_COUNTED:
             r["form_launches_by_path"] = {
-                p: {"lookup": path_launches[p][f"{name}[lookup]"]} for p in NDT_PATHS}
+                p: {"lookup": path_launches[p][f"{name}[lookup]"],
+                    "pack": path_launches[p][name] - path_launches[p][f"{name}[lookup]"]}
+                for p in path_launches if path_launches[p][name]}
     log("[summary] " + json.dumps(summary))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -3183,7 +3789,7 @@ def main() -> int:
              "grid_stride_ms", "pack_ms", "frozen_ms", "tiled_ms", "pose_to_normal_eq_ms",
              "eager_pose_to_normal_eq_ms", "valid_share", "pack_bound_ms", "form_registers",
              "form_launches_by_path", "unique_rows", "unique_cells", "bytes", "edge_cases",
-             "class_maps")
+             "class_maps", "hash_path", "multipoint")
     work = ("candidates", "exact_candidates", "exact_search_ms", "source_cloud_ms",
             "pairs_visited", "pairs_in_range", "pairs_to_visit", "pairs_in_window",
             "pairs_visited_block_cull", "wide_slab_ms", "k48_ms")

@@ -11,10 +11,13 @@ through the PCL-shaped class API (`FastGICP`, `FastGICPSingleThread`,
   * `models.gicp.gicp_register_fresh`: kNN, RBF or adaptive-radius
     covariances for both clouds (five regularizations) and an LM solve with exact 1-NN correspondences re-searched at every
     linearization (FastGICP); `models.metrics.fitness_score` scores a pose;
-  * `models.ndt`: NDT, D2D and P2D, on dense NDT grids --
+  * `models.ndt`: NDT, D2D and P2D, on dense NDT grids or the hash map --
     `ndt_register_fresh` (each cloud's map prepared in its own frame, as
-    NDTCuda's fresh align) and `ndt_align` (raw target grid, optionally
-    two-phase).
+    NDTCuda's fresh align), `ndt_align` (raw target grid, optionally
+    two-phase) and the class `NDTCuda` (alias `NDT`);
+  * `models.experimental.FastGICPMultiPoints` (weighted multi-point
+    correspondences), `models.batch` (B pairs a call) and `pygicp`
+    (`align_points` and the pygicp names).
 Their fifteen kernels are hand-written CUDA C++ (`csrc/*.cu`), built with
 nvcc for sm_90a at first use; each has a plain PyTorch twin that runs for
 CPU tensors.
@@ -24,6 +27,12 @@ package `fast_gicp_tpu`, which stays the reference.
 """
 
 from .models.base import Registration  # noqa: F401
+from .models.batch import gicp_align_batch, ndt_align_batch, vgicp_align_batch  # noqa: F401
+from .models.experimental import (  # noqa: F401
+    FastGICPMultiPoints,
+    MultiPointConfig,
+    multipoint_align,
+)
 from .models.gicp import (  # noqa: F401
     FastGICP,
     FastGICPSingleThread,
@@ -34,7 +43,9 @@ from .models.gicp import (  # noqa: F401
 )
 from .models.metrics import fitness_score  # noqa: F401
 from .models.ndt import (  # noqa: F401
+    NDT,
     NDTConfig,
+    NDTCuda,
     ndt_align,
     ndt_align_prebuilt,
     ndt_evaluate,

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from . import device as _device
+from .models.experimental import MultiPointConfig
 from .models.gicp import GICPConfig
 from .models.ndt import NDTConfig
 from .models.vgicp import VGICPConfig
@@ -23,11 +24,12 @@ from .solver import LsqConfig, LsqResult
 
 
 def config_from_jax(cfg):
-    """A JAX `VGICPConfig`, `GICPConfig`, `NDTConfig` or `LsqConfig` (any
-    object with the same field names) -> the port's config of the same
-    kind."""
+    """A JAX `VGICPConfig`, `GICPConfig`, `NDTConfig`, `MultiPointConfig`
+    or `LsqConfig` (any object with the same field names) -> the port's
+    config of the same kind."""
     if hasattr(cfg, "lsq"):
         kind = (NDTConfig if hasattr(cfg, "distance_mode")
+                else MultiPointConfig if hasattr(cfg, "search_radius")
                 else VGICPConfig if hasattr(cfg, "grid_dims") else GICPConfig)
         fields = {f: getattr(cfg, f) for f in kind._fields if f != "lsq"}
         if fields.get("grid_dims") is not None:

@@ -12,22 +12,26 @@ linearization; the LM trials recompute w at the trial pose (the `ndt_error`
 body).
 
 Correspondences are (neighbor offset x source) lanes flattened offset-major
-to L = K * N; each linearization is one launch of the linearize kernel,
-which looks each lane's voxel up in the map itself
-(`cuda_ndt.ndt_linearize_lookup`; a frozen phase looks up at the pose it
-froze at), each LM trial one launch of the trial kernel with
-the `ndt_error` body (`cuda_solver.lm_step`); their plain versions for CPU
-tensors.
+to L = K * N.  On the dense grids (`grid_dims` set) each linearization is one
+launch of the linearize kernel, which looks each lane's voxel up in the map
+itself (`cuda_ndt.ndt_linearize_lookup`; a frozen phase looks up at the pose
+it froze at).  On the hash `VoxelMap` (`grid_dims` None) and the
+`GridVoxelMap` (`_ndt_voxelmap`, the batch aligns' maps) each linearization
+is an eager freeze (`cuda_ndt.ndt_freeze_pack`) followed by one launch of
+the kernel's pack form, as the JAX package's fused objective runs it.  Each
+LM trial is one launch of the trial kernel with the `ndt_error` body
+(`cuda_solver.lm_step`); every kernel has its plain version for CPU tensors.
 
 Ported here: `NDTConfig`, the objective (the JAX package's fused form,
 `_make_ndt_objective_fused`), `ndt_align`, `ndt_prepare_cloud`,
-`ndt_align_prebuilt`, `ndt_register_fresh` and `ndt_evaluate` on dense grids.
-The hash map (grid_dims=None) and the `NDTCuda` class wait for the class API
-and hash maps; the sharded psum (`axis_name`) waits for multi-device support.
+`ndt_align_prebuilt`, `ndt_register_fresh`, `ndt_evaluate` and the class
+API's `NDTCuda` (alias `NDT`), on the dense grids and the hash map.  The
+sharded psum (`axis_name`) waits for multi-device support.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -38,25 +42,32 @@ from .. import se3
 from ..ops import cuda_ndt, cuda_solver, soa
 from ..ops.covariance import masked_mean
 from ..ops.voxelmap import (
+    MIN_EIG,
+    GridVoxelMap,
     NdtGridMap,
     RawNdtGrid,
+    VoxelMap,
+    auto_grid_dims_from_extent,
     build_ndt_grid_compact,
     build_ndt_raw_grid,
+    build_voxelmap,
+    compact_ids,
     neighbor_offsets,
 )
 from ..precision import f32_matmuls
 from ..solver import LsqConfig, LsqResult, lsq_solve
-from .base import centered_frame_align, centered_frame_evaluate
+from .base import Cloud, Registration, centered_frame_align, centered_frame_evaluate
 
 
 class NDTConfig(NamedTuple):
     """Defaults match ndt_cuda.cu:21-22 (D2D, DIRECT7, resolution 1.0); the
     fields and defaults of the JAX package's NDTConfig.
 
-    grid_dims: static (Dx, Dy, Dz) of the dense grids (`auto_grid_dims`).
+    grid_dims: static (Dx, Dy, Dz) of the dense grids (`auto_grid_dims`);
+    None: the hash `VoxelMap` (unbounded scenes).
     max_source_voxels / max_target_voxels: row budgets of the compacted
-    D2D source statistics and of the prepared target map; occupied voxels
-    beyond a budget are dropped for the align.
+    D2D source statistics and of the prepared dense target map; occupied
+    voxels beyond a budget are dropped for the align.
     refresh_iterations: R -> re-search voxel correspondences for the first
     R LM iterations, then freeze the gathered rows for the rest; None
     re-searches every iteration.
@@ -81,27 +92,51 @@ class _FinPack(NamedTuple):
     pack: torch.Tensor
 
 
-def _require_dense(config: NDTConfig):
-    if config.grid_dims is None:
-        raise NotImplementedError(
-            "NDT on the hash voxel map (grid_dims=None) is not ported yet; it "
-            "comes with the hash maps and the class API"
-        )
+def _check_mode(config: NDTConfig):
     if config.distance_mode not in ("p2d", "d2d"):
         raise ValueError(f"unknown NDT distance mode: {config.distance_mode}")
+
+
+def _ndt_voxelmap(points, mask, resolution, grid_dims=None):
+    """The NDT voxel map of (N, 3) points on the hash table (grid_dims None)
+    or a `GridVoxelMap`: `build_voxelmap(mode="raw")` (mean E[x], covariance
+    E[x x^T] - mu mu^T), the eigenvalues clamped to >= MIN_EIG
+    (ndt_cuda.cu:120-140) and the clamped rows written into `packed`."""
+    vm = build_voxelmap(points, mask, resolution, mode="raw", grid_dims=grid_dims,
+                        device=points.device)
+    rows9 = soa.sym_cols_to_rows9(soa.clamp_eigs_cols(soa.sym_cols_from_covs(vm.covs),
+                                                      MIN_EIG))
+    packed = torch.cat([vm.packed[:, :3], rows9, vm.packed[:, 12:]], dim=1).contiguous()
+    return vm._replace(covs=rows9.reshape(-1, 3, 3), packed=packed)
+
+
+def _compact_source_voxels(vm, max_voxels: int):
+    """(means (cap, 3), valid (cap,), covs (cap, 3, 3)) of the occupied
+    voxels of a `VoxelMap` or `GridVoxelMap` in ascending voxel id, cap =
+    min(max_voxels, capacity); rows beyond the occupied count read voxel 0
+    and are invalid (`jnp.nonzero(size=cap, fill_value=0)`), and occupied
+    voxels beyond cap are dropped for the align.  No host sync."""
+    cap = min(max_voxels, vm.means.shape[0])
+    idx, n_occ = compact_ids(vm.counts > 0, cap, fill=0)
+    valid = torch.arange(cap, device=idx.device) < n_occ
+    return vm.means[idx], valid, vm.covs[idx]
 
 
 class NdtObjective(NamedTuple):
     """The NDT objective over L = K * N lanes (offset-major), as
     `make_ndt_objective` builds it.
 
-    `linearize(x)` looks each lane's voxel up at pose x inside the
-    linearize kernel (`cuda_ndt.ndt_linearize_lookup`: one launch from the
-    pose and the map to [err, H, b] and aux).  `freeze(x)` returns the pose
-    x itself (no device op); `linearize_frozen(x, frozen)` re-linearizes
-    against the voxels looked up at that pose, in the same launch (D2D
-    still re-freezes M from the current rotation, and the Cauchy weight
-    follows the pose).  `pack_from_aux` (P2D only, else None) rebuilds a frozen
+    On a dense map, `linearize(x)` looks each lane's voxel up at pose x
+    inside the linearize kernel (`cuda_ndt.ndt_linearize_lookup`: one
+    launch from the pose and the map to [err, H, b] and aux).  `freeze(x)`
+    returns the pose x itself (no device op); `linearize_frozen(x, frozen)`
+    re-linearizes against the voxels looked up at that pose, in the same
+    launch (D2D still re-freezes M from the current rotation, and the
+    Cauchy weight follows the pose).  On the hash `VoxelMap` and the
+    `GridVoxelMap`, `freeze(x)` is the eager freeze into a pack
+    (`cuda_ndt.ndt_freeze_pack`), `linearize_frozen(x, pack)` one pack-form
+    launch (D2D's M again at the current rotation) and `linearize(x)` the
+    two in turn.  `pack_from_aux` (P2D only, else None) rebuilds a frozen
     state from a linearize's aux: P2D's M does not depend on the pose, so
     the two-phase solve seeds its frozen phase from the last refresh
     iteration instead of re-searching; `linearize_frozen` takes it as a
@@ -116,15 +151,16 @@ class NdtObjective(NamedTuple):
     p: torch.Tensor  # (3, N) source columns
     ca: torch.Tensor | None  # (6, N) source covariance columns (D2D only)
     mask: torch.Tensor  # (N,) bool source validity
-    vmap: RawNdtGrid | NdtGridMap  # the target map
+    vmap: RawNdtGrid | NdtGridMap | VoxelMap | GridVoxelMap  # the target map
     offsets: np.ndarray  # (K, 3) int32 neighbour offsets
     mode: str  # the `ndt_linearize` mode of `linearize`
 
 
 def make_ndt_objective(src_means, src_mask, src_covs, vmap, offsets) -> NdtObjective:
-    """The NDT objective against a `RawNdtGrid` or an `NdtGridMap`; src_covs
-    is None for P2D, else the source voxel covariances as (6, N) sym-6
-    columns."""
+    """The NDT objective against a `RawNdtGrid`, an `NdtGridMap` or, from
+    `_ndt_voxelmap`, a `VoxelMap` or `GridVoxelMap`; src_covs is None for
+    P2D, else the source voxel covariances as (6, N) sym-6 columns or
+    (N, 3, 3)."""
     n = src_means.shape[0]
     offsets = np.ascontiguousarray(np.asarray(offsets, np.int32))
     k = len(offsets)
@@ -137,10 +173,13 @@ def make_ndt_objective(src_means, src_mask, src_covs, vmap, offsets) -> NdtObjec
     CA = soa.sym_cols_from_covs(src_covs).contiguous() if d2d else None
     mask = src_mask.contiguous()
 
-    def linearize(x):
-        return cuda_ndt.ndt_linearize_lookup(P, CA, mask, x, vmap, offsets, mode)
+    # the kernel cannot look a hash map (or a GridVoxelMap) up: there every
+    # linearization is an eager freeze into a pack, then the pack form
+    eager = isinstance(vmap, (VoxelMap, GridVoxelMap))
 
     def freeze(x):
+        if eager:
+            return cuda_ndt.ndt_freeze_pack(P, mask, x, vmap, offsets, mode)
         # the frozen phase looks its voxels up at x, read at every launch:
         # x itself, not a copy (phase 1's pose, which nothing writes again)
         return x
@@ -148,8 +187,15 @@ def make_ndt_objective(src_means, src_mask, src_covs, vmap, offsets) -> NdtObjec
     def linearize_frozen(x, frozen):
         if isinstance(frozen, _FinPack):
             return cuda_ndt.ndt_linearize(P, CA, x, frozen.pack, res, "p2d")
+        if eager:
+            return cuda_ndt.ndt_linearize(P, CA, x, frozen, res, mode)
         return cuda_ndt.ndt_linearize_lookup(P, CA, mask, x, vmap, offsets, mode,
                                              x_lookup=frozen)
+
+    def linearize(x):
+        if eager:
+            return linearize_frozen(x, freeze(x))
+        return cuda_ndt.ndt_linearize_lookup(P, CA, mask, x, vmap, offsets, mode)
 
     # the trial cost the LM steps launch (the Cauchy weight at the trial pose)
     error = cuda_solver.TrialCost(P, offsets=k, resolution=res)
@@ -170,8 +216,8 @@ def make_ndt_objective(src_means, src_mask, src_covs, vmap, offsets) -> NdtObjec
 
 def _two_phase_solve(obj: NdtObjective, x0, config: NDTConfig) -> LsqResult:
     """R re-searching LM iterations, then the frozen phase: seeded from the
-    last refresh iteration's aux for P2D (the pack form), looked up at the
-    phase-1 pose for D2D (the lookup form with that pose)."""
+    last refresh iteration's aux for P2D (the pack form), frozen at the
+    phase-1 pose for D2D (on a dense map the lookup form with that pose)."""
     R = config.refresh_iterations
     cfg1 = config.lsq._replace(max_iterations=R)
     cfg2 = config.lsq._replace(max_iterations=config.lsq.max_iterations - R)
@@ -208,10 +254,18 @@ def _objective(source, source_mask, source_compact, target_vm, config) -> NdtObj
 
 def _align_objective(src_c, source_mask, tgt_c, target_mask, config) -> NdtObjective:
     """`ndt_align`'s (and `ndt_evaluate`'s) objective on target-centred
-    points: a raw target grid and, for D2D, the source's compact statistics,
-    both built in the target's frame."""
+    points: a raw target grid (the hash map without grid_dims) and, for D2D,
+    the source's compact statistics, both built in the target's frame."""
+    d2d = config.distance_mode == "d2d"
     stats = None
-    if config.distance_mode == "d2d":
+    if config.grid_dims is None:
+        target_vm = _ndt_voxelmap(tgt_c, target_mask, config.resolution)
+        if d2d:
+            stats = _compact_source_voxels(
+                _ndt_voxelmap(src_c, source_mask, config.resolution),
+                config.max_source_voxels)
+        return _objective(src_c, source_mask, stats, target_vm, config)
+    if d2d:
         _, stats = build_ndt_grid_compact(
             src_c, source_mask, config.resolution, config.grid_dims,
             budget=config.max_source_voxels, with_map=False, with_stats=True)
@@ -253,7 +307,7 @@ def ndt_path_objective(source, source_mask, target, target_mask,
     `ndt_align`'s (fresh=False), both in the target-centroid frame.  Returns
     (NdtObjective, target centroid).  For measuring the path's parts (its
     map builds, its kernels' inputs) without running the solve."""
-    _require_dense(config)
+    _check_mode(config)
     dev = _device.resolve(device)
     source, target = _device.as_f32(source, dev), _device.as_f32(target, dev)
     source_mask = _device.as_bool(source_mask, dev)
@@ -276,7 +330,7 @@ def ndt_align(source, source_mask, target, target_mask, guess,
     With config.refresh_iterations = R the solve is two-phase.  Runs in the
     target-centroid frame; the returned pose and Hessian are world-frame.
     Runs on `device` (CUDA unless the caller asks for the CPU)."""
-    _require_dense(config)
+    _check_mode(config)
     dev = _device.resolve(device)
     source, target = _device.as_f32(source, dev), _device.as_f32(target, dev)
     source_mask = _device.as_bool(source_mask, dev)
@@ -292,20 +346,26 @@ def ndt_align(source, source_mask, target, target_mask, guess,
 
 def ndt_prepare_cloud(points, mask, config: NDTConfig, device="cuda"):
     """Per-cloud NDT state (voxel map, compact stats, centroid), built in the
-    cloud's own centroid frame: an `NdtGridMap` at the target budget and,
-    for D2D, the compact statistics trimmed to the source budget (None for
-    P2D).  Runs on `device`.
+    cloud's own centroid frame: an `NdtGridMap` at the target budget (the
+    hash `VoxelMap` of `_ndt_voxelmap` without grid_dims) and, for D2D, the
+    compact statistics at the source budget (None for P2D).  Runs on
+    `device`.
 
     Voxelizing in the cloud's own frame can bin a point into another voxel
     than `ndt_align`, which voxelizes the source in the target's frame
     (floor(x / res - 0.5) depends on the shift), so the two give slightly
     different, equally valid poses."""
-    _require_dense(config)
+    _check_mode(config)
     dev = _device.resolve(device)
     points = _device.as_f32(points, dev)
     mask = _device.as_bool(mask, dev)
     c = masked_mean(points, mask)
     want_stats = config.distance_mode == "d2d"
+    if config.grid_dims is None:
+        vm = _ndt_voxelmap(points - c, mask, config.resolution)
+        compact = (_compact_source_voxels(vm, config.max_source_voxels) if want_stats
+                   else None)
+        return vm, compact, c
     vm, compact = build_ndt_grid_compact(
         points - c, mask, config.resolution, config.grid_dims,
         budget=config.max_target_voxels, with_stats=want_stats)
@@ -325,7 +385,7 @@ def ndt_align_prebuilt(source, source_mask, source_compact, src_center,
     `ndt_align`'s two-phase semantics.  The solve runs in the target-centroid
     frame: D2D source means shift by (src_center - tgt_center), raw source
     points by -tgt_center; the pose and Hessian return to world."""
-    _require_dense(config)
+    _check_mode(config)
     dev = _device.resolve(device)
     source = _device.as_f32(source, dev)
     source_mask = _device.as_bool(source_mask, dev)
@@ -360,7 +420,7 @@ def ndt_evaluate(source, source_mask, target, target_mask, pose,
                  config: NDTConfig = NDTConfig(), device="cuda"):
     """(error, H, b) of the NDT objective at an arbitrary pose, evaluated in
     the target-centroid frame and reported world-frame.  Runs on `device`."""
-    _require_dense(config)
+    _check_mode(config)
     dev = _device.resolve(device)
     source, target = _device.as_f32(source, dev), _device.as_f32(target, dev)
     source_mask = _device.as_bool(source_mask, dev)
@@ -373,3 +433,104 @@ def ndt_evaluate(source, source_mask, target, target_mask, pose,
         return err, H, b
 
     return centered_frame_evaluate(run, source, target, target_mask, pose)
+
+
+@dataclass
+class NDTCuda(Registration):
+    """Class-API NDT, the reference's `NDTCuda` (ndt_cuda.hpp:22-71): each
+    cloud's voxel map (and, for D2D, its compact voxel statistics) is built
+    once and cached on the cloud (`Cloud.ndt_cache`), so the swap moves it
+    with the cloud (ndt_cuda.cu:70-93).
+
+    grid_dims: "auto" (a dense grid sized from both clouds' extents), None
+    (the hash map) or an explicit (Dx, Dy, Dz)."""
+
+    resolution: float = 1.0
+    distance_mode: str = "d2d"
+    neighbor_search_method: str = "direct7"
+    neighbor_search_radius: float = 1.5
+    grid_dims: object = "auto"
+
+    def set_resolution(self, r: float) -> None:
+        self.resolution = float(r)
+
+    def set_grid_dims(self, dims) -> None:
+        self.grid_dims = tuple(dims) if dims not in (None, "auto") else dims
+
+    def set_distance_mode(self, mode: str) -> None:
+        """Sets P2D or D2D, in either case ("P2D" is the reference's spelling)."""
+        mode = mode.lower()
+        if mode not in ("p2d", "d2d"):
+            raise ValueError("distance mode must be 'p2d' or 'd2d'")
+        self.distance_mode = mode
+
+    def set_neighbor_search_method(self, method: str, radius: float = None) -> None:
+        """DIRECT1, DIRECT7, DIRECT27 or DIRECT_RADIUS (any case)."""
+        self.neighbor_search_method = method.lower()
+        if radius is not None:
+            self.neighbor_search_radius = float(radius)
+
+    def _config(self, grid_dims=None) -> NDTConfig:
+        return NDTConfig(
+            resolution=self.resolution,
+            distance_mode=self.distance_mode,
+            neighbor_search_method=self.neighbor_search_method,
+            neighbor_search_radius=self.neighbor_search_radius,
+            grid_dims=grid_dims,
+            lsq=self._lsq_config(),
+        )
+
+    def _grid_dims(self, source: Cloud, target: Cloud):
+        """With "auto", dense-grid dims over the union of both clouds'
+        cached extents (D2D builds a source map too, and a grid build drops
+        the voxels outside it)."""
+        if self.grid_dims != "auto":
+            return self.grid_dims
+        slo, shi = source.extent()
+        tlo, thi = target.extent()
+        return auto_grid_dims_from_extent(np.minimum(slo, tlo), np.maximum(shi, thi),
+                                          self.resolution)
+
+    @staticmethod
+    def _key(config: NDTConfig):
+        # P2D caches no compact stats, so a later D2D align must not reuse
+        # its entry
+        return (config.resolution, config.grid_dims, config.max_source_voxels,
+                config.distance_mode)
+
+    def _ensure_prepared(self, cloud: Cloud, config: NDTConfig):
+        """The cloud's (voxel map, compact stats, centroid), built on a
+        cache miss."""
+        key = self._key(config)
+        if cloud.ndt_cache is None or cloud.ndt_cache[0] != key:
+            cloud.ndt_cache = (key,) + tuple(ndt_prepare_cloud(cloud.points, cloud.mask, config,
+                                                               device=self.device))
+        return cloud.ndt_cache[1:]
+
+    def _compute(self, source: Cloud, target: Cloud, guess):
+        config = self._config(grid_dims=self._grid_dims(source, target))
+        key = self._key(config)
+        if all(c.ndt_cache is None or c.ndt_cache[0] != key for c in (source, target)):
+            # the fresh align; its per-cloud states fill both caches (P2D
+            # prepares the source lazily)
+            res, tstate, sstate = ndt_register_fresh(
+                source.points, source.mask, target.points, target.mask, guess, config,
+                device=self.device)
+            target.ndt_cache = (key,) + tuple(tstate)
+            if sstate is not None:
+                source.ndt_cache = (key,) + tuple(sstate)
+            return res
+        target_vm, _, tgt_center = self._ensure_prepared(target, config)
+        source_compact, src_center = None, tgt_center  # P2D reads the raw points
+        if self.distance_mode == "d2d":
+            _, source_compact, src_center = self._ensure_prepared(source, config)
+        return ndt_align_prebuilt(source.points, source.mask, source_compact, src_center,
+                                  target_vm, tgt_center, guess, config, device=self.device)
+
+    def _evaluate(self, source: Cloud, target: Cloud, pose):
+        return ndt_evaluate(source.points, source.mask, target.points, target.mask, pose,
+                            self._config(grid_dims=self._grid_dims(source, target)),
+                            device=self.device)
+
+
+NDT = NDTCuda

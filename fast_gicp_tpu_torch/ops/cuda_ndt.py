@@ -19,9 +19,11 @@ A linearize takes the target side in one of two forms:
     at every linearization, M and the weight still at the current pose);
     the mode wrapper's `lookup_launches` counts it;
   * pack (`ndt_linearize`): a frozen pack (L, 16) that the caller gathered
-    (`ndt_freeze_pack`, the JAX package's freeze); the tests and P2D's
-    frozen phase, seeded from a linearization's aux, take it, and it is the
-    lookup form's oracle: from the same rows the two give the same bits.
+    (`ndt_freeze_pack`, the JAX package's freeze); the tests, P2D's frozen
+    phase, seeded from a linearization's aux, and every linearization on
+    the hash `VoxelMap` and the `GridVoxelMap`, which the kernel cannot
+    look up, take it, and it is the lookup form's oracle: from the same
+    rows the two give the same bits.
 On CPU tensors both forms take their plain version: the eager freeze
 (`ndt_freeze_pack`) and `ndt_linearize_plain`.
 
@@ -65,7 +67,10 @@ from . import _build, soa
 from .cuda_linearize import (
     AUX_ROWS, _check, _check_cuda, _reduce_scratch, _same_device, normal_equations,
 )
-from .voxelmap import MIN_EIG, RawNdtGrid, lookup_ndt_cols, voxel_coord
+from .voxelmap import (
+    MIN_EIG, GridVoxelMap, RawNdtGrid, VoxelMap, lookup_ndt_cols, lookup_voxels_cols,
+    voxel_coord,
+)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LIN_ARGS = (_I, _I, _P, _P, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
@@ -311,12 +316,17 @@ def _unpack_raw(pack):
     return mu, soa.clamp_eigs_cols(C, MIN_EIG), pack[:, 13] * alive
 
 
-def _lookup_plain(p, x, vmap, offsets):
-    """(ids (L,) int64, q): each lane's row by `voxel_coord` of the
-    transformed source columns p (3, N) plus each offset and
-    `lookup_ndt_cols`, q the query coordinates, three (K, N) int32."""
+def _query(p, x, vmap, offsets):
+    """The query coordinates of the transformed source columns p (3, N):
+    `voxel_coord` plus each offset, three (K, N) int32."""
     coords = voxel_coord(soa.transform_cols(x, p), vmap.resolution)
-    q = [torch.stack([coords[a] + int(o[a]) for o in offsets]) for a in range(3)]
+    return [torch.stack([coords[a] + int(o[a]) for o in offsets]) for a in range(3)]
+
+
+def _lookup_plain(p, x, vmap, offsets):
+    """(ids (L,) int64, q): each lane's row of a dense NDT map by `_query`
+    and `lookup_ndt_cols`, q the query coordinates, three (K, N) int32."""
+    q = _query(p, x, vmap, offsets)
     return lookup_ndt_cols(vmap, *q).reshape(-1), q
 
 
@@ -325,8 +335,22 @@ def ndt_freeze_pack(p, mask, x, vmap, offsets, mode):
     ops (the JAX package's freeze, `_make_ndt_objective_fused`): the plain
     version of the lookup in `ndt_linearize_lookup` and the pack form's
     input, valid = mask & (count > 6).  p (3, N) or (3, L) tiled; mask (N,)
-    bool; offsets (K, 3).  P2D inverts a finalized map's cov_B."""
+    bool; offsets (K, 3).  P2D inverts a finalized map's cov_B.
+
+    On the hash `VoxelMap` and the `GridVoxelMap` (modes "d2d" and "p2d"),
+    which the linearize kernel cannot look up, this is the freeze of every
+    linearization: `lookup_voxels_cols` and a gather of the `packed` rows,
+    valid also requiring a hit (a miss reads row 0, which `valid` keeps
+    out), as the JAX package's `_gather_voxel_rows`."""
     N = mask.shape[0]
+    if isinstance(vmap, (VoxelMap, GridVoxelMap)):
+        if mode not in ("d2d", "p2d"):
+            raise ValueError(f"mode {mode!r} does not take a {type(vmap).__name__}")
+        vids = lookup_voxels_cols(vmap, *_query(p[:, :N], x, vmap, offsets)).reshape(-1)
+        mu, cov6, count = soa.sym_cols_from_packed(vmap.packed[torch.clamp(vids, min=0)])
+        valid = (mask.repeat(vids.shape[0] // N) & (count > MIN_VOXEL_POINTS)
+                 & (vids >= 0)).to(mu.dtype)
+        return _finalized_pack(mu, cov6, valid, mode)
     ids, q = _lookup_plain(p[:, :N], x, vmap, offsets)
     L = ids.shape[0]
     valid_src = mask.repeat(L // N)
@@ -341,11 +365,17 @@ def ndt_freeze_pack(p, mask, x, vmap, offsets, mode):
                          dim=1).contiguous()
     mu, cov6, count = soa.sym_cols_from_packed(vmap.packed[ids])
     valid = (valid_src & (count > MIN_VOXEL_POINTS)).to(mu.dtype)
+    return _finalized_pack(mu, cov6, valid, mode)
+
+
+def _finalized_pack(mu, cov6, valid, mode):
+    """The finalized modes' pack (L, 16) [mu, cov_B (D2D) or M (P2D),
+    valid, pad]."""
     if mode == "p2d":
         # P2D: M = cov_B^-1 does not depend on the pose; invert at the freeze
         cov6 = soa.inv_sym_cols(cov6)
     return torch.cat([mu.T, cov6.T, valid[:, None],
-                      torch.zeros((L, 6), dtype=mu.dtype, device=mu.device)],
+                      torch.zeros((mu.shape[1], 6), dtype=mu.dtype, device=mu.device)],
                      dim=1).contiguous()
 
 

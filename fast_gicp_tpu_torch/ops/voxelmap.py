@@ -219,16 +219,18 @@ def build_ndt_raw_grid(points, mask, resolution, grid_dims) -> RawNdtGrid:
                       resolution=float(resolution), dims=tuple(grid_dims))
 
 
-def compact_ids(occ, budget: int):
+def compact_ids(occ, budget: int, fill: int | None = None):
     """The first `budget` indices i with occ[i] true, ascending, filled with
-    len(occ); and the count of true entries (a tensor, no host sync).
+    `fill` (len(occ) by default); and the count of true entries (a tensor,
+    no host sync).
 
-    The static-size `jnp.nonzero(occ, size=budget, fill_value=n)` of the JAX
-    package, by a prefix sum and a scatter into a budget-sized buffer."""
+    The static-size `jnp.nonzero(occ, size=budget, fill_value=fill)` of the
+    JAX package, by a prefix sum and a scatter into a budget-sized buffer."""
     n = occ.shape[0]
     pos = torch.cumsum(occ.to(torch.int64), 0) - 1
     slot = torch.where(occ & (pos < budget), pos, budget)  # slot `budget`: discarded
-    buf = torch.full((budget + 1,), n, dtype=torch.int64, device=occ.device)
+    buf = torch.full((budget + 1,), n if fill is None else fill, dtype=torch.int64,
+                     device=occ.device)
     buf.scatter_(0, slot, torch.arange(n, dtype=torch.int64, device=occ.device))
     return buf[:budget], occ.sum()
 

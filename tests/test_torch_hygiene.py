@@ -28,6 +28,8 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import fast_gicp_tpu_torch.ops.cuda_ndt, fast_gicp_tpu_torch.models.ndt\n"
         "import fast_gicp_tpu_torch.native, fast_gicp_tpu_torch.models.base\n"
         "import fast_gicp_tpu_torch.models.vgicp, fast_gicp_tpu_torch.ops.voxelmap\n"
+        "import fast_gicp_tpu_torch.models.experimental, fast_gicp_tpu_torch.models.batch\n"
+        "import fast_gicp_tpu_torch.pygicp\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -331,6 +333,75 @@ def test_ndt_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
             call()
 
 
+def test_ndt_class_and_slice_e_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    """NDTCuda (and its alias NDT), the hash-map NDT entry points,
+    FastGICPMultiPoints and multipoint_align, the three batch aligns and
+    pygicp.align_points run on the card unless the caller asks for the
+    CPU."""
+    import fast_gicp_tpu_torch as pkg
+    from fast_gicp_tpu_torch import pygicp
+    from fast_gicp_tpu_torch.models import batch, experimental, ndt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.zeros((2048, 3), np.float32)
+    mask = np.ones(2048, bool)
+    eye = np.eye(4, dtype=np.float32)
+    covs = np.tile(np.eye(3, dtype=np.float32), (2048, 1, 1))
+    b = lambda a: a[None]  # noqa: E731  (a batch of one)
+    cfg = ndt.NDTConfig()  # grid_dims None: the hash map
+    calls = [
+        lambda **kw: ndt.NDTCuda(**kw), lambda **kw: ndt.NDT(**kw),
+        lambda **kw: experimental.FastGICPMultiPoints(**kw),
+        lambda **kw: experimental.multipoint_align(pts, mask, covs, pts, mask, covs, eye, **kw),
+        lambda **kw: ndt.ndt_align(pts, mask, pts, mask, eye, cfg, **kw),
+        lambda **kw: ndt.ndt_register_fresh(pts, mask, pts, mask, eye, cfg, **kw),
+        lambda **kw: ndt.ndt_prepare_cloud(pts, mask, cfg, **kw),
+        lambda **kw: ndt.ndt_evaluate(pts, mask, pts, mask, eye, cfg, **kw),
+        lambda **kw: batch.gicp_align_batch(b(pts), b(mask), b(covs), b(pts), b(mask),
+                                            b(covs), b(eye), **kw),
+        lambda **kw: batch.vgicp_align_batch(b(pts), b(mask), b(covs), b(pts), b(mask),
+                                             b(covs), b(eye), **kw),
+        lambda **kw: batch.ndt_align_batch(b(pts), b(mask), b(pts), b(mask), b(eye), **kw),
+        lambda **kw: pygicp.align_points(pts, pts, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert pkg.NDT is pkg.NDTCuda is ndt.NDTCuda
+    assert ndt.NDTCuda(device="cpu").device == torch.device("cpu")
+    for method in ("GICP", "VGICP", "VGICP_CUDA", "NDT_CUDA"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            pygicp._make_reg(method, 20, 1.0, 1.0, "DIRECT1", 1.5)
+        assert pygicp._make_reg(method, 20, 1.0, 1.0, "DIRECT1", 1.5,
+                                device="cpu").device.type == "cpu"
+
+
+def test_hash_ndt_freeze_and_pack_form_on_cpu_without_counting():
+    """On the hash map the NDT objective's linearization is the eager freeze
+    and the pack-form wrapper, which on CPU tensors takes the plain version
+    and counts no launch; a miss is never valid."""
+    from fast_gicp_tpu_torch.models import ndt
+    from fast_gicp_tpu_torch.ops import cuda_ndt, voxelmap
+
+    rng = np.random.default_rng(3)
+    pts = torch.as_tensor((rng.normal(size=(512, 3)) * [2.0, 2.0, 0.5]).astype(np.float32))
+    mask = torch.ones(512, dtype=torch.bool)
+    vmap = ndt._ndt_voxelmap(pts, mask, 1.0)
+    offsets = voxelmap.neighbor_offsets("direct7")
+    obj = ndt.make_ndt_objective(pts + 0.1, mask, None, vmap, offsets)
+    before = {m: f.launches for m, f in cuda_ndt._BY_MODE.items()}
+    x = torch.eye(4)
+    pack = obj.freeze(x)
+    assert pack.shape == (7 * 512, 16) and obj.mode == "p2d"
+    vids = voxelmap.lookup_voxels_cols(vmap, *cuda_ndt._query(obj.p, x, vmap, offsets))
+    assert not (pack[:, 9].reshape(7, 512) > 0)[vids < 0].any()
+    err, H, b, aux = obj.linearize(x)
+    assert torch.isfinite(err) and torch.equal(aux[6], pack[:, 9])
+    assert {m: f.launches for m, f in cuda_ndt._BY_MODE.items()} == before
+    with pytest.raises(ValueError, match="does not take a VoxelMap"):
+        cuda_ndt.ndt_freeze_pack(obj.p, mask, x, vmap, offsets, "p2d_raw")
+
+
 def _ndt_inputs(device, n=256):
     rng = np.random.default_rng(0)
     p = torch.as_tensor(rng.normal(size=(3, n)).astype(np.float32), device=device)
@@ -510,7 +581,8 @@ def test_slab_and_radius_wrappers_raise_for_tensors_on_other_devices():
 
 @pytest.mark.parametrize("path", sorted((PKG / "ops").glob("cuda_*.py"))
                          + [PKG / "ops" / "covariance.py", PKG / "ops" / "neighbors.py",
-                            PKG / "models" / "ndt.py"],
+                            PKG / "models" / "ndt.py", PKG / "models" / "experimental.py",
+                            PKG / "models" / "batch.py", PKG / "pygicp.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_kernel_modules_have_no_try(path):
     """A wrapper launches its kernel or raises: no try/except that could

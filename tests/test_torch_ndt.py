@@ -260,10 +260,11 @@ def test_ndt_two_phase_ids_form_keeps_the_pack_semantics(pair, fresh):
 
 
 def test_ndt_hash_map_and_unknown_mode_raise(pair):
-    """grid_dims=None (the hash-map NDT) is not ported: every entry point
-    raises NotImplementedError; an unknown distance mode is a ValueError."""
+    """An unknown distance mode is a ValueError at every entry point, on the
+    hash map (grid_dims=None, tests/test_torch_ndt_hash.py holds its
+    results to JAX's) and on the dense grids."""
     sp, sm, tp, tm, eye = _args(pair)
-    cfg = ndt.NDTConfig()
+    cfg = ndt.NDTConfig(distance_mode="p2p")
     calls = [
         lambda c: ndt.ndt_align(sp, sm, tp, tm, eye, c, device="cpu"),
         lambda c: ndt.ndt_register_fresh(sp, sm, tp, tm, eye, c, device="cpu"),
@@ -274,10 +275,10 @@ def test_ndt_hash_map_and_unknown_mode_raise(pair):
         lambda c: ndt.ndt_path_objective(sp, sm, tp, tm, c, fresh=True, device="cpu"),
     ]
     for call in calls:
-        with pytest.raises(NotImplementedError, match="hash"):
+        with pytest.raises(ValueError, match="distance mode"):
             call(cfg)
         with pytest.raises(ValueError, match="distance mode"):
-            call(cfg._replace(grid_dims=pair["dims"], distance_mode="p2p"))
+            call(cfg._replace(grid_dims=pair["dims"]))
 
 
 def test_ndt_config_from_jax():
