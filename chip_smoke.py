@@ -25,6 +25,22 @@ the drive, each pair bit for bit against its single-pair call; and
 pack form on the hash path's first freeze, `knn_slab` at k = 32 and the
 gathered `linearize` at FastGICPMultiPoints' first linearization, and the
 trial launch at every new path's first linearization.
+Slice F's odometry runs five paths over a 128-frame synthetic drive (seed
+11, the 1.4M-point world, 0.25 m host downsample; `ODOMETRY_PATHS`):
+`run_odometry` with FastVGICP (the KITTI app's serial mode),
+`run_odometry_stream` and `run_odometry_scan` (RBF covariances, the dense
+grid over the drive), `ScanToMapOdometry` in chunks of 32 frames (its map
+saved with `save_map` and loaded back equal) and a localization pass
+(NDT D2D, fuse_scans=False) over the first 32 frames on that map: launches,
+the trajectory against the ground truth (ATE under 1% of the distance
+scan to scan, 0.05 m scan to map, localization within 0.05 m of the
+mapping pass), frames/s, host syncs a frame (torch's sync debug mode;
+besides each trial's flag read only the JAX package's reads) and an
+8-frame profile; the kernels at scan_to_map's frame 16 and at
+localization's first freeze, `update_map` card against CPU,
+`process_chunk` against `process` and the first 8 frames of a small
+drive card against CPU.  `python3 chip_smoke.py --odometry` runs only
+those phases.
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device: CUDA must be present; prints the card's name and power limit;
   2. build: compiles the CUDA kernels from `fast_gicp_tpu_torch/csrc` (one
@@ -105,6 +121,8 @@ import torch
 T_START = time.perf_counter()
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_PER_S = 67e12  # FP32 outside the tensor cores, H100 SXM data sheet
+DEVICE_MS_TRACES = 5  # traces device_ms takes before it gives up
+MARKER_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel, which brackets device_ms's traces
 # FP32 operations each kernel needs, counted from its arithmetic:
 RBF_OPS_PER_PAIR = 28  # distance 8, exp 1, moment products 9 and sums 10
 LINEARIZE_OPS = 300  # per correspondence: transform, R C R^T, inverse, 28 terms
@@ -179,22 +197,52 @@ def cuda_ms(fn, reps):
 
 
 def device_ms(fn, reps, kernel=None):
-    """Device time per call of `fn` from a torch.profiler trace of `reps`
-    calls: the self device time of the kernels whose name holds `kernel`
-    (a name or a tuple of names), or of every device op when `kernel` is
-    None.  0.0 if the trace holds no device time."""
+    """Device time from torch.profiler traces of `reps` calls of `fn`: a
+    launch's self device time, summed over the kernels whose name holds
+    `kernel` (a name or a tuple of names, each launched once a call), or a
+    call's of every device op when `kernel` is None.  The profiler loses
+    events of a trace now and then: on the H100, the first kernel of a
+    trace, one launch of 200 in five traces in a row, 11 of 200, or 30-70%
+    of a trace.  So the calls are bracketed by a marker kernel on each
+    side, left out of the count; a named kernel's time is divided by the
+    launches the trace holds, which must be at least 90% of `reps`; with
+    `kernel` None a trace counts when another trace of the same calls
+    holds as many device ops within 1% (the larger one is taken).  Up to
+    DEVICE_MS_TRACES traces are taken; none that counts fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     names = (kernel,) if isinstance(kernel, str) else kernel
-    total = sum(e.self_device_time_total for e in device_events(prof)
-                if names is None or any(k in e.key for k in names))
-    return total / 1e3 / reps
+    seen = []  # (device ops, their time) of each all-op trace
+    for attempt in range(DEVICE_MS_TRACES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = [e for e in device_events(prof) if MARKER_KERNEL not in e.key]
+        if names is None:
+            count = sum(e.count for e in events)
+            total = sum(e.self_device_time_total for e in events)
+            if count > 0 and any(abs(n - count) <= 0.01 * max(n, count) for n, _t in seen):
+                return max(seen + [(count, total)])[1] / 1e3 / reps
+            seen.append((count, total))
+            counts = [n for n, _t in seen]
+        else:
+            by_name = [[e for e in events if k in e.key] for k in names]
+            counts = [sum(e.count for e in es) for es in by_name]
+            if all(c >= 0.9 * reps for c in counts):
+                return sum(sum(e.self_device_time_total for e in es) / c
+                           for es, c in zip(by_name, counts)) / 1e3
+        if names is not None or attempt:
+            log(f"[profile] traces of {reps} calls held {counts} events of "
+                f"{kernel or 'all ops'} (trace {attempt + 1} of {DEVICE_MS_TRACES})")
+    raise PhaseError(f"no trace of {reps} calls for {kernel or 'all ops'} counted in "
+                     f"{DEVICE_MS_TRACES}")
 
 
 def device_ops(fn, reps):
@@ -222,18 +270,12 @@ def device_events(prof):
 
 def timings(kernel_fn, plain_fn, kernel_name, reps, plain_reps):
     """ms (the kernel's own device time), plain_ms (the device time of all
-    the plain version's ops), and the CUDA-event time per call of each.
-    Without device time in the trace, ms and plain_ms fall back to the
-    event times, and `timing` says so."""
-    t = dict(call_ms=cuda_ms(kernel_fn, reps),
-             plain_call_ms=cuda_ms(plain_fn, plain_reps),
-             ms=device_ms(kernel_fn, reps, kernel_name),
-             plain_ms=device_ms(plain_fn, plain_reps),
-             timing="profiler device time")
-    if t["ms"] <= 0.0 or t["plain_ms"] <= 0.0:
-        t.update(ms=t["call_ms"], plain_ms=t["plain_call_ms"],
-                 timing="cuda events (no device time in the trace)")
-    return t
+    the plain version's ops), and the CUDA-event time per call of each."""
+    return dict(call_ms=cuda_ms(kernel_fn, reps),
+                plain_call_ms=cuda_ms(plain_fn, plain_reps),
+                ms=device_ms(kernel_fn, reps, kernel_name),
+                plain_ms=device_ms(plain_fn, plain_reps),
+                timing="profiler device time")
 
 
 def bound_ms(nbytes, nops):
@@ -738,6 +780,54 @@ def linearize_record(raw, P, CA, x, table, valid, ids, max_err, tol, build):
         **forms, **tm_)
 
 
+RBF_TOLERANCE = "rtol 5e-3; atol 1e-4/2e-2/5e-2"
+
+
+def check_rbf(name, args):
+    """rbf_moments against its plain version on the query's valid rows
+    (RBF_TOLERANCE: sum w, sum w y, sum w yy), and a repeat launch
+    bit-identical.  Returns max |diff|."""
+    from fast_gicp_tpu_torch.ops import cuda_kernels
+
+    got = cuda_kernels.rbf_moments(*args)
+    want = cuda_kernels.rbf_moments_plain(*args)
+    again = cuda_kernels.rbf_moments(*args)
+    torch.cuda.synchronize()
+    v = args[1]
+    errs = [
+        check_close(f"{name} sum w", got[0, v], want[0, v], 5e-3, 1e-4),
+        check_close(f"{name} sum w y", got[1:4][:, v], want[1:4][:, v], 5e-3, 2e-2),
+        check_close(f"{name} sum w yy", got[4:13][:, v], want[4:13][:, v], 5e-3, 5e-2),
+    ]
+    # the warps' partial sums are added in a fixed order: no atomics
+    require(bool(torch.equal(got, again)), f"{name}: a repeat launch differs")
+    return max(errs)
+
+
+def check_knn_moments(label, args, kwargs=None):
+    """knn_moments against its plain version: kth bit-equal, mom within 1e-4
+    of each row's largest entry, a repeat launch bit-identical.  Returns
+    max |diff| of mom."""
+    from fast_gicp_tpu_torch.ops import cuda_kernels
+
+    kwargs = kwargs or {}
+    n = args[0].shape[0]
+    mom, kth = cuda_kernels.knn_moments(*args, **kwargs)
+    again = cuda_kernels.knn_moments(*args, **kwargs)
+    mom_w, kth_w = cuda_kernels.knn_moments_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    require(bool(torch.equal(kth, kth_w)),
+            f"knn_moments {label} kth: {int((kth != kth_w).sum())} of {n} not bit-equal")
+    scale = mom_w.abs().amax(dim=1, keepdim=True)
+    err = check_close(f"knn_moments {label} mom", mom / scale, mom_w / scale, 0.0, 1e-4)
+    # one warp a query, its sums by a fixed xor tree: no atomics
+    require(bool(torch.equal(mom, again[0]) and torch.equal(kth, again[1])),
+            f"knn_moments {label}: a repeat launch differs")
+    log(f"[kernels] knn_moments {label}: kth bit-equal on all {n}, a repeat launch "
+        f"bit-identical; mom max diff / row scale {err:.3e}")
+    return float((mom - mom_w).abs().max())
+
+
 def phase_kernels(dev, pair):
     """Each kernel against its plain version at the main path's shapes."""
     from fast_gicp_tpu_torch import se3
@@ -764,19 +854,7 @@ def phase_kernels(dev, pair):
     # -- RBF moments: the target cloud against itself about its mean ------
     c = masked_mean(tgt, tmask)
     args = (tgt, tmask, tgt, tmask, c, 0.5, 3.0)
-    got = cuda_kernels.rbf_moments(*args)
-    want = cuda_kernels.rbf_moments_plain(*args)
-    torch.cuda.synchronize()
-    v = tmask
-    errs = [
-        check_close("rbf sum w", got[0, v], want[0, v], 5e-3, 1e-4),
-        check_close("rbf sum w y", got[1:4][:, v], want[1:4][:, v], 5e-3, 2e-2),
-        check_close("rbf sum w yy", got[4:13][:, v], want[4:13][:, v], 5e-3, 5e-2),
-    ]
-    again = cuda_kernels.rbf_moments(*args)
-    torch.cuda.synchronize()
-    # the warps' partial sums are added in a fixed order: no atomics
-    require(bool(torch.equal(got, again)), "rbf_moments: a repeat launch differs")
+    max_err = check_rbf("rbf", args)
     edge_cases = check_rbf_edge_cases(dev)
     # data-dependent work: only pairs within max_dist need the exp and the
     # moment update
@@ -795,9 +873,9 @@ def phase_kernels(dev, pair):
         name="rbf_moments", route="cuda",
         source="fast_gicp_tpu_torch/csrc/rbf_moments.cu",
         replaces="fast_gicp_tpu/ops/pallas_kernels.py:417",
-        max_abs_err=max(errs),
-        tolerance=f"rtol 5e-3; atol 1e-4/2e-2/5e-2 (and on {edge_cases} edge cases); "
-                  "a repeat launch bit-identical",
+        max_abs_err=max_err,
+        tolerance=f"{RBF_TOLERANCE} (and on {edge_cases} edge cases); a repeat launch "
+                  "bit-identical",
         bound_ms=b_ms, bound_by=b_by, library_ms=None, pairs_in_range=pairs,
         pairs_visited=visited, **tm))
 
@@ -898,28 +976,12 @@ def phase_gicp_kernels(dev, pair):
             _masked_target(tgt, tmask).reshape(n // ct, ct, 3), width)
         return (tgt, torch.ones_like(tmask), tgt, tmask, cidx, kk)
 
-    def knn_check(label, a):
-        mom, kth = cuda_kernels.knn_moments(*a)
-        again = cuda_kernels.knn_moments(*a)
-        mom_w, kth_w = cuda_kernels.knn_moments_plain(*a)
-        torch.cuda.synchronize()
-        require(bool(torch.equal(kth, kth_w)),
-                f"knn_moments {label} kth: {int((kth != kth_w).sum())} of {n} not bit-equal")
-        scale = mom_w.abs().amax(dim=1, keepdim=True)
-        err = check_close(f"knn_moments {label} mom", mom / scale, mom_w / scale, 0.0, 1e-4)
-        # one warp a query, its sums by a fixed xor tree: no atomics
-        require(bool(torch.equal(mom, again[0]) and torch.equal(kth, again[1])),
-                f"knn_moments {label}: a repeat launch differs")
-        log(f"[kernels] knn_moments {label}: kth bit-equal on all {n}, a repeat launch "
-            f"bit-identical; mom max diff / row scale {err:.3e}")
-        return float((mom - mom_w).abs().max())
-
     args = knn_args(C, k)
-    max_err = knn_check(f"C = {C} x {ct}, k = {k}", args)
+    max_err = check_knn_moments(f"C = {C} x {ct}, k = {k}", args)
     # the widest slab the contract takes and the round-by-round form (k > 32)
     wide, k48 = knn_args(32, k), knn_args(C, 48)
-    knn_check(f"C = 32 x {ct}, k = {k}", wide)
-    knn_check(f"C = {C} x {ct}, k = 48", k48)
+    check_knn_moments(f"C = 32 x {ct}, k = {k}", wide)
+    check_knn_moments(f"C = {C} x {ct}, k = 48", k48)
     edge_cases = check_knn_moments_edge_cases(dev)
     tm_ = timings(lambda: cuda_kernels.knn_moments(*args),
                   lambda: cuda_kernels.knn_moments_plain(*args),
@@ -2014,10 +2076,9 @@ def check_schedule_traps(dev):
     return differ
 
 
-def phase_trial(dev, pair):
-    """The LM trial launch (`cuda_solver.lm_step`) at the first linearization
-    of VGICP, GICP, D2D and P2D fresh and of FastVGICP on the hash map and
-    on the sparse grid map (DIRECT7, 157,696 lanes with misses):
+def trial_sweeps(dev, inputs):
+    """The LM trial launch (`cuda_solver.lm_step`) at each of `inputs`'
+    first linearizations ({path: (y0, H, b, aux, cost, n_src)}):
     1. bit for bit against the unfused trial (the standalone `lm_trial`
        launch, the trial-off error launch, the eager schedule:
        `lm_step_plain` on the card) on a seeded sweep of lambda, trial poses
@@ -2037,8 +2098,6 @@ def phase_trial(dev, pair):
     from fast_gicp_tpu_torch.solver import LsqConfig
 
     cfg = LsqConfig()
-    trap_differ = check_schedule_traps(dev)
-    inputs = trial_inputs(dev, pair)
     hits = dict.fromkeys(("accept", "accept_clamp", "reject", "conv_reject", "nan_yi",
                           "first", "ragged"), 0)
     points, max_err = 0, 0.0
@@ -2172,6 +2231,16 @@ def phase_trial(dev, pair):
     log(f"[trial] {points} points, every state float bit-equal to the unfused trial, a "
         f"repeat launch bit-identical, d/delta/xi within rtol 1e-5 and yi within 1e-4 of "
         f"the plain twin; cases hit {hits}")
+    return records, points, hits, max_err
+
+
+def phase_trial(dev, pair):
+    """`trial_sweeps` at the first linearization of VGICP, GICP, D2D and P2D
+    fresh, of FastVGICP on the hash map and on the sparse grid map (DIRECT7,
+    157,696 lanes with misses) and of the paths of `new_path_trial_inputs`,
+    after `check_schedule_traps`; the lm_step record."""
+    trap_differ = check_schedule_traps(dev)
+    records, points, hits, max_err = trial_sweeps(dev, trial_inputs(dev, pair))
     main = records["ndt_d2d_fresh"]  # the most launches a registration
     regs = {k: v for k, v in kernel_build_report().items() if k.startswith("lm_step")}
     return dict(
@@ -2487,16 +2556,28 @@ PYGICP_PATHS = {
                           D2D_LIMITS),
     "pygicp_ndt_cuda": ("NDT_CUDA", ("ndt_d2d", "lm_step"), "full", D2D_LIMITS),
 }
+# odometry path (slice F, on the 128-frame drive) -> (kernels it must launch,
+# the form of its linearize launches, check_lin_forms); scan_to_map runs
+# before localization, which localizes on its saved map
+ODOMETRY_PATHS = {
+    "odometry_serial": (("knn_moments", "linearize_raw", "lm_step"), "idx_raw"),
+    "odometry_stream": (("rbf_moments", "linearize_raw", "lm_step"), "idx_raw"),
+    "odometry_scan": (("rbf_moments", "linearize_raw", "lm_step"), "idx_raw"),
+    "scan_to_map": (("rbf_moments", "linearize", "lm_step"), "idx"),
+    "localization": (("rbf_moments", "ndt_d2d", "lm_step"), "pack"),
+}
 # the standalone launches the trial launch replaces inside the LM solve, and
 # the paths whose trials carry each one's body
 TRIAL_CARRIED = {"lm_trial": tuple(PATHS) + tuple(CLASS_PATHS) + tuple(BATCH_PATHS)
-                 + tuple(PYGICP_PATHS),
+                 + tuple(PYGICP_PATHS) + tuple(ODOMETRY_PATHS),
                  "error": ("vgicp_register", "gicp_register_fresh", "gicp_adaptive_fresh",
                            "gicp_min_eig_fresh", "vgicp_align_batch", "pygicp_gicp",
                            "pygicp_vgicp", "pygicp_vgicp_cuda")
-                 + tuple(p for p in CLASS_PATHS if p not in NDT_CLASS_PATHS),
+                 + tuple(p for p in CLASS_PATHS if p not in NDT_CLASS_PATHS)
+                 + tuple(p for p in ODOMETRY_PATHS if p != "localization"),
                  "ndt_error": ("ndt_d2d_fresh", "ndt_p2d_fresh", "ndt_d2d_align",
-                               "ndt_p2d_align", "ndt_align_batch", "pygicp_ndt_cuda")
+                               "ndt_p2d_align", "ndt_align_batch", "pygicp_ndt_cuda",
+                               "localization")
                  + NDT_CLASS_PATHS}
 NDT_PATHS = tuple(p for p in PATHS if p.startswith("ndt_"))
 # the wrappers that also count their launches that read rows by index
@@ -2507,11 +2588,13 @@ NDT_FORM_COUNTED = tuple(f"ndt_{m}" for m in NDT_MODES)
 # the pack-form launches a path may make: P2D align's frozen phase, seeded
 # from the last refresh linearization's aux (no freeze); and every NDT
 # launch on the hash map (NDTCuda after set_grid_dims(None), the batch's
-# maps), which the kernel cannot look up: each linearization there is an
-# eager freeze (`cuda_ndt.ndt_freeze_pack`) and one pack-form launch, as the
-# JAX package's fused objective runs it
+# maps, the persistent map of localization), which the kernel cannot look
+# up: each linearization there is an eager freeze
+# (`cuda_ndt.ndt_freeze_pack`) and one pack-form launch, as the JAX
+# package's fused objective runs it
 NDT_PACK_ALLOWED = {("ndt_p2d_align", "ndt_p2d"), ("ndt_d2d_hash", "ndt_d2d"),
-                    ("ndt_p2d_hash", "ndt_p2d"), ("ndt_align_batch", "ndt_d2d")}
+                    ("ndt_p2d_hash", "ndt_p2d"), ("ndt_align_batch", "ndt_d2d"),
+                    ("localization", "ndt_d2d")}
 
 
 def phase_main_path(dev, pair, path):
@@ -3284,8 +3367,39 @@ def phase_class_profile(dev, pair, path, n_regs=5):
 # -- NDTCuda's hash map, FastGICPMultiPoints, the batch aligns, pygicp -------
 
 
-class _FirstTrial(Exception):
-    """Raised by `first_trial`'s stand-in trial launch to end the run."""
+class _FirstCall(Exception):
+    """Raised by `first_call`'s stand-in wrapper to end the run."""
+
+
+def first_call(run, module, name, match=None):
+    """The arguments, tensors cloned, of the first call of `module.name` in
+    `run()` for which `match(*args, **kwargs)` holds (the first call when
+    `match` is None): (args, kwargs).  The stand-in launches nothing and
+    ends the run there; the calls before it run as they would (a wrapper
+    counts its launches on the module's name for it, the stand-in's copy
+    of the count while the stand-in is in place)."""
+    real, got = getattr(module, name), []
+
+    def clone(a):
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
+    @functools.wraps(real)
+    def stand_in(*args, **kwargs):
+        if match is not None and not match(*args, **kwargs):
+            return real(*args, **kwargs)
+        got.append((tuple(clone(a) for a in args),
+                    {k: clone(v) for k, v in kwargs.items()}))
+        raise _FirstCall
+
+    setattr(module, name, stand_in)
+    try:
+        run()
+    except _FirstCall:
+        pass
+    finally:
+        setattr(module, name, real)
+    require(len(got) == 1, f"the run made no call of {name} that was looked for")
+    return got[0]
 
 
 def first_trial(run):
@@ -3294,22 +3408,9 @@ def first_trial(run):
     built it on the card; the run stops there."""
     from fast_gicp_tpu_torch.ops import cuda_solver
 
-    launch, got = cuda_solver.lm_step, []
-
-    def capture(state, H, b, y0, aux, cost, first, config):
-        got.append((y0.clone(), H.clone(), b.clone(), aux.clone(), cost,
-                    aux.shape[1] // cost.offsets))
-        raise _FirstTrial
-
-    cuda_solver.lm_step = capture
-    try:
-        run()
-    except _FirstTrial:
-        pass
-    finally:
-        cuda_solver.lm_step = launch
-    require(len(got) == 1, "the run launched no LM trial")
-    return got[0]
+    (_state, H, b, y0, aux, cost, _first, _config), _kw = first_call(run, cuda_solver,
+                                                                      "lm_step")
+    return y0, H, b, aux, cost, aux.shape[1] // cost.offsets
 
 
 def padded(pair):
@@ -3657,15 +3758,645 @@ def phase_pygicp(dev, pair, small, path, n_regs=20):
                           profile=traced)
 
 
+# -- slice F: odometry on the synthetic drive -------------------------------
+
+ODOMETRY_SEED = 11  # tools/bench_odometry.py's drive
+ODOMETRY_FRAMES = 128  # about 120 m at about 1 m and 0.7 deg a frame
+ODOMETRY_DOWNSAMPLE = 0.25  # the KITTI app's default
+ODOMETRY_CHUNK = 32  # the KITTI app's map mode: process_chunk of 32 frames
+LOCALIZATION_FRAMES = 32
+KERNEL_FRAME = 16  # scan_to_map's frame whose first linearization phase 3 checks
+PROFILE_FRAMES = 8
+WARMUP_FRAMES = 32  # the warm-up run before a path's timed 128 frames
+SYNC_FRAMES = 32  # a chunk of scan_to_map: its fill is read before and after it
+# the host reads a path makes over SYNC_FRAMES frames besides the solve's
+# flag read a trial, as in the JAX package: serial the class API's result a
+# frame, stream and scan the deltas once at the end, scan_to_map its fill
+# before and after a chunk, localization none
+ODOMETRY_READS = {"odometry_serial": SYNC_FRAMES, "odometry_stream": 1, "odometry_scan": 1,
+                  "scan_to_map": 2, "localization": 0}
+SCAN_TO_MAP_ATE = 0.05  # m, tests/test_scan_to_map.py:66-81
+SCAN_TO_SCAN_ATE_SHARE = 0.01  # of the driven distance, tests/test_odometry.py:185-206
+LOCALIZATION_TOL = 0.05  # m from the mapping pass's poses
+# m, the largest per-frame pose difference of the first 8 frames of the
+# small drive, card against CPU (deterministic scatter-adds).  The gap is
+# the covariances': the kernels sum their moments about a centre and the
+# finalize cancels most digits, so the card's and the CPU's sums, added in
+# another order, part; fed the CPU's covariances the card's stream deltas
+# sit within 2.4e-6 of the CPU's (ODOMETRY_SOLVE_TOL).  Read on every run
+# to the bit: serial 2.7e-5, stream 8.0e-4, scan 3.9e-4, scan_to_map 9.2e-5.
+# On the CPU, moments rounded by a relative 1e-7 at random move the same
+# paths 2.3e-5, 2.3e-3, 1.6e-3 and 9.2e-4, and by 1e-5 1.1e-3, 4.4e-3,
+# 3.8e-3 and 1.6e-3 (tests/torch_odometry_sensitivity.py): each limit is
+# 2.5-11x its reading and below the second.
+ODOMETRY_CARD_CPU_TOL = {"odometry_serial": 2e-4, "odometry_stream": 2e-3,
+                         "odometry_scan": 2e-3, "scan_to_map": 1e-3}
+ODOMETRY_SOLVE_TOL = 1e-5  # the stream's deltas on the CPU's covariances
+
+
+@functools.cache
+def odometry_drive(n_world=None, voxel=ODOMETRY_DOWNSAMPLE, frames=ODOMETRY_FRAMES):
+    """The odometry drive: `drive_scans` with seed 11 (its default 1.4M-point
+    world, or an `n_world`-point one), each scan voxel-downsampled on the
+    host once, outside every timed window.  Returns (clouds, gt poses, the
+    dense grid over the union of the raw scans' extents at 1 m, as the
+    KITTI app's stream and scan modes size it)."""
+    from fast_gicp_tpu_torch.ops.voxelmap import auto_grid_dims_multi
+    from fast_gicp_tpu_torch.utils.downsample import voxel_downsample
+    from fast_gicp_tpu_torch.utils.synthetic import drive_scans, drive_world
+
+    rng = np.random.default_rng(ODOMETRY_SEED)
+    world = drive_world(rng) if n_world is None else drive_world(rng, n=n_world)
+    scans, gt = drive_scans(rng, n_frames=frames, world=world)
+    return ([voxel_downsample(s, voxel) for s in scans], gt,
+            auto_grid_dims_multi(scans, 1.0))
+
+
+def localization_config():
+    from fast_gicp_tpu_torch.models.scan_to_map import ScanToMapConfig
+
+    return ScanToMapConfig(fuse_scans=False, objective="ndt_d2d")
+
+
+def odometry_run(path, dev, frames=None, drive=None, map_path=None):
+    """The path over the drive's first `frames` frames (all by default) as a
+    user runs it: (poses, the ScanToMapOdometry or None).  The scan-to-scan
+    modes as the KITTI app builds them (serial: `FastVGICP(resolution=1)`,
+    kNN covariances and the auto dense grid; stream and scan: RBF
+    covariances and the dense grid over the drive), on the host-downsampled
+    clouds (downsample -1: passed through); scan_to_map:
+    `ScanToMapOdometry(ScanToMapConfig())` fed chunks of 32 frames, the
+    app's map mode; localization: NDT D2D on the mapping pass's map saved at
+    `map_path`, loaded with `load_map`, fuse_scans=False, over the first 32
+    frames."""
+    from fast_gicp_tpu_torch.models.scan_to_map import (
+        ScanToMapConfig, ScanToMapOdometry, load_map,
+    )
+    from fast_gicp_tpu_torch.models.vgicp import FastVGICP, VGICPConfig
+    from fast_gicp_tpu_torch.utils import kitti
+
+    clouds, _gt, dims = drive or odometry_drive()
+    clouds = clouds[:frames]
+    if path == "odometry_serial":
+        return kitti.run_odometry(clouds, FastVGICP(resolution=1.0, device=dev), -1.0), None
+    cfg = VGICPConfig(resolution=1.0, grid_dims=dims)
+    if path == "odometry_stream":
+        return kitti.run_odometry_stream(clouds, -1.0, config=cfg, device=dev), None
+    if path == "odometry_scan":
+        return kitti.run_odometry_scan(clouds, -1.0, config=cfg, device=dev), None
+    if path == "scan_to_map":
+        odo = ScanToMapOdometry(ScanToMapConfig(), device=dev)
+        for lo in range(0, len(clouds), ODOMETRY_CHUNK):
+            odo.process_chunk(clouds[lo:lo + ODOMETRY_CHUNK])
+        return odo.poses, odo
+    odo = ScanToMapOdometry(localization_config(),
+                            initial_map=load_map(map_path, device=dev),
+                            device=dev)
+    odo.process_chunk(clouds[:min(len(clouds), LOCALIZATION_FRAMES)])
+    return odo.poses, odo
+
+
+def odometry_prepared(path, dev, n, map_path=None):
+    """A callable that runs `n` frames of the path, its set-up done first:
+    a scan-to-scan function over the first n + 1 frames (n registrations);
+    scan_to_map one chunk of n frames after the first 32 were mapped;
+    localization frames n to 2n after the first n."""
+    from fast_gicp_tpu_torch.models.scan_to_map import ScanToMapConfig, ScanToMapOdometry
+
+    clouds, _gt, _dims = odometry_drive()
+    if path.startswith("odometry_"):
+        return lambda: odometry_run(path, dev, frames=n + 1)
+    if path == "scan_to_map":
+        odo = ScanToMapOdometry(ScanToMapConfig(), device=dev)
+        odo.process_chunk(clouds[:ODOMETRY_CHUNK])
+        chunk = clouds[ODOMETRY_CHUNK:ODOMETRY_CHUNK + n]
+    else:
+        _poses, odo = odometry_run(path, dev, frames=n, map_path=map_path)
+        chunk = clouds[n:2 * n]
+    torch.cuda.synchronize()
+    return lambda: odo.process_chunk(chunk)
+
+
+def count_host_syncs(run):
+    """The synchronizing CUDA calls `run()` makes (torch's sync debug mode:
+    a read to the host, a stream or device synchronize, a copy from
+    pageable memory), and their count by the line that made each."""
+    import collections
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    sites = collections.Counter("/".join(pathlib.Path(w.filename).parts[-2:]) + f":{w.lineno}"
+                                for w in syncs)
+    return len(syncs), dict(sites.most_common())
+
+
+def odometry_profile(path, run, n):
+    """A torch.profiler trace of `run()` (n frames): device ops, device busy
+    ms and device span (CUDA events on the stream) a frame, the traced wall
+    and the idle share of the wall (1 - busy / wall) and of the device span
+    (1 - busy / span; the profiler's host overhead inflates a traced wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    events = device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / n
+    ops = sum(e.count for e in events) / n
+    span = start.elapsed_time(end) / n
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"[profile] {path}, {n} frames traced: wall {wall:.3f} ms, device span {span:.3f} ms, "
+        f"device busy {busy:.3f} ms a frame ({100 * busy / wall:.1f}% of the wall, idle "
+        f"{100 * (1 - busy / wall):.1f}%; idle {100 * (1 - busy / span):.1f}% of the span), "
+        f"device ops {ops:.1f} a frame")
+    for e in top:
+        log(f"[profile]   {e.self_device_time_total / 1e3 / n:9.4f} ms  x{e.count / n:6.1f}  "
+            f"{e.key[:90]}")
+    return dict(traced_wall_ms=wall, device_span_ms=span, device_busy_ms=busy,
+                device_ops_per_frame=ops, idle_share=1.0 - busy / wall,
+                idle_share_of_span=1.0 - busy / span)
+
+
+def _map_stats(state):
+    n = int(state.num_voxels)
+    nbytes = sum(t.numel() * t.element_size() for t in (state.sums, state.coords, state.lut))
+    return dict(voxels=n, capacity=state.sums.shape[0], lut_rows=state.lut.shape[0],
+                bytes=nbytes)
+
+
+def phase_odometry_main(dev, path, mapping):
+    """A path over the 128-frame drive, after a warm-up run over its first
+    32 frames (every kernel and shape of the path but the grown map's),
+    with every launch counter set to 0 just before it and read just after:
+    frames/s on the host clock closed by a synchronize; the trajectory against
+    the ground truth (ATE under 1% of the driven distance scan to scan,
+    under 0.05 m scan to map; localization within 0.05 m of the mapping
+    pass); every kernel of the path launched; one trial launch a flag read;
+    the linearize form.  The mapping pass saves its map (`save_map`) under
+    mapping["tmp"], which must load back equal, and leaves its path and
+    poses in `mapping` for the localization pass.  Then host syncs a frame
+    (torch's sync debug mode over 32 frames) and a profile of 8."""
+    from fast_gicp_tpu_torch.models.scan_to_map import load_map, save_map
+    from fast_gicp_tpu_torch.solver import lsq_solve
+    from fast_gicp_tpu_torch.utils.kitti import trajectory_report
+
+    kernels, form = ODOMETRY_PATHS[path]
+    _clouds, gt, _dims = odometry_drive()
+    map_path = mapping.get("map_path")
+    odometry_run(path, dev, frames=WARMUP_FRAMES, map_path=map_path)  # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    lsq_solve.host_syncs = 0
+    t0 = time.perf_counter()
+    poses, odo = odometry_run(path, dev, map_path=map_path)  # the poses are read
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    flag_reads = lsq_solve.host_syncs
+    n = len(poses)
+    rep = trajectory_report(gt[:n], poses)
+    fps = n / wall
+    lins = launches["linearize_raw"] + launches["linearize"] + launches["ndt_d2d"]
+    log(f"[odometry] {path}: {n} frames in {wall:.3f} s = {fps:.2f} frames/s; ATE "
+        f"{rep['ate_rmse_m']:.4f} m (aligned {rep['ate_rmse_aligned_m']:.4f}), end error "
+        f"{rep['end_error_m']:.4f} m, RPE1 {rep['rpe1_trans_m']:.4f} m "
+        f"{rep['rpe1_rot_deg']:.4f} deg over {rep['path_length_m']:.1f} m; linearizations "
+        f"{lins / max(n - 1, 1):.2f} and trials {launches['lm_step'] / max(n - 1, 1):.2f} a "
+        f"registration; launches {launches}")
+    require(len(poses) == (LOCALIZATION_FRAMES if path == "localization" else ODOMETRY_FRAMES)
+            and all(np.isfinite(p).all() for p in poses), f"{path}: poses")
+    stats = dict(frames=n, wall_s=wall, frames_per_s=fps, trajectory=rep,
+                 linearizations_per_registration=lins / max(n - 1, 1),
+                 trials_per_registration=launches["lm_step"] / max(n - 1, 1),
+                 flag_reads=flag_reads)
+    if path.startswith("odometry_") or path == "scan_to_map":
+        bound = (SCAN_TO_MAP_ATE if path == "scan_to_map"
+                 else SCAN_TO_SCAN_ATE_SHARE * rep["path_length_m"])
+        log(f"[odometry] {path}: ATE {rep['ate_rmse_m']:.4f} m against the bound "
+            f"{bound:.4f} m")
+        require(rep["ate_rmse_m"] < bound, f"{path}: ATE {rep['ate_rmse_m']} m >= {bound} m")
+        stats["ate_bound_m"] = bound
+    if path == "scan_to_map":
+        stats["map"] = _map_stats(odo.state)
+        map_path = str(pathlib.Path(mapping["tmp"]) / "map.npz")
+        save_map(map_path, odo.state)
+        back = load_map(map_path, device=dev)
+        require(all(bool(torch.equal(getattr(back, f), getattr(odo.state, f)))
+                    for f in ("sums", "coords", "lut", "num_voxels"))
+                and back.resolution == odo.state.resolution, "save_map / load_map round trip")
+        mapping.update(map_path=map_path, poses=poses)
+        log(f"[odometry] scan_to_map: map {stats['map']}; saved and loaded back equal")
+    elif path == "localization":
+        dev_m = max(float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
+                    for a, b in zip(poses, mapping["poses"]))
+        log(f"[odometry] localization: within {dev_m:.5f} m of the mapping pass's poses "
+            f"(bound {LOCALIZATION_TOL} m)")
+        require(dev_m < LOCALIZATION_TOL, f"localization: {dev_m} m from the mapping pass")
+        stats.update(from_mapping_m=dev_m, ate_bound_m=None)
+    require(all(launches[k] > 0 for k in kernels),
+            f"{path}: a kernel of the path was not launched: {launches}")
+    require(launches["lm_step"] == flag_reads and all(launches[k] == 0 for k in TRIAL_CARRIED),
+            f"{path}: {launches['lm_step']} trial launches for {flag_reads} flag reads")
+    check_lin_forms(path, launches, form)
+    run = odometry_prepared(path, dev, SYNC_FRAMES, map_path)
+    flags0 = lsq_solve.host_syncs
+    syncs, sites = count_host_syncs(run)
+    extra = syncs - (lsq_solve.host_syncs - flags0)
+    stats.update(host_syncs_per_frame=syncs / SYNC_FRAMES, host_sync_sites=sites,
+                 host_reads_besides_flags=extra)
+    log(f"[odometry] {path}: {syncs} host syncs over {SYNC_FRAMES} frames "
+        f"({syncs / SYNC_FRAMES:.2f} a frame; {extra} besides the flag reads), by the line "
+        f"that made them: {sites}")
+    # the serial path may make one more a run: a synchronizing call inside
+    # torch.cuda on its first frame (torch/cuda/__init__.py:1270 in torch 2.11)
+    allowed = ODOMETRY_READS[path] + (path == "odometry_serial")
+    require(ODOMETRY_READS[path] <= extra <= allowed,
+            f"{path}: {extra} host syncs besides the flag reads, expected "
+            f"{ODOMETRY_READS[path]} to {allowed}: {sites}")
+    stats["profile"] = odometry_profile(
+        path, odometry_prepared(path, dev, PROFILE_FRAMES, map_path), PROFILE_FRAMES)
+    return launches, stats
+
+
+def stream_registrations(dev, drive, covs=None):
+    """`run_odometry_stream`'s loop over `drive` as `odometry_run` drives it
+    (RBF covariances, the drive's dense grid, warm start), a registration
+    at a time: ([(delta, iterations)] a registration, [(6, N) covariances]
+    and [(N,) masks] a frame, on the host); with `covs` given, each frame
+    takes those covariances in place of its own."""
+    from fast_gicp_tpu_torch.models.vgicp import VGICPConfig, vgicp_align
+    from fast_gicp_tpu_torch.ops.covariance import rbf_covariance_cols
+    from fast_gicp_tpu_torch.utils.padding import bucket_size, pad_points
+
+    clouds, _gt, dims = drive
+    cfg = VGICPConfig(resolution=1.0, grid_dims=dims)
+    bucket = max(bucket_size(len(c)) for c in clouds)
+    delta, prev, regs, frame_covs, masks = torch.eye(4, device=dev), None, [], [], []
+    for i, cloud in enumerate(clouds):
+        p, m = (torch.as_tensor(a, device=dev) for a in pad_points(cloud, bucket))
+        c = rbf_covariance_cols(p, m) if covs is None else covs[i].to(dev)
+        if prev is not None:
+            res = vgicp_align(p, m, c, *prev, delta, cfg, device=dev)
+            delta = res.transformation
+            regs.append((delta.cpu().numpy(), int(res.iterations)))
+        prev = (p, m, c)
+        frame_covs.append(c.cpu())
+        masks.append(m.cpu())
+    return regs, frame_covs, masks
+
+
+def stream_breakdown(dev, drive, card_poses):
+    """Where odometry_stream's card and CPU poses part, registration by
+    registration (`stream_registrations`, deterministic scatter-adds on the
+    card): each delta's largest difference, card against CPU and, with the
+    CPU's covariances fed to the card, card against CPU again (within
+    ODOMETRY_SOLVE_TOL, the same iterations); each frame's RBF covariances,
+    card against CPU on the valid points, relative to each point's largest
+    entry: the largest and the share above 1e-3.  The card's chained
+    deltas must be the path's poses."""
+    from fast_gicp_tpu_torch.utils.kitti import _chain
+
+    card, covs_card, masks = _deterministic(lambda: stream_registrations(dev, drive))
+    cpu, covs_cpu, _masks = stream_registrations("cpu", drive)
+    mixed, _covs, _masks = _deterministic(lambda: stream_registrations(dev, drive, covs_cpu))
+    same = max(float(np.abs(a - b).max()) for a, b in zip(_chain([d for d, _i in card]),
+                                                           card_poses))
+    require(same <= 1e-6, f"odometry_stream's loop differs from the path by {same}")
+    rel = [((a - b).abs().amax(0) / b.abs().amax(0).clamp(min=1e-30))[m]
+           for a, b, m in zip(covs_card, covs_cpu, masks)]
+    out = dict(delta_card_cpu=[float(np.abs(a - b).max()) for (a, _i), (b, _j) in zip(card, cpu)],
+               delta_card_on_cpu_covs_cpu=[float(np.abs(a - b).max())
+                                           for (a, _i), (b, _j) in zip(mixed, cpu)],
+               iterations_card=[i for _d, i in card], iterations_cpu=[i for _d, i in cpu],
+               iterations_card_on_cpu_covs=[i for _d, i in mixed],
+               covs_rel_diff=[float(r.max()) for r in rel],
+               covs_share_above_1e3=[float((r > 1e-3).float().mean()) for r in rel])
+    for k in range(len(card)):
+        log(f"[card vs cpu] odometry_stream registration {k + 1}: delta differs by "
+            f"{out['delta_card_cpu'][k]:.3e} ({out['delta_card_on_cpu_covs_cpu'][k]:.3e} on the "
+            f"CPU's covariances), iterations card {out['iterations_card'][k]} cpu "
+            f"{out['iterations_cpu'][k]} (on the CPU's covariances "
+            f"{out['iterations_card_on_cpu_covs'][k]}); frame {k + 1}'s covariances differ by "
+            f"up to {out['covs_rel_diff'][k + 1]:.3e} of a point's scale, "
+            f"{100 * out['covs_share_above_1e3'][k + 1]:.2f}% of its points by more than 1e-3")
+    require(max(out["delta_card_on_cpu_covs_cpu"]) <= ODOMETRY_SOLVE_TOL
+            and out["iterations_card_on_cpu_covs"] == out["iterations_cpu"],
+            f"odometry_stream on the CPU's covariances: {out}")
+    return out
+
+
+def phase_odometry_equivalences(dev):
+    """The odometry's checks across devices and forms, with deterministic
+    scatter-adds (the maps' sums are atomic on the card):
+    * `process_chunk` (chunks of 4 and 12) against `process` frame by frame
+      on the first 16 frames of the drive, on the card, within 1e-5;
+    * the first 8 frames of every mapping and scan-to-scan path on the card
+      against the same calls with device="cpu", on a small drive
+      (`drive_world(n=400_000)`, 0.5 m downsample), within the path's
+      ODOMETRY_CARD_CPU_TOL; for odometry_stream where the two part
+      (`stream_breakdown`)."""
+    from fast_gicp_tpu_torch.models.scan_to_map import ScanToMapConfig, ScanToMapOdometry
+
+    clouds, _gt, _dims = odometry_drive()
+
+    def chunk_and_frames():
+        per_frame = ScanToMapOdometry(ScanToMapConfig(), device=dev)
+        for s in clouds[:16]:
+            per_frame.process(s)
+        chunked = ScanToMapOdometry(ScanToMapConfig(), device=dev)
+        chunked.process_chunk(clouds[:4])
+        chunked.process_chunk(clouds[4:16])
+        return max(float(np.abs(a - b).max()) for a, b in zip(per_frame.poses, chunked.poses))
+
+    chunk_diff = _deterministic(chunk_and_frames)
+    log(f"[odometry] process_chunk against process, 16 frames on the card: max |diff| "
+        f"{chunk_diff:.3e}")
+    require(chunk_diff <= 1e-5, f"process_chunk differs from process by {chunk_diff}")
+    small = odometry_drive(n_world=400_000, voxel=0.5, frames=8)
+    out = dict(chunk_vs_frames=chunk_diff, small_drive_points=[len(c) for c in small[0]])
+    for path in ("scan_to_map", "odometry_stream", "odometry_serial", "odometry_scan"):
+        t0 = time.perf_counter()
+        card = _deterministic(lambda: odometry_run(path, dev, drive=small)[0])
+        cpu = odometry_run(path, "cpu", drive=small)[0]
+        diffs = [float(np.abs(a - b).max()) for a, b in zip(card, cpu)]
+        log(f"[card vs cpu] {path}, 8 frames of the small drive: largest per-frame pose diff "
+            f"{max(diffs):.3e} ({time.perf_counter() - t0:.1f} s): {diffs}")
+        out[path] = dict(max_pose_diff=max(diffs), per_frame=diffs)
+        if path == "odometry_stream":
+            out[path]["breakdown"] = stream_breakdown(dev, small, card)
+        require(len(card) == len(cpu) == 8 and max(diffs) <= ODOMETRY_CARD_CPU_TOL[path],
+                f"{path} card vs cpu: {diffs}")
+    return out
+
+
+def odometry_lin_record(label, raw, args, tol):
+    """`check_linearize` (idx form) on the arguments (P, CA, x, table, valid,
+    ids) of a path's linearization, then the kernel's device time, the
+    plain version's (which gathers first) and the bound: the source columns,
+    ids and aux of every lane once and each row the valid lanes name once."""
+    P, CA, x, table, valid, ids = args
+    fn, plain = lin_wrappers(raw)
+    _got, max_err = check_linearize(label, raw, P, CA, x, table, valid, ids, tol)
+    L = P.shape[1]
+    ms = device_ms(lambda: fn(P, CA, x, table, valid, ids), 200,
+                   LIN_KERNEL.format(raw=str(raw).lower()))
+    plain_ms = device_ms(lambda: plain(P, CA, x, table[ids], valid), 20)
+    unique_rows = int(torch.unique(ids[valid > 0]).numel())
+    nbytes = L * (12 + 24 + 4 + 40 + ids.element_size()) + unique_rows * 64 + 64 + 43 * 4
+    b_ms, b_by = bound_ms(nbytes, L * LINEARIZE_OPS)
+    log(f"[kernels] {label} at L = {L} ({unique_rows} rows named of {table.shape[0]}): idx "
+        f"form bit-equal to the gathered form and a repeat, within tolerance of the plain "
+        f"version ({max_err:.3e}); {ms:.5f} ms, plain {plain_ms:.4f} ms; bound {b_ms:.3e} ms "
+        f"({b_by})")
+    return dict(lanes=L, valid_lanes=int((valid > 0).sum()), rows=table.shape[0],
+                unique_rows=unique_rows, max_abs_err=max_err, tolerance=LIN_TOLERANCE[tol],
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+
+
+def rbf_record(label, args):
+    """`check_rbf` on the arguments of a path's covariance call, then its
+    device time (with the target's chunk boxes, which the wrapper builds),
+    the plain version's and the bound over the pairs within max_dist."""
+    from fast_gicp_tpu_torch.ops import cuda_kernels
+
+    err = check_rbf(label, args)
+    _q, qmask, t, tmask, c, _width, max_dist = args
+    tm_ = timings(lambda: cuda_kernels.rbf_moments(*args),
+                  lambda: cuda_kernels.rbf_moments_plain(*args),
+                  ("chunk_bbox_kernel", "rbf_moments_kernel"), 20, 3)
+    y = (t - c)[tmask]
+    pairs = pairs_within(y, y, max_dist * max_dist)
+    n = qmask.shape[0]
+    b_ms, b_by = bound_ms(2 * n * 16 + 16 * n * 4, pairs * RBF_OPS_PER_PAIR)
+    log(f"[kernels] rbf_moments {label}: {int(qmask.sum())} of {n} points, within "
+        f"{RBF_TOLERANCE} of the plain version ({err:.3e}), a repeat bit-identical; "
+        f"{tm_['ms']:.4f} ms, plain {tm_['plain_ms']:.3f} ms; bound {b_ms:.3e} ms ({b_by})")
+    return dict(points=int(qmask.sum()), padded=n, pairs_in_range=pairs, max_abs_err=err,
+                tolerance=RBF_TOLERANCE, bound_ms=b_ms, bound_by=b_by, **tm_)
+
+
+def knn_record(label, args, kwargs):
+    """`check_knn_moments` on the arguments of a path's covariance call,
+    then its device time, the plain version's and the bound (every
+    candidate of the slab, k neighbours a query), as phase_gicp_kernels
+    counts them."""
+    from fast_gicp_tpu_torch.ops import cuda_kernels
+
+    err = check_knn_moments(label, args, kwargs)
+    n, k = args[0].shape[0], args[5]
+    Q, C = args[4].shape
+    ct = kwargs.get("cand_tile", 128)
+    tm_ = timings(lambda: cuda_kernels.knn_moments(*args, **kwargs),
+                  lambda: cuda_kernels.knn_moments_plain(*args, **kwargs),
+                  "knn_moments_kernel", 50, 5)
+    b_ms, b_by = bound_ms(n * 16 + n * 16 + Q * C * 4 + n * 11 * 4,
+                          n * C * ct * KNN_OPS_PER_CANDIDATE + n * k * KNN_OPS_PER_NEIGHBOUR)
+    log(f"[kernels] knn_moments {label}: {tm_['ms']:.4f} ms, plain {tm_['plain_ms']:.3f} ms; "
+        f"bound {b_ms:.3e} ms ({b_by})")
+    return dict(points=int(args[3].sum()), padded=n, k=k, slab=f"{C} x {ct}",
+                max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **tm_)
+
+
+# the covariance kernel of each scan-to-scan path
+SCAN_TO_SCAN_COVS = {"odometry_serial": "knn_moments", "odometry_stream": "rbf_moments",
+                     "odometry_scan": "rbf_moments"}
+
+
+def scan_to_scan_kernels(dev, by_name):
+    """The scan-to-scan paths' kernels on their own inputs, each path run as
+    `odometry_run` runs it over the 128-frame drive and stopped at the call
+    wanted (`first_call`), added to the kernels' records under the path:
+    * the covariance kernel on frame KERNEL_FRAME (the first call on a
+      cloud of its size and points, within 1 cm: scan's are dequantized
+      int16): knn_moments (serial, FastVGICP's kNN, k = 20; `knn_record`),
+      rbf_moments (stream on the float cloud, scan on the dequantized one;
+      `rbf_record`);
+    * linearize_raw (idx form) at the path's first linearization, frame 1
+      against frame 0 from the identity (serial on FastVGICP's auto dense
+      grid, stream and scan on the drive's dense grid):
+      `odometry_lin_record` at VGICP's tolerance.
+    Returns {path: first_trial of the path} for `trial_sweeps`."""
+    from fast_gicp_tpu_torch.ops import cuda_kernels, cuda_linearize
+
+    clouds, _gt, _dims = odometry_drive()
+    frame = torch.as_tensor(np.asarray(clouds[KERNEL_FRAME], np.float32), device=dev)
+
+    def is_frame(q, qmask, t, tmask, *rest, **kw):
+        return (int(tmask.sum()) == frame.shape[0]
+                and float((t[tmask] - frame).abs().max()) < 1e-2)
+
+    trials = {}
+    for path, cov_kernel in SCAN_TO_SCAN_COVS.items():
+        def run():
+            return odometry_run(path, dev)
+
+        args, kwargs = first_call(run, cuda_kernels, cov_kernel, match=is_frame)
+        label = f"({path} frame {KERNEL_FRAME})"
+        by_name[cov_kernel][path] = (knn_record(label, args, kwargs)
+                                     if cov_kernel == "knn_moments" else rbf_record(label, args))
+        args, _kw = first_call(run, cuda_linearize, "linearize_raw")
+        by_name["linearize_raw"][path] = odometry_lin_record(
+            f"linearize_raw ({path} first linearization)", True, args, "elementwise")
+        trials[path] = first_trial(run)
+    return trials
+
+
+def phase_odometry_kernels(dev, records, map_path):
+    """The kernels on the odometry paths' own inputs, against their plain
+    versions, timed; added to the kernels' records:
+    * the scan-to-scan paths' covariance kernels and linearize_raw
+      (`scan_to_scan_kernels`);
+    * rbf_moments on scan_to_map's frame 16, and `linearize` (idx form) on
+      the persistent map's `packed` rows at that frame's first
+      linearization (the constant-velocity guess, 16 frames mapped): bit
+      for bit with its gathered form and a repeat, within tolerance of its
+      plain version; the map's freeze (the lut probe) and the pose to
+      [err, H, b] timed;
+    * `update_map` of that frame on the card against the same call with
+      device="cpu", deterministic scatter-adds: coords, lut and num_voxels
+      equal, sums within 1e-5 of each row's scale;
+    * `ndt_d2d` in the pack form at localization's first freeze (frame 0 on
+      the mapping pass's map saved at `map_path`): the card's eager freeze equal to the CPU's in valid,
+      the launch within the NDT tolerances of its plain version and
+      bit-identical on a repeat;
+    * the trial launch at every path's first linearization (`trial_sweeps`),
+      bit for bit against the unfused trial, timed."""
+    from fast_gicp_tpu_torch.models.scan_to_map import (
+        ScanToMapConfig, ScanToMapOdometry, _align, _compose, _frame_covs, _state_on,
+        _to_world, load_map, map_as_voxelmap, map_objective, update_map,
+    )
+    from fast_gicp_tpu_torch.ops import cuda_kernels, cuda_ndt
+
+    clouds, _gt, _dims = odometry_drive()
+    by_name = {r["name"]: r for r in records}
+    trials = scan_to_scan_kernels(dev, by_name)
+    odo = ScanToMapOdometry(ScanToMapConfig(), device=dev)
+    for s in clouds[:KERNEL_FRAME]:
+        odo.process_async(s)
+    pts, mask = (t[0] for t in odo._padded([clouds[KERNEL_FRAME]]))
+    args, _kw = first_call(lambda: _frame_covs(pts, mask, "rbf"), cuda_kernels, "rbf_moments")
+    by_name["rbf_moments"]["scan_to_map"] = rbf_record(f"(scan_to_map frame {KERNEL_FRAME})",
+                                                       args)
+    covs = _frame_covs(pts, mask, "rbf")
+    x = _compose(odo._last_pose, odo._last_delta)
+    lin, _cost, freeze, _lf = map_objective(odo.state, pts, mask, covs, odo.config)
+    ids, valid = freeze(x)
+    table = map_as_voxelmap(odo.state).packed
+    rec = odometry_lin_record(f"linearize (scan_to_map frame {KERNEL_FRAME})", False,
+                              (pts.T.contiguous(), covs.contiguous(), x, table, valid, ids),
+                              "rel_max")
+    rec.update(map_voxels=int(odo.state.num_voxels), freeze_ms=device_ms(lambda: freeze(x), 50),
+               pose_to_normal_eq_ms=device_ms(lambda: lin(x), 50))
+    by_name["linearize"]["scan_to_map"] = rec
+    log(f"[kernels] scan_to_map frame {KERNEL_FRAME} on {rec['map_voxels']} map voxels: freeze "
+        f"{rec['freeze_ms']:.4f} ms, pose to [err, H, b] {rec['pose_to_normal_eq_ms']:.4f} ms")
+    trials["scan_to_map"] = first_trial(lambda: _align(odo.state, pts, mask, covs, x,
+                                                       odo.config))
+
+    world, cov9 = _to_world(x, pts, covs)
+    card, cpu = (_deterministic(lambda d=d: update_map(
+        _state_on(odo.state, torch.device(d)), world.to(d), cov9.to(d), mask.to(d),
+        new_cap=odo.config.new_per_frame_capacity, device=d)) for d in (dev, "cpu"))
+    for f in ("coords", "lut", "num_voxels"):
+        require(bool(torch.equal(getattr(card, f).cpu(), getattr(cpu, f))),
+                f"update_map: {f} differs between card and CPU")
+    worst = _rows_close("update_map sums", card.sums.cpu(), cpu.sums,
+                        cpu.sums.abs().amax(dim=1), 1e-5)
+    map_check = dict(voxels=int(cpu.num_voxels), new_voxels=int(cpu.num_voxels)
+                     - int(odo.state.num_voxels), worst_sums_row=worst)
+    log(f"[kernels] update_map of frame {KERNEL_FRAME} on the card against the CPU "
+        f"(deterministic): coords, lut and num_voxels equal, sums within {worst:.2e} of each "
+        f"row's scale; {map_check}")
+
+    # localization's first freeze: frame 0 on the saved map, the anchor pose
+    state = load_map(map_path, device=dev)
+    loc = ScanToMapOdometry(localization_config(), initial_map=state, device=dev)
+    pts0, mask0 = (t[0] for t in loc._padded([clouds[0]]))
+    covs0 = _frame_covs(pts0, mask0, "rbf")
+    x0 = _compose(loc._anchor, loc._last_delta)
+    obj = map_objective(state, pts0, mask0, covs0, loc.config)
+    cpu_obj = map_objective(_state_on(state, torch.device("cpu")), pts0.cpu(), mask0.cpu(),
+                            covs0.cpu(), loc.config)
+    pack = obj.freeze(x0)
+    want_pack = cpu_obj.freeze(x0.cpu())
+    require(bool(torch.equal(pack[:, 9].cpu(), want_pack[:, 9])),
+            "localization freeze: valid differs from the CPU's")
+    _check_aux, check_lin = ndt_checkers(x0)
+    got = check_lin("ndt_d2d (localization)", obj.p, obj.ca, pack, "d2d", 1e-5,
+                    res=state.resolution)
+    N, L = obj.p.shape[1], pack.shape[0]
+    nvalid = int(pack[:, 9].sum())
+    tm_ = timings(lambda: cuda_ndt.ndt_linearize(obj.p, obj.ca, x0, pack, state.resolution,
+                                                 "d2d"),
+                  lambda: cuda_ndt.ndt_linearize_plain(obj.p, obj.ca, x0, pack,
+                                                       cuda_ndt._c_sq(state.resolution), "d2d"),
+                  ndt_kernel_name("d2d", "pack"), 200, 20)
+    nbytes = ndt_lin_bytes("d2d", "pack", N, L)
+    b_ms, b_by = bound_ms(nbytes, ndt_lin_ops("d2d", "pack", L, nvalid))
+    rec = dict(lanes=L, source_columns=N, valid_lanes=nvalid, max_abs_err=got[-1],
+               pack_ms=tm_["ms"], plain_ms=tm_["plain_ms"], call_ms=tm_["call_ms"],
+               freeze_ms=device_ms(lambda: obj.freeze(x0), 50),
+               pose_to_normal_eq_ms=device_ms(lambda: obj.linearize(x0), 50),
+               bound_ms=b_ms, bound_by=b_by, bytes=nbytes, timing=tm_["timing"])
+    by_name["ndt_d2d"]["localization"] = rec
+    log(f"[kernels] ndt_d2d pack form at localization's first freeze, L = {L} ({nvalid} "
+        f"valid): the card's freeze valid equal to the CPU's, within tolerance of the plain "
+        f"version ({got[-1]:.3e}), {tm_['ms']:.5f} ms, plain {tm_['plain_ms']:.4f} ms; freeze "
+        f"{rec['freeze_ms']:.4f} ms, pose to [err, H, b] {rec['pose_to_normal_eq_ms']:.4f} "
+        f"ms; bound {b_ms:.3e} ms ({b_by})")
+    trials["localization"] = first_trial(lambda: _align(state, pts0, mask0, covs0, x0,
+                                                        loc.config))
+    trial_recs, points, hits, _err = trial_sweeps(dev, trials)
+    by_name["lm_step"]["by_path"].update(trial_recs)
+    return dict(update_map_card_vs_cpu=map_check, trial_points=points, trial_hits=hits)
+
+
+def phase_odometry(dev, records, path_launches, summary):
+    """Slice F's phases: the five odometry paths (`phase_odometry_main`),
+    the kernels on their inputs (`phase_odometry_kernels`) and the
+    equivalences (`phase_odometry_equivalences`)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    odometry_drive()
+    log(f"[odometry] drive: {ODOMETRY_FRAMES} frames, seed {ODOMETRY_SEED}, "
+        f"{ODOMETRY_DOWNSAMPLE} m downsample: {[len(c) for c in odometry_drive()[0][:8]]}... "
+        f"points, grid {odometry_drive()[2]} ({time.perf_counter() - t0:.1f} s)")
+    with tempfile.TemporaryDirectory() as tmp:
+        mapping = {"tmp": tmp}
+        for path in ODOMETRY_PATHS:
+            path_launches[path], summary[path] = phase_odometry_main(dev, path, mapping)
+        log(f"[total] {time.perf_counter() - T_START:.1f} s: odometry paths")
+        summary["odometry_kernels"] = phase_odometry_kernels(dev, records, mapping["map_path"])
+    summary["odometry_equivalences"] = phase_odometry_equivalences(dev)
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: odometry checks")
+
+
 def main() -> int:
     timing = {"--ndt-timing": ndt_timing, "--trial-timing": trial_timing,
               "--lin-timing": lin_timing}
     timing_only = (len(sys.argv) == 3 and sys.argv[1] in timing
                    or len(sys.argv) == 4 and sys.argv[1] == "--lin-timing")
+    odometry_only = sys.argv[1:] == ["--odometry"]
     if timing_only:  # time the kernels of the package under DIR
         sys.path.insert(0, str(pathlib.Path(sys.argv[2]).resolve()))
-    elif len(sys.argv) > 1:
-        print("usage: chip_smoke.py [--ndt-timing DIR | --trial-timing DIR | "
+    elif len(sys.argv) > 1 and not odometry_only:
+        print("usage: chip_smoke.py [--odometry | --ndt-timing DIR | --trial-timing DIR | "
               "--lin-timing DIR [REF]]", file=sys.stderr)
         return 2
     # phase 1: device
@@ -3692,6 +4423,15 @@ def main() -> int:
         if "registers" in line or "stack frame" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
 
+    if odometry_only:  # slice F's phases alone
+        records = [{"name": n} for n in ("rbf_moments", "knn_moments", "linearize_raw",
+                                         "linearize", "ndt_d2d")]
+        records.append({"name": "lm_step", "by_path": {}})
+        summary, path_launches = {}, {}
+        phase_odometry(dev, records, path_launches, summary)
+        print(json.dumps({"odometry": summary, "kernels": records,
+                          "launches_by_path": path_launches}))
+        return 0
     pair = synthetic_pair()
     if timing_only:
         import fast_gicp_tpu_torch
@@ -3739,6 +4479,7 @@ def main() -> int:
         summary[path]["card_vs_cpu"] = phase_batch_card_vs_cpu(dev, path)
         summary[path]["timing"] = phase_batch_timing(dev, path)
     log(f"[total] {time.perf_counter() - T_START:.1f} s: batches")
+    phase_odometry(dev, records, path_launches, summary)
     for path in PATHS:
         summary[path]["bench"] = phase_bench(dev, pair, path)
     for path in CLASS_PATHS:
@@ -3789,7 +4530,8 @@ def main() -> int:
              "grid_stride_ms", "pack_ms", "frozen_ms", "tiled_ms", "pose_to_normal_eq_ms",
              "eager_pose_to_normal_eq_ms", "valid_share", "pack_bound_ms", "form_registers",
              "form_launches_by_path", "unique_rows", "unique_cells", "bytes", "edge_cases",
-             "class_maps", "hash_path", "multipoint")
+             "class_maps", "hash_path", "multipoint", "scan_to_map", "localization",
+             "odometry_serial", "odometry_stream", "odometry_scan")
     work = ("candidates", "exact_candidates", "exact_search_ms", "source_cloud_ms",
             "pairs_visited", "pairs_in_range", "pairs_to_visit", "pairs_in_window",
             "pairs_visited_block_cull", "wide_slab_ms", "k48_ms")

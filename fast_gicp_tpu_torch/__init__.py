@@ -17,7 +17,11 @@ through the PCL-shaped class API (`FastGICP`, `FastGICPSingleThread`,
     two-phase) and the class `NDTCuda` (alias `NDT`);
   * `models.experimental.FastGICPMultiPoints` (weighted multi-point
     correspondences), `models.batch` (B pairs a call) and `pygicp`
-    (`align_points` and the pygicp names).
+    (`align_points` and the pygicp names);
+  * odometry: `models.scan_to_map.ScanToMapOdometry` (a persistent world
+    voxel map each scan is aligned to and fused into, localization on a
+    frozen map), the scan-to-scan odometry of `utils.kitti` and the KITTI
+    app (`python -m fast_gicp_tpu_torch.apps.kitti`).
 Their fifteen kernels are hand-written CUDA C++ (`csrc/*.cu`), built with
 nvcc for sm_90a at first use; each has a plain PyTorch twin that runs for
 CPU tensors.
@@ -51,6 +55,15 @@ from .models.ndt import (  # noqa: F401
     ndt_evaluate,
     ndt_prepare_cloud,
     ndt_register_fresh,
+)
+from .models.scan_to_map import (  # noqa: F401
+    MapState,
+    ScanToMapConfig,
+    ScanToMapOdometry,
+    align_to_map,
+    load_map,
+    save_map,
+    update_map,
 )
 from .models.vgicp import (  # noqa: F401
     FastVGICP,

@@ -6,6 +6,7 @@ without CUDA the default raises instead of dropping silently to the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -31,3 +32,14 @@ def as_f32(a, device: torch.device) -> torch.Tensor:
 def as_bool(a, device: torch.device) -> torch.Tensor:
     """numpy array or tensor -> bool tensor on `device`."""
     return torch.as_tensor(a, device=device).to(torch.bool)
+
+
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on `device` (same dtype) with no host sync:
+    to CUDA it is staged in pinned memory and copied asynchronously on the
+    current stream (a copy from pageable memory waits for the stream to
+    drain).  The odometry uploads every scan this way."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -181,8 +181,10 @@ class Registration:
         if channels is not None:
             ch = np.zeros((padded.shape[0], channels.shape[1]), np.float32)
             ch[: len(channels)] = channels
-        return Cloud(points=_device.as_f32(padded, self.device),
-                     mask=_device.as_bool(mask, self.device), size=int(mask.sum()),
+        # uploaded from pinned memory: no host sync (the odometry loop
+        # ingests a scan a frame)
+        return Cloud(points=_device.upload(padded, self.device),
+                     mask=_device.upload(mask, self.device), size=int(mask.sum()),
                      host_points=padded, channels=ch)
 
     def set_input_source(self, points: np.ndarray, channels=None) -> None:

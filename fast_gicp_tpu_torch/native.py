@@ -3,9 +3,11 @@
 
 The port uses its multithreaded kd-tree kNN: the reference's
 CPU_PARALLEL_KDTREE covariance feeder (fast_vgicp_cuda_impl.hpp:152-167),
-host code that hands neighbour lists to the device.  Without the built
-library `knn_search` falls back to an exact numpy search; `available()`
-says which one runs.
+host code that hands neighbour lists to the device; and its single-pass
+`absmax` and int16 `quantize_i16`, which stage the ragged int16 upload of
+`utils/kitti.run_odometry_scan`.  Without the built library each falls
+back to numpy (an exact search; the same rint rounding, ties to even);
+`available()` and `quantize_available()` say which one runs.
 """
 
 from __future__ import annotations
@@ -39,6 +41,12 @@ def _load() -> Optional[ctypes.CDLL]:
                 f32p, ctypes.c_int, f32p, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, i32p, f32p,
             ]
+            if hasattr(lib, "absmax_f32"):  # builds of the library since the int16 upload
+                lib.absmax_f32.restype = ctypes.c_float
+                lib.absmax_f32.argtypes = [f32p, ctypes.c_longlong]
+                lib.quantize_i16.restype = None
+                lib.quantize_i16.argtypes = [f32p, ctypes.c_longlong, ctypes.c_float,
+                                             ctypes.POINTER(ctypes.c_int16)]
             _lib = lib
             return lib
     return None
@@ -91,3 +99,38 @@ def knn_search(points: np.ndarray, queries: np.ndarray, k: int,
     lib.knn_search(_f32p(points), points.shape[0], _f32p(queries), nq, k,
                    n_threads, _i32p(idx), _f32p(dist))
     return idx, dist
+
+
+def quantize_available() -> bool:
+    """Whether the native `absmax` and `quantize_i16` run (else numpy)."""
+    lib = _load()
+    return lib is not None and hasattr(lib, "absmax_f32")
+
+
+def absmax(a: np.ndarray) -> float:
+    """max(|a|) over a float32 array, in one native pass (numpy without the
+    library); NaN propagates in both."""
+    a = np.ascontiguousarray(a, np.float32)
+    if not quantize_available():
+        return float(np.max(np.abs(a))) if a.size else 0.0
+    return float(_lib.absmax_f32(_f32p(a), ctypes.c_longlong(a.size)))
+
+
+def quantize_i16(src: np.ndarray, inv_scale: float, out: np.ndarray) -> None:
+    """out[:] = rint(src * inv_scale) as int16, the product in float32 and
+    ties rounded to even, in one native pass (numpy without the library).
+
+    `out` must be C-contiguous int16 of src's size (it is written through);
+    a `src` that is not contiguous float32 is copied first."""
+    if out.dtype != np.int16 or out.size != src.size:
+        raise ValueError(f"out must be int16 with {src.size} elements, got "
+                         f"{out.dtype}/{out.size}")
+    if not out.flags.c_contiguous:
+        raise ValueError("out must be C-contiguous (it is written through)")
+    src = np.ascontiguousarray(src, np.float32)
+    if not quantize_available():
+        np.copyto(out.reshape(src.shape),
+                  np.rint(src * np.float32(inv_scale)).astype(np.int16))
+        return
+    _lib.quantize_i16(_f32p(src), ctypes.c_longlong(src.size), ctypes.c_float(inv_scale),
+                      out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)))

@@ -331,6 +331,48 @@ def auto_grid_dims_from_extent(
     return dims
 
 
+def auto_grid_dims_multi(clouds, resolution: float, **kwargs):
+    """`auto_grid_dims` over the exact union of several clouds' extents:
+    only each cloud's min and max rows are read, and no frame of a sequence
+    can see past the grid (an out-of-grid voxel parks on the sentinel row
+    and is lost to the map)."""
+    rows = [np.stack([c.min(axis=0), c.max(axis=0)])
+            for c in (np.asarray(c) for c in clouds) if c.size]
+    if not rows:
+        return None
+    return auto_grid_dims(np.concatenate(rows), resolution, **kwargs)
+
+
+def device_downsample(points, mask, resolution, out_capacity: int, grid_dims):
+    """Voxel-grid downsample on the points' device: the centroid of each
+    occupied cell of a dense grid, compacted into a fixed-size cloud.
+
+    Each point goes to the lowest point index that claims its cell (the
+    dense grids' scatter-min), a scatter-add sums [1, p] there, and the
+    occupied rows are compacted in ascending index (`compact_ids`); no
+    value is read to the host.  Returns (points (out_capacity, 3), valid
+    (out_capacity,), n_live (), n_out_of_grid ()): cells beyond
+    `out_capacity` (the highest representative indices) are dropped, and
+    n_out_of_grid counts the masked-in points outside the grid (also
+    dropped); check both at a sync."""
+    n = points.shape[0]
+    dtype = points.dtype
+    _coords, _origin, inside, _grid, vid = _claim(points, mask, resolution, grid_dims)
+    contrib = torch.cat([torch.ones((n, 1), dtype=dtype, device=points.device), points],
+                        dim=1) * inside.to(dtype)[:, None]
+    acc = torch.zeros((n + 1, 4), dtype=dtype, device=points.device)
+    acc.index_add_(0, vid, contrib)
+    counts = acc[:n, 0]
+    means = acc[:n, 1:4] / torch.clamp(counts, min=1.0)[:, None]
+    live = counts > 0
+    idx, n_live = compact_ids(live, out_capacity, fill=n - 1)
+    valid = torch.arange(out_capacity, device=points.device) < torch.clamp(n_live,
+                                                                          max=out_capacity)
+    pts = means[idx] * valid[:, None].to(dtype)
+    n_out = mask.sum() - inside.sum()
+    return pts, valid, n_live, n_out
+
+
 def neighbor_offsets(method: str, radius: float = 1.5):
     """Static (K, 3) int32 offset list per search method
     (fast_vgicp_voxel.hpp:10-44; RADIUS = all integer offsets with

@@ -150,18 +150,48 @@ def se3_log(T):
     return torch.cat([omega, rho], dim=-1)
 
 
+def orthonormalize(T):
+    """Project the rotation block of (..., 4, 4) back onto SO(3) by
+    Gram-Schmidt over its columns, keeping the translation.
+
+    Feedback loops of the form delta <- inv(prev) @ align(prev @ delta)
+    double the rotation's orthonormality defect every iteration (the
+    transpose-based rigid inverse is an inverse only for exact rotations),
+    so the f32 rounding seed (~1e-7) walks to O(0.1) within ~20 frames.
+    Re-projecting once a frame keeps the defect at rounding level."""
+    R = T[..., :3, :3]
+    c0 = R[..., :, 0]
+    c0 = c0 / torch.linalg.vector_norm(c0, dim=-1, keepdim=True)
+    c1 = R[..., :, 1]
+    c1 = c1 - torch.sum(c0 * c1, dim=-1, keepdim=True) * c0
+    c1 = c1 / torch.linalg.vector_norm(c1, dim=-1, keepdim=True)
+    c2 = torch.linalg.cross(c0, c1, dim=-1)
+    return make_transform(torch.stack([c0, c1, c2], dim=-1), T[..., :3, 3])
+
+
 def make_transform(R, t):
     """4x4 homogeneous transform from R (..., 3, 3) and t (..., 3)."""
     T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
     T[..., :3, :3] = R
     T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
+    T[..., 3, 3].fill_(1.0)  # a fill: assigning a Python float here copies from the host
     return T
 
 
 def transform_points(T, points):
     """Apply a 4x4 transform to (..., N, 3) points."""
     return points @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
+
+
+def rotate_covs(R, covs):
+    """R C R^T for (N, 3, 3) covariances."""
+    return torch.einsum("ij,njk,lk->nil", R, covs, R)
+
+
+def invert_transform(T):
+    """Inverse of a rigid (..., 4, 4) transform: [R^T | -R^T t]."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return make_transform(Rt, -torch.einsum("...ij,...j->...i", Rt, T[..., :3, 3]))
 
 
 def rotation_angle(R):

@@ -29,7 +29,8 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import fast_gicp_tpu_torch.native, fast_gicp_tpu_torch.models.base\n"
         "import fast_gicp_tpu_torch.models.vgicp, fast_gicp_tpu_torch.ops.voxelmap\n"
         "import fast_gicp_tpu_torch.models.experimental, fast_gicp_tpu_torch.models.batch\n"
-        "import fast_gicp_tpu_torch.pygicp\n"
+        "import fast_gicp_tpu_torch.pygicp, fast_gicp_tpu_torch.models.scan_to_map\n"
+        "import fast_gicp_tpu_torch.utils.kitti, fast_gicp_tpu_torch.apps.kitti\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -582,10 +583,55 @@ def test_slab_and_radius_wrappers_raise_for_tensors_on_other_devices():
 @pytest.mark.parametrize("path", sorted((PKG / "ops").glob("cuda_*.py"))
                          + [PKG / "ops" / "covariance.py", PKG / "ops" / "neighbors.py",
                             PKG / "models" / "ndt.py", PKG / "models" / "experimental.py",
-                            PKG / "models" / "batch.py", PKG / "pygicp.py"],
+                            PKG / "models" / "batch.py", PKG / "pygicp.py",
+                            PKG / "models" / "scan_to_map.py", PKG / "utils" / "kitti.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_kernel_modules_have_no_try(path):
     """A wrapper launches its kernel or raises: no try/except that could
     fall back to the plain version."""
     tree = ast.parse(path.read_text())
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], path
+
+
+def test_odometry_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
+    """Slice F: the persistent map's constructors and functional calls,
+    `ScanToMapOdometry`, the odometry functions and the KITTI app's twin run
+    on the card unless the caller asks for the CPU; with device="cpu" they
+    run there."""
+    from fast_gicp_tpu_torch.apps import kitti as app
+    from fast_gicp_tpu_torch.models import scan_to_map as stm
+    from fast_gicp_tpu_torch.utils import kitti
+
+    cpu_map = stm.empty_map(256, 1.0, device="cpu")
+    path = str(tmp_path / "map.npz")
+    stm.save_map(path, cpu_map)
+    (tmp_path / "000000.bin").write_bytes(np.zeros((8, 4), np.float32).tobytes())
+    (tmp_path / "000001.bin").write_bytes(np.zeros((8, 4), np.float32).tobytes())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.zeros((2048, 3), np.float32)
+    mask = np.ones(2048, bool)
+    covs = np.tile(np.eye(3, dtype=np.float32), (2048, 1, 1))
+    eye = np.eye(4, dtype=np.float32)
+    scans = [pts[:100], pts[:100]]
+    calls = [
+        lambda **kw: stm.empty_map(256, 1.0, **kw),
+        lambda **kw: stm.load_map(path, **kw),
+        lambda **kw: stm.map_from_voxels(np.zeros((1, 13), np.float32),
+                                         np.zeros((1, 3), np.int32), 1.0, **kw),
+        lambda **kw: stm.merge_maps(cpu_map, cpu_map, **kw),
+        lambda **kw: stm.update_map(cpu_map, pts, covs, mask, **kw),
+        lambda **kw: stm.align_to_map(cpu_map, pts, mask, covs, eye, **kw),
+        lambda **kw: stm.ScanToMapOdometry(**kw),
+        lambda **kw: kitti.run_odometry_batched(scans, **kw),
+        lambda **kw: kitti.run_odometry_stream(scans, **kw),
+        lambda **kw: kitti.run_odometry_scan(scans, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        app.main([str(tmp_path), "--mode", "map", "--out", str(tmp_path / "t.txt")])
+    assert stm.ScanToMapOdometry(device="cpu").state.sums.device.type == "cpu"
+    assert stm.load_map(path, device="cpu").lut.device.type == "cpu"
+    state = stm.update_map(cpu_map, pts, covs, mask, device="cpu")
+    assert state.sums.device.type == "cpu" and int(state.num_voxels) == 1

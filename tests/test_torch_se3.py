@@ -81,3 +81,44 @@ def test_cholesky_solve_matches_jax():
     want = np.asarray(jlinalg3.cholesky_solve(jnp.asarray(H), jnp.asarray(b)))
     got = linalg3.cholesky_solve(torch.as_tensor(H), torch.as_tensor(b)).numpy()
     np.testing.assert_allclose(got, want, atol=TOL, rtol=1e-5)
+
+
+def _noisy_poses():
+    """Poses whose rotation blocks carry a defect, as a chain of f32
+    inverse-and-compose steps leaves them, and exact ones; batched."""
+    rng = np.random.default_rng(11)
+    T = np.array(jse3.se3_exp(jnp.asarray(_twists())))
+    T[:, :3, :3] += rng.normal(size=(len(T), 3, 3)).astype(np.float32) * 1e-3
+    return T.astype(np.float32)
+
+
+def test_orthonormalize_matches_jax():
+    """Gram-Schmidt onto SO(3) of batched and single poses: within TOL of
+    JAX's, R^T R = I and det R = 1 to f32 rounding, the translation kept."""
+    T = _noisy_poses()
+    want = np.asarray(jse3.orthonormalize(jnp.asarray(T)))
+    got = se3.orthonormalize(torch.as_tensor(T)).numpy()
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+    np.testing.assert_allclose(se3.orthonormalize(torch.as_tensor(T[3])).numpy(), want[3],
+                               atol=TOL, rtol=0)
+    R = got[:, :3, :3].astype(np.float64)
+    np.testing.assert_allclose(R.transpose(0, 2, 1) @ R, np.broadcast_to(np.eye(3), R.shape),
+                               atol=1e-6)
+    np.testing.assert_allclose(np.linalg.det(R), 1.0, atol=1e-6)
+    np.testing.assert_array_equal(got[:, :3, 3], T[:, :3, 3])
+
+
+def test_invert_transform_and_rotate_covs_match_jax():
+    T = np.array(jse3.se3_exp(jnp.asarray(_twists())))
+    want = np.asarray(jse3.invert_transform(jnp.asarray(T)))
+    got = se3.invert_transform(torch.as_tensor(T)).numpy()
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+    np.testing.assert_allclose((torch.as_tensor(T) @ torch.as_tensor(got)).numpy(),
+                               np.broadcast_to(np.eye(4), T.shape), atol=1e-5)
+    rng = np.random.default_rng(3)
+    A = rng.normal(size=(50, 3, 3)).astype(np.float32)
+    covs = A @ A.transpose(0, 2, 1)
+    R = T[2, :3, :3]
+    want = np.asarray(jse3.rotate_covs(jnp.asarray(R), jnp.asarray(covs)))
+    got = se3.rotate_covs(torch.as_tensor(R), torch.as_tensor(covs)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
