@@ -21,9 +21,16 @@ through the PCL-shaped class API (`FastGICP`, `FastGICPSingleThread`,
   * odometry: `models.scan_to_map.ScanToMapOdometry` (a persistent world
     voxel map each scan is aligned to and fused into, localization on a
     frozen map), the scan-to-scan odometry of `utils.kitti` and the KITTI
-    app (`python -m fast_gicp_tpu_torch.apps.kitti`).
-Their fifteen kernels are hand-written CUDA C++ (`csrc/*.cu`), built with
-nvcc for sm_90a at first use; each has a plain PyTorch twin that runs for
+    app (`python -m fast_gicp_tpu_torch.apps.kitti`);
+  * the SLAM back-end: `models.loop_closure.detect_loop_closures`
+    (candidates from the trajectory, verified by NDT then VGICP), the dense
+    `models.pose_graph.optimize_pose_graph`, the sparse
+    `models.pose_graph_sparse.optimize_pose_graph_sparse` (block-PCG with
+    a block-tridiagonal preconditioner, `ops.cuda_pose_graph`) and
+    `SlidingWindowBA`.
+Their kernels are hand-written CUDA C++ (`csrc/*.cu`), built with
+nvcc for sm_90a at first use: the fifteen ports of the JAX package's
+Pallas kernels and the block-tridiagonal solve; each has a plain PyTorch twin that runs for
 CPU tensors.
 
 This package imports torch and numpy only: never jax and never the JAX
@@ -45,6 +52,12 @@ from .models.gicp import (  # noqa: F401
     gicp_evaluate,
     gicp_register_fresh,
 )
+from .models.loop_closure import (  # noqa: F401
+    LoopClosure,
+    LoopClosureConfig,
+    detect_loop_closures,
+    find_loop_candidates,
+)
 from .models.metrics import fitness_score  # noqa: F401
 from .models.ndt import (  # noqa: F401
     NDT,
@@ -55,6 +68,16 @@ from .models.ndt import (  # noqa: F401
     ndt_evaluate,
     ndt_prepare_cloud,
     ndt_register_fresh,
+)
+from .models.pose_graph import (  # noqa: F401
+    PoseGraphConfig,
+    PoseGraphResult,
+    optimize_pose_graph,
+)
+from .models.pose_graph_sparse import (  # noqa: F401
+    SlidingWindowBA,
+    SparsePGConfig,
+    optimize_pose_graph_sparse,
 )
 from .models.scan_to_map import (  # noqa: F401
     MapState,

@@ -16,7 +16,10 @@ import torch
 from . import device as _device
 from .models.experimental import MultiPointConfig
 from .models.gicp import GICPConfig
+from .models.loop_closure import LoopClosureConfig
 from .models.ndt import NDTConfig
+from .models.pose_graph import PoseGraphConfig, PoseGraphResult
+from .models.pose_graph_sparse import SlidingWindowBA, SparsePGConfig
 from .models.vgicp import VGICPConfig
 from .ops import soa
 from .ops.voxelmap import DenseRawGridMap, GridVoxelMap, NdtGridMap, RawNdtGrid, VoxelMap
@@ -24,9 +27,14 @@ from .solver import LsqConfig, LsqResult
 
 
 def config_from_jax(cfg):
-    """A JAX `VGICPConfig`, `GICPConfig`, `NDTConfig`, `MultiPointConfig`
-    or `LsqConfig` (any object with the same field names) -> the port's
-    config of the same kind."""
+    """A JAX `VGICPConfig`, `GICPConfig`, `NDTConfig`, `MultiPointConfig`,
+    `LsqConfig`, `PoseGraphConfig`, `SparsePGConfig` or `LoopClosureConfig`
+    (any object with the same field names) -> the port's config of the same
+    kind."""
+    for kind, field in ((SparsePGConfig, "cg_iterations"), (LoopClosureConfig, "min_gap"),
+                        (PoseGraphConfig, "gauge_weight")):
+        if hasattr(cfg, field):
+            return kind(**{f: getattr(cfg, f) for f in kind._fields})
     if hasattr(cfg, "lsq"):
         kind = (NDTConfig if hasattr(cfg, "distance_mode")
                 else MultiPointConfig if hasattr(cfg, "search_radius")
@@ -140,3 +148,29 @@ def lsq_result_to_numpy(res) -> LsqResult:
         converged=bool(_to_numpy(res.converged)),
         iterations=int(_to_numpy(res.iterations)),
     )
+
+
+def pose_graph_result_to_numpy(res) -> PoseGraphResult:
+    """A `PoseGraphResult` of either package -> one with numpy fields (poses
+    array, error float, iterations int, converged bool)."""
+    return PoseGraphResult(
+        poses=_to_numpy(res.poses),
+        error=float(_to_numpy(res.error)),
+        iterations=int(_to_numpy(res.iterations)),
+        converged=bool(_to_numpy(res.converged)),
+    )
+
+
+def sliding_window_from_numpy(ba, device="cuda") -> SlidingWindowBA:
+    """A JAX `SlidingWindowBA` (any object with its fields) -> the port's,
+    solving on `device`, with the same window, config, poses, edges (global
+    indices), base, prior pose and prior information, so both can go on
+    from the same state."""
+    out = SlidingWindowBA(window=ba.window, config=config_from_jax(ba.config), device=device)
+    out.poses = [np.array(p, np.float32) for p in ba.poses]
+    out.edges = [(int(i), int(j), np.array(rel, np.float32), np.array(info, np.float32))
+                 for (i, j, rel, info) in ba.edges]
+    out.base = int(ba.base)
+    out.prior_pose = None if ba.prior_pose is None else np.array(ba.prior_pose, np.float32)
+    out.prior_info = None if ba.prior_info is None else np.array(ba.prior_info, np.float32)
+    return out

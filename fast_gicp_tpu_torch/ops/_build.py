@@ -7,7 +7,7 @@ first kernel launch and is cached under `fast_gicp_tpu_torch/_build/` by a
 hash of the sources and flags, so a fresh checkout builds once and later
 processes load the cached library.  Precise `expf`/`sinf`/`cosf`/`sqrtf`
 are required, so there is no `--use_fast_math`.  The linearize (GICP and
-NDT), error and LM-trial kernels are compiled without FMA contraction
+NDT), error, LM-trial and block-tridiagonal kernels are compiled without FMA contraction
 (`-fmad=false`): they are bound by bytes and launches, not operations, and
 so their per-element results round as the plain PyTorch versions do, which
 keeps the Mahalanobis inverses of near-singular sums (aux) and the 6x6
@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v", ARCH)
-NO_FMA = ("linearize.cu", "lm_trial.cu", "ndt_linearize.cu",
+NO_FMA = ("block_tridiag.cu", "linearize.cu", "lm_trial.cu", "ndt_linearize.cu",
           "trial_error.cu")  # -fmad=false
 
 _lock = threading.Lock()

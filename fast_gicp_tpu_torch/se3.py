@@ -5,6 +5,10 @@ switch (theta^2 < 1e-10, so3.hpp:64), rotation-first `se3_exp` with the
 V-matrix on the translation, their logarithms, and the target-centroid
 frame conjugations used by every align.  Branchless (`torch.where`) and
 batched over leading dims; the twist convention is ``xi = [omega, rho]``.
+The exp/log maps keep each pose's scalars as (..., 1) tensors and
+`make_transform` builds out of place, so `torch.func.jacfwd` and `vmap` go
+through them (under jacfwd a 0-dim tensor times a Python float gets a
+float64 tangent; vmap refuses an in-place store of a batched tensor).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ def skew(v):
 def so3_exp(omega):
     """so(3) -> SO(3) through the unit quaternion, with the 4th-order
     Taylor expansions of sin(t/2)/t and cos(t/2) for theta^2 < 1e-10."""
-    theta_sq = torch.sum(omega * omega, dim=-1)
+    theta_sq = torch.sum(omega * omega, dim=-1, keepdim=True)
     small = theta_sq < _SMALL_ANGLE_SQ
     theta = torch.sqrt(torch.where(small, torch.ones_like(theta_sq), theta_sq))
     theta_quad = theta_sq * theta_sq
@@ -42,26 +46,21 @@ def so3_exp(omega):
     half_theta = 0.5 * theta
     imag = torch.where(small, imag_taylor, torch.sin(half_theta) / theta)
     real = torch.where(small, real_taylor, torch.cos(half_theta))
-    return _quat_to_matrix(
-        real, imag * omega[..., 0], imag * omega[..., 1], imag * omega[..., 2]
-    )
+    q = imag * omega
+    return _quat_to_matrix(real, q[..., 0:1], q[..., 1:2], q[..., 2:3])
 
 
 def _quat_to_matrix(w, x, y, z):
+    """Rotation matrix (..., 3, 3) of the unit quaternion whose components
+    are (..., 1) tensors."""
     xx, yy, zz = x * x, y * y, z * z
     xy, xz, yz = x * y, x * z, y * z
     wx, wy, wz = w * x, w * y, w * z
     return torch.stack(
         [
-            torch.stack(
-                [1.0 - 2.0 * (yy + zz), 2.0 * (xy - wz), 2.0 * (xz + wy)], -1
-            ),
-            torch.stack(
-                [2.0 * (xy + wz), 1.0 - 2.0 * (xx + zz), 2.0 * (yz - wx)], -1
-            ),
-            torch.stack(
-                [2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (xx + yy)], -1
-            ),
+            torch.cat([1.0 - 2.0 * (yy + zz), 2.0 * (xy - wz), 2.0 * (xz + wy)], -1),
+            torch.cat([2.0 * (xy + wz), 1.0 - 2.0 * (xx + zz), 2.0 * (yz - wx)], -1),
+            torch.cat([2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (xx + yy)], -1),
         ],
         dim=-2,
     )
@@ -72,7 +71,7 @@ def se3_exp(xi):
     V = I + (1-cos)/t^2 W + (t-sin)/t^3 W^2, and V := R for tiny theta."""
     omega = xi[..., :3]
     rho = xi[..., 3:6]
-    theta_sq = torch.sum(omega * omega, dim=-1)
+    theta_sq = torch.sum(omega * omega, dim=-1, keepdim=True)
     small = theta_sq < _SMALL_ANGLE_SQ
     ts_safe = torch.where(small, torch.ones_like(theta_sq), theta_sq)
     theta = torch.sqrt(ts_safe)
@@ -83,8 +82,8 @@ def se3_exp(xi):
     a = (1.0 - torch.cos(theta)) / ts_safe
     b = (theta - torch.sin(theta)) / (ts_safe * theta)
     eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
-    V_exact = eye + a[..., None, None] * W + b[..., None, None] * W_sq
-    V = torch.where(small[..., None, None], R, V_exact)
+    V_exact = eye + a[..., None] * W + b[..., None] * W_sq
+    V = torch.where(small[..., None], R, V_exact)
     t = torch.einsum("...ij,...j->...i", V, rho)
     return make_transform(R, t)
 
@@ -93,7 +92,7 @@ def so3_log(R):
     """SO(3) -> so(3) rotation vector for theta in [0, pi], with the
     Taylor-guarded theta/sin(theta) factor and the symmetric-part axis
     recovery near theta = pi (same branches as the JAX version)."""
-    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    trace = R[..., 0, 0:1] + R[..., 1, 1:2] + R[..., 2, 2:3]
     cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0 + 1e-7, 1.0)
     v = torch.stack(
         [
@@ -110,9 +109,9 @@ def so3_log(R):
     ts_small = torch.clamp(3.0 - trace, min=0.0)
     sin_safe = torch.where(sin_t.abs() < 1e-10, torch.ones_like(sin_t), sin_t)
     factor = torch.where(small, 0.5 + ts_small / 12.0, theta / (2.0 * sin_safe))
-    omega_main = v * factor[..., None]
+    omega_main = v * factor
     eye = torch.eye(3, dtype=R.dtype, device=R.device)
-    S = 0.5 * (R + R.transpose(-1, -2)) - cos_t[..., None, None] * eye
+    S = 0.5 * (R + R.transpose(-1, -2)) - cos_t[..., None] * eye
     diag = torch.stack([S[..., 0, 0], S[..., 1, 1], S[..., 2, 2]], dim=-1)
     col = torch.argmax(diag, dim=-1)
     axis_raw = torch.gather(
@@ -124,8 +123,8 @@ def so3_log(R):
     sign = torch.where(
         torch.sum(axis * v, dim=-1, keepdim=True) < 0, -1.0, 1.0
     ).to(R.dtype)
-    omega_pi = axis * sign * theta[..., None]
-    return torch.where((theta > 3.0)[..., None], omega_pi, omega_main)
+    omega_pi = axis * sign * theta
+    return torch.where(theta > 3.0, omega_pi, omega_main)
 
 
 def se3_log(T):
@@ -134,7 +133,7 @@ def se3_log(T):
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     omega = so3_log(R)
-    theta_sq = torch.sum(omega * omega, dim=-1)
+    theta_sq = torch.sum(omega * omega, dim=-1, keepdim=True)
     small = theta_sq < _SMALL_ANGLE_SQ
     ts_safe = torch.where(small, torch.ones_like(theta_sq), theta_sq)
     theta = torch.sqrt(ts_safe)
@@ -145,7 +144,7 @@ def se3_log(T):
     coef_exact = 1.0 / ts_safe - (1.0 + cos_t) / (2.0 * theta * sin_safe)
     coef = torch.where(small, 1.0 / 12.0 + theta_sq / 720.0, coef_exact)
     eye = torch.eye(3, dtype=T.dtype, device=T.device).expand(W.shape)
-    V_inv = eye - 0.5 * W + coef[..., None, None] * W_sq
+    V_inv = eye - 0.5 * W + coef[..., None] * W_sq
     rho = torch.einsum("...ij,...j->...i", V_inv, t)
     return torch.cat([omega, rho], dim=-1)
 
@@ -170,12 +169,14 @@ def orthonormalize(T):
 
 
 def make_transform(R, t):
-    """4x4 homogeneous transform from R (..., 3, 3) and t (..., 3)."""
-    T = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
-    T[..., :3, :3] = R
-    T[..., :3, 3] = t
-    T[..., 3, 3].fill_(1.0)  # a fill: assigning a Python float here copies from the host
-    return T
+    """4x4 homogeneous transform from R (..., 3, 3) and t (..., 3).  Built
+    out of place, so that torch.func's jacfwd and vmap go through it; the
+    bottom row is a fill (assigning a Python float into a CUDA tensor
+    copies from the host)."""
+    top = torch.cat([R, t[..., None]], dim=-1)
+    bottom = torch.zeros_like(top[..., :1, :])
+    bottom[..., 3].fill_(1.0)
+    return torch.cat([top, bottom], dim=-2)
 
 
 def transform_points(T, points):

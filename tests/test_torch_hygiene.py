@@ -31,6 +31,8 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import fast_gicp_tpu_torch.models.experimental, fast_gicp_tpu_torch.models.batch\n"
         "import fast_gicp_tpu_torch.pygicp, fast_gicp_tpu_torch.models.scan_to_map\n"
         "import fast_gicp_tpu_torch.utils.kitti, fast_gicp_tpu_torch.apps.kitti\n"
+        "import fast_gicp_tpu_torch.models.pose_graph, fast_gicp_tpu_torch.models.loop_closure\n"
+        "import fast_gicp_tpu_torch.models.pose_graph_sparse, fast_gicp_tpu_torch.ops.cuda_pose_graph\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -584,7 +586,9 @@ def test_slab_and_radius_wrappers_raise_for_tensors_on_other_devices():
                          + [PKG / "ops" / "covariance.py", PKG / "ops" / "neighbors.py",
                             PKG / "models" / "ndt.py", PKG / "models" / "experimental.py",
                             PKG / "models" / "batch.py", PKG / "pygicp.py",
-                            PKG / "models" / "scan_to_map.py", PKG / "utils" / "kitti.py"],
+                            PKG / "models" / "scan_to_map.py", PKG / "utils" / "kitti.py",
+                            PKG / "models" / "pose_graph.py", PKG / "models" / "pose_graph_sparse.py",
+                            PKG / "models" / "loop_closure.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_kernel_modules_have_no_try(path):
     """A wrapper launches its kernel or raises: no try/except that could
@@ -635,3 +639,86 @@ def test_odometry_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
     assert stm.load_map(path, device="cpu").lut.device.type == "cpu"
     state = stm.update_map(cpu_map, pts, covs, mask, device="cpu")
     assert state.sums.device.type == "cpu" and int(state.num_voxels) == 1
+
+
+def test_back_end_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    """The SLAM back-end (the dense and sparse pose graphs, SlidingWindowBA,
+    loop-closure verification and detection, the window carried from the
+    JAX package) runs on the card unless the caller asks for the CPU."""
+    from fast_gicp_tpu_torch import convert
+    from fast_gicp_tpu_torch.models import loop_closure as lc
+    from fast_gicp_tpu_torch.models import pose_graph as pg
+    from fast_gicp_tpu_torch.models import pose_graph_sparse as pgs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    poses = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    ei, ej = np.array([0, 1], np.int32), np.array([1, 2], np.int32)
+    rel = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+    scan = np.random.default_rng(0).normal(size=(64, 3)).astype(np.float32)
+    window = pgs.SlidingWindowBA(window=4, device="cpu")
+    window.add_keyframe(rel[0])
+    calls = [
+        lambda **kw: pg.optimize_pose_graph(poses, ei, ej, rel, **kw),
+        lambda **kw: pgs.optimize_pose_graph_sparse(poses, ei, ej, rel, **kw),
+        lambda **kw: pgs.SlidingWindowBA(**kw),
+        lambda **kw: lc.verify_closure(scan, scan, np.eye(4), **kw),
+        lambda **kw: lc.detect_loop_closures([scan] * 12, [np.eye(4)] * 12, **kw),
+        lambda **kw: convert.sliding_window_from_numpy(window, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    res = pg.optimize_pose_graph(poses, ei, ej, rel, device="cpu")
+    assert res.poses.device.type == "cpu" and bool(res.converged)
+    res = pgs.optimize_pose_graph_sparse(poses, ei, ej, rel, device="cpu")
+    assert res.poses.device.type == "cpu" and bool(res.converged)
+    assert convert.sliding_window_from_numpy(window, device="cpu").device.type == "cpu"
+
+
+def _tridiag_inputs(device, K=5):
+    rng = np.random.default_rng(0)
+    B = rng.normal(size=(K, 6, 6)).astype(np.float32)
+    D = torch.as_tensor(B @ B.transpose(0, 2, 1) + 6 * np.eye(6, dtype=np.float32),
+                        device=device)
+    U = torch.as_tensor(0.1 * rng.normal(size=(K, 6, 6)).astype(np.float32), device=device)
+    r = torch.as_tensor(rng.normal(size=(K, 6)).astype(np.float32), device=device)
+    return D, U, r
+
+
+def test_block_tridiag_wrappers_take_plain_version_on_cpu_without_counting():
+    from fast_gicp_tpu_torch.ops import cuda_pose_graph as cpg
+
+    cpg.block_tridiag_factor.launches = cpg.block_tridiag_apply.launches = 0
+    D, U, r = _tridiag_inputs("cpu")
+    Cinv, G = cpg.block_tridiag_factor(D, U)
+    x = cpg.block_tridiag_apply(Cinv, G, U, r)
+    assert x.shape == (5, 6) and x.device.type == "cpu"
+    A = torch.zeros((30, 30))
+    for k in range(5):
+        A[6 * k:6 * k + 6, 6 * k:6 * k + 6] = D[k]
+        if k < 4:
+            A[6 * k:6 * k + 6, 6 * k + 6:6 * k + 12] = U[k]
+            A[6 * k + 6:6 * k + 12, 6 * k:6 * k + 6] = U[k].T
+    assert float((A @ x.reshape(-1) - r.reshape(-1)).abs().max()) < 1e-4
+    assert cpg.block_tridiag_factor.launches == 0 and cpg.block_tridiag_apply.launches == 0
+
+
+def test_block_tridiag_wrappers_raise_for_tensors_on_other_devices():
+    """No fallback: a tensor not on the CPU never takes the plain version;
+    mixed devices, another device than CUDA and bad shapes are refused."""
+    from fast_gicp_tpu_torch.ops import cuda_pose_graph as cpg
+
+    D, U, r = _tridiag_inputs("meta")
+    cD, cU, cr = _tridiag_inputs("cpu")
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        cpg.block_tridiag_factor(D, U)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        cpg.block_tridiag_apply(D, U, U, r)
+    with pytest.raises(ValueError, match="several devices"):
+        cpg.block_tridiag_factor(cD, U)
+    with pytest.raises(ValueError, match="several devices"):
+        cpg.block_tridiag_apply(cD, cD, cU, r)
+    with pytest.raises(ValueError, match="float32"):
+        cpg.block_tridiag_factor(cD, cU[:4])
+    with pytest.raises(ValueError, match="float32"):
+        cpg.block_tridiag_apply(cD, cD, cU, cr[:, :3])
