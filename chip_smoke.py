@@ -51,7 +51,7 @@ pose), `optimize_pose_graph_sparse` over the 512 poses (odometry edges at
 1e2 I, the closures at their Hessians; the end error must fall), on the
 JAX test's 1k graph (the end drift under 0.3x), dense against sparse on a
 10-pose graph (within 2e-3), and `SlidingWindowBA` (window 20) over the
-drive's relatives, a solve every 32 keyframes, and on the 30-keyframe
+drive's first 256 relatives, a solve every 32 keyframes, and on the 30-keyframe
 chain (the loop edge halves the tail error).  The 512-pose solve runs again
 under torch's sync debug mode: its host syncs must be its flag reads (one
 an LM trial, one a Gauss-Newton iteration; none inside a PCG), and every
@@ -66,6 +66,25 @@ pack form (the coarse align is on the hash map), `linearize_raw`,
 window (1e-4 after its first solve; after the loop edge the objective,
 within 1e-3, as the poses lie in a flat valley there).  A traced run of each stage gives its wall, device busy time and
 idle share.  `python3 chip_smoke.py --backend` runs only those phases.
+Slice H's multi-device phase runs after the back-end (`phase_parallel`;
+`python3 chip_smoke.py --parallel` runs it alone).  The world of one: this
+process alone in an NCCL group; the five sharded aligns on the full-size
+pair (GICP, VGICP on the raw grid and on the hash map, NDT D2D and P2D on
+the hash map), each bit for bit its single-device call with deterministic
+scatter-adds; the edge-sharded 1k solve at 3 Gauss-Newton iterations, bit
+for bit the single solve likewise, its end drift under 0.3x; `ShardedScanToMapOdometry` over the
+128-frame drive against `ScanToMapOdometry` (the first 8 frames within
+1e-3 m, the ATE under 0.05 m); every path counted with the launch counters
+set to 0 just before it (each trial the standalone `lm_trial` and the
+trial-off error launch, never the fused one), its collectives, bytes, host
+syncs and a traced run.  The world of two: two spawned processes on the
+one card over gloo (`parallel_rank`, output prefixed by rank), the same
+paths, each align within 1e-4 of the single call (deterministic
+scatter-adds on both sides), the 10-pose graph's objective within 1e-4,
+the odometry's first 8 frames within 5e-3 m and its ATE, the first frame's
+voxel count the single map's at its binding cap on new voxels in both
+worlds, every voxel of a shard its rank's by `_owner_hash_np`, and each kernel of the slice's paths
+against its plain version at rank 0's inputs.
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device: CUDA must be present; prints the card's name and power limit;
   2. build: compiles the CUDA kernels from `fast_gicp_tpu_torch/csrc` (one
@@ -182,8 +201,11 @@ def require(cond, what):
         raise PhaseError(what)
 
 
+LOG_PREFIX = []  # a rank's tag in the world of two ("[rank r]")
+
+
 def log(*args):
-    print(*args, flush=True)
+    print(*LOG_PREFIX, *args, flush=True)
 
 
 def synthetic_pair(n_world=None, voxel=0.1):
@@ -4457,6 +4479,9 @@ K1000_DRIFT_SHARE = 0.3  # its end drift after the solve, of the drift before
 DENSE_SPARSE_TOL = 2e-3  # tests/test_pose_graph.py:81-117
 WINDOW = 20  # SlidingWindowBA's default window
 WINDOW_EVERY = 32  # keyframes between the window's solves on the drive
+# the drive's first relatives fed to the window: 8 solves (the whole drive's
+# 511, 15 solves, took 54-78 s on one NVIDIA H100 80GB HBM3, 700 W)
+WINDOW_DRIVE_KEYFRAMES = 256
 TRIDIAG_TOL = 1e-5  # block_tridiag against its plain version, of max |x|
 CLOSURE_CARD_CPU = (2e-3, 1e-3)  # m, rad: the limit of the RBF paths, card against CPU
 BACKEND_CARD_CPU_TOL = 1e-4  # the 64-pose sparse solve's poses and the window, card against CPU
@@ -4739,8 +4764,9 @@ def backend_run(dev, front_poses):
     """Stages 2-6 of the back-end on the drive's stream poses, as a user runs
     them: `detect_loop_closures`, the sparse solve over the 512 poses, the
     1k graph (a warm-up solve, then the timed one), dense and sparse on the
-    10-pose graph, SlidingWindowBA over the drive's relatives (window 20, a
-    solve every 32 keyframes) and on the 30-keyframe chain.  Each stage's
+    10-pose graph, SlidingWindowBA over the drive's first
+    WINDOW_DRIVE_KEYFRAMES relatives (window 20, a solve every 32
+    keyframes) and on the 30-keyframe chain.  Each stage's
     checks; returns (stats, the 512-pose graph, the closures)."""
     from fast_gicp_tpu_torch.models import pose_graph as pg
     from fast_gicp_tpu_torch.models import pose_graph_sparse as pgs
@@ -4794,6 +4820,7 @@ def backend_run(dev, front_poses):
 
     ba = pgs.SlidingWindowBA(window=WINDOW, device=dev)
     rels = [np.linalg.inv(a) @ b for a, b in zip(front_poses[:-1], front_poses[1:])]
+    rels = rels[:WINDOW_DRIVE_KEYFRAMES]
     info = ODOMETRY_EDGE_INFO * np.eye(6, dtype=np.float32)
 
     def feed():
@@ -4820,7 +4847,7 @@ def backend_run(dev, front_poses):
     return stats, graph, closures
 
 
-def stage_profile(label, run, dev):
+def stage_profile(label, run, dev, tag="backend"):
     """One traced run of a stage: wall, device busy, device ops and the idle
     share of the wall (1 - busy / wall), and the device span (CUDA events)."""
     from torch.profiler import ProfilerActivity, profile
@@ -4840,7 +4867,7 @@ def stage_profile(label, run, dev):
     out = dict(traced_wall_ms=wall, device_span_ms=start.elapsed_time(end),
                device_busy_ms=busy, device_ops=ops, idle_share=1.0 - busy / wall)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"[profile] backend {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms (idle "
+    log(f"[profile] {tag} {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms (idle "
         f"{100 * out['idle_share']:.1f}% of the wall), device ops {ops}; top: "
         + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms x{e.count}"
                     for e in top))
@@ -5005,26 +5032,14 @@ def nth_call(n):
     return match
 
 
-def closure_kernels(dev, by_name, run):
-    """The kernels of the first verify_closure against their plain
-    versions, at its own inputs, added to the records under "backend":
-    rbf_moments on both clouds, ndt_d2d in the pack form at the coarse
-    align's first freeze (the hash map: the card's eager freeze, then the
-    pack form; within the NDT tolerances, a repeat bit-identical),
-    linearize_raw (idx form) at the refine's first linearization, nn_search
-    at the fitness (idx and d2 bit-equal on every valid query) and the trial
-    launches (`trial_sweeps`, NDT and GICP)."""
-    from fast_gicp_tpu_torch.ops import cuda_kernels, cuda_linearize, cuda_ndt
-    from fast_gicp_tpu_torch.ops.neighbors import _masked_target
+def ndt_pack_record(label, P, CA, x, pack, res, mode):
+    """An NDT linearize in the pack form on its arguments against its plain
+    version (the NDT tolerances, a repeat bit-identical), timed, with its
+    bound."""
+    from fast_gicp_tpu_torch.ops import cuda_ndt
 
-    for n, cloud in enumerate(("source", "target")):
-        args, _kw = first_call(run, cuda_kernels, "rbf_moments", match=nth_call(n))
-        by_name["rbf_moments"][f"backend_{cloud}"] = rbf_record(
-            f"(backend, first verify_closure, {cloud})", args)
-    (P, CA, x, pack, res, mode), _kw = first_call(run, cuda_ndt, "ndt_linearize")
-    require(mode == "d2d", f"the coarse align linearizes in mode {mode}, not d2d")
     _check_aux, check_lin = ndt_checkers(x)
-    got = check_lin("ndt_d2d (backend coarse align)", P, CA, pack, mode, 1e-5, res=res)
+    got = check_lin(label, P, CA, pack, mode, 1e-5, res=res)
     N, L = P.shape[1], pack.shape[0]
     nvalid = int(pack[:, 9].sum())
     tm_ = timings(lambda: cuda_ndt.ndt_linearize(P, CA, x, pack, res, mode),
@@ -5032,23 +5047,27 @@ def closure_kernels(dev, by_name, run):
                   ndt_kernel_name(mode, "pack"), 200, 20)
     nbytes = ndt_lin_bytes(mode, "pack", N, L)
     b_ms, b_by = bound_ms(nbytes, ndt_lin_ops(mode, "pack", L, nvalid))
-    by_name["ndt_d2d"]["backend"] = dict(
-        lanes=L, source_columns=N, valid_lanes=nvalid, resolution=res, max_abs_err=got[-1],
-        pack_ms=tm_["ms"], plain_ms=tm_["plain_ms"], call_ms=tm_["call_ms"], bound_ms=b_ms,
-        bound_by=b_by, bytes=nbytes, timing=tm_["timing"])
-    log(f"[kernels] ndt_d2d pack form at the coarse align's first freeze ({res} m, L = {L}, "
-        f"{nvalid} valid): within tolerance of the plain version ({got[-1]:.3e}), "
-        f"{tm_['ms']:.5f} ms, plain {tm_['plain_ms']:.4f} ms; bound {b_ms:.3e} ms ({b_by})")
-    args, _kw = first_call(run, cuda_linearize, "linearize_raw")
-    by_name["linearize_raw"]["backend"] = odometry_lin_record(
-        "linearize_raw (backend refine, first linearization)", True, args, "elementwise")
+    log(f"[kernels] {label} ({res} m, L = {L}, {nvalid} valid): within tolerance of the plain "
+        f"version ({got[-1]:.3e}), {tm_['ms']:.5f} ms, plain {tm_['plain_ms']:.4f} ms; bound "
+        f"{b_ms:.3e} ms ({b_by})")
+    return dict(lanes=L, source_columns=N, valid_lanes=nvalid, resolution=res,
+                max_abs_err=got[-1], pack_ms=tm_["ms"], plain_ms=tm_["plain_ms"],
+                call_ms=tm_["call_ms"], bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                timing=tm_["timing"])
 
-    (q, t, tmask, qmask), _kw = first_call(run, cuda_kernels, "nn_search")
+
+def nn_record(label, q, t, tmask, qmask):
+    """nn_search on its arguments: idx and d2 bit-equal to the plain version
+    on every valid query, timed, with its bound over the chunk pairs this
+    run's queries reach."""
+    from fast_gicp_tpu_torch.ops import cuda_kernels
+    from fast_gicp_tpu_torch.ops.neighbors import _masked_target
+
     idx, d2 = cuda_kernels.nn_search(q, t, tmask, qmask)
     idx_w, d2_w = cuda_kernels.nn_search_plain(q, t, tmask)
     torch.cuda.synchronize()
     require(bool(torch.equal(idx[qmask], idx_w[qmask]) and torch.equal(d2[qmask], d2_w[qmask])),
-            f"nn_search (backend fitness): {int((idx != idx_w)[qmask].sum())} ids, "
+            f"nn_search {label}: {int((idx != idx_w)[qmask].sum())} ids, "
             f"{int((d2 != d2_w)[qmask].sum())} d2 differ on valid queries")
     tm_ = timings(lambda: cuda_kernels.nn_search(q, t, tmask, qmask),
                   lambda: cuda_kernels.nn_search_plain(q, t, tmask),
@@ -5061,12 +5080,37 @@ def closure_kernels(dev, by_name, run):
     pairs = int(reach.reshape(-1, 32, tlo.shape[0]).any(1).sum()) * 32 * CHUNK
     nq, nt = q.shape[0], t.shape[0]
     b_ms, b_by = bound_ms(nq * 12 + nt * 12 + nq * 8, pairs * NN_OPS_PER_PAIR)
-    by_name["nn_search"]["backend"] = dict(
-        queries=nq, targets=nt, max_abs_err=float((d2 - d2_w)[qmask].abs().max()),
-        pairs_to_visit=pairs, bound_ms=b_ms, bound_by=b_by, **tm_)
-    log(f"[kernels] nn_search (backend fitness, {nq} x {nt}): idx and d2 bit-equal on every "
-        f"valid query; {tm_['ms']:.4f} ms, plain {tm_['plain_ms']:.3f} ms; bound {b_ms:.3e} ms "
+    log(f"[kernels] nn_search {label}, {nq} x {nt}: idx and d2 bit-equal on every valid "
+        f"query; {tm_['ms']:.4f} ms, plain {tm_['plain_ms']:.3f} ms; bound {b_ms:.3e} ms "
         f"({b_by})")
+    return dict(queries=nq, targets=nt, max_abs_err=float((d2 - d2_w)[qmask].abs().max()),
+                pairs_to_visit=pairs, bound_ms=b_ms, bound_by=b_by, **tm_)
+
+
+def closure_kernels(dev, by_name, run):
+    """The kernels of the first verify_closure against their plain
+    versions, at its own inputs, added to the records under "backend":
+    rbf_moments on both clouds, ndt_d2d in the pack form at the coarse
+    align's first freeze (the hash map: the card's eager freeze, then the
+    pack form; within the NDT tolerances, a repeat bit-identical),
+    linearize_raw (idx form) at the refine's first linearization, nn_search
+    at the fitness (idx and d2 bit-equal on every valid query) and the trial
+    launches (`trial_sweeps`, NDT and GICP)."""
+    from fast_gicp_tpu_torch.ops import cuda_kernels, cuda_linearize, cuda_ndt
+
+    for n, cloud in enumerate(("source", "target")):
+        args, _kw = first_call(run, cuda_kernels, "rbf_moments", match=nth_call(n))
+        by_name["rbf_moments"][f"backend_{cloud}"] = rbf_record(
+            f"(backend, first verify_closure, {cloud})", args)
+    (P, CA, x, pack, res, mode), _kw = first_call(run, cuda_ndt, "ndt_linearize")
+    require(mode == "d2d", f"the coarse align linearizes in mode {mode}, not d2d")
+    by_name["ndt_d2d"]["backend"] = ndt_pack_record(
+        "ndt_d2d pack form at the coarse align's first freeze", P, CA, x, pack, res, mode)
+    args, _kw = first_call(run, cuda_linearize, "linearize_raw")
+    by_name["linearize_raw"]["backend"] = odometry_lin_record(
+        "linearize_raw (backend refine, first linearization)", True, args, "elementwise")
+    args, _kw = first_call(run, cuda_kernels, "nn_search")
+    by_name["nn_search"]["backend"] = nn_record("(backend fitness)", *args)
     recs, points, hits, _err = trial_sweeps(dev, {"backend_ndt": trial_at(run, True),
                                                   "backend_gicp": trial_at(run, False)})
     by_name["lm_step"]["by_path"].update(recs)
@@ -5268,6 +5312,584 @@ def phase_backend(dev, records, path_launches, summary):
     log(f"[total] {time.perf_counter() - T_START:.1f} s: back-end")
 
 
+# -- slice H: multi-device on torch.distributed ---------------------------------
+
+PARALLEL_WORLD = 2  # the world of two: two processes on the one card, over gloo
+PARALLEL_ALIGNS = ("gicp", "vgicp_raw", "vgicp_hash", "ndt_d2d", "ndt_p2d")
+PARALLEL_TIMED = 2  # timed registrations of each align and each form, after a warm-up
+PARALLEL_ALIGN_TOL = 1e-4  # world 2 against the single call's pose: tests/test_sharded.py
+# m, frame by frame over the drive's first PARALLEL_HELD_FRAMES frames, against
+# ScanToMapOdometry: world 1 at ODOMETRY_CARD_CPU_TOL's scan_to_map limit (card
+# against CPU run), world 2 at tests/test_scan_to_map.py:107-131's (4 frames there); over
+# the whole drive both are held by its ATE bound, and the gap is reported beside
+# the single odometry's own between two runs (its maps' scatter-adds are atomic)
+PARALLEL_ODOMETRY_TOL = {1: 1e-3, 2: 5e-3}
+PARALLEL_HELD_FRAMES = 8
+PARALLEL_GRAPH_TOL = 1e-4  # the 10-pose graph's objective, world 2 against single, relative
+PARALLEL_PROFILE_FRAMES = 8  # the odometry's traced and sync-counted frames
+# the 1k graph's Gauss-Newton iterations here: its end drift is under 1e-4x
+# of the drift after 3 (CPU; the JAX test's cap of 15 takes 4-6 s a solve on
+# the card and 11-16 s at world 2), and a whole solve traces ~25,000 device ops
+PARALLEL_GRAPH_ITERATIONS = 3
+# the iterations of its traced run (~17,000 device ops an iteration; the
+# profiler's processing of a 3-iteration trace took seconds at each world)
+PARALLEL_TRACED_GRAPH_ITERATIONS = 1
+PARALLEL_TIMEOUT = 900  # s, the world of two
+# the kernels each parallel path must launch (the trial: the standalone
+# lm_trial and the trial-off error launch, never the fused trial launch)
+PARALLEL_KERNELS = {
+    "gicp": ("nn_search", "linearize", "lm_trial", "error"),
+    "vgicp_raw": ("linearize_raw", "lm_trial", "error"),
+    "vgicp_hash": ("linearize", "lm_trial", "error"),
+    "ndt_d2d": ("ndt_d2d", "lm_trial", "ndt_error"),
+    "ndt_p2d": ("ndt_p2d", "lm_trial", "ndt_error"),
+    "pose_graph_1k": ("block_tridiag_factor", "block_tridiag_apply"),
+    "odometry": ("rbf_moments", "linearize", "lm_trial", "error"),
+}
+
+
+def parallel_inputs(dev):
+    """The parallel phase's inputs as numpy (the world of two gets them
+    pickled): the full-size pair padded, kNN covariances from the card, the
+    raw grid's dims over the target, the 1k and 10-pose graphs and the
+    128-frame odometry drive."""
+    from fast_gicp_tpu_torch.ops.covariance import knn_covariances
+    from fast_gicp_tpu_torch.ops.voxelmap import auto_grid_dims
+
+    sp, sm, tp, tm = padded(synthetic_pair())
+    clouds, gt, _dims = odometry_drive()
+    return dict(source=sp, source_mask=sm, target=tp, target_mask=tm,
+                scovs=knn_covariances(sp, sm, device=dev).cpu().numpy(),
+                tcovs=knn_covariances(tp, tm, device=dev).cpu().numpy(),
+                guess=np.eye(4, dtype=np.float32),
+                grid_dims=tuple(int(d) for d in auto_grid_dims(tp[tm], 1.0)),
+                graph_1k=k1000_graph(), graph_10=small_graph(), drive=clouds, gt=gt)
+
+
+def parallel_calls(inp, dev):
+    """name -> (single(), sharded(mesh)) of each align on the pair, the
+    arrays uploaded to `dev` once: GICP (its defaults), VGICP at 1 m on the
+    raw grid and on the hash map, NDT D2D and P2D at 1 m on the hash map (the
+    source budget of the align paths, which divides by the mesh size)."""
+    from fast_gicp_tpu_torch.models.gicp import GICPConfig, gicp_align
+    from fast_gicp_tpu_torch.models.ndt import NDTConfig, ndt_align
+    from fast_gicp_tpu_torch.models.vgicp import VGICPConfig, vgicp_align
+    from fast_gicp_tpu_torch.parallel import sharded as sh
+
+    s, sm, sc, t, tm, tc, g = (torch.as_tensor(inp[k]).to(dev) for k in (
+        "source", "source_mask", "scovs", "target", "target_mask", "tcovs", "guess"))
+    out = {"gicp": (lambda: gicp_align(s, sm, sc, t, tm, tc, g, GICPConfig(), device=dev),
+                    lambda mesh: sh.gicp_align_sharded(mesh, s, sm, sc, t, tm, tc, g))}
+    for name, dims in (("vgicp_raw", inp["grid_dims"]), ("vgicp_hash", None)):
+        cfg = VGICPConfig(resolution=1.0, grid_dims=dims)
+        out[name] = (lambda cfg=cfg: vgicp_align(s, sm, sc, t, tm, tc, g, cfg, device=dev),
+                     lambda mesh, cfg=cfg: sh.vgicp_align_sharded(mesh, s, sm, sc, t, tm, tc, g,
+                                                                  cfg))
+    for mode in ("d2d", "p2d"):
+        cfg = NDTConfig(resolution=1.0, distance_mode=mode,
+                        max_source_voxels=NDT_ALIGN_SOURCE_VOXELS)
+        out[f"ndt_{mode}"] = (lambda cfg=cfg: ndt_align(s, sm, t, tm, g, cfg, device=dev),
+                              lambda mesh, cfg=cfg: sh.ndt_align_sharded(mesh, s, sm, t, tm, g,
+                                                                         cfg))
+    return out
+
+
+def same_result(a, b):
+    """Two NamedTuple results (LsqResult, PoseGraphResult) bit-equal."""
+    return all(bool(torch.equal(getattr(a, f), getattr(b, f))) for f in a._fields)
+
+
+def parallel_measure(dev, label, run, n_timed, rank=0, trace=True):
+    """`run()` timed `n_timed` times after the caller's warm-up (host clock
+    closed by a synchronize), then one counted run (timed too): launches,
+    the collectives and their bytes, the flag reads and every host sync
+    (torch's sync debug mode), then, with `trace`, a traced run (device
+    busy and idle share) of `run`, or of `trace` where it is a callable.
+    Only rank 0 traces; the other ranks run the call untraced beside it, so
+    that every rank makes the same collectives."""
+    from fast_gicp_tpu_torch.parallel import mesh as pmesh
+    from fast_gicp_tpu_torch.solver import lsq_solve
+
+    walls = [timed(dev, run)[1] for _ in range(n_timed)]
+    reset_counters()
+    pmesh.reset_stats()
+    lsq_solve.host_syncs = 0
+    counted = []
+    syncs, sites = count_host_syncs(lambda: counted.append(timed(dev, run)))
+    (result, wall), = counted
+    walls.append(wall)
+    launches, coll, flags = read_counters(), dict(pmesh.stats), lsq_solve.host_syncs
+    traced = run if trace is True else trace
+    if not trace:
+        prof = dict(idle_share=None, device_busy_ms=None, device_ops=None)
+    elif rank == 0:
+        prof = stage_profile(label, traced, dev, tag="parallel")
+    else:
+        traced()
+        prof = dict(idle_share=None, device_busy_ms=0.0, device_ops=0)
+    stats = dict(wall_ms=[1e3 * w for w in walls], wall_ms_min=1e3 * min(walls),
+                 launches={k: v for k, v in launches.items() if v},
+                 collectives=coll["collectives"], collective_bytes=coll["bytes"],
+                 by_kind={k: coll[k] for k in ("all_reduce", "all_gather", "all_to_all")},
+                 flag_reads=flags, host_syncs=syncs, host_sync_sites=sites,
+                 idle_share=prof["idle_share"], device_busy_ms=prof["device_busy_ms"],
+                 device_ops=prof["device_ops"])
+    log(f"[parallel] {label}: {stats['wall_ms_min']:.3f} ms (min of {len(walls)}), "
+        f"{stats['collectives']:.1f} collectives of {stats['collective_bytes']:.0f} B, "
+        f"{stats['host_syncs']:.1f} host syncs "
+        f"({stats['flag_reads']:.1f} flag reads), idle share {stats['idle_share']}; "
+        f"launches {stats['launches']}")
+    return result, launches, coll, stats
+
+
+def check_collectives(label, coll, launches):
+    """The aligns' collectives: one all-reduce of 43 floats a linearization
+    and one of a float a trial (a trial is one standalone lm_trial launch)."""
+    trials = launches["lm_trial"]
+    lins = coll["collectives"] - trials
+    require(coll["all_reduce"] == coll["collectives"] and lins > 0
+            and coll["bytes"] == 172 * lins + 4 * trials,
+            f"{label}: collectives {coll} for {trials} trials")
+
+
+def parallel_world(dev, mesh, inp, with_single=False):
+    """Every parallel path on `mesh`, each after a warm-up: the five aligns
+    on the full-size pair, the edge-sharded 1k solve (3 Gauss-Newton
+    iterations) and the 10-pose one, and ShardedScanToMapOdometry over the
+    128-frame drive (chunks of 32, the default config) with its first
+    frame's voxel count; `with_single` (the world of one) adds each
+    single-device call beside it and the bit-for-bit checks.  Returns ({path: stats, results as numpy},
+    {path: launches of the path's counted run})."""
+    from fast_gicp_tpu_torch.models import pose_graph_sparse as pgs
+    from fast_gicp_tpu_torch.models.scan_to_map import ScanToMapConfig, ScanToMapOdometry
+    from fast_gicp_tpu_torch.parallel import mesh as pmesh
+    from fast_gicp_tpu_torch.parallel.sharded_map import (
+        ShardedScanToMapOdometry, _owner_hash_np,
+    )
+
+    out, path_launches = {}, {}
+    world = f"world {mesh.size}"
+    if mesh.rank == 0:  # the profiler's first trace takes seconds to start
+        stage_profile("profiler warm-up", lambda: torch.ones(1, device=dev) + 1, dev,
+                      tag="parallel")
+    for name, (single, sharded) in parallel_calls(inp, dev).items():
+        sharded(mesh)  # warm-up
+        res, launches, coll, stats = parallel_measure(dev, f"{name}, {world}",
+                                                      lambda: sharded(mesh), PARALLEL_TIMED,
+                                                      rank=mesh.rank)
+        require(all(launches[k] > 0 for k in PARALLEL_KERNELS[name]) and launches["lm_step"] == 0,
+                f"{name}, {world}: a kernel of the path was not launched, or a fused trial "
+                f"launch: {launches}")
+        check_collectives(f"{name}, {world}", coll, launches)
+        # the maps' scatter-adds are atomic: with deterministic ones every
+        # call builds the same map, and only the split's sums part the results
+        det = _deterministic(lambda: sharded(mesh))
+        stats.update(T=res.transformation.cpu().numpy(), converged=bool(res.converged),
+                     iterations=int(res.iterations), error=float(res.error),
+                     T_deterministic=det.transformation.cpu().numpy(),
+                     converged_deterministic=bool(det.converged))
+        if with_single:
+            single()
+            want, _l, _c, stats["single"] = parallel_measure(dev, f"{name}, single device",
+                                                             single, PARALLEL_TIMED)
+            want_det = _deterministic(single)
+            require(same_result(det, want_det), f"{name}: the sharded align on a mesh of one "
+                    "is not bit-equal to the single-device call (deterministic scatter-adds)")
+            # the single call against itself with atomic scatter-adds: the
+            # noise that the deterministic comparison takes out
+            again = single().transformation
+            stats.update(bit_equal_to_single=True,
+                         single_repeat_gap_atomic=float(
+                             (again - want.transformation).abs().max()),
+                         single_T=want.transformation.cpu().numpy(),
+                         single_T_deterministic=want_det.transformation.cpu().numpy())
+        out[name], path_launches[f"parallel_{name}"] = stats, launches
+        log(f"[total] {time.perf_counter() - T_START:.1f} s: parallel {name}, {world}")
+
+    # the pose graph: the 1k graph at PARALLEL_GRAPH_ITERATIONS, the 10-pose one
+    g1k, g10 = inp["graph_1k"], inp["graph_10"]
+    cfg1k = pgs.SparsePGConfig(max_iterations=PARALLEL_GRAPH_ITERATIONS)
+    cfg20 = pgs.SparsePGConfig(max_iterations=20)
+
+    def solve_1k(config=cfg1k):
+        return pgs.optimize_pose_graph_sparse_sharded(mesh, *g1k[:5], config=config)
+
+    res, launches, coll, stats = parallel_measure(
+        dev, f"sparse solve, 1k graph, {world} (traced: "
+        f"{PARALLEL_TRACED_GRAPH_ITERATIONS} iteration)", solve_1k, 0, rank=mesh.rank,
+        trace=lambda: solve_1k(pgs.SparsePGConfig(
+            max_iterations=PARALLEL_TRACED_GRAPH_ITERATIONS)))
+    drift0 = float(np.linalg.norm(g1k[0][-1, :3, 3] - g1k[5][-1][:3, 3]))
+    drift1 = float(np.linalg.norm(res.poses[-1, :3, 3].cpu().numpy() - g1k[5][-1][:3, 3]))
+    stats.update(poses=res.poses.cpu().numpy(), error=float(res.error),
+                 iterations=int(res.iterations), end_drift_before_m=drift0,
+                 end_drift_after_m=drift1, trials=launches["block_tridiag_factor"])
+    require(all(launches[k] > 0 for k in PARALLEL_KERNELS["pose_graph_1k"])
+            and coll["all_reduce"] == coll["collectives"] > 0,
+            f"1k graph, {world}: launches {launches}, collectives {coll}")
+    require(drift1 < K1000_DRIFT_SHARE * drift0,
+            f"1k graph, {world}: end drift {drift1} m, not under {K1000_DRIFT_SHARE} x {drift0}")
+    path_launches["parallel_pose_graph_1k"] = launches
+    r10 = pgs.optimize_pose_graph_sparse_sharded(mesh, *g10, config=cfg20)
+    stats["graph_10"] = dict(poses=r10.poses.cpu().numpy(), error=float(r10.error),
+                             iterations=int(r10.iterations))
+    if with_single:
+        def single_1k():
+            return pgs.optimize_pose_graph_sparse(*g1k[:5], config=cfg1k, device=dev)
+
+        # traced in the back-end phase ("sparse solve, 1k graph, 3 iterations")
+        want, _l, _c, stats["single"] = parallel_measure(
+            dev, "sparse solve, 1k graph, single device", single_1k, 0, trace=False)
+        stats["single"].update(error=float(want.error),
+                               end_drift_after_m=float(np.linalg.norm(
+                                   want.poses[-1, :3, 3].cpu().numpy() - g1k[5][-1][:3, 3])))
+        # with deterministic scatter-adds the two solves give the same bits
+        a = _deterministic(single_1k)
+        b = _deterministic(solve_1k)
+        c10 = pgs.optimize_pose_graph_sparse(*g10, config=cfg20, device=dev)
+        stats["graph_10"]["single_error"] = float(c10.error)
+        require(same_result(a, b), "1k graph: the edge-sharded solve on a mesh of one is not "
+                "bit-equal to the single-device solve (deterministic scatter-adds)")
+        stats["bit_equal_to_single_deterministic"] = True
+        log(f"[parallel] 1k graph: world 1 bit-equal to the single solve with deterministic "
+            f"scatter-adds; without them objectives {float(res.error):.6g} (sharded) and "
+            f"{float(want.error):.6g} (single), end drift {drift1:.4g} and "
+            f"{stats['single']['end_drift_after_m']:.4g} m")
+    out["pose_graph_1k"] = stats
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: parallel pose graph, {world}")
+
+    # the sharded odometry over the drive, in the map mode's chunks of 32
+    clouds, n = inp["drive"], len(inp["drive"])
+
+    config = ScanToMapConfig()
+
+    def odometry(frames):
+        odo = ShardedScanToMapOdometry(config, mesh=mesh)
+        for lo in range(0, frames, ODOMETRY_CHUNK):
+            odo.process_chunk(clouds[lo:min(lo + ODOMETRY_CHUNK, frames)])
+        return odo
+
+    # the first frame's voxels: the config's cap on new voxels a frame is the
+    # whole map's, however many shards hold it
+    first = odometry(1)
+    first_voxels = int(mesh.reduce(first.state.shard.num_voxels.to(torch.int64).reshape(1)))
+    # warm-up, then a later chunk counted and traced
+    warm = odometry(WARMUP_FRAMES)
+    chunk = clouds[WARMUP_FRAMES:WARMUP_FRAMES + PARALLEL_PROFILE_FRAMES]
+    syncs, sites = count_host_syncs(lambda: warm.process_chunk(chunk))
+    later = clouds[WARMUP_FRAMES + PARALLEL_PROFILE_FRAMES:
+                   WARMUP_FRAMES + 2 * PARALLEL_PROFILE_FRAMES]
+    if mesh.rank == 0:
+        prof = stage_profile(f"ShardedScanToMapOdometry, {PARALLEL_PROFILE_FRAMES} frames, "
+                             f"{world}", lambda: warm.process_chunk(later), dev, tag="parallel")
+    else:  # only rank 0 traces
+        warm.process_chunk(later)
+        prof = dict(idle_share=None, device_ops=0)
+    reset_counters()
+    pmesh.reset_stats()
+    odo, wall = timed(dev, lambda: odometry(n))
+    launches, coll = read_counters(), dict(pmesh.stats)
+    poses = np.stack(odo.poses)
+    shard = odo.state.shard
+    nv = int(shard.num_voxels)
+    owners_ok = bool((_owner_hash_np(shard.coords[:nv].cpu().numpy(), mesh.size)
+                      == mesh.rank).all())
+    require(owners_ok, f"odometry, {world}: a voxel of rank {mesh.rank}'s shard is another "
+            "rank's")
+    require(all(launches[k] > 0 for k in PARALLEL_KERNELS["odometry"]) and launches["lm_step"] == 0,
+            f"odometry, {world}: launches {launches}")
+    path_launches["parallel_odometry"] = launches
+    out["odometry"] = dict(poses=poses, frames=n, wall_s=wall, frames_per_s=n / wall,
+                           wall_ms=1e3 * wall / n, collectives=coll["collectives"] / n,
+                           collective_bytes=coll["bytes"] / n,
+                           by_kind={k: coll[k] / n for k in ("all_reduce", "all_gather",
+                                                             "all_to_all")},
+                           launches={k: v for k, v in launches.items() if v},
+                           host_syncs=syncs / PARALLEL_PROFILE_FRAMES, host_sync_sites=sites,
+                           idle_share=prof["idle_share"],
+                           device_ops=prof["device_ops"] / PARALLEL_PROFILE_FRAMES,
+                           shard_voxels=nv, shard_capacity=shard.sums.shape[0],
+                           owners_checked=nv, first_frame_voxels=first_voxels)
+    log(f"[parallel] ShardedScanToMapOdometry, {world}: {n} frames in {wall:.2f} s "
+        f"({n / wall:.2f} frames/s), {out['odometry']['collectives']:.1f} collectives of "
+        f"{out['odometry']['collective_bytes']:.0f} B a frame, "
+        f"{syncs / PARALLEL_PROFILE_FRAMES:.1f} host syncs a frame, idle "
+        f"share {prof['idle_share']}; rank {mesh.rank}'s shard {nv} voxels, every one its own; "
+        f"{first_voxels} voxels after the first frame")
+    if with_single:
+        def single_odometry(frames):
+            s = ScanToMapOdometry(config, device=dev)
+            for lo in range(0, frames, ODOMETRY_CHUNK):
+                s.process_chunk(clouds[lo:min(lo + ODOMETRY_CHUNK, frames)])
+            return s
+
+        single_odometry(WARMUP_FRAMES)
+        s, swall = timed(dev, lambda: single_odometry(n))
+        again = np.stack(single_odometry(n).poses)
+        out["odometry"]["single"] = dict(first_frame_voxels=int(single_odometry(1).state.num_voxels),
+                                         cap=config.new_per_frame_capacity,
+                                         poses=np.stack(s.poses), wall_s=swall,
+                                         frames_per_s=n / swall, repeat_gap_m=float(
+                                             np.abs(again[:, :3, 3]
+                                                    - np.stack(s.poses)[:, :3, 3]).max()))
+    return out, path_launches
+
+
+def parallel_kernel_args(dev, mesh, inp):
+    """The arguments, on the host, of the first launch of each kernel on the
+    parallel paths at this rank's inputs (every rank calls it: each capture
+    ends every rank's run at the same call): nn_search and linearize (GICP),
+    linearize_raw and linearize (VGICP), the NDT pack forms, the first trial
+    (its TrialCost: the trial-off error's inputs), the first PCG's
+    block_tridiag inputs, and the odometry's rbf_moments (the query block
+    against the gathered cloud) and linearize (the routed queries)."""
+    from fast_gicp_tpu_torch.models import pose_graph_sparse as pgs
+    from fast_gicp_tpu_torch.models.scan_to_map import ScanToMapConfig
+    from fast_gicp_tpu_torch.ops import cuda_kernels, cuda_linearize, cuda_ndt, cuda_solver
+    from fast_gicp_tpu_torch.parallel.sharded_map import ShardedScanToMapOdometry
+
+    calls = parallel_calls(inp, dev)
+
+    def run(name):
+        return lambda: calls[name][1](mesh)
+
+    def host(a):
+        if isinstance(a, torch.Tensor):
+            return a.cpu()
+        if isinstance(a, cuda_solver.TrialCost):
+            return a._replace(p=a.p.cpu())
+        return a
+
+    def trial(name):
+        (state, H, b, y0, aux, cost, first, config), _kw = first_call(run(name), cuda_solver,
+                                                                      "lm_step_plain")
+        return tuple(host(a) for a in (y0, H, b, aux, cost.cost)) + (aux.shape[1] // cost.cost.offsets,)
+
+    out = {"nn_search": first_call(run("gicp"), cuda_kernels, "nn_search")[0],
+           "linearize": first_call(run("gicp"), cuda_linearize, "linearize")[0],
+           "linearize_hash": first_call(run("vgicp_hash"), cuda_linearize, "linearize")[0],
+           "linearize_raw": first_call(run("vgicp_raw"), cuda_linearize, "linearize_raw")[0],
+           "ndt_d2d": first_call(run("ndt_d2d"), cuda_ndt, "ndt_linearize")[0],
+           "ndt_p2d": first_call(run("ndt_p2d"), cuda_ndt, "ndt_linearize")[0],
+           "trial_gicp": trial("gicp"), "trial_ndt_d2d": trial("ndt_d2d")}
+    g1k = inp["graph_1k"][:5]
+    solve = lambda: pgs.optimize_pose_graph_sparse_sharded(  # noqa: E731
+        mesh, *g1k, config=pgs.SparsePGConfig(max_iterations=PARALLEL_GRAPH_ITERATIONS))
+    out["block_tridiag"] = first_pcg_inputs(solve)
+
+    def odometry():
+        odo = ShardedScanToMapOdometry(ScanToMapConfig(), mesh=mesh)
+        odo.process_chunk(inp["drive"][:2])
+
+    out["rbf_moments"] = first_call(odometry, cuda_kernels, "rbf_moments")[0]
+    out["linearize_odometry"] = first_call(odometry, cuda_linearize, "linearize")[0]
+    return {k: tuple(host(a) for a in v) for k, v in out.items()}
+
+
+def parallel_kernel_checks(dev, records, args, world):
+    """Each kernel of the parallel paths against its plain version at the
+    arguments rank 0 of the world of `world` gave it (`parallel_kernel_args`),
+    timed, added to the kernels' records under "parallel"."""
+    from fast_gicp_tpu_torch.ops import cuda_ndt
+
+    by_name = {r["name"]: r for r in records}
+    on = {k: tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in v)
+          for k, v in args.items() if k not in ("trial_gicp", "trial_ndt_d2d")}
+    tag = f"rank 0 of {world}"
+    by_name["nn_search"]["parallel"] = nn_record(f"(GICP, {tag})", *on["nn_search"])
+    for key, name, raw, tol in (("linearize", "linearize", False, "rel_max"),
+                                ("linearize_hash", "linearize", False, "rel_max"),
+                                ("linearize_odometry", "linearize", False, "rel_max"),
+                                ("linearize_raw", "linearize_raw", True, "elementwise")):
+        by_name[name].setdefault("parallel", {})[key] = odometry_lin_record(
+            f"{name} ({key}, {tag})", raw, on[key], tol)
+    for mode in ("d2d", "p2d"):
+        P, CA, x, pack, res, m = on[f"ndt_{mode}"]
+        require(m == mode, f"the sharded NDT {mode} align linearizes in mode {m}")
+        by_name[f"ndt_{mode}"]["parallel"] = ndt_pack_record(f"ndt_{mode} ({tag})", P, CA, x,
+                                                             pack, res, mode)
+    by_name["rbf_moments"]["parallel"] = rbf_record(f"(odometry frame 0, {tag})",
+                                                    on["rbf_moments"])
+    D, U, r = on["block_tridiag"]
+    err = tridiag_check(f"at the first PCG of the 1k graph, {tag}", D, U, r)
+    for name in ("block_tridiag_factor", "block_tridiag_apply"):
+        by_name[name]["parallel"] = dict(K=D.shape[0], x_err_of_max=err[0],
+                                         factor_err_of_max=err[1])
+    trials = {}
+    for key in ("trial_gicp", "trial_ndt_d2d"):
+        y0, H, b, aux, cost, n_src = args[key]
+        trials[f"parallel_{key[6:]}"] = (y0.to(dev), H.to(dev), b.to(dev), aux.to(dev),
+                                         cost._replace(p=cost.p.to(dev)), n_src)
+    recs, points, hits, _err = trial_sweeps(dev, trials)
+    by_name["lm_step"]["by_path"].update(recs)
+    return dict(trial_points=points, trial_hits=hits)
+
+
+def parallel_rank(rank, world, inp):
+    """One rank of the world of two, on the card (gloo on its CUDA tensors:
+    NCCL refuses two ranks on one device): every parallel path, and at rank
+    0 the kernels' arguments at its inputs."""
+    from fast_gicp_tpu_torch.parallel import sharded
+
+    LOG_PREFIX[:] = [f"[rank {rank}]"]
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = sharded.make_mesh(device=dev, backend="gloo")
+    require(mesh.backend == "gloo" and mesh.size == world and mesh.device == dev,
+            f"the world of two's mesh: {mesh}")
+    out, launches = parallel_world(dev, mesh, inp)
+    out["launches"] = launches
+    kernel_args = parallel_kernel_args(dev, mesh, inp)
+    if rank == 0:
+        out["kernel_args"] = kernel_args
+    return out
+
+
+def run_world_two(inp, dev):
+    """The world of two, spawned from this process (its kernels already
+    built, so no child builds): every rank's results; a rank that fails, or
+    a world that outlives PARALLEL_TIMEOUT, fails the phase."""
+    from fast_gicp_tpu_torch.parallel.distributed import spawn_world
+
+    return spawn_world(parallel_rank, PARALLEL_WORLD, inp, timeout=PARALLEL_TIMEOUT, device=dev,
+                       backend="gloo")
+
+
+def parallel_compare(one, two):
+    """The world of two against the single-device calls and across its
+    ranks: each align's pose within PARALLEL_ALIGN_TOL of the single call's
+    and converged equal, both with deterministic scatter-adds; the 10-pose graph's objective within
+    PARALLEL_GRAPH_TOL; the odometry's poses within PARALLEL_ODOMETRY_TOL
+    over the drive's first frames and its ATE under the scan-to-map bound;
+    every rank's result bit-equal to rank 0's."""
+    from fast_gicp_tpu_torch.utils.kitti import ate_rmse
+
+    out = {}
+    r0 = two[0]
+    for other in two[1:]:
+        for name in PARALLEL_ALIGNS:
+            require(np.array_equal(other[name]["T"], r0[name]["T"]),
+                    f"{name}: the ranks of the world of two part")
+        require(np.array_equal(other["odometry"]["poses"], r0["odometry"]["poses"])
+                and np.array_equal(other["pose_graph_1k"]["poses"], r0["pose_graph_1k"]["poses"]),
+                "the ranks of the world of two part (odometry or pose graph)")
+    for name in PARALLEL_ALIGNS:
+        # deterministic scatter-adds on both sides: the same maps, so the
+        # gap is the split's order of sums (without them, the maps' atomics
+        # part two runs of one call too)
+        gap = float(np.abs(r0[name]["T_deterministic"]
+                           - one[name]["single_T_deterministic"]).max())
+        conv = (r0[name]["converged_deterministic"], one[name]["converged_deterministic"])
+        require(gap <= PARALLEL_ALIGN_TOL and conv[0] == conv[1],
+                f"{name}: world 2 {gap} from the single call (bound {PARALLEL_ALIGN_TOL}), "
+                f"converged {conv}")
+        out[name] = dict(max_abs_pose_diff=gap,
+                         max_abs_pose_diff_atomic=float(np.abs(r0[name]["T"]
+                                                               - one[name]["single_T"]).max()),
+                         single_repeat_gap_atomic=one[name]["single_repeat_gap_atomic"],
+                         iterations=(r0[name]["iterations"], one[name]["iterations"]))
+    g = r0["pose_graph_1k"]["graph_10"]
+    want = one["pose_graph_1k"]["graph_10"]["single_error"]
+    rel = abs(g["error"] - want) / abs(want)
+    require(rel <= PARALLEL_GRAPH_TOL, f"10-pose graph: world 2's objective {g['error']} is "
+            f"{rel} from the single solve's {want}")
+    out["graph_10"] = dict(objective_rel_diff=rel)
+    out["graph_1k"] = dict(error=r0["pose_graph_1k"]["error"],
+                           single_error=one["pose_graph_1k"]["single"]["error"],
+                           end_drift_after_m=r0["pose_graph_1k"]["end_drift_after_m"])
+    gt, single = one["odometry"]["gt"], one["odometry"]["single"]
+    # the first frame's new voxels: the config's cap binds there, and the
+    # shards of either world admit the single map's count
+    firsts = (single["first_frame_voxels"], one["odometry"]["first_frame_voxels"],
+              r0["odometry"]["first_frame_voxels"])
+    log(f"[parallel] odometry: {firsts[0]} voxels after the first frame on one device (cap "
+        f"{single['cap']}), {firsts[1]} at world 1, {firsts[2]} at world 2")
+    require(firsts[0] == single["cap"] and firsts[1] == firsts[2] == firsts[0],
+            f"odometry: first-frame voxels {firsts}, cap {single['cap']}")
+    out["odometry_first_frame_voxels"] = dict(zip(("single", "world1", "world2"), firsts))
+    for world, run in ((1, one["odometry"]), (2, r0["odometry"])):
+        gaps = np.abs(run["poses"][:, :3, 3] - single["poses"][:, :3, 3]).max(axis=1)
+        held = float(gaps[:PARALLEL_HELD_FRAMES].max())
+        ate = ate_rmse(gt[:len(run["poses"])], list(run["poses"]))
+        log(f"[parallel] odometry, world {world}: the first {PARALLEL_HELD_FRAMES} frames "
+            f"within {held:.3e} m of ScanToMapOdometry (bound {PARALLEL_ODOMETRY_TOL[world]}), "
+            f"all {len(gaps)} within {float(gaps.max()):.3e} m (the single odometry's own "
+            f"repeat: {single['repeat_gap_m']:.3e} m); ATE {ate:.4f} m (bound "
+            f"{SCAN_TO_MAP_ATE})")
+        require(held <= PARALLEL_ODOMETRY_TOL[world] and ate < SCAN_TO_MAP_ATE,
+                f"odometry, world {world}: {held} m from the single odometry over the first "
+                f"{PARALLEL_HELD_FRAMES} frames, ATE {ate} m")
+        out[f"odometry_world{world}"] = dict(
+            held_frames_max_abs_diff_m=held, max_abs_diff_m=float(gaps.max()),
+            single_repeat_gap_m=single["repeat_gap_m"], ate_m=ate,
+            single_ate_m=ate_rmse(gt, list(single["poses"])))
+    log(f"[parallel] world 2 against the single-device calls: {out}")
+    return out
+
+
+def parallel_table(one, two):
+    """The summary's table: each path's wall, collectives, bytes, host
+    syncs and idle share at world 1, world 2 (rank 0) and on one device."""
+    rows = {}
+    for name in PARALLEL_ALIGNS + ("pose_graph_1k", "odometry"):
+        rows[name] = {}
+        for label, st in (("world1", one[name]), ("world2", two[0][name]),
+                          ("single", one[name].get("single"))):
+            if st is None:
+                continue
+            rows[name][label] = {k: st[k] for k in (
+                "wall_ms_min", "wall_ms", "frames_per_s", "collectives", "collective_bytes",
+                "host_syncs", "flag_reads", "idle_share", "device_ops")
+                if k in st}
+    return rows
+
+
+def phase_parallel(dev, records, path_launches, summary):
+    """Slice H on the card.  The world of one: this process alone in an NCCL
+    group; each sharded align bit-equal to its single call, the edge-sharded
+    1k solve bit-equal to the single solve with deterministic scatter-adds,
+    the sharded odometry against ScanToMapOdometry; each path counted with
+    every launch counter at 0 just before it.  Then the world of two: two
+    spawned processes on the one card over gloo (`parallel_rank`), held to
+    the single-device calls, and every kernel of the slice's paths against
+    its plain version at rank 0's inputs.  Two ranks on one card share its
+    SMs: the world of two measures the collectives' cost and the split's
+    correctness, not scaling."""
+    import torch.distributed as dist
+
+    from fast_gicp_tpu_torch.parallel import distributed, sharded
+
+    t0 = time.perf_counter()
+    inp = parallel_inputs(dev)
+    log(f"[parallel] inputs: pair {inp['source'].shape[0]} padded points, raw grid "
+        f"{inp['grid_dims']}, drive {len(inp['drive'])} frames "
+        f"({time.perf_counter() - t0:.1f} s)")
+    distributed.initialize(device=dev)
+    try:
+        mesh = sharded.make_mesh(device=dev)
+        require(mesh.backend == ("nccl" if dev.type == "cuda" else "gloo") and mesh.size == 1
+                and mesh.device == dev,
+                f"the world of one: {mesh}")
+        one, launches = parallel_world(dev, mesh, inp, with_single=True)
+    finally:
+        dist.destroy_process_group()
+    one["odometry"]["gt"] = inp["gt"]
+    path_launches.update(launches)
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: parallel, world of one")
+    two = run_world_two(inp, dev)
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: parallel, world of two")
+    checks = parallel_kernel_checks(dev, records, two[0].pop("kernel_args"), PARALLEL_WORLD)
+    compare = parallel_compare(one, two)
+    summary["parallel"] = dict(
+        table=parallel_table(one, two), world2_against_single=compare, kernel_checks=checks,
+        world2_launches_rank0=two[0]["launches"],
+        pose_graph_1k_world1=dict(error=one["pose_graph_1k"]["error"],
+                                  end_drift_after_m=one["pose_graph_1k"]["end_drift_after_m"]))
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: parallel")
+
+
 def main() -> int:
     timing = {"--ndt-timing": ndt_timing, "--trial-timing": trial_timing,
               "--lin-timing": lin_timing}
@@ -5275,25 +5897,26 @@ def main() -> int:
                    or len(sys.argv) == 4 and sys.argv[1] == "--lin-timing")
     odometry_only = sys.argv[1:] == ["--odometry"]
     backend_only = sys.argv[1:] == ["--backend"]
+    parallel_only = sys.argv[1:] == ["--parallel"]
     if timing_only:  # time the kernels of the package under DIR
         sys.path.insert(0, str(pathlib.Path(sys.argv[2]).resolve()))
-    elif len(sys.argv) > 1 and not (odometry_only or backend_only):
-        print("usage: chip_smoke.py [--odometry | --backend | --ndt-timing DIR | "
+    elif len(sys.argv) > 1 and not (odometry_only or backend_only or parallel_only):
+        print("usage: chip_smoke.py [--odometry | --backend | --parallel | --ndt-timing DIR | "
               "--trial-timing DIR | --lin-timing DIR [REF]]", file=sys.stderr)
         return 2
     # phase 1: device
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    if not (timing_only or odometry_only or backend_only):
+    if not (timing_only or odometry_only or backend_only or parallel_only):
         start_backend_drive()
     try:
-        return run_phases(timing, timing_only, odometry_only, backend_only)
+        return run_phases(timing, timing_only, odometry_only, backend_only, parallel_only)
     finally:
         stop_backend_drive()
 
 
-def run_phases(timing, timing_only, odometry_only, backend_only) -> int:
+def run_phases(timing, timing_only, odometry_only, backend_only, parallel_only=False) -> int:
     """The phases of `main`'s mode, after the device check."""
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5332,6 +5955,17 @@ def run_phases(timing, timing_only, odometry_only, backend_only) -> int:
         phase_backend(dev, records, path_launches, summary)
         summary["profiler_fallbacks"] = PROFILER_FALLBACKS
         print(json.dumps({"backend": summary, "kernels": records,
+                          "launches_by_path": path_launches}))
+        return 0
+    if parallel_only:  # slice H's phases alone
+        records = [{"name": n} for n in ("nn_search", "linearize", "linearize_raw", "ndt_d2d",
+                                         "ndt_p2d", "rbf_moments", "block_tridiag_factor",
+                                         "block_tridiag_apply")]
+        records.append({"name": "lm_step", "by_path": {}})
+        summary, path_launches = {}, {}
+        phase_parallel(dev, records, path_launches, summary)
+        summary["profiler_fallbacks"] = PROFILER_FALLBACKS
+        print(json.dumps({"parallel": summary, "kernels": records,
                           "launches_by_path": path_launches}))
         return 0
     pair = synthetic_pair()
@@ -5383,6 +6017,7 @@ def run_phases(timing, timing_only, odometry_only, backend_only) -> int:
     log(f"[total] {time.perf_counter() - T_START:.1f} s: batches")
     phase_odometry(dev, records, path_launches, summary)
     phase_backend(dev, records, path_launches, summary)
+    phase_parallel(dev, records, path_launches, summary)
     for path in PATHS:
         summary[path]["bench"] = phase_bench(dev, pair, path)
     for path in CLASS_PATHS:
@@ -5436,7 +6071,7 @@ def run_phases(timing, timing_only, odometry_only, backend_only) -> int:
              "form_launches_by_path", "unique_rows", "unique_cells", "bytes", "edge_cases",
              "class_maps", "hash_path", "multipoint", "scan_to_map", "localization",
              "odometry_serial", "odometry_stream", "odometry_scan", "by_k", "backend",
-             "backend_source", "backend_target")
+             "backend_source", "backend_target", "parallel")
     work = ("candidates", "exact_candidates", "exact_search_ms", "source_cloud_ms",
             "pairs_visited", "pairs_in_range", "pairs_to_visit", "pairs_in_window",
             "pairs_visited_block_cull", "wide_slab_ms", "k48_ms")

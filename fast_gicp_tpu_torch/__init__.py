@@ -27,7 +27,11 @@ through the PCL-shaped class API (`FastGICP`, `FastGICPSingleThread`,
     `models.pose_graph.optimize_pose_graph`, the sparse
     `models.pose_graph_sparse.optimize_pose_graph_sparse` (block-PCG with
     a block-tridiagonal preconditioner, `ops.cuda_pose_graph`) and
-    `SlidingWindowBA`.
+    `SlidingWindowBA`;
+  * multi-device on `torch.distributed` (`parallel`): the aligns with the
+    source split across ranks, the multi-process launch, the edge-sharded
+    `optimize_pose_graph_sparse_sharded` and the hash-sharded persistent
+    map of `parallel.sharded_map.ShardedScanToMapOdometry`.
 Their kernels are hand-written CUDA C++ (`csrc/*.cu`), built with
 nvcc for sm_90a at first use: the fifteen ports of the JAX package's
 Pallas kernels and the block-tridiagonal solve; each has a plain PyTorch twin that runs for
@@ -78,6 +82,7 @@ from .models.pose_graph_sparse import (  # noqa: F401
     SlidingWindowBA,
     SparsePGConfig,
     optimize_pose_graph_sparse,
+    optimize_pose_graph_sparse_sharded,
 )
 from .models.scan_to_map import (  # noqa: F401
     MapState,

@@ -20,6 +20,7 @@ from .models.loop_closure import LoopClosureConfig
 from .models.ndt import NDTConfig
 from .models.pose_graph import PoseGraphConfig, PoseGraphResult
 from .models.pose_graph_sparse import SlidingWindowBA, SparsePGConfig
+from .models.scan_to_map import MapState
 from .models.vgicp import VGICPConfig
 from .ops import soa
 from .ops.voxelmap import DenseRawGridMap, GridVoxelMap, NdtGridMap, RawNdtGrid, VoxelMap
@@ -174,3 +175,25 @@ def sliding_window_from_numpy(ba, device="cuda") -> SlidingWindowBA:
     out.prior_pose = None if ba.prior_pose is None else np.array(ba.prior_pose, np.float32)
     out.prior_info = None if ba.prior_info is None else np.array(ba.prior_info, np.float32)
     return out
+
+
+def sharded_map_shards_from_numpy(state, device="cuda") -> list:
+    """A JAX `ShardedMapState` (its fields as numpy arrays: the leading rows
+    of sums, coords and lut global, D shards of equal size one after
+    another, num_voxels (D,)) -> the D shards as port `MapState`s on
+    `device`; rank r of a mesh of D ranks holds shard r
+    (`parallel.sharded_map.ShardedMapState(shards[r], mesh)`)."""
+    device = _device.resolve(device)
+    nv = np.asarray(state.num_voxels)
+    d = nv.shape[0]
+    sums, coords, lut = (np.asarray(getattr(state, f)) for f in ("sums", "coords", "lut"))
+    c, t = sums.shape[0] // d, lut.shape[0] // d
+    res = float(np.float32(np.asarray(state.resolution)))
+    return [MapState(sums=torch.tensor(sums[r * c:(r + 1) * c], dtype=torch.float32,
+                                       device=device),
+                     coords=torch.tensor(coords[r * c:(r + 1) * c], dtype=torch.int32,
+                                         device=device),
+                     lut=torch.tensor(lut[r * t:(r + 1) * t], dtype=torch.int32, device=device),
+                     num_voxels=torch.tensor(int(nv[r]), dtype=torch.int32, device=device),
+                     resolution=res)
+            for r in range(d)]

@@ -74,7 +74,8 @@ def target_rows16(target, target_covs):
 
 
 def make_gicp_objective(source, source_mask, source_covs, target, target_mask,
-                        target_covs, config: GICPConfig, with_freeze: bool = False):
+                        target_covs, config: GICPConfig, with_freeze: bool = False,
+                        reduce=None):
     """(linearize, error) closures of the GICP objective; with
     `with_freeze=True` also (freeze, linearize_frozen).
 
@@ -83,7 +84,11 @@ def make_gicp_objective(source, source_mask, source_covs, target, target_mask,
     `linearize_frozen(x, frozen)` linearizes against them without a
     re-search, the kernel reading each matched row of the target table
     by index.  The source columns and covariance columns are
-    loop-invariant and the pose is applied inside the kernels."""
+    loop-invariant and the pose is applied inside the kernels.
+
+    `reduce` (the JAX package's `axis_name`): a sum all-reduce over the
+    ranks of a mesh, each holding its own block of the source; [err, H, b]
+    and the trial error are summed across them.  None: one device."""
     thr_sq = config.max_correspondence_distance ** 2
     P = soa.cols_from_points(source).contiguous()  # (3, N)
     C_A = soa.sym_cols_from_covs(source_covs).contiguous()  # (6, N)
@@ -97,13 +102,14 @@ def make_gicp_objective(source, source_mask, source_covs, target, target_mask,
 
     def linearize_frozen(x, frozen):
         idx, valid = frozen
-        return cuda_linearize.linearize(P, C_A, x, table, valid, idx)
+        return cuda_solver.reduce_normal_eq(
+            cuda_linearize.linearize(P, C_A, x, table, valid, idx), reduce)
 
     def linearize(x):
         return linearize_frozen(x, freeze(x))
 
     # the trial cost the LM steps launch: the weight is aux row 6
-    error = cuda_solver.TrialCost(P)
+    error = cuda_solver.trial_cost(cuda_solver.TrialCost(P), reduce)
 
     if with_freeze:
         return linearize, error, freeze, linearize_frozen
@@ -137,24 +143,32 @@ def gicp_align(source, source_mask, source_covs, target, target_mask,
     guess = _device.as_f32(guess, dev)
 
     def run(src_c, tgt_c, x0):
-        linearize, error, freeze, linearize_frozen = make_gicp_objective(
-            src_c, source_mask, source_covs, tgt_c, target_mask, target_covs,
-            config, with_freeze=True,
-        )
-        R = config.refresh_iterations
-        if not R or R >= config.lsq.max_iterations:
-            return lsq_solve(linearize, error, x0, config.lsq)
-        p1 = lsq_solve(linearize, error, x0, config.lsq._replace(max_iterations=R))
-        frozen = freeze(p1.transformation)
-        p2 = lsq_solve(
-            lambda x: linearize_frozen(x, frozen),
-            error,
-            p1.transformation,
-            config.lsq._replace(max_iterations=config.lsq.max_iterations - R),
-        )
-        return p2._replace(iterations=p1.iterations + p2.iterations)
+        return _gicp_solve(src_c, source_mask, source_covs, tgt_c, target_mask,
+                           target_covs, x0, config)
 
     return centered_frame_align(run, source, target, target_mask, guess)
+
+
+def _gicp_solve(src_c, source_mask, source_covs, tgt_c, target_mask, target_covs, x0,
+                config: GICPConfig, reduce=None) -> LsqResult:
+    """`gicp_align`'s solve in the target-centroid frame (one or two
+    phases); with `reduce`, of this rank's block of the source."""
+    linearize, error, freeze, linearize_frozen = make_gicp_objective(
+        src_c, source_mask, source_covs, tgt_c, target_mask, target_covs,
+        config, with_freeze=True, reduce=reduce,
+    )
+    R = config.refresh_iterations
+    if not R or R >= config.lsq.max_iterations:
+        return lsq_solve(linearize, error, x0, config.lsq)
+    p1 = lsq_solve(linearize, error, x0, config.lsq._replace(max_iterations=R))
+    frozen = freeze(p1.transformation)
+    p2 = lsq_solve(
+        lambda x: linearize_frozen(x, frozen),
+        error,
+        p1.transformation,
+        config.lsq._replace(max_iterations=config.lsq.max_iterations - R),
+    )
+    return p2._replace(iterations=p1.iterations + p2.iterations)
 
 
 @f32_matmuls

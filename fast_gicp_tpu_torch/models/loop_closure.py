@@ -3,8 +3,10 @@
 
 Candidates come from the odometry trajectory (revisit proximity with a
 temporal guard, host numpy); each is verified by coarse-to-fine
-registration on the card (NDT D2D on a 4 m raw grid for the drifted guess,
-then a VGICP refine at 1 m) and a fitness gate.  Accepted closures carry the
+registration on the card (NDT D2D at 4 m for the drifted guess, on the
+hash voxel map that `ndt_align` builds without `grid_dims`: an eager freeze
+and the pack-form linearize; then a VGICP refine at 1 m) and a fitness
+gate.  Accepted closures carry the
 refine solve's world-frame Hessian as the edge information, ready for
 `optimize_pose_graph[_sparse]`.  The host reads what the JAX package reads:
 the fitness and the refine's converged flag.

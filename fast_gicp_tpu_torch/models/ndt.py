@@ -26,7 +26,7 @@ Ported here: `NDTConfig`, the objective (the JAX package's fused form,
 `_make_ndt_objective_fused`), `ndt_align`, `ndt_prepare_cloud`,
 `ndt_align_prebuilt`, `ndt_register_fresh`, `ndt_evaluate` and the class
 API's `NDTCuda` (alias `NDT`), on the dense grids and the hash map.  The
-sharded psum (`axis_name`) waits for multi-device support.
+JAX package's `axis_name` is the objective's `reduce` (`parallel.sharded`).
 """
 
 from __future__ import annotations
@@ -144,7 +144,8 @@ class NdtObjective(NamedTuple):
     `mode` are what the kernels read besides the pose."""
 
     linearize: Callable  # x -> (err, H, b, aux)
-    error: cuda_solver.TrialCost  # (x, aux) -> err, and the trial launch's form
+    # (x, aux) -> err, and the trial launch's form (a ReducedCost across ranks)
+    error: cuda_solver.TrialCost | cuda_solver.ReducedCost
     freeze: Callable  # x -> the lookup pose of the frozen phase
     linearize_frozen: Callable  # (x, pose or _FinPack) -> (err, H, b, aux)
     pack_from_aux: Callable | None  # aux -> _FinPack (P2D only)
@@ -156,11 +157,16 @@ class NdtObjective(NamedTuple):
     mode: str  # the `ndt_linearize` mode of `linearize`
 
 
-def make_ndt_objective(src_means, src_mask, src_covs, vmap, offsets) -> NdtObjective:
+def make_ndt_objective(src_means, src_mask, src_covs, vmap, offsets,
+                       reduce=None) -> NdtObjective:
     """The NDT objective against a `RawNdtGrid`, an `NdtGridMap` or, from
     `_ndt_voxelmap`, a `VoxelMap` or `GridVoxelMap`; src_covs is None for
     P2D, else the source voxel covariances as (6, N) sym-6 columns or
-    (N, 3, 3)."""
+    (N, 3, 3).  `reduce` (the JAX package's `axis_name`): a sum all-reduce
+    over the ranks of a mesh, each holding its own block of the source
+    points (P2D) or voxels (D2D) and the whole map; the fields `linearize`,
+    `linearize_frozen` and `error` then sum [err, H, b] and the trial error
+    across them.  None: one device."""
     n = src_means.shape[0]
     offsets = np.ascontiguousarray(np.asarray(offsets, np.int32))
     k = len(offsets)
@@ -184,7 +190,7 @@ def make_ndt_objective(src_means, src_mask, src_covs, vmap, offsets) -> NdtObjec
         # x itself, not a copy (phase 1's pose, which nothing writes again)
         return x
 
-    def linearize_frozen(x, frozen):
+    def local_frozen(x, frozen):
         if isinstance(frozen, _FinPack):
             return cuda_ndt.ndt_linearize(P, CA, x, frozen.pack, res, "p2d")
         if eager:
@@ -192,13 +198,18 @@ def make_ndt_objective(src_means, src_mask, src_covs, vmap, offsets) -> NdtObjec
         return cuda_ndt.ndt_linearize_lookup(P, CA, mask, x, vmap, offsets, mode,
                                              x_lookup=frozen)
 
+    def linearize_frozen(x, frozen):
+        return cuda_solver.reduce_normal_eq(local_frozen(x, frozen), reduce)
+
     def linearize(x):
         if eager:
             return linearize_frozen(x, freeze(x))
-        return cuda_ndt.ndt_linearize_lookup(P, CA, mask, x, vmap, offsets, mode)
+        return cuda_solver.reduce_normal_eq(
+            cuda_ndt.ndt_linearize_lookup(P, CA, mask, x, vmap, offsets, mode), reduce)
 
     # the trial cost the LM steps launch (the Cauchy weight at the trial pose)
-    error = cuda_solver.TrialCost(P, offsets=k, resolution=res)
+    error = cuda_solver.trial_cost(cuda_solver.TrialCost(P, offsets=k, resolution=res),
+                                   reduce)
 
     def pack_from_aux(aux):
         # aux [M (6), valid, mu (3)] -> the M-direct pack [mu, M, valid, pad]
@@ -240,22 +251,34 @@ def _solve(obj: NdtObjective, x0, config) -> LsqResult:
     return _two_phase_solve(obj, x0, config)
 
 
-def _objective(source, source_mask, source_compact, target_vm, config) -> NdtObjective:
+def _objective(source, source_mask, source_compact, target_vm, config, rows=None,
+               reduce=None) -> NdtObjective:
     """The objective from prebuilt state in one frame: the target voxel map
     and, for D2D, the compact source voxel statistics (means, valid, cov6);
-    P2D reads the raw source points."""
+    P2D reads the raw source points.  `rows(n)` (the sharded aligns) gives
+    this rank's slice of the n source rows (P2D) or voxels (D2D), whose
+    sums `reduce` adds across the ranks."""
     offsets = neighbor_offsets(config.neighbor_search_method,
                                config.neighbor_search_radius)
     if source_compact is None:
-        return make_ndt_objective(source, source_mask, None, target_vm, offsets)
-    means, mask, covs = source_compact
-    return make_ndt_objective(means, mask, covs, target_vm, offsets)
+        src = (source, source_mask, None)
+    else:
+        src = source_compact
+    if rows is not None:
+        means, mask, covs = src
+        sl = rows(means.shape[0])
+        # covariances: (N, 3, 3), or (6, N) sym-6 columns
+        src = (means[sl], mask[sl],
+               None if covs is None else covs[:, sl] if covs.dim() == 2 else covs[sl])
+    return make_ndt_objective(*src, target_vm, offsets, reduce=reduce)
 
 
-def _align_objective(src_c, source_mask, tgt_c, target_mask, config) -> NdtObjective:
+def _align_objective(src_c, source_mask, tgt_c, target_mask, config, rows=None,
+                     reduce=None) -> NdtObjective:
     """`ndt_align`'s (and `ndt_evaluate`'s) objective on target-centred
     points: a raw target grid (the hash map without grid_dims) and, for D2D,
-    the source's compact statistics, both built in the target's frame."""
+    the source's compact statistics, both built in the target's frame.
+    `rows` and `reduce`: `_objective`'s."""
     d2d = config.distance_mode == "d2d"
     stats = None
     if config.grid_dims is None:
@@ -264,14 +287,14 @@ def _align_objective(src_c, source_mask, tgt_c, target_mask, config) -> NdtObjec
             stats = _compact_source_voxels(
                 _ndt_voxelmap(src_c, source_mask, config.resolution),
                 config.max_source_voxels)
-        return _objective(src_c, source_mask, stats, target_vm, config)
+        return _objective(src_c, source_mask, stats, target_vm, config, rows, reduce)
     if d2d:
         _, stats = build_ndt_grid_compact(
             src_c, source_mask, config.resolution, config.grid_dims,
             budget=config.max_source_voxels, with_map=False, with_stats=True)
     target_vm = build_ndt_raw_grid(tgt_c, target_mask, config.resolution,
                                    config.grid_dims)
-    return _objective(src_c, source_mask, stats, target_vm, config)
+    return _objective(src_c, source_mask, stats, target_vm, config, rows, reduce)
 
 
 def _prebuilt_objective(source, source_mask, source_compact, src_center,

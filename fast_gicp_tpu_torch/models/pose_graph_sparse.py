@@ -1,6 +1,6 @@
-"""Sparse block pose-graph optimization and sliding-window marginalization
-(port of `fast_gicp_tpu.models.pose_graph_sparse`, without the sharded
-solve).
+"""Sparse block pose-graph optimization, its edge-sharded form and
+sliding-window marginalization (port of
+`fast_gicp_tpu.models.pose_graph_sparse`).
 
   * per-edge 6x12 Jacobians (`torch.func.vmap` of `jacfwd` over each edge's
     two incident poses; never the (E, 6, 6K) whole-graph Jacobian);
@@ -23,6 +23,11 @@ freezes its state once the JAX loop's tolerance test fails, so it reads
 nothing to the host; the host reads one flag an LM trial (accepted) and one
 a Gauss-Newton iteration (converged).  Runs on the card unless the caller
 passes device="cpu".
+
+`optimize_pose_graph_sparse_sharded` splits the edges across the ranks of a
+mesh (`parallel`): every edge sum (the error, b, the preconditioner's
+blocks, each CG product) is completed by a sum all-reduce, and the
+replicated prior and gauge terms are added after it.
 """
 
 from __future__ import annotations
@@ -100,8 +105,18 @@ def _quad(r, W):
 
 
 def _optimize_sparse(poses, edge_i, edge_j, z_inv, edge_info, prior_info, prior_pose,
-                     gauge_w: float, config: SparsePGConfig) -> PoseGraphResult:
-    """The sparse Gauss-Newton + block-PCG solve on tensors of one device."""
+                     gauge_w: float, config: SparsePGConfig, reduce=None) -> PoseGraphResult:
+    """The sparse Gauss-Newton + block-PCG solve on tensors of one device.
+
+    With `reduce` (the JAX package's `axis_name`: a sum all-reduce over the
+    ranks of a mesh) the edge tensors are this rank's block, and every
+    edge-indexed sum (the error, b, the diagonal and chain blocks, every CG
+    product) is completed by it; the poses and the CG state stay replicated,
+    so every rank walks the same trajectory.  The replicated prior and gauge
+    terms are added after the sum, so they count once."""
+    def ps(v):
+        return v if reduce is None else reduce(v)
+
     k = poses.shape[0]
     dev = poses.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -116,7 +131,7 @@ def _optimize_sparse(poses, edge_i, edge_j, z_inv, edge_info, prior_info, prior_
     def total_err(T):
         r = _edge_res_only(T[edge_i], T[edge_j], z_inv)
         rp = se3.se3_log(prior_inv @ T[0])
-        e = _quad(r, edge_info) + rp @ prior_info @ rp
+        e = ps(_quad(r, edge_info)) + rp @ prior_info @ rp
         # poses pushed out of se3_log's domain read as infinitely bad
         return torch.where(torch.isfinite(e), e, inf)
 
@@ -137,7 +152,7 @@ def _optimize_sparse(poses, edge_i, edge_j, z_inv, edge_info, prior_info, prior_
         Hjj = torch.einsum("ead,eam->edm", Jj, WJj)
         bi = torch.einsum("ead,ea->ed", WJi, r)
         bj = torch.einsum("ead,ea->ed", WJj, r)
-        err = _quad(r, edge_info)
+        err = ps(_quad(r, edge_info))
 
         # unary prior on pose 0: r_p(d0) = log(prior_pose^-1 T_0 exp(d0))
         rp, Jp = _prior_res_and_jac(T[0], prior_inv)
@@ -149,23 +164,23 @@ def _optimize_sparse(poses, edge_i, edge_j, z_inv, edge_info, prior_info, prior_
         # infinitely bad, any finite trial is accepted
         err = torch.where(torch.isfinite(err), err, inf)
 
-        b = torch.zeros((k, 6), **f32).index_add_(0, edge_i, bi).index_add_(0, edge_j, bj)
+        b = ps(torch.zeros((k, 6), **f32).index_add_(0, edge_i, bi).index_add_(0, edge_j, bj))
         b[0].add_(bp)
         # the preconditioner: per-pose diagonal blocks and the odometry
         # chain's super-diagonal, from chain edges in either storage order
-        Pblocks = torch.zeros((k, 6, 6), **f32).index_add_(0, edge_i, Hii).index_add_(
-            0, edge_j, Hjj)
+        Pblocks = ps(torch.zeros((k, 6, 6), **f32).index_add_(0, edge_i, Hii).index_add_(
+            0, edge_j, Hjj))
         Pblocks[0].add_(Hp)
         Pblocks = Pblocks + gauge_blk
-        U = torch.zeros((k + 1, 6, 6), **f32).index_add_(0, up_fwd, Hij).index_add_(
-            0, up_bwd, Hij.transpose(-1, -2))[:k].contiguous()
+        U = ps(torch.zeros((k + 1, 6, 6), **f32).index_add_(0, up_fwd, Hij).index_add_(
+            0, up_bwd, Hij.transpose(-1, -2)))[:k].contiguous()
         HijT = Hij.transpose(-1, -2)
 
         def matvec(x, lam):
             xi, xj = x[edge_i], x[edge_j]
             yi = torch.einsum("edm,em->ed", Hii, xi) + torch.einsum("edm,em->ed", Hij, xj)
             yj = torch.einsum("edm,em->ed", HijT, xi) + torch.einsum("edm,em->ed", Hjj, xj)
-            y = torch.zeros((k, 6), **f32).index_add_(0, edge_i, yi).index_add_(0, edge_j, yj)
+            y = ps(torch.zeros((k, 6), **f32).index_add_(0, edge_i, yi).index_add_(0, edge_j, yj))
             y[0].add_(Hp @ x[0])
             return y + gauge * x + lam * x
 
@@ -220,7 +235,7 @@ def _optimize_sparse(poses, edge_i, edge_j, z_inv, edge_info, prior_info, prior_
             conv_t = torch.ones((), dtype=torch.bool, device=dev)
             conv = True
     r = _edge_res_only(T[edge_i], T[edge_j], z_inv)
-    err = _quad(r, edge_info)
+    err = ps(_quad(r, edge_info))
     # never report success on a non-finite objective (e.g. NaN inputs)
     return PoseGraphResult(poses=T, error=err,
                            iterations=torch.full((), it, dtype=torch.int32, device=dev),
@@ -263,6 +278,48 @@ def optimize_pose_graph_sparse(poses, edge_i, edge_j, edge_rel, edge_info=None,
     gauge_w = 0.0 if have_prior else config.gauge_weight
     return _optimize_sparse(poses, edge_i, edge_j, z_inv, edge_info, prior_info, prior_pose,
                             gauge_w, config)
+
+
+@f32_matmuls
+def optimize_pose_graph_sparse_sharded(mesh, poses, edge_i, edge_j, edge_rel, edge_info=None,
+                                       prior_info=None, prior_pose=None,
+                                       config: SparsePGConfig = SparsePGConfig()
+                                       ) -> PoseGraphResult:
+    """The distributed pose-graph solve: the EDGES split across the ranks of
+    `mesh` (`parallel.sharded.make_mesh`), the poses replicated.
+
+    Every rank passes the whole graph and linearizes its contiguous block of
+    the edges (residuals, 6x12 Jacobians, 6x6 blocks); the normal equations
+    and each CG product are completed by a sum all-reduce of (K, 6) or
+    (K, 6, 6) floats, so a graph with millions of edges scales by edge count
+    while the pose state stays small.  The same trajectory as
+    `optimize_pose_graph_sparse` up to the float32 order of the sums.  Edges
+    are padded to a multiple of the mesh size with zero-information
+    self-loops on pose 0, which add exactly nothing to any sum.  Runs on the
+    mesh's device; the counters are `optimize_pose_graph_sparse`'s."""
+    dev = mesh.device
+    poses, edge_i, edge_j, edge_info, z_inv = graph_inputs(
+        poses, edge_i, edge_j, edge_rel, edge_info, dev)
+    e, d = edge_i.shape[0], mesh.size
+    pad = (-e) % d
+    if pad:
+        zeros = torch.zeros(pad, dtype=edge_i.dtype, device=dev)
+        edge_i, edge_j = torch.cat([edge_i, zeros]), torch.cat([edge_j, zeros])
+        z_inv = torch.cat([z_inv, torch.eye(4, device=dev).expand(pad, 4, 4)])
+        edge_info = torch.cat([edge_info, torch.zeros((pad, 6, 6), device=dev)])
+    m = (e + pad) // d
+    sl = slice(mesh.rank * m, (mesh.rank + 1) * m)
+    have_prior = prior_info is not None
+    if have_prior:
+        prior_info = _on(prior_info, torch.float32, dev)
+        prior_pose = _on(prior_pose, torch.float32, dev)
+    else:
+        prior_info = torch.zeros((6, 6), dtype=torch.float32, device=dev)
+        prior_pose = torch.eye(4, dtype=torch.float32, device=dev)
+    gauge_w = 0.0 if have_prior else config.gauge_weight
+    return _optimize_sparse(poses, edge_i[sl], edge_j[sl], z_inv[sl].contiguous(),
+                            edge_info[sl].contiguous(), prior_info, prior_pose, gauge_w, config,
+                            reduce=mesh.reduce)
 
 
 def reset_stats():

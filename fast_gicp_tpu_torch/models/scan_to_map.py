@@ -436,13 +436,14 @@ class ScanToMapConfig(NamedTuple):
 
 
 def map_objective(state: MapState, source, source_mask, source_covs,
-                  config: ScanToMapConfig):
+                  config: ScanToMapConfig, reduce=None):
     """The objective `align_to_map` solves, on tensors on the state's
     device: VGICP -> `make_vgicp_objective`'s (linearize, error, freeze,
     linearize_frozen) on the map's `VoxelMap` view (the freeze probes the
     lut, the `linearize` kernel reads `packed` by voxel id); NDT -> the
     `NdtObjective` on the same view (an eager freeze into a pack and the
-    pack-form launch a linearization)."""
+    pack-form launch a linearization).  `reduce`: the objectives' sum
+    all-reduce across the shards of a sharded map (`parallel.sharded_map`)."""
     from .ndt import make_ndt_objective
     from .vgicp import VGICPConfig, make_vgicp_objective
 
@@ -451,17 +452,18 @@ def map_objective(state: MapState, source, source_mask, source_covs,
     if config.objective in ("ndt_d2d", "ndt_p2d"):
         return make_ndt_objective(source, source_mask,
                                   None if config.objective == "ndt_p2d" else source_covs,
-                                  vm, offsets)
+                                  vm, offsets, reduce=reduce)
     if config.objective != "vgicp":
         raise ValueError(f"unknown scan-to-map objective: {config.objective}")
     vcfg = VGICPConfig(resolution=config.resolution,
                        neighbor_search_method=config.neighbor_search_method,
                        neighbor_search_radius=config.neighbor_search_radius, lsq=config.lsq)
-    return make_vgicp_objective(source, source_mask, source_covs, vm, offsets, vcfg)
+    return make_vgicp_objective(source, source_mask, source_covs, vm, offsets, vcfg,
+                                reduce=reduce)
 
 
-def _align(state, source, source_mask, source_covs, guess, config) -> LsqResult:
-    obj = map_objective(state, source, source_mask, source_covs, config)
+def _align(state, source, source_mask, source_covs, guess, config, reduce=None) -> LsqResult:
+    obj = map_objective(state, source, source_mask, source_covs, config, reduce)
     linearize, error = obj[0], obj[1]
     return lsq_solve(linearize, error, guess, config.lsq)
 
@@ -535,35 +537,6 @@ def _frame_covs(pts, mask, covariance: str):
     if covariance == "knn":
         return knn_covariance_cols(pts, mask)
     raise ValueError(f"unknown covariance estimator: {covariance}")
-
-
-def _fused_frame_body(state: MapState, prev_pose, last_delta, reject_streak, pts, mask,
-                      config: ScanToMapConfig, covariance: str, gate_t, gate_r):
-    """One odometry frame on (bucket, 3) points and their mask on the
-    state's device: covariances -> constant-velocity align -> tracking gate
-    -> world transform -> fusion.  Returns (state, pose, delta, streak); on
-    a reject the old delta stays verbatim (recomputing it as inv(prev)
-    (prev delta) would amplify prev's defects) and the scan is not fused."""
-    covs6 = _frame_covs(pts, mask, covariance)
-    guess = _compose(prev_pose, last_delta)
-    result = _align(state, pts, mask, covs6, guess, config)
-    pose, rejected, streak = _gate_pose(
-        result.transformation, guess, result.converged, result.error, result.hessian,
-        gate_t, gate_r, streak=reject_streak, relock_after=config.gate_relock_after)
-    delta = torch.where(rejected, last_delta, _relative(prev_pose, pose))
-    if config.fuse_scans:
-        state = _update_map(state, *_to_world(pose, pts, covs6), mask & ~rejected,
-                            config.new_per_frame_capacity)
-    return state, pose, delta, streak
-
-
-def _fused_first_frame(state: MapState, pts, mask, pose, config: ScanToMapConfig,
-                       covariance: str) -> MapState:
-    """A fresh map's first frame: the scan anchored at `pose` (identity,
-    or the resume pose of a mapping run) and fused."""
-    covs6 = _frame_covs(pts, mask, covariance)
-    return _update_map(state, *_to_world(pose, pts, covs6), mask,
-                       config.new_per_frame_capacity)
 
 
 class ScanToMapOdometry:
@@ -707,27 +680,53 @@ class ScanToMapOdometry:
         and `save()` the state a mapping run resumes from."""
         return self._last_delta.cpu().numpy().astype(np.float64)
 
-    # --- the frame ---------------------------------------------------------
+    # --- the frame and its hooks ----------------------------------------------
+    # A subclass (the sharded map, parallel.sharded_map) overrides the hooks:
+    # the covariances, the align and the fusion.
+
+    def _covs(self, pts, mask):
+        """The scan's covariances, as `_align` and `_fuse` take them."""
+        return _frame_covs(pts, mask, self.covariance)
+
+    def _align(self, pts, mask, covs, guess) -> LsqResult:
+        return _align(self.state, pts, mask, covs, guess, self.config)
+
+    def _fuse(self, pose, pts, covs, fuse_mask) -> None:
+        """Fuse the scan into the map at `pose` (the JAX package's hook takes
+        the world-frame scan; a sharded map fuses its own block of it)."""
+        self.state = _update_map(self.state, *_to_world(pose, pts, covs), fuse_mask,
+                                 self.config.new_per_frame_capacity)
 
     @f32_matmuls
     def _frame(self, pts, mask, have_velocity: bool):
         """One frame on (bucket, 3) points and their mask on the device:
-        `_fused_first_frame` for a fresh map's anchor frame, else
-        `_fused_frame_body`."""
+        covariances -> constant-velocity align -> tracking gate -> fusion at
+        the gated pose.  A fresh map's first frame is anchored at
+        `initial_pose` (identity, or the resume pose of a mapping run) and
+        fused.  On a reject the old delta stays verbatim (recomputing it as
+        inv(prev) (prev delta) would amplify prev's defects) and the scan is
+        not fused."""
         cfg = self.config
+        covs = self._covs(pts, mask)
         if not self._poses_dev and cfg.fuse_scans and not self._align_first_frame:
-            pose = self._anchor
-            self.state = _fused_first_frame(self.state, pts, mask, pose, cfg, self.covariance)
+            pose, fuse_mask = self._anchor, mask
         else:
             # localization and checkpoint-resumed mapping align from frame 0
             # (guess: the resume pose), a fresh map from frame 1; until a
             # velocity exists the prediction is a standstill and only the
             # liveness checks apply
             prev = self._last_pose if self._last_pose is not None else self._anchor
-            self.state, pose, self._last_delta, self._reject_streak = _fused_frame_body(
-                self.state, prev, self._last_delta, self._reject_streak, pts, mask, cfg,
-                self.covariance, cfg.gate_translation if have_velocity else None,
-                cfg.gate_rotation if have_velocity else None)
+            guess = _compose(prev, self._last_delta)
+            result = self._align(pts, mask, covs, guess)
+            pose, rejected, self._reject_streak = _gate_pose(
+                result.transformation, guess, result.converged, result.error,
+                result.hessian, cfg.gate_translation if have_velocity else None,
+                cfg.gate_rotation if have_velocity else None, streak=self._reject_streak,
+                relock_after=cfg.gate_relock_after)
+            self._last_delta = torch.where(rejected, self._last_delta, _relative(prev, pose))
+            fuse_mask = mask & ~rejected
+        if cfg.fuse_scans:
+            self._fuse(pose, pts, covs, fuse_mask)
         self._poses_dev.append(pose)
         self._last_pose = pose
         self._n_frames += 1

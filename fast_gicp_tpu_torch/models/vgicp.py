@@ -80,7 +80,7 @@ def _query_cols(P, x, resolution, offsets):
 
 
 def make_vgicp_objective(source, source_mask, source_covs, vmap, offsets,
-                         config: VGICPConfig):
+                         config: VGICPConfig, reduce=None):
     """(linearize, error, freeze, linearize_frozen) for the VGICP objective
     against a `DenseRawGridMap`, a `VoxelMap` or a `GridVoxelMap`.
 
@@ -93,6 +93,11 @@ def make_vgicp_objective(source, source_mask, source_covs, vmap, offsets,
     (vids >= 0) & source_mask.  `linearize_frozen(x, frozen)` linearizes
     against them without a re-search, the kernel reading each row of the
     map by its id: no gather comes before it.
+
+    `reduce` (the JAX package's `axis_name`): a sum all-reduce over the
+    ranks of a mesh, each holding its own block of the source and the whole
+    map; [err, H, b] and the trial error are summed across them.  None: one
+    device.
     """
     k = len(offsets)
     P = soa.cols_from_points(source)  # (3, N)
@@ -108,7 +113,8 @@ def make_vgicp_objective(source, source_mask, source_covs, vmap, offsets,
             return lookup_raw_ids_cols(vmap, config.grid_dims, *q).reshape(-1)
 
         def linearize_frozen(x, ids):
-            return cuda_linearize.linearize_raw(P_flat, CA_flat, x, vmap.rows, valid, ids)
+            return cuda_solver.reduce_normal_eq(
+                cuda_linearize.linearize_raw(P_flat, CA_flat, x, vmap.rows, valid, ids), reduce)
     else:
         mask_flat = source_mask.repeat(k)
 
@@ -119,13 +125,14 @@ def make_vgicp_objective(source, source_mask, source_covs, vmap, offsets,
 
         def linearize_frozen(x, frozen):
             ids, valid = frozen
-            return cuda_linearize.linearize(P_flat, CA_flat, x, vmap.packed, valid, ids)
+            return cuda_solver.reduce_normal_eq(
+                cuda_linearize.linearize(P_flat, CA_flat, x, vmap.packed, valid, ids), reduce)
 
     def linearize(x):
         return linearize_frozen(x, freeze(x))
 
     # the trial cost the LM steps launch: the weight is aux row 6
-    error = cuda_solver.TrialCost(P_flat)
+    error = cuda_solver.trial_cost(cuda_solver.TrialCost(P_flat), reduce)
 
     return linearize, error, freeze, linearize_frozen
 
@@ -166,28 +173,36 @@ def vgicp_align(source, source_mask, source_covs, target, target_mask,
     dev = _device.resolve(device)
     source, source_mask, source_covs, target, target_mask, target_covs, guess = _tensors(
         dev, source, source_mask, source_covs, target, target_mask, target_covs, guess)
-    offsets = _offsets(config)
 
     def run(src_c, tgt_c, x0):
-        vmap = _build_target_map(tgt_c, target_mask, target_covs, config)
-        linearize, error, freeze, linearize_frozen = make_vgicp_objective(
-            src_c, source_mask, source_covs, vmap, offsets, config
-        )
-        R = config.refresh_iterations
-        if not R or R >= config.lsq.max_iterations:
-            return lsq_solve(linearize, error, x0, config.lsq)
-        p1 = lsq_solve(linearize, error, x0,
-                       config.lsq._replace(max_iterations=R))
-        frozen = freeze(p1.transformation)
-        p2 = lsq_solve(
-            lambda x: linearize_frozen(x, frozen),
-            error,
-            p1.transformation,
-            config.lsq._replace(max_iterations=config.lsq.max_iterations - R),
-        )
-        return p2._replace(iterations=p1.iterations + p2.iterations)
+        return _vgicp_solve(src_c, source_mask, source_covs, tgt_c, target_mask,
+                            target_covs, x0, config)
 
     return centered_frame_align(run, source, target, target_mask, guess)
+
+
+def _vgicp_solve(src_c, source_mask, source_covs, tgt_c, target_mask, target_covs, x0,
+                 config: VGICPConfig, reduce=None) -> LsqResult:
+    """`vgicp_align`'s solve in the target-centroid frame: the target map,
+    then one or two phases; with `reduce`, of this rank's block of the
+    source against the whole map."""
+    vmap = _build_target_map(tgt_c, target_mask, target_covs, config)
+    linearize, error, freeze, linearize_frozen = make_vgicp_objective(
+        src_c, source_mask, source_covs, vmap, _offsets(config), config, reduce=reduce
+    )
+    R = config.refresh_iterations
+    if not R or R >= config.lsq.max_iterations:
+        return lsq_solve(linearize, error, x0, config.lsq)
+    p1 = lsq_solve(linearize, error, x0,
+                   config.lsq._replace(max_iterations=R))
+    frozen = freeze(p1.transformation)
+    p2 = lsq_solve(
+        lambda x: linearize_frozen(x, frozen),
+        error,
+        p1.transformation,
+        config.lsq._replace(max_iterations=config.lsq.max_iterations - R),
+    )
+    return p2._replace(iterations=p1.iterations + p2.iterations)
 
 
 @f32_matmuls

@@ -16,12 +16,16 @@ objective's error at xi (`_error_kernel`, `pallas_linearize.py:633`, or
 nu, x and the two flags the host reads), on a solve's state buffer
 (`lm_state`), which it updates in place.  `lm_step_plain` is the same
 trial as eager ops.
+
+Across the ranks of a mesh (`parallel`), an objective's error is a
+`ReducedCost` and each linearization's [err, H, b] one all-reduce of 43
+floats (`reduce_normal_eq`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -137,6 +141,37 @@ class TrialCost(NamedTuple):
         if self.resolution is not None:
             a = cuda_ndt._cauchy(cuda_ndt._c_sq(self.resolution), p_t, mu, a)
         return soa.error_cols(p_t, mu, aux[:6], a)
+
+
+class ReducedCost(NamedTuple):
+    """An objective's trial cost summed over the ranks of a mesh:
+    `reduce(cost(x, aux))`, `reduce` a sum all-reduce
+    (`parallel.mesh.Mesh.reduce`) and `cost` the rank's own `TrialCost` (or
+    any callable of (x, aux)).  The trial launch sums only its own lanes in
+    its last block, so a solve whose error is a ReducedCost takes the
+    unfused trial order of `lm_step_plain` (`solver.lsq_solve`)."""
+
+    cost: Callable
+    reduce: Callable
+
+    def __call__(self, x, aux):
+        return self.reduce(self.cost(x, aux))
+
+
+def trial_cost(cost, reduce=None):
+    """`cost` itself (reduce None: one device), else its `ReducedCost`."""
+    return cost if reduce is None else ReducedCost(cost, reduce)
+
+
+def reduce_normal_eq(lin, reduce=None):
+    """A linearization's (err, H, b, aux) with err, H and b summed over the
+    ranks by one all-reduce of the 43 packed floats [err, H (36), b (6)];
+    aux stays the rank's own.  With reduce None, `lin` itself."""
+    if reduce is None:
+        return lin
+    err, H, b, aux = lin
+    packed = reduce(torch.cat([err.reshape(1), H.reshape(36), b.reshape(6)]))
+    return packed[0], packed[1:37].view(6, 6), packed[37:43], aux
 
 
 def lm_state(x0):

@@ -29,6 +29,16 @@ re-evaluations reuse into `aux`; `error_fn(x, aux)` evaluates the
 objective at a trial pose against it.  On the card `error_fn` is the
 objective's `cuda_solver.TrialCost`, which the trial launch reads; on the
 CPU any callable does.
+
+Across the ranks of a mesh the objective's error is a
+`cuda_solver.ReducedCost`: a rank's trial launch would read only its own
+lanes' error, so such a solve runs each trial in the unfused order of
+`cuda_solver.lm_step_plain`, which is the collective's order and not a
+fallback: the standalone trial kernel (`lm_trial`), the error kernel with
+the trial off, the all-reduce of the error, then the schedule as eager
+device ops.  Every rank reads the same reduced flags, so every rank walks
+the same iterations.  On one device that order gives the fused launch's
+bits (`chip_smoke.py` holds the two to each other).
 """
 
 from __future__ import annotations
@@ -116,13 +126,16 @@ def lsq_solve(
     y = scalar(0.0)
     converged = scalar(False, torch.bool)
     aux = None
+    # a cost summed across ranks takes the unfused trial (module docstring)
+    step = (cuda_solver.lm_step_plain if isinstance(error_fn, cuda_solver.ReducedCost)
+            else cuda_solver.lm_step)
     i = 0
     while i < config.max_iterations:
         y0, H, b, aux = linearize_fn(x)
         if config.optimizer == "lm":
             done, conv = False, False
             for j in range(config.lm_max_iterations):
-                cuda_solver.lm_step(state, H, b, y0, aux, error_fn, j == 0, config)
+                step(state, H, b, y0, aux, error_fn, j == 0, config)
                 if config.debug_print:
                     yi = state[cuda_solver.STATE_YI]
                     rho = (y0 - yi) / state[cuda_solver.STATE_DENOM]

@@ -33,6 +33,9 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import fast_gicp_tpu_torch.utils.kitti, fast_gicp_tpu_torch.apps.kitti\n"
         "import fast_gicp_tpu_torch.models.pose_graph, fast_gicp_tpu_torch.models.loop_closure\n"
         "import fast_gicp_tpu_torch.models.pose_graph_sparse, fast_gicp_tpu_torch.ops.cuda_pose_graph\n"
+        "import fast_gicp_tpu_torch.parallel, fast_gicp_tpu_torch.parallel.mesh\n"
+        "import fast_gicp_tpu_torch.parallel.sharded, fast_gicp_tpu_torch.parallel.distributed\n"
+        "import fast_gicp_tpu_torch.parallel.sharded_map\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -170,6 +173,41 @@ def test_convert_helpers_default_to_cuda_and_raise_without_it(monkeypatch):
         out = call(device="cpu")
         tensors = out if isinstance(out, tuple) else [out]
         assert all(t.device.type == "cpu" for t in tensors if isinstance(t, torch.Tensor))
+
+
+def test_parallel_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    """The meshes, the spawned worlds, the sharded aligns, the edge-sharded
+    pose graph and the sharded odometry run on the card unless the caller
+    asks for the CPU: a mesh is made for CUDA by default, and without CUDA
+    that raises before any process group or process starts."""
+    import torch.distributed as dist
+
+    import fast_gicp_tpu_torch as pkg
+    from fast_gicp_tpu_torch.parallel import distributed, sharded, sharded_map
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.zeros((2048, 3), np.float32)
+    mask = np.ones(2048, bool)
+    eye = np.eye(4, dtype=np.float32)
+    covs = np.tile(np.eye(3, dtype=np.float32), (2048, 1, 1))
+    calls = [
+        lambda: sharded.make_mesh(), lambda: distributed.make_global_mesh(),
+        lambda: distributed.initialize(), lambda: distributed.spawn_world(len, 2, None),
+        lambda: sharded.gicp_align_sharded(sharded.make_mesh(), pts, mask, covs, pts, mask,
+                                           covs, eye),
+        lambda: sharded.vgicp_align_sharded(sharded.make_mesh(), pts, mask, covs, pts, mask,
+                                            covs, eye),
+        lambda: sharded.ndt_align_sharded(sharded.make_mesh(), pts, mask, pts, mask, eye),
+        lambda: pkg.optimize_pose_graph_sparse_sharded(sharded.make_mesh(), eye[None],
+                                                       np.zeros(0, np.int32),
+                                                       np.zeros(0, np.int32),
+                                                       np.zeros((0, 4, 4), np.float32)),
+        lambda: sharded_map.ShardedScanToMapOdometry(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not dist.is_initialized()
 
 
 def test_wrappers_take_plain_version_on_cpu_without_counting():
