@@ -51,7 +51,7 @@ pose), `optimize_pose_graph_sparse` over the 512 poses (odometry edges at
 1e2 I, the closures at their Hessians; the end error must fall), on the
 JAX test's 1k graph (the end drift under 0.3x), dense against sparse on a
 10-pose graph (within 2e-3), and `SlidingWindowBA` (window 20) over the
-drive's first 256 relatives, a solve every 32 keyframes, and on the 30-keyframe
+drive's first 96 relatives, a solve every 32 keyframes, and on the 30-keyframe
 chain (the loop edge halves the tail error).  The 512-pose solve runs again
 under torch's sync debug mode: its host syncs must be its flag reads (one
 an LM trial, one a Gauss-Newton iteration; none inside a PCG), and every
@@ -85,6 +85,24 @@ the odometry's first 8 frames within 5e-3 m and its ATE, the first frame's
 voxel count the single map's at its binding cap on new voxels in both
 worlds, every voxel of a shard its rank's by `_owner_hash_np`, and each kernel of the slice's paths
 against its plain version at rank 0's inputs.
+The device-resident LM loop's phase runs after the multi-device one
+(`phase_device_loop`; `python3 chip_smoke.py --align` runs it alone): the
+condition kernel (`loop_cond`, `csrc/device_loop.cu`) bit for bit against
+its plain version on a 128-case sweep and timed; the `apps/align.py`
+twin's class rows at --n 10 on the full-size pair written as PCD files;
+its 14 `--device-loop` rows (7 bodies, fresh and reuse) at n = 20 with 2
+timed runs, each trip one replay of the row's captured graph, its solve's
+loops conditional WHILE nodes: ms an align beside the bodies called
+eagerly, no host sync between a run's first enqueue and its read (torch's
+sync debug mode), the loops' launches a trip from the device's tally
+(`cuda_solver.loop_counts`: a profiler does not see every kernel of a
+conditional body), a traced run, every trip's iterations and pose equal to
+its eager call's with deterministic scatter-adds (the row captured again
+under them; with atomic ones the gap beside the eager call's own repeat
+gap); then `run_odometry_scan` and `ScanToMapOdometry.process_chunk` in
+their one-program forms over the 128-frame drive against their eager
+forms on the same criterion, with their ATE bounds, frames/s and host
+syncs.  The other phases run the odometry eager (`device_loop=False`).
 Phases, each fatal on failure (exit code != 0, no result line):
   1. device: CUDA must be present; prints the card's name and power limit;
   2. build: compiles the CUDA kernels from `fast_gicp_tpu_torch/csrc` (one
@@ -102,8 +120,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
      device="cpu" (the plain versions): the VGICP and GICP paths on the
      CPU-test-sized pair, the NDT paths on the full-size pair (the small
      pair's 1 m voxels hold too few points for NDT's > 6 gate);
-  6. bench protocol: registrations of each path through a 1e-5 rigid
-     jitter of both clouds (bench.py's protocol), after a warm-up;
+  6. bench protocol: 30 registrations of each path through a 1e-5 rigid
+     jitter of both clouds (bench.py's protocol at a smaller depth), after
+     a warm-up;
   7. profile: stage wall times, each registration's device span from CUDA
      events on the stream, and a torch.profiler trace of a few
      registrations of each path (device time by kernel, device busy share,
@@ -2383,6 +2402,7 @@ def counters():
         "radius_window": cuda_kernels.radius_window,
         "block_tridiag_factor": cuda_pose_graph.block_tridiag_factor,
         "block_tridiag_apply": cuda_pose_graph.block_tridiag_apply,
+        "loop_cond": cuda_solver.loop_cond,
     }
 
 
@@ -2805,7 +2825,14 @@ def phase_card_vs_cpu(dev, pair, path):
                 iterations_gpu=int(r_gpu.iterations), iterations_cpu=int(r_cpu.iterations))
 
 
-def phase_bench(dev, pair, path, n_regs=100):
+# bench.py's protocol at a smaller depth: 30 registrations a path (100 until
+# PR 16; the class paths' new ones 50) and 4 batches (10), to keep the whole
+# script in its time with the device loop's phase
+BENCH_REGS = 30
+BENCH_BATCHES = 4
+
+
+def phase_bench(dev, pair, path, n_regs=BENCH_REGS):
     from fast_gicp_tpu_torch import se3
     from fast_gicp_tpu_torch.solver import lsq_solve
     from fast_gicp_tpu_torch.utils.padding import pad_points
@@ -3370,7 +3397,7 @@ def _fresh_class(dev, pair, path):
     return reg, register
 
 
-def phase_class_bench(dev, pair, path, n_regs=100):
+def phase_class_bench(dev, pair, path, n_regs=BENCH_REGS):
     """`n_regs` fresh class registrations after a warm-up (clear_covariances
     + align_async, the class API's form of a fresh instance per align,
     align.cpp:56-76), closed by a synchronise."""
@@ -3760,7 +3787,7 @@ def phase_batch_card_vs_cpu(dev, path):
     return dict(pose_diff=diff, tolerance=tol, iterations_gpu=it_g, iterations_cpu=it_c)
 
 
-def phase_batch_timing(dev, path, n_batches=10):
+def phase_batch_timing(dev, path, n_batches=BENCH_BATCHES):
     """ms a registration over `n_batches` batch calls after a warm-up, then
     a traced batch's device busy time and ops (per registration: / B)."""
     from fast_gicp_tpu_torch.solver import lsq_solve
@@ -3900,7 +3927,7 @@ def localization_config():
     return ScanToMapConfig(fuse_scans=False, objective="ndt_d2d")
 
 
-def odometry_run(path, dev, frames=None, drive=None, map_path=None):
+def odometry_run(path, dev, frames=None, drive=None, map_path=None, device_loop=False):
     """The path over the drive's first `frames` frames (all by default) as a
     user runs it: (poses, the ScanToMapOdometry or None).  The scan-to-scan
     modes as the KITTI app builds them (serial: `FastVGICP(resolution=1)`,
@@ -3910,7 +3937,8 @@ def odometry_run(path, dev, frames=None, drive=None, map_path=None):
     `ScanToMapOdometry(ScanToMapConfig())` fed chunks of 32 frames, the
     app's map mode; localization: NDT D2D on the mapping pass's map saved at
     `map_path`, loaded with `load_map`, fuse_scans=False, over the first 32
-    frames."""
+    frames.  `device_loop`: the one-program forms of scan and scan_to_map
+    (a frame one CUDA graph replay); the other phases run them eager."""
     from fast_gicp_tpu_torch.models.scan_to_map import (
         ScanToMapConfig, ScanToMapOdometry, load_map,
     )
@@ -3925,15 +3953,16 @@ def odometry_run(path, dev, frames=None, drive=None, map_path=None):
     if path == "odometry_stream":
         return kitti.run_odometry_stream(clouds, -1.0, config=cfg, device=dev), None
     if path == "odometry_scan":
-        return kitti.run_odometry_scan(clouds, -1.0, config=cfg, device=dev), None
+        return kitti.run_odometry_scan(clouds, -1.0, config=cfg, device=dev,
+                                       device_loop=device_loop), None
     if path == "scan_to_map":
-        odo = ScanToMapOdometry(ScanToMapConfig(), device=dev)
+        odo = ScanToMapOdometry(ScanToMapConfig(), device=dev, device_loop=device_loop)
         for lo in range(0, len(clouds), ODOMETRY_CHUNK):
             odo.process_chunk(clouds[lo:lo + ODOMETRY_CHUNK])
         return odo.poses, odo
     odo = ScanToMapOdometry(localization_config(),
                             initial_map=load_map(map_path, device=dev),
-                            device=dev)
+                            device=dev, device_loop=device_loop)
     odo.process_chunk(clouds[:min(len(clouds), LOCALIZATION_FRAMES)])
     return odo.poses, odo
 
@@ -3949,7 +3978,7 @@ def odometry_prepared(path, dev, n, map_path=None):
     if path.startswith("odometry_"):
         return lambda: odometry_run(path, dev, frames=n + 1)
     if path == "scan_to_map":
-        odo = ScanToMapOdometry(ScanToMapConfig(), device=dev)
+        odo = ScanToMapOdometry(ScanToMapConfig(), device=dev, device_loop=False)
         odo.process_chunk(clouds[:ODOMETRY_CHUNK])
         chunk = clouds[ODOMETRY_CHUNK:ODOMETRY_CHUNK + n]
     else:
@@ -4197,10 +4226,10 @@ def phase_odometry_equivalences(dev):
     clouds, _gt, _dims = odometry_drive()
 
     def chunk_and_frames():
-        per_frame = ScanToMapOdometry(ScanToMapConfig(), device=dev)
+        per_frame = ScanToMapOdometry(ScanToMapConfig(), device=dev, device_loop=False)
         for s in clouds[:16]:
             per_frame.process(s)
-        chunked = ScanToMapOdometry(ScanToMapConfig(), device=dev)
+        chunked = ScanToMapOdometry(ScanToMapConfig(), device=dev, device_loop=False)
         chunked.process_chunk(clouds[:4])
         chunked.process_chunk(clouds[4:16])
         return max(float(np.abs(a - b).max()) for a, b in zip(per_frame.poses, chunked.poses))
@@ -4367,7 +4396,7 @@ def phase_odometry_kernels(dev, records, map_path):
     clouds, _gt, _dims = odometry_drive()
     by_name = {r["name"]: r for r in records}
     trials = scan_to_scan_kernels(dev, by_name)
-    odo = ScanToMapOdometry(ScanToMapConfig(), device=dev)
+    odo = ScanToMapOdometry(ScanToMapConfig(), device=dev, device_loop=False)
     for s in clouds[:KERNEL_FRAME]:
         odo.process_async(s)
     pts, mask = (t[0] for t in odo._padded([clouds[KERNEL_FRAME]]))
@@ -4407,7 +4436,8 @@ def phase_odometry_kernels(dev, records, map_path):
 
     # localization's first freeze: frame 0 on the saved map, the anchor pose
     state = load_map(map_path, device=dev)
-    loc = ScanToMapOdometry(localization_config(), initial_map=state, device=dev)
+    loc = ScanToMapOdometry(localization_config(), initial_map=state, device=dev,
+                            device_loop=False)
     pts0, mask0 = (t[0] for t in loc._padded([clouds[0]]))
     covs0 = _frame_covs(pts0, mask0, "rbf")
     x0 = _compose(loc._anchor, loc._last_delta)
@@ -4479,9 +4509,10 @@ K1000_DRIFT_SHARE = 0.3  # its end drift after the solve, of the drift before
 DENSE_SPARSE_TOL = 2e-3  # tests/test_pose_graph.py:81-117
 WINDOW = 20  # SlidingWindowBA's default window
 WINDOW_EVERY = 32  # keyframes between the window's solves on the drive
-# the drive's first relatives fed to the window: 8 solves (the whole drive's
-# 511, 15 solves, took 54-78 s on one NVIDIA H100 80GB HBM3, 700 W)
-WINDOW_DRIVE_KEYFRAMES = 256
+# the drive's first relatives fed to the window: 3 solves (the whole drive's
+# 511, 15 solves, took 54-78 s on one NVIDIA H100 80GB HBM3, 700 W; 256, 8
+# solves, 33-40 s, cut to keep the whole script in its time)
+WINDOW_DRIVE_KEYFRAMES = 96
 TRIDIAG_TOL = 1e-5  # block_tridiag against its plain version, of max |x|
 CLOSURE_CARD_CPU = (2e-3, 1e-3)  # m, rad: the limit of the RBF paths, card against CPU
 BACKEND_CARD_CPU_TOL = 1e-4  # the 64-pose sparse solve's poses and the window, card against CPU
@@ -5618,7 +5649,7 @@ def parallel_world(dev, mesh, inp, with_single=False):
         f"{first_voxels} voxels after the first frame")
     if with_single:
         def single_odometry(frames):
-            s = ScanToMapOdometry(config, device=dev)
+            s = ScanToMapOdometry(config, device=dev, device_loop=False)
             for lo in range(0, frames, ODOMETRY_CHUNK):
                 s.process_chunk(clouds[lo:min(lo + ODOMETRY_CHUNK, frames)])
             return s
@@ -5890,6 +5921,373 @@ def phase_parallel(dev, records, path_launches, summary):
     log(f"[total] {time.perf_counter() - T_START:.1f} s: parallel")
 
 
+# -- the device-resident LM loop: the apps/align.py twin, its device-loop rows
+# and the one-program odometry forms -------------------------------------------
+
+ALIGN_CLASS_N = 10  # the twin's --n for its class rows
+DEVICE_LOOP_N = 20  # trips a device-loop row
+DEVICE_LOOP_REPS = 2  # timed runs of a row (the root app's timed() takes 5)
+# apps/align.py's 2,048 NDT source voxels overflow the synthetic pair
+# (6,660 occupied at 1 m): the rows here take 8,192, as the align paths do
+DEVICE_LOOP_SOURCE_VOXELS = 8192
+DEVICE_LOOP_METHODS = ("fgicp", "vgicp", "vgicp_rbf", "ndt_d2d", "ndt_p2d")
+# the condition kernel: it reads the state's flags and counters (5 floats),
+# H (36) and y0 and writes 3 state floats, H_out (36), y, converged (1 byte),
+# iterations and the flag; a few compares and adds
+LOOP_COND_BYTES = (5 + 36 + 1 + 3 + 36 + 1 + 1 + 1) * 4 + 1
+LOOP_COND_OPS = 8
+# the kernels a trip of each row launches outside its loops (profiler names;
+# the reuse rows rotate precomputed covariances), besides those the loops
+# launch: a linearization an outer iteration, the trial launch and the
+# condition kernel, which `cuda_solver.loop_counts` tallies on the device (a
+# profiler does not see every kernel of a conditional body)
+DEVICE_LOOP_KERNELS = {
+    ("fgicp", "fresh"): ("knn_moments",),
+    ("fgicp_adaptive", "fresh"): ("radius_count", "radius_window"),
+    ("vgicp", "fresh"): ("knn_moments",),
+    ("vgicp_adaptive", "fresh"): ("radius_count", "radius_window"),
+    ("vgicp_rbf", "fresh"): ("rbf_moments",),
+}
+
+
+def card_line():
+    """The card's name and power limit as `nvidia-smi` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def phase_align_twin(dev, pair, card):
+    """The `apps/align.py` twin's class rows (single, Nx, Nx reuse, fitness)
+    at --n 10 on the full-size pair, written as PCD files and loaded by the
+    app as a user runs it; its JSON keys are the root app's."""
+    import tempfile
+
+    from fast_gicp_tpu_torch.apps import align as app
+    from fast_gicp_tpu_torch.utils.io import save_pcd
+
+    source, target, _gt = pair
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="align_twin_"))
+    save_pcd(str(tmp / "target.pcd"), target)
+    save_pcd(str(tmp / "source.pcd"), source)
+    t0 = time.perf_counter()
+    rc = app.main([str(tmp / "target.pcd"), str(tmp / "source.pcd"), "--n", str(ALIGN_CLASS_N),
+                   "--exact-downsample", "--json", str(tmp / "rows.json")])
+    wall = time.perf_counter() - t0
+    table = json.loads((tmp / "rows.json").read_text())
+    require(rc == 0 and set(table) == {"n", "pipelined", "downsample", "n_target", "n_source",
+                                       "methods"}
+            and set(table["methods"]) == set(DEVICE_LOOP_METHODS)
+            and all(math.isfinite(r["fitness"]) for r in table["methods"].values()),
+            f"the align twin's class rows: rc {rc}, {table}")
+    for name, r in table["methods"].items():
+        log(f"[align] {name}: single {r['single_ms']} ms, {ALIGN_CLASS_N}x {r[f'{ALIGN_CLASS_N}x_ms']}"
+            f" ms, {ALIGN_CLASS_N}x reuse {r[f'{ALIGN_CLASS_N}x_reuse_ms']} ms, fitness "
+            f"{r['fitness']} ({card})")
+    log(f"[align] the twin's class rows in {wall:.1f} s")
+    return dict(table, wall_s=wall, card=card)
+
+
+def loop_cond_sweep(dev):
+    """The condition kernel against its plain version on every mode, both
+    optimizers, done/conv flags and trial counters about the caps, each from
+    a seeded state: every output bit for bit.  Returns the cases run."""
+    from fast_gicp_tpu_torch.ops import cuda_solver as cs
+    from fast_gicp_tpu_torch.solver import LsqConfig
+
+    rng = np.random.default_rng(17)
+    cases = 0
+    for opt in ("lm", "gn"):
+        cfg = LsqConfig(optimizer=opt, max_iterations=5, lm_max_iterations=3)
+        for mode in (cs.LOOP_OUTER_ENTER, cs.LOOP_FIRST_TRIAL, cs.LOOP_AFTER_TRIAL,
+                     cs.LOOP_AFTER_INNER):
+            for done, conv, count in [(d, c, k) for d in (0.0, 1.0) for c in (0.0, 1.0)
+                                      for k in (0.0, 1.0, 2.0, 4.0)]:
+                state = torch.as_tensor(rng.standard_normal(cs.STATE_FLOATS).astype(np.float32))
+                state[cs.STATE_DONE], state[cs.STATE_CONV] = done, conv
+                state[cs.STATE_TRIAL] = state[cs.STATE_ITERATION] = count
+                state[cs.STATE_TRIALS_RUN] = 3.0 * count
+                H = torch.as_tensor(rng.standard_normal((6, 6)).astype(np.float32))
+                y0 = torch.as_tensor(np.float32(rng.standard_normal()))
+                init = [torch.as_tensor(rng.standard_normal(t.shape)).to(t.dtype)
+                        for t in cs.loop_out(torch.device("cpu"))]
+                outs = []
+                for d in (dev, torch.device("cpu")):
+                    st = state.clone().to(d)
+                    out = cs.LoopOut(*[t.clone().to(d) for t in init])
+                    if d.type == "cuda":
+                        cs.loop_cond(st, out, mode, cfg, H.to(d), y0.to(d))
+                    else:
+                        cs.loop_cond_plain(st, out, mode, cfg, H, y0)
+                    outs.append([st.cpu(), *[t.cpu() for t in out]])
+                require(all(torch.equal(a, b) for a, b in zip(*outs)),
+                        f"loop_cond mode {mode} ({opt}, done {done}, conv {conv}, count {count}) "
+                    "differs from its plain version")
+                cases += 1
+    return cases
+
+
+def loop_cond_record(dev, launches):
+    """The condition kernel's record: the sweep bit for bit, a launch's
+    device time at a solve's state against the plain version's, the bound."""
+    from fast_gicp_tpu_torch.ops import cuda_solver as cs
+    from fast_gicp_tpu_torch.solver import LsqConfig
+
+    cases = loop_cond_sweep(dev)
+    cfg = LsqConfig()
+    state = cs.lm_state(torch.eye(4, device=dev))
+    out = cs.loop_out(dev)
+    H, y0 = torch.eye(6, device=dev), torch.zeros((), device=dev)
+    run = lambda: cs.loop_cond(state, out, cs.LOOP_AFTER_INNER, cfg, H, y0)  # noqa: E731
+    plain = lambda: cs.loop_cond_plain(state, out, cs.LOOP_AFTER_INNER, cfg, H, y0)  # noqa: E731
+    t = timings(run, plain, "loop_cond_kernel", 200, 20)
+    b_ms, b_by = bound_ms(LOOP_COND_BYTES, LOOP_COND_OPS)
+    log(f"[kernels] loop_cond: {cases} cases bit for bit its plain version; "
+        f"{t['ms']:.5f} ms a launch, plain {t['plain_ms']:.4f} ms; bound {b_ms:.3e} ms ({b_by})")
+    return dict(name="loop_cond", own_path="device_loop", route="cuda",
+                source="fast_gicp_tpu_torch/csrc/device_loop.cu",
+                replaces="none: the predicates of the lax.while_loops in "
+                         "fast_gicp_tpu/solver.py (evaluated by XLA)",
+                launches=launches, max_abs_err=0.0, tolerance=f"bit for bit on {cases} cases",
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=LOOP_COND_BYTES, **t)
+
+
+def loop_tally(run, n, dev):
+    """What the loops of `run()` (n trips) ran a trip, from the device's
+    `loop_counts`: condition launches, trials (trial launches), outer
+    iterations (linearizations) and solves."""
+    from fast_gicp_tpu_torch.ops import cuda_solver as cs
+
+    counts = cs.loop_counts(dev)
+    torch.cuda.synchronize()
+    counts.zero_()
+    run()
+    torch.cuda.synchronize()
+    return dict(zip(cs.LOOP_COUNTS, (v / n for v in counts.tolist())))
+
+
+def row_profile(run, n, kernels):
+    """A torch.profiler trace of `run()` (n trips): device ops, busy ms and
+    the idle share of the traced wall a trip, and the launches a trip of
+    each named kernel outside the loops.  The trace misses kernels of the
+    conditional bodies: its ops and busy time are lower bounds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    events = device_events(prof)
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / n
+    ops = sum(e.count for e in events) / n
+    per_trip = {k: sum(e.count for e in events if k in e.key) / n for k in kernels}
+    return dict(traced_device_ops_per_trip=ops, traced_device_busy_ms=busy,
+                traced_wall_ms=wall, traced_idle_share=1.0 - busy / wall,
+                traced_launches_per_trip=per_trip)
+
+
+def span_ms(run, n):
+    """The device span a trip of `run()` (n trips) from CUDA events on the
+    stream: the device's own time for the trips, idle gaps inside included."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def phase_device_loop_rows(dev, pair, card):
+    """The twin's 14 --device-loop rows (7 bodies, fresh and reuse) at n = 20
+    with 2 timed runs, each trip one replay of the row's captured graph: ms
+    an align beside the same bodies called eagerly, host syncs between a
+    run's first enqueue and its read (none allowed), device ops, busy and
+    idle a trip and the kernels' launches a trip; each trip's iterations
+    equal to the eager call's on its jitter and its pose bit for bit, both
+    with deterministic scatter-adds (a row captured again under them); with
+    the default atomic ones the gap beside the eager call's own repeat gap."""
+    from fast_gicp_tpu_torch import graphs
+    from fast_gicp_tpu_torch.apps import align as app
+
+    source, target, _gt = pair
+    count_host_syncs(lambda: None)  # a process's first sync-debug window counts one in torch.cuda
+    reset_counters()
+    captures0 = graphs.DeviceGraph.captures
+    rows_out = {}
+    t0 = time.perf_counter()
+    table = app.run_device_rows(list(DEVICE_LOOP_METHODS), source, target, DEVICE_LOOP_N,
+                                device=dev, reps=DEVICE_LOOP_REPS,
+                                max_source_voxels=DEVICE_LOOP_SOURCE_VOXELS, rows_out=rows_out)
+    launches = read_counters()
+    require(len(rows_out) == 14 and graphs.DeviceGraph.captures - captures0 == 14,
+            f"device-loop rows: {len(rows_out)} rows, "
+            f"{graphs.DeviceGraph.captures - captures0} captures")
+    log(f"[device_loop] 14 rows run (warm-up, capture, {DEVICE_LOOP_REPS} timed runs) in "
+        f"{time.perf_counter() - t0:.1f} s; launches at warm-up and capture {launches}")
+    bodies = app.device_bodies(source, target, dev, DEVICE_LOOP_SOURCE_VOXELS)
+    jit = next(iter(rows_out.values())).jit
+    n = jit.shape[0]
+    out = {}
+    for (name, col), row in rows_out.items():
+        body = bodies[name][0 if col == "fresh" else 1]
+        label = f"{name} {col}"
+        syncs, sites = count_host_syncs(row.run)
+        poses, iters = (t.cpu() for t in row.run())
+        t1 = time.perf_counter()
+        eager = [body(jit[k]) for k in range(n)]
+        e_poses = torch.stack([r.transformation for r in eager]).cpu()
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t1) * 1e3 / n
+        e_iters = torch.stack([r.iterations for r in eager]).cpu()
+        repeat = torch.stack([body(jit[k]).transformation for k in range(n)]).cpu()
+        gap = float((poses - e_poses).abs().max())
+        repeat_gap = float((repeat - e_poses).abs().max())
+
+        def deterministic():
+            drow = app.DeviceRow(body, jit)
+            d_poses, d_iters = (t.cpu() for t in drow.run())
+            d_eager = [body(jit[k]) for k in range(n)]
+            return (d_poses, d_iters, torch.stack([r.transformation for r in d_eager]).cpu(),
+                    torch.stack([r.iterations for r in d_eager]).cpu())
+
+        d_poses, d_iters, de_poses, de_iters = _deterministic(deterministic)
+        kernels = DEVICE_LOOP_KERNELS.get((name, col), ())
+        prof = row_profile(row.run, n, kernels)
+        tally = loop_tally(row.run, n, dev)
+        span = span_ms(row.run, n)
+        ms = table[name][f"{col}_ms_per_align"]
+        stats = dict(ms_per_align=ms, eager_ms_per_align=eager_ms, device_span_ms=span,
+                     host_syncs=syncs, host_sync_sites=sites, loops_per_trip=tally,
+                     iterations=iters.tolist(), eager_iterations=e_iters.tolist(),
+                     gap_atomic=gap, eager_repeat_gap_atomic=repeat_gap,
+                     deterministic_bit_equal=bool(torch.equal(d_poses, de_poses)),
+                     deterministic_iterations_equal=bool(torch.equal(d_iters, de_iters)),
+                     **prof, card=card)
+        out[f"{name}_{col}"] = stats
+        log(f"[device_loop] {label}: {ms} ms an align (eager calls {eager_ms:.3f}), device span "
+            f"{span:.3f} ms a trip, host syncs in a run {syncs} {sites}; loops a trip {tally}; "
+            f"traced: device ops {prof['traced_device_ops_per_trip']:.1f}, busy "
+            f"{prof['traced_device_busy_ms']:.3f} ms, idle {100 * prof['traced_idle_share']:.1f}%"
+            f" of the wall, {prof['traced_launches_per_trip']}; iterations {iters.tolist()} "
+            f"(eager {e_iters.tolist()}); atomic gap {gap:.3e} (eager repeat {repeat_gap:.3e}); "
+            f"deterministic: poses bit-equal {stats['deterministic_bit_equal']}, iterations "
+            f"equal {stats['deterministic_iterations_equal']} ({card})")
+        require(syncs == 0, f"{label}: {syncs} host syncs inside a run: {sites}")
+        require(stats["deterministic_bit_equal"] and stats["deterministic_iterations_equal"],
+                f"{label}: the graph's trips differ from the eager calls with deterministic "
+                f"scatter-adds: iterations {d_iters.tolist()} against {de_iters.tolist()}, "
+                f"max |dT| {float((d_poses - de_poses).abs().max())}")
+        require(torch.isfinite(poses).all() and tally["trials"] >= tally["iterations"] > 0
+                and round(tally["iterations"] * n) == int(iters.sum())
+                and all(prof["traced_launches_per_trip"][k] > 0 for k in kernels),
+                f"{label}: a kernel of the trip did not run, or the tally is not the trips' "
+                f"iterations: {tally}, {prof['traced_launches_per_trip']}")
+    return launches, out
+
+
+def phase_device_loop_odometry(dev, card):
+    """`run_odometry_scan` and `ScanToMapOdometry.process_chunk` in their
+    one-program forms (a frame one graph replay) over the 128-frame drive,
+    against their eager forms: poses bit for bit with deterministic
+    scatter-adds, the atomic gap beside the eager form's own repeat gap, the
+    ATE bounds, frames/s of both forms, and the host syncs of a chunk of 32
+    after the capture (the fill read before and after it, as in the JAX
+    package) and of a whole scan run (the warm-up's condition reads before
+    the capture and the one read of the deltas)."""
+    from fast_gicp_tpu_torch import graphs
+    from fast_gicp_tpu_torch.utils.kitti import trajectory_report
+
+    _clouds, gt, _dims = odometry_drive()
+    out = {}
+    for path in ("odometry_scan", "scan_to_map"):
+        bound = None
+        runs = {}
+        for form in ("eager", "graph"):
+            loop = form == "graph"
+            odometry_run(path, dev, frames=WARMUP_FRAMES, device_loop=loop)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            poses, odo = odometry_run(path, dev, device_loop=loop)
+            wall = time.perf_counter() - t0
+            rep = trajectory_report(gt[:len(poses)], poses)
+            # the eager form's own repeat gap (atomic scatter-adds)
+            repeat = odometry_run(path, dev)[0] if form == "eager" else None
+            det = _deterministic(lambda: odometry_run(path, dev, device_loop=loop)[0])
+            runs[form] = dict(poses=np.asarray(poses), repeat=np.asarray(repeat),
+                              det=np.asarray(det), frames_per_s=len(poses) / wall, ate=rep)
+            bound = (SCAN_TO_MAP_ATE if path == "scan_to_map"
+                     else SCAN_TO_SCAN_ATE_SHARE * rep["path_length_m"])
+            require(rep["ate_rmse_m"] < bound, f"{path} ({form}): ATE {rep['ate_rmse_m']} m")
+        g, e = runs["graph"], runs["eager"]
+        stats = dict(frames_per_s=g["frames_per_s"], eager_frames_per_s=e["frames_per_s"],
+                     ate_m=g["ate"]["ate_rmse_m"], eager_ate_m=e["ate"]["ate_rmse_m"],
+                     ate_bound_m=bound,
+                     deterministic_bit_equal=bool(np.array_equal(g["det"], e["det"])),
+                     gap_atomic=float(np.abs(g["poses"] - e["poses"]).max()),
+                     eager_repeat_gap_atomic=float(np.abs(e["repeat"] - e["poses"]).max()),
+                     card=card)
+        if path == "scan_to_map":
+            syncs, sites = count_host_syncs(_graph_chunk(dev))
+            stats.update(host_syncs_a_chunk=syncs, host_sync_sites=sites)
+            require(syncs <= ODOMETRY_READS["scan_to_map"],
+                    f"scan_to_map graph form: {syncs} host syncs in a chunk of {SYNC_FRAMES}: "
+                    f"{sites}")
+        else:
+            reads0 = graphs.host_reads
+            syncs, sites = count_host_syncs(lambda: odometry_run(path, dev, device_loop=True))
+            warm_reads = graphs.host_reads - reads0
+            stats.update(host_syncs_a_run=syncs, warm_up_reads=warm_reads, host_sync_sites=sites)
+            require(syncs - warm_reads <= ODOMETRY_READS["odometry_scan"] + 1,
+                    f"odometry_scan graph form: {syncs} host syncs, {warm_reads} of them the "
+                    f"warm-up's: {sites}")
+        log(f"[device_loop] {path}: graph {stats['frames_per_s']:.1f} frames/s (eager "
+            f"{stats['eager_frames_per_s']:.1f}); ATE {stats['ate_m']:.4f} m (eager "
+            f"{stats['eager_ate_m']:.4f}, bound {bound:.4f}); deterministic bit-equal "
+            f"{stats['deterministic_bit_equal']}; atomic gap {stats['gap_atomic']:.3e} (eager "
+            f"repeat {stats['eager_repeat_gap_atomic']:.3e}); host syncs "
+            f"{ {k: v for k, v in stats.items() if 'sync' in k or 'warm' in k} } ({card})")
+        require(stats["deterministic_bit_equal"],
+                f"{path}: the graph form differs from the eager form with deterministic "
+                f"scatter-adds: {float(np.abs(g['det'] - e['det']).max())}")
+        out[path] = stats
+    return out
+
+
+def _graph_chunk(dev):
+    """A chunk of 32 frames of scan_to_map's graph form after 32 mapped (the
+    graph captured by then): the run whose host syncs are counted."""
+    from fast_gicp_tpu_torch.models.scan_to_map import ScanToMapConfig, ScanToMapOdometry
+
+    clouds, _gt, _dims = odometry_drive()
+    odo = ScanToMapOdometry(ScanToMapConfig(), device=dev)
+    odo.process_chunk(clouds[:ODOMETRY_CHUNK])
+    chunk = clouds[ODOMETRY_CHUNK:ODOMETRY_CHUNK + SYNC_FRAMES]
+    torch.cuda.synchronize()
+    return lambda: odo.process_chunk(chunk)
+
+
+def phase_device_loop(dev, records, path_launches, summary, pair=None):
+    """The device-resident LM loop's phase: the condition kernel against its
+    plain version, the align twin's class rows, its 14 device-loop rows and
+    the one-program odometry forms.  The launch counters are set to 0 just
+    before the rows and read just after: the condition kernel's launches
+    (warm-ups and captures) go into its record."""
+    card = card_line()
+    pair = pair or synthetic_pair()
+    t0 = time.perf_counter()
+    summary["align_twin"] = phase_align_twin(dev, pair, card)
+    path_launches["device_loop"], summary["device_loop_rows"] = phase_device_loop_rows(
+        dev, pair, card)
+    records.append(loop_cond_record(dev, path_launches["device_loop"]["loop_cond"]))
+    summary["device_loop_odometry"] = phase_device_loop_odometry(dev, card)
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: the device loop's phase "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     timing = {"--ndt-timing": ndt_timing, "--trial-timing": trial_timing,
               "--lin-timing": lin_timing}
@@ -5898,25 +6296,30 @@ def main() -> int:
     odometry_only = sys.argv[1:] == ["--odometry"]
     backend_only = sys.argv[1:] == ["--backend"]
     parallel_only = sys.argv[1:] == ["--parallel"]
+    align_only = sys.argv[1:] == ["--align"]
     if timing_only:  # time the kernels of the package under DIR
         sys.path.insert(0, str(pathlib.Path(sys.argv[2]).resolve()))
-    elif len(sys.argv) > 1 and not (odometry_only or backend_only or parallel_only):
-        print("usage: chip_smoke.py [--odometry | --backend | --parallel | --ndt-timing DIR | "
-              "--trial-timing DIR | --lin-timing DIR [REF]]", file=sys.stderr)
+    elif len(sys.argv) > 1 and not (odometry_only or backend_only or parallel_only
+                                    or align_only):
+        print("usage: chip_smoke.py [--odometry | --backend | --parallel | --align | "
+              "--ndt-timing DIR | --trial-timing DIR | --lin-timing DIR [REF]]",
+              file=sys.stderr)
         return 2
     # phase 1: device
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    if not (timing_only or odometry_only or backend_only or parallel_only):
+    if not (timing_only or odometry_only or backend_only or parallel_only or align_only):
         start_backend_drive()
     try:
-        return run_phases(timing, timing_only, odometry_only, backend_only, parallel_only)
+        return run_phases(timing, timing_only, odometry_only, backend_only, parallel_only,
+                          align_only)
     finally:
         stop_backend_drive()
 
 
-def run_phases(timing, timing_only, odometry_only, backend_only, parallel_only=False) -> int:
+def run_phases(timing, timing_only, odometry_only, backend_only, parallel_only=False,
+               align_only=False) -> int:
     """The phases of `main`'s mode, after the device check."""
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5966,6 +6369,14 @@ def run_phases(timing, timing_only, odometry_only, backend_only, parallel_only=F
         phase_parallel(dev, records, path_launches, summary)
         summary["profiler_fallbacks"] = PROFILER_FALLBACKS
         print(json.dumps({"parallel": summary, "kernels": records,
+                          "launches_by_path": path_launches}))
+        return 0
+    if align_only:  # the device-resident LM loop's phase alone
+        records = []
+        summary, path_launches = {}, {}
+        phase_device_loop(dev, records, path_launches, summary)
+        summary["profiler_fallbacks"] = PROFILER_FALLBACKS
+        print(json.dumps({"device_loop": summary, "kernels": records,
                           "launches_by_path": path_launches}))
         return 0
     pair = synthetic_pair()
@@ -6018,12 +6429,11 @@ def run_phases(timing, timing_only, odometry_only, backend_only, parallel_only=F
     phase_odometry(dev, records, path_launches, summary)
     phase_backend(dev, records, path_launches, summary)
     phase_parallel(dev, records, path_launches, summary)
+    phase_device_loop(dev, records, path_launches, summary, pair)
     for path in PATHS:
         summary[path]["bench"] = phase_bench(dev, pair, path)
     for path in CLASS_PATHS:
-        # the new paths' 50 fresh registrations keep the script's time down
-        summary[path]["bench"] = phase_class_bench(
-            dev, pair, path, n_regs=50 if path in CLASS_LIN_FORM else 100)
+        summary[path]["bench"] = phase_class_bench(dev, pair, path)
     for path in PATHS:
         summary[path]["profile"] = phase_profile(dev, pair, path)
     for path in CLASS_PATHS:

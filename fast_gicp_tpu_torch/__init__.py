@@ -62,7 +62,7 @@ from .models.loop_closure import (  # noqa: F401
     detect_loop_closures,
     find_loop_candidates,
 )
-from .models.metrics import fitness_score  # noqa: F401
+from .models.metrics import fitness_score, pose_error  # noqa: F401
 from .models.ndt import (  # noqa: F401
     NDT,
     NDTConfig,
@@ -90,6 +90,7 @@ from .models.scan_to_map import (  # noqa: F401
     ScanToMapOdometry,
     align_to_map,
     load_map,
+    merge_maps,
     save_map,
     update_map,
 )

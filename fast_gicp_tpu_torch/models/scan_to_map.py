@@ -26,12 +26,18 @@ Every entry point runs on `device` (CUDA unless the caller asks for the
 CPU); the state-only calls (`grow_map`, `compact_map`, `re_anchor_map`,
 `map_as_voxelmap`) run where the state lies.  Each functional call returns
 a new state and leaves its input unchanged.  `ScanToMapOdometry` runs a
-frame's covariances, align, gate and fusion as eager ops on one stream;
-its only host reads are the solve's flag read a trial, the map's fill every
-`grow_check_every` frames, and `poses`, `velocity` and `re_anchor`.
-`process_chunk` runs its frames one after another with no read between
-them; its one-program form (a CUDA graph of the frame body) waits for the
-device-resident LM loop.
+frame's covariances, align, gate and fusion on one stream.  On CUDA the
+frame is one program, as the JAX package's `_fused_frame_step`: the frame
+body (covariances, guess, `align_to_map` with its device-resident LM loop,
+gate, `update_map`) is captured once as a CUDA graph on the map state held
+in static buffers (`graphs.DeviceGraph`), recaptured when the map's
+capacity or the scan bucket changes, and replayed for every frame of
+`process_chunk`, `process` and `process_async`; its host reads are then
+only the map's fill every `grow_check_every` frames and `poses`,
+`velocity` and `re_anchor`.  With `device_loop=False` (and on a sharded
+map, whose hooks run collectives) the frame runs as eager ops, one flag
+read a trial.  The warm-up frames (a fresh map's anchor frame and the
+frames before a velocity exists) take the eager frame.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from .. import se3
+from .. import graphs, se3
 from ..ops import soa
 from ..ops.covariance import knn_covariance_cols, rbf_covariance_cols
 from ..ops.voxelmap import (
@@ -549,13 +555,25 @@ class ScanToMapOdometry:
     a host array) to synchronize.  `initial_map=` resumes from a `save_map`
     checkpoint (its resolution holds); with `initial_pose=` and
     `initial_velocity=` (a previous run's `poses[-1]` and `velocity`) a
-    mapping run continues in a new process.  Runs on `device`."""
+    mapping run continues in a new process.  Runs on `device`.
+
+    `device_loop` (default True): on CUDA each frame after the warm-up is a
+    replay of the captured frame graph (module docstring); the map state
+    then lives in the graph's static buffers, which later frames update in
+    place.  On the CPU it selects the graph form's plain version (the same
+    body in the device form's host loop).  False: the eager frame."""
+
+    # a subclass whose hooks run collectives keeps the eager frame (the JAX
+    # package's sharded driver sets _fused_frames = False)
+    _graph_frames = True
 
     def __init__(self, config: ScanToMapConfig = ScanToMapConfig(),
                  covariance: str = "rbf", initial_map: MapState = None,
                  bucket: int = None, initial_pose=None, initial_velocity=None,
-                 device="cuda"):
+                 device="cuda", device_loop: bool = True):
         self.device = _device.resolve(device)
+        self.device_loop = device_loop
+        self._frame_graph = None
         self.config = config
         self.covariance = covariance
         self.state = (_state_on(initial_map, self.device) if initial_map is not None
@@ -707,6 +725,8 @@ class ScanToMapOdometry:
         inv(prev) (prev delta) would amplify prev's defects) and the scan is
         not fused."""
         cfg = self.config
+        if have_velocity and self._poses_dev and self._graph_frames and self.device_loop:
+            return self._replay_frame(pts, mask)
         covs = self._covs(pts, mask)
         if not self._poses_dev and cfg.fuse_scans and not self._align_first_frame:
             pose, fuse_mask = self._anchor, mask
@@ -716,17 +736,45 @@ class ScanToMapOdometry:
             # velocity exists the prediction is a standstill and only the
             # liveness checks apply
             prev = self._last_pose if self._last_pose is not None else self._anchor
-            guess = _compose(prev, self._last_delta)
-            result = self._align(pts, mask, covs, guess)
-            pose, rejected, self._reject_streak = _gate_pose(
-                result.transformation, guess, result.converged, result.error,
-                result.hessian, cfg.gate_translation if have_velocity else None,
-                cfg.gate_rotation if have_velocity else None, streak=self._reject_streak,
-                relock_after=cfg.gate_relock_after)
-            self._last_delta = torch.where(rejected, self._last_delta, _relative(prev, pose))
-            fuse_mask = mask & ~rejected
+            pose, fuse_mask, self._last_delta, self._reject_streak = self._track(
+                pts, mask, covs, prev, self._last_delta, self._reject_streak, have_velocity)
         if cfg.fuse_scans:
             self._fuse(pose, pts, covs, fuse_mask)
+        self._poses_dev.append(pose)
+        self._last_pose = pose
+        self._n_frames += 1
+        return pose
+
+    def _track(self, pts, mask, covs, prev, last_delta, streak, have_velocity):
+        """The constant-velocity guess from `prev` and `last_delta`, the align
+        and the tracking gate: (pose, the fusion mask, the new delta, the new
+        reject streak)."""
+        cfg = self.config
+        guess = _compose(prev, last_delta)
+        result = self._align(pts, mask, covs, guess)
+        pose, rejected, streak = _gate_pose(
+            result.transformation, guess, result.converged, result.error,
+            result.hessian, cfg.gate_translation if have_velocity else None,
+            cfg.gate_rotation if have_velocity else None, streak=streak,
+            relock_after=cfg.gate_relock_after)
+        delta = torch.where(rejected, last_delta, _relative(prev, pose))
+        return pose, mask & ~rejected, delta, streak
+
+    def _replay_frame(self, pts, mask):
+        """A tracked frame (a velocity exists) as one replay of the frame
+        graph, captured for the map's capacity and lut size and the scan
+        bucket (a change of any recaptures it)."""
+        key = (self.state.sums.shape[0], self.state.lut.shape[0], pts.shape[0])
+        g = self._frame_graph
+        if g is None or g.key != key:
+            self._frame_graph = None  # the old graph's buffers go first
+            g = self._frame_graph = _FrameGraph(self, key, pts, mask)
+        g.load(self, pts, mask)
+        g.graph.replay()
+        pose = g.prev.clone()
+        if self.config.fuse_scans:
+            self.state = g.state
+        self._last_delta, self._reject_streak = g.delta, g.streak
         self._poses_dev.append(pose)
         self._last_pose = pose
         self._n_frames += 1
@@ -759,9 +807,9 @@ class ScanToMapOdometry:
     def process_chunk(self, scans) -> None:
         """Feed a list of (N, 3) scans: the frames run one after another
         with the map state carried between them and no host read (the JAX
-        package runs them as one `lax.scan` program; the port's one-program
-        form, a CUDA graph of the frame body, waits for the device-resident
-        LM loop).  The poses equal those of feeding the frames one by one;
+        package runs them as one `lax.scan` program; here each frame is a
+        replay of the captured frame graph, its LM loop on the device, with
+        `device_loop`).  The poses equal those of feeding the frames one by one;
         what differs is the cadence: the growth headroom is checked before
         the chunk instead of every `grow_check_every` frames, and eviction
         runs between chunks (keep chunks at most grow_check_every long).
@@ -790,3 +838,56 @@ class ScanToMapOdometry:
         """Checkpoint the map (the poses are the caller's: persist them with
         utils.kitti.save_poses_kitti)."""
         save_map(path, self.state)
+
+
+class _FrameGraph:
+    """`ScanToMapOdometry`'s tracked frame captured once (`graphs.DeviceGraph`)
+    on static buffers: the scan (pts, mask), the previous pose, the delta,
+    the reject streak and a copy of the map state, which the body updates in
+    place (its functional `update_map` result copied back).  `load` copies
+    the odometry's current values in before each replay: the map only when
+    the odometry's state is not already these buffers."""
+
+    _MAP = ("sums", "coords", "lut", "num_voxels")
+
+    def __init__(self, odo, key, pts, mask):
+        self.key = key
+        self.pts, self.mask = torch.empty_like(pts), torch.empty_like(mask)
+        self.prev = torch.empty((4, 4), dtype=torch.float32, device=odo.device)
+        self.delta = torch.empty_like(self.prev)
+        self.streak = torch.zeros((), dtype=torch.int32, device=odo.device)
+        self.state = odo.state._replace(**{f: getattr(odo.state, f).clone() for f in self._MAP})
+        self.load(odo, pts, mask)
+
+        @f32_matmuls
+        def body():
+            # the hooks read and replace odo.state: point it at the buffers
+            saved, odo.state = odo.state, self.state
+            covs = odo._covs(self.pts, self.mask)
+            pose, fuse_mask, delta, streak = odo._track(
+                self.pts, self.mask, covs, self.prev, self.delta, self.streak, True)
+            if odo.config.fuse_scans:
+                odo._fuse(pose, self.pts, covs, fuse_mask)
+                for f in self._MAP:
+                    getattr(self.state, f).copy_(getattr(odo.state, f))
+            self.delta.copy_(delta)
+            self.streak.copy_(streak)
+            self.prev.copy_(pose)
+            odo.state = saved
+            return self.prev
+
+        # the warm-up run writes these buffers: `load` restores them first
+        self.graph = graphs.DeviceGraph(body, odo.device)
+
+    def load(self, odo, pts, mask):
+        """The frame's scan and the odometry's state into the buffers."""
+        self.pts.copy_(pts)
+        self.mask.copy_(mask)
+        self.prev.copy_(odo._last_pose)
+        if odo._last_delta is not self.delta:
+            self.delta.copy_(odo._last_delta)
+        if odo._reject_streak is not self.streak:
+            self.streak.copy_(odo._reject_streak)
+        if odo.state is not self.state:
+            for f in self._MAP:
+                getattr(self.state, f).copy_(getattr(odo.state, f))

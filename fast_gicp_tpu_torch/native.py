@@ -3,17 +3,23 @@
 
 The port uses its multithreaded kd-tree kNN: the reference's
 CPU_PARALLEL_KDTREE covariance feeder (fast_vgicp_cuda_impl.hpp:152-167),
-host code that hands neighbour lists to the device; and its single-pass
-`absmax` and int16 `quantize_i16`, which stage the ragged int16 upload of
+host code that hands neighbour lists to the device; its centroid
+voxel-grid downsample, which `utils/downsample.voxel_downsample` takes on
+every frame of the odometry drivers (bit-equal to the numpy path); its
+KITTI `.bin` loader; and its single-pass `absmax` and int16
+`quantize_i16`, which stage the ragged int16 upload of
 `utils/kitti.run_odometry_scan`.  Without the built library each falls
-back to numpy (an exact search; the same rint rounding, ties to even);
-`available()` and `quantize_available()` say which one runs.
+back to numpy (an exact search; the same filter; the same rint rounding,
+ties to even); `available()` and `quantize_available()` say which one
+runs, and `build()` compiles the library in the tree (cmake and a C++
+toolchain).
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
 from typing import Optional
 
 import numpy as np
@@ -41,6 +47,10 @@ def _load() -> Optional[ctypes.CDLL]:
                 f32p, ctypes.c_int, f32p, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, i32p, f32p,
             ]
+            lib.voxel_downsample.restype = ctypes.c_int
+            lib.voxel_downsample.argtypes = [f32p, ctypes.c_int, ctypes.c_float, f32p]
+            lib.load_kitti_bin.restype = ctypes.c_int
+            lib.load_kitti_bin.argtypes = [ctypes.c_char_p, f32p, ctypes.c_int]
             if hasattr(lib, "absmax_f32"):  # builds of the library since the int16 upload
                 lib.absmax_f32.restype = ctypes.c_float
                 lib.absmax_f32.argtypes = [f32p, ctypes.c_longlong]
@@ -55,6 +65,21 @@ def _load() -> Optional[ctypes.CDLL]:
 def available() -> bool:
     """Whether the native library is built and loads."""
     return _load() is not None
+
+
+def build(verbose: bool = False) -> bool:
+    """Compile the native library in the tree with cmake (into
+    `native/build/`); True when it then loads."""
+    build_dir = os.path.join(_NATIVE_DIR, "build")
+    try:
+        kw = {} if verbose else {"capture_output": True}
+        subprocess.run(["cmake", "-S", _NATIVE_DIR, "-B", build_dir], check=True, **kw)
+        subprocess.run(["cmake", "--build", build_dir, "-j"], check=True, **kw)
+    except (subprocess.CalledProcessError, FileNotFoundError):
+        return False
+    global _lib
+    _lib = None
+    return available()
 
 
 def _f32p(a):
@@ -99,6 +124,40 @@ def knn_search(points: np.ndarray, queries: np.ndarray, k: int,
     lib.knn_search(_f32p(points), points.shape[0], _f32p(queries), nq, k,
                    n_threads, _i32p(idx), _f32p(dist))
     return idx, dist
+
+
+def voxel_downsample(points: np.ndarray, resolution: float) -> np.ndarray:
+    """The native centroid voxel-grid downsample of (N, 3) points: one
+    float32 centroid a voxel, voxel-key sorted, bit-equal to the numpy path
+    of `utils.downsample.voxel_downsample` (floor(p / res), float64 sums in
+    point order).  Takes finite float32 points; without the library, or for
+    resolution <= 0, the numpy path."""
+    lib = _load()
+    if lib is None or resolution is None or resolution <= 0:
+        from .utils.downsample import voxel_downsample as np_ds
+
+        return np_ds(points, resolution)
+    pts = np.ascontiguousarray(points[:, :3], np.float32)
+    out = np.empty_like(pts)
+    m = lib.voxel_downsample(_f32p(pts), pts.shape[0], ctypes.c_float(resolution), _f32p(out))
+    return np.ascontiguousarray(out[:m])
+
+
+def load_kitti_bin(path: str) -> np.ndarray:
+    """The (N, 3) float32 points of a KITTI velodyne `.bin` file (x, y, z of
+    each x, y, z, reflectance record), read natively; numpy without the
+    library (`utils.io.load_kitti_bin`)."""
+    lib = _load()
+    if lib is None:
+        from .utils.io import load_kitti_bin as np_load
+
+        return np_load(path)
+    n = lib.load_kitti_bin(path.encode(), None, 0)
+    if n < 0:
+        raise FileNotFoundError(path)
+    out = np.empty((n, 3), np.float32)
+    lib.load_kitti_bin(path.encode(), _f32p(out), n)
+    return out
 
 
 def quantize_available() -> bool:

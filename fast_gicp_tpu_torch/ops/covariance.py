@@ -35,6 +35,8 @@ normalized_min_eig and frobenius, the same in every estimator
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -258,6 +260,15 @@ def default_radius_ladder(r0: float = 0.04, ratio: float = 1.3, num: int = 20):
     return (r * r).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _ladder_on(ladder: tuple, device: torch.device):
+    """The (L,) float32 squared-radius ladder as a constant on `device`,
+    uploaded once a device and ladder from pinned memory (`device.upload`):
+    a pageable copy made each call waited on the stream and could not be
+    captured in a CUDA graph."""
+    return _device.upload(np.asarray(ladder, np.float32), device)
+
+
 def radius_window_moments(query, qmask, target, tmask, r2_ladder, k: int, center):
     """(16, Nq) moment rows [n, sum y (3), sum y y^T (9), 0 (3)], y = x -
     center, over each query's k-th-neighbour window: the smallest rung of
@@ -286,8 +297,8 @@ def adaptive_radius_covariance_cols(points, mask, k: int = 20, method: str = "pl
     device: the moments of every point within each point's k-th-neighbour
     radius (bracketed on `ladder`, default `default_radius_ladder()`),
     about the cloud's masked mean, then `method`."""
-    r2 = torch.as_tensor(default_radius_ladder() if ladder is None else ladder,
-                         dtype=torch.float32, device=points.device)
+    r2 = _ladder_on(tuple(np.asarray(default_radius_ladder() if ladder is None else ladder,
+                                     np.float32).tolist()), points.device)
     m = radius_window_moments(points, mask, points, mask, r2, k, masked_mean(points, mask))
     return regularize_cov_cols(_finalize_rows16(m, 1.0), method)
 

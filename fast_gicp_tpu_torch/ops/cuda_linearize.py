@@ -31,7 +31,6 @@ The kernels write err, H and b into one 43-float buffer
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -67,14 +66,7 @@ def _check_cuda(tensors):
         raise ValueError(f"unsupported device {dev}")
 
 
-@functools.cache
-def _scratch(device_index, stream_handle):
-    device = torch.device("cuda", device_index)
-    rows = _build.function("fgt_max_reduce_blocks", ())()
-    if rows < 1:
-        raise RuntimeError("fgt_max_reduce_blocks: the CUDA runtime refused")
-    return (torch.empty(rows * 28, dtype=torch.float32, device=device),
-            torch.zeros(1, dtype=torch.int32, device=device))
+_scratches: dict = {}
 
 
 def _reduce_scratch(device):
@@ -83,9 +75,26 @@ def _reduce_scratch(device):
     partials for the most blocks any linearize or error kernel launches
     (`fgt_max_reduce_blocks()` x 28 floats) and a ticket zeroed once, which
     every kernel leaves at 0 again.  Kernels on one stream run in turn, so
-    they share both, and a launch needs no allocation and no fill."""
+    they share both, and a launch needs no allocation and no fill.
+
+    They are made eagerly at a stream's first launch: a stream first seen
+    while it captures a CUDA graph raises (its scratch would come from the
+    graph's pool), so a capture prepares its streams first
+    (`graphs.prepare`)."""
     stream = torch.cuda.current_stream(device)
-    return _scratch(stream.device_index, stream.cuda_stream) + (stream.cuda_stream,)
+    key = (stream.device_index, stream.cuda_stream)
+    if key not in _scratches:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the reduction scratch of a stream is made before it captures: "
+                "call graphs.prepare(device) on the capture's streams first")
+        rows = _build.function("fgt_max_reduce_blocks", ())()
+        if rows < 1:
+            raise RuntimeError("fgt_max_reduce_blocks: the CUDA runtime refused")
+        dev = torch.device("cuda", stream.device_index)
+        _scratches[key] = (torch.empty(rows * 28, dtype=torch.float32, device=dev),
+                           torch.zeros(1, dtype=torch.int32, device=dev))
+    return _scratches[key] + (stream.cuda_stream,)
 
 
 def normal_equations(out):

@@ -17,6 +17,13 @@ nu, x and the two flags the host reads), on a solve's state buffer
 (`lm_state`), which it updates in place.  `lm_step_plain` is the same
 trial as eager ops.
 
+`loop_cond` is the condition kernel of the solve's device form
+(`csrc/device_loop.cu`, port-only: it replaces the predicates that XLA
+evaluates for `lax.while_loop` on the TPU): one thread that reads the
+state's flags, keeps the loop's counters in the state and writes the
+loop's condition into a conditional WHILE node's handle (`graphs`).
+`loop_cond_plain` is the same step as eager ops.
+
 Across the ranks of a mesh (`parallel`), an objective's error is a
 `ReducedCost` and each linearization's [err, H, b] one all-reduce of 43
 floats (`reduce_normal_eq`).
@@ -37,6 +44,7 @@ from .cuda_linearize import AUX_ROWS, _check_cuda, _reduce_scratch
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TRIAL_ARGS = (_P, _P, _P, _P, _P, _P)
 _STEP_ARGS = (_P, _P, _P, _P, _I, _F, _F, _F, _P, _I, _I, _P, _I, _F, _I, _P, _P, _P)
+_COND_ARGS = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_ulonglong, _I, _P)
 
 # A solve's LM state (csrc/lm_step.cuh kState*), float32: the pose, lambda
 # (< 0: not yet set), nu, the flags of the last trial (1.0 / 0.0), and that
@@ -52,7 +60,20 @@ STATE_D = slice(52, 58)
 STATE_DENOM = 58
 STATE_YI = 59
 STATE_LAM_USED = 60
+# the device form's loop counters (csrc/device_loop.cu): trials since the
+# last linearization, outer iterations run, trials run in the whole solve
+STATE_TRIAL = 61
+STATE_ITERATION = 62
+STATE_TRIALS_RUN = 63
 STATE_FLOATS = 64
+
+# loop_cond modes: before the outer loop (the results reset), after a
+# linearization's first trial, after each later trial, after the trials of
+# a linearization (the outer step: H_out, y, converged, iterations)
+LOOP_OUTER_ENTER = 0
+LOOP_FIRST_TRIAL = 1
+LOOP_AFTER_TRIAL = 2
+LOOP_AFTER_INNER = 3
 
 
 def _check(name, t, numel):
@@ -276,3 +297,125 @@ def lm_step_plain(state, H, b, y0, aux, cost, first, config, trial=lm_trial):
     state[STATE_X] = x_new.reshape(16)
     state[STATE_DONE] = accept | conv_reject
     state[STATE_CONV] = delta_conv
+
+
+class LoopOut(NamedTuple):
+    """The device form's results, written by `loop_cond`: H_out (6, 6) at
+    the last successful linearization, y () the error at the last
+    linearization, converged () bool, iterations () int32, and flag (1,)
+    int32, the last condition it computed (what the host loop reads)."""
+
+    H_out: torch.Tensor
+    y: torch.Tensor
+    converged: torch.Tensor
+    iterations: torch.Tensor
+    flag: torch.Tensor
+
+
+def loop_out(device, dtype=torch.float32):
+    """Uninitialized `LoopOut` buffers on `device` (LOOP_OUTER_ENTER sets
+    them)."""
+    return LoopOut(torch.empty((6, 6), dtype=dtype, device=device),
+                   torch.empty((), dtype=dtype, device=device),
+                   torch.empty((), dtype=torch.bool, device=device),
+                   torch.empty((), dtype=torch.int32, device=device),
+                   torch.empty(1, dtype=torch.int32, device=device))
+
+
+_loop_counts: dict = {}
+
+LOOP_COUNTS = ("loop_cond", "trials", "iterations", "solves")
+
+
+def loop_counts(device):
+    """The device's (4,) int32 tally of what the device form's loops ran:
+    condition launches, LM trials, outer iterations (one linearization each)
+    and solves; every `loop_cond` step adds to it on the device (a profiler
+    does not see every kernel of a conditional body, so a graph replay's
+    launches are read from here).  Made once a device, eagerly: first asked
+    for under a capture, it raises (`graphs.prepare` makes it).  Zero it
+    with `.zero_()`."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _loop_counts:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("loop_counts is made before a capture: call "
+                               "graphs.prepare(device) first")
+        _loop_counts[device] = torch.zeros(len(LOOP_COUNTS), dtype=torch.int32, device=device)
+    return _loop_counts[device]
+
+
+def loop_cond(state, out, mode, config, H=None, y0=None, handle=0):
+    """One step of the device form's loop bookkeeping on `state` and `out`
+    (a `LoopOut`), in place; `mode` a LOOP_* constant, config the solve's
+    `LsqConfig`, H (6, 6) and y0 () of the current linearization (read by
+    LOOP_AFTER_INNER).  The condition it computes goes to out.flag and, for
+    a nonzero `handle` (a conditional handle of the graph being captured),
+    into the handle: the WHILE node's condition.
+
+    CPU tensors take the plain version; CUDA tensors launch the condition
+    kernel, one launch a step."""
+    _check("state", state, STATE_FLOATS)
+    H = out.H_out if H is None else H
+    y0 = out.y if y0 is None else y0
+    _check("H", H, 36)
+    _check("y0", y0, 1)
+    lm = int(config.optimizer == "lm")
+    if state.device.type == "cpu":
+        if handle:
+            raise ValueError("a conditional handle exists only under CUDA graph capture")
+        return loop_cond_plain(state, out, mode, config, H, y0)
+    _check_cuda([state, H, y0, *out])
+    counts = loop_counts(state.device)
+    fn = _build.function("fgt_loop_cond", _COND_ARGS)
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    _build.check("fgt_loop_cond", fn(
+        state.data_ptr(), H.data_ptr(), y0.data_ptr(), out.H_out.data_ptr(), out.y.data_ptr(),
+        out.converged.data_ptr(), out.iterations.data_ptr(), out.flag.data_ptr(),
+        counts.data_ptr(), int(mode),
+        int(config.max_iterations), int(config.lm_max_iterations), lm, int(handle),
+        int(handle != 0), stream))
+    loop_cond.launches += 1
+
+
+loop_cond.launches = 0
+
+
+def loop_cond_plain(state, out, mode, config, H, y0):
+    """Plain PyTorch version of `loop_cond` (no handle): the same selects
+    and counters as eager ops, on any device."""
+    dev = state.device
+    one = torch.ones((), dtype=torch.bool, device=dev)
+    counts = loop_counts(dev)
+    counts[0] += 1
+    if mode == LOOP_OUTER_ENTER:
+        counts[3] += 1
+        state[STATE_ITERATION] = 0.0
+        state[STATE_TRIALS_RUN] = 0.0
+        out.H_out.copy_(torch.eye(6, dtype=out.H_out.dtype, device=dev))
+        out.y.zero_()
+        out.converged.zero_()
+        out.iterations.zero_()
+        cond = one & (config.max_iterations > 0)
+    elif mode in (LOOP_FIRST_TRIAL, LOOP_AFTER_TRIAL):
+        j = (torch.ones((), dtype=state.dtype, device=dev) if mode == LOOP_FIRST_TRIAL
+             else state[STATE_TRIAL] + 1.0)
+        state[STATE_TRIAL] = j
+        state[STATE_TRIALS_RUN] += 1.0
+        counts[1] += 1
+        cond = (state[STATE_DONE] == 0.0) & (j < float(config.lm_max_iterations))
+    elif mode == LOOP_AFTER_INNER:
+        success = state[STATE_DONE] != 0.0 if config.optimizer == "lm" else one
+        conv = state[STATE_CONV] != 0.0
+        i = state[STATE_ITERATION] + 1.0
+        state[STATE_ITERATION] = i
+        counts[2] += 1
+        out.converged.copy_(conv & success)
+        out.iterations.copy_(i.to(torch.int32))
+        out.H_out.copy_(torch.where(success, H.reshape(6, 6), out.H_out))
+        out.y.copy_(y0.reshape(()))
+        cond = success & ~conv & (i < float(config.max_iterations))
+    else:
+        raise ValueError(f"unknown loop_cond mode {mode}")
+    out.flag.copy_(cond.to(torch.int32).reshape(1))

@@ -499,6 +499,9 @@ class ShardedScanToMapOdometry(ScanToMapOdometry):
     the new voxels admitted a frame are the whole map's."""
 
     _capacity_scope = " on the fullest shard"
+    # the hooks run collectives: the frame stays eager (the JAX package's
+    # sharded driver sets _fused_frames = False)
+    _graph_frames = False
 
     def __init__(self, config: ScanToMapConfig = ScanToMapConfig(), mesh: Mesh = None,
                  covariance: str = "rbf", initial_map=None, initial_pose=None,

@@ -1,16 +1,26 @@
 """Gauss-Newton / Levenberg-Marquardt solve over SE(3) (port of
 `fast_gicp_tpu.solver`).
 
-The JAX solve is two nested `lax.while_loop`s inside one jit.  Here the
-loops run eagerly in Python, but every scalar of the LM schedule -- the
-lambda init, rho, accept, nu, the convergence test and the Hessian select
--- stays on the device in float32 with the JAX package's exact
-arithmetic, so the iteration path is the same.  An LM trial is one
-`cuda_solver.lm_step` on the solve's state buffer: on the card one launch
-of the trial kernel (trial step, error, schedule), on the CPU its plain
-version.  The only host reads are the loop exits: the state's two flags
-per LM inner trial (per outer iteration for GN).  `lsq_solve.host_syncs`
-counts them.
+The JAX solve is two nested `lax.while_loop`s inside one jit.  Here every
+scalar of the LM schedule -- the lambda init, rho, accept, nu, the
+convergence test and the Hessian select -- stays on the device in float32
+with the JAX package's exact arithmetic, so the iteration path is the
+same.  An LM trial is one `cuda_solver.lm_step` on the solve's state
+buffer: on the card one launch of the trial kernel (trial step, error,
+schedule), on the CPU its plain version.  The loops take one of two forms:
+
+  * eager (a call outside any capture): the loops run in Python and the
+    only host reads are the loop exits, the state's two flags per LM trial
+    (per outer iteration for GN); `lsq_solve.host_syncs` counts them;
+  * the device form (under a CUDA graph capture, or inside
+    `graphs.device_loop()`): the same linearize and trial launches in the
+    same order, each loop a conditional WHILE node whose condition the
+    one-thread `cuda_solver.loop_cond` sets from the LM state on the
+    device, so a replay of the graph reads nothing back to the host;
+    `converged`, `iterations`, the Hessian and the error are device-side
+    selects (`graphs`).  Outside a capture the same steps run in a host
+    loop over the condition tensor: on the CPU, the device form's plain
+    version, bit for bit the eager solve.
 
 Semantics (lsq_registration_impl.hpp:53-168):
   * lambda init = lm_init_lambda_factor * max|diag H|, carried across
@@ -47,7 +57,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from . import se3
+from . import graphs, se3
 from .ops import cuda_solver, linalg3
 
 
@@ -106,8 +116,11 @@ def lsq_solve(
 
     With `with_aux=True` returns `(LsqResult, aux)`, `aux` being the frozen
     state of the last linearization (zeros of its shape if no iteration
-    ran)."""
+    ran).  Under a CUDA graph capture, or inside `graphs.device_loop()`,
+    the solve takes its device form (module docstring)."""
     dtype, device = x0.dtype, x0.device
+    if graphs.device_form(device):
+        return _lsq_solve_device(linearize_fn, error_fn, x0, config, with_aux)
 
     def scalar(v, dt=dtype):
         # a fill kernel, not a host-to-device copy (which would synchronise)
@@ -180,3 +193,63 @@ def lsq_solve(
 
 
 lsq_solve.host_syncs = 0
+
+
+def _lsq_solve_device(linearize_fn, error_fn, x0, config, with_aux):
+    """`lsq_solve`'s device form: the outer loop (linearize, the trials,
+    the outer step) and the inner loop (the trials after a linearization's
+    first) through `graphs.while_loop`, the conditions set by
+    `cuda_solver.loop_cond` on the device.  The launches are the eager
+    solve's, in its order; the first trial after a linearization is issued
+    before the inner loop, since `lm_step` takes `first` from the host."""
+    if config.debug_print:
+        raise ValueError("LsqConfig.debug_print reads the trials' floats to the host: "
+                         "the device form of the solve cannot print them")
+    if config.max_iterations < 1 or (config.optimizer == "lm" and config.lm_max_iterations < 1):
+        raise ValueError("the device form runs at least one iteration and one trial: "
+                         f"max_iterations={config.max_iterations}, "
+                         f"lm_max_iterations={config.lm_max_iterations}")
+    dtype, device = x0.dtype, x0.device
+    state = cuda_solver.lm_state(x0.to(dtype))
+    x = state[cuda_solver.STATE_X].view(4, 4)
+    out = cuda_solver.loop_out(device, dtype)
+    step = (cuda_solver.lm_step_plain if isinstance(error_fn, cuda_solver.ReducedCost)
+            else cuda_solver.lm_step)
+    last = {}
+
+    def trials(lin):
+        y0, H, b, aux = lin
+        step(state, H, b, y0, aux, error_fn, True, config)
+        inner = graphs.Condition(out.flag)
+        cuda_solver.loop_cond(state, out, cuda_solver.LOOP_FIRST_TRIAL, config,
+                              handle=inner.handle)
+
+        def trial():
+            step(state, H, b, y0, aux, error_fn, False, config)
+            cuda_solver.loop_cond(state, out, cuda_solver.LOOP_AFTER_TRIAL, config,
+                                  handle=inner.handle)
+
+        graphs.while_loop(inner, trial)
+
+    def gauss_newton(lin):
+        y0, H, b, _aux = lin
+        xi, delta, _d, _denom = cuda_solver.lm_trial(
+            H, b, torch.zeros(1, dtype=dtype, device=device), x)
+        x.copy_(xi)
+        state[cuda_solver.STATE_CONV] = is_converged(
+            delta, config.rotation_epsilon, config.transformation_epsilon)
+
+    outer = graphs.Condition(out.flag)
+
+    def iteration():
+        lin = linearize_fn(x)
+        last["aux"] = lin[3]
+        (trials if config.optimizer == "lm" else gauss_newton)(lin)
+        cuda_solver.loop_cond(state, out, cuda_solver.LOOP_AFTER_INNER, config,
+                              H=lin[1], y0=lin[0], handle=outer.handle)
+
+    cuda_solver.loop_cond(state, out, cuda_solver.LOOP_OUTER_ENTER, config, handle=outer.handle)
+    graphs.while_loop(outer, iteration)
+    res = LsqResult(transformation=x, hessian=out.H_out, error=out.y,
+                    converged=out.converged, iterations=out.iterations)
+    return (res, last["aux"]) if with_aux else res

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from .. import graphs
 from ..precision import f32_matmuls
 from .downsample import voxel_downsample
 from .io import load_kitti_bin
@@ -261,12 +262,19 @@ def quantize_frames(clouds, upload_dtype: str = "int16"):
 
 
 @f32_matmuls
-def _scan_deltas(flat, starts, counts, scale, bucket, config, warm_start):
+def _scan_deltas(flat, starts, counts, scale, bucket, config, warm_start, device_loop=True):
     """The frames of a ragged upload on the device, each (bucket, 3) slice
     dequantized and masked by its count, its RBF covariances, the previous
     frame's target map, the objective and the LM solve in turn (the JAX
     package's `lax.scan` body, world frame, no re-centring).  Returns the
-    (F - 1, 4, 4) deltas on the device."""
+    (F - 1, 4, 4) deltas on the device.
+
+    With `device_loop` the frame body is one program: captured once as a
+    CUDA graph (`graphs.DeviceGraph`) on static buffers -- the frame's raw
+    slice and count, the previous frame's points, mask and covariances and
+    the warm start -- and replayed for each frame, the slice copied in on
+    the device; on the CPU the same body in the device form's plain
+    version.  Without it, the eager loop (one flag read a trial)."""
     from ..models.vgicp import _build_target_map, make_vgicp_objective
     from ..ops.covariance import rbf_covariance_cols
     from ..ops.voxelmap import neighbor_offsets
@@ -276,29 +284,67 @@ def _scan_deltas(flat, starts, counts, scale, bucket, config, warm_start):
     lane = torch.arange(bucket, device=dev)
     offsets = neighbor_offsets(config.neighbor_search_method, config.neighbor_search_radius)
 
-    def get_frame(start, count):
-        p = flat[start: start + bucket].to(torch.float32)
+    def dequantized(raw, count):
+        p = raw.to(torch.float32)
         if scale is not None:
             p = p * scale
         m = lane < count
         # the slice reads into the next frame: zero the rows past the count
         return p * m[:, None].to(p.dtype), m
 
+    def get_frame(start, count):
+        return dequantized(flat[start: start + bucket], count)
+
+    def step(p, m, c, prev_p, prev_m, prev_c, delta):
+        vm = _build_target_map(prev_p, prev_m, prev_c, config)
+        linearize, error, _freeze, _lf = make_vgicp_objective(p, m, c, vm, offsets, config)
+        return lsq_solve(linearize, error, delta if warm_start else eye,
+                         config.lsq).transformation
+
     eye = torch.eye(4, dtype=torch.float32, device=dev)
     delta = eye
     prev_p, prev_m = get_frame(int(starts[0]), int(counts[0]))
     prev_c = rbf_covariance_cols(prev_p, prev_m)
-    deltas = []
-    for start, count in zip(starts[1:], counts[1:]):
-        p, m = get_frame(int(start), int(count))
+    if not device_loop:
+        deltas = []
+        for start, count in zip(starts[1:], counts[1:]):
+            p, m = get_frame(int(start), int(count))
+            c = rbf_covariance_cols(p, m)
+            delta = step(p, m, c, prev_p, prev_m, prev_c, delta)
+            deltas.append(delta)
+            prev_p, prev_m, prev_c = p, m, c
+        return torch.stack(deltas)
+
+    raw = flat[:bucket].clone()
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    warm = eye.clone()
+
+    def frame():
+        p, m = dequantized(raw, count)
         c = rbf_covariance_cols(p, m)
-        vm = _build_target_map(prev_p, prev_m, prev_c, config)
-        linearize, error, _freeze, _lf = make_vgicp_objective(p, m, c, vm, offsets, config)
-        delta = lsq_solve(linearize, error, delta if warm_start else eye,
-                          config.lsq).transformation
-        deltas.append(delta)
-        prev_p, prev_m, prev_c = p, m, c
-    return torch.stack(deltas)
+        warm.copy_(step(p, m, c, prev_p, prev_m, prev_c, warm))
+        prev_p.copy_(p)
+        prev_m.copy_(m)
+        prev_c.copy_(c)
+        return warm
+
+    deltas = torch.empty((len(starts) - 1, 4, 4), dtype=torch.float32, device=dev)
+    graph = None
+    for k, (start, n) in enumerate(zip(starts[1:], counts[1:])):
+        if graph is None:
+            # the warm-up writes the carried buffers: build it on copies of
+            # frame 0's and put them back before the first replay
+            saved = [t.clone() for t in (prev_p, prev_m, prev_c)]
+            raw.copy_(flat[int(start): int(start) + bucket])
+            count.fill_(int(n))
+            graph = graphs.DeviceGraph(frame, dev)
+            for t, s in zip((prev_p, prev_m, prev_c), saved):
+                t.copy_(s)
+            warm.copy_(eye)
+        raw.copy_(flat[int(start): int(start) + bucket])
+        count.fill_(int(n))
+        deltas[k].copy_(graph.replay())
+    return deltas
 
 
 def run_odometry_scan(
@@ -308,12 +354,16 @@ def run_odometry_scan(
     warm_start: bool = True,
     upload_dtype: str = "int16",
     device="cuda",
+    device_loop: bool = True,
 ) -> List[np.ndarray]:
     """Whole-sequence odometry from one ragged upload (`quantize_frames`):
     the host uploads the frames once and reads every delta back at once;
     on the device each frame's RBF covariances, the previous frame's target
     map and the LM solve run in turn, the constant-velocity warm start
-    carried on the device.  With config.grid_dims None the dense grid is
+    carried on the device.  With `device_loop` (the default) the frame body
+    is one captured CUDA graph replayed a frame, its LM loop on the device
+    (the JAX package's one `lax.scan` program; `_scan_deltas`); False runs
+    it as eager ops.  With config.grid_dims None the dense grid is
     sized over the union of every frame's extent (`auto_grid_dims_multi`;
     the hash map where it does not fit).  Runs on `device`."""
     from ..models.vgicp import VGICPConfig
@@ -330,7 +380,7 @@ def run_odometry_scan(
     scale_dev = (None if scale is None
                  else torch.full((), scale, dtype=torch.float32, device=dev))
     deltas = _scan_deltas(_device.upload(flat, dev), starts, counts, scale_dev, bucket, config,
-                          warm_start)
+                          warm_start, device_loop)
     return _chain(deltas.cpu().numpy())
 
 

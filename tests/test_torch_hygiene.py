@@ -35,7 +35,8 @@ def test_import_leaves_no_jax_in_sys_modules():
         "import fast_gicp_tpu_torch.models.pose_graph_sparse, fast_gicp_tpu_torch.ops.cuda_pose_graph\n"
         "import fast_gicp_tpu_torch.parallel, fast_gicp_tpu_torch.parallel.mesh\n"
         "import fast_gicp_tpu_torch.parallel.sharded, fast_gicp_tpu_torch.parallel.distributed\n"
-        "import fast_gicp_tpu_torch.parallel.sharded_map\n"
+        "import fast_gicp_tpu_torch.parallel.sharded_map, fast_gicp_tpu_torch.graphs\n"
+        "import fast_gicp_tpu_torch.apps.align\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -760,3 +761,40 @@ def test_block_tridiag_wrappers_raise_for_tensors_on_other_devices():
         cpg.block_tridiag_factor(cD, cU[:4])
     with pytest.raises(ValueError, match="float32"):
         cpg.block_tridiag_apply(cD, cD, cU, cr[:, :3])
+
+
+def test_device_loop_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
+    """The align twin (its class rows and --device-loop bodies), the captured
+    graph and the one-program odometry forms run on the card unless the
+    caller asks for the CPU; the condition kernel's wrapper takes its plain
+    version for CPU tensors without counting a launch."""
+    from fast_gicp_tpu_torch import graphs, solver
+    from fast_gicp_tpu_torch.apps import align as app
+    from fast_gicp_tpu_torch.models import scan_to_map as stm
+    from fast_gicp_tpu_torch.ops import cuda_solver
+    from fast_gicp_tpu_torch.utils import io, kitti
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.random.default_rng(0).normal(size=(600, 3)).astype(np.float32)
+    for name in ("t.pcd", "s.pcd"):
+        io.save_pcd(str(tmp_path / name), pts)
+    calls = [
+        lambda **kw: app.main([str(tmp_path / "t.pcd"), str(tmp_path / "s.pcd"), "--n", "1",
+                               *(["--device", kw["device"]] if kw else [])]),
+        lambda **kw: app.device_bodies(pts, pts, **kw),
+        lambda **kw: graphs.DeviceGraph(lambda: None, **kw),
+        lambda **kw: stm.ScanToMapOdometry(device_loop=True, **kw),
+        lambda **kw: kitti.run_odometry_scan([pts, pts], device_loop=True, **kw),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call(device="cuda")
+    assert graphs.DeviceGraph(lambda: None, device="cpu").graph is None
+    cuda_solver.loop_cond.launches = 0
+    state = cuda_solver.lm_state(torch.eye(4))
+    out = cuda_solver.loop_out(torch.device("cpu"))
+    cuda_solver.loop_cond(state, out, cuda_solver.LOOP_OUTER_ENTER, solver.LsqConfig())
+    assert cuda_solver.loop_cond.launches == 0 and int(out.flag[0]) == 1
+    assert torch.equal(out.H_out, torch.eye(6)) and int(out.iterations) == 0
