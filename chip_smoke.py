@@ -57,8 +57,10 @@ under torch's sync debug mode: its host syncs must be its flag reads (one
 an LM trial, one a Gauss-Newton iteration; none inside a PCG), and every
 preconditioner application one `block_tridiag_apply` launch.  The kernels
 at the back-end's own inputs: `block_tridiag` (factor and apply) at the
-first PCG of the 512-pose and the 1k solve and on a seeded sweep of lambda
-with a near-singular C_k, within 1e-5 of max |x| of its plain version; at
+first PCG of the 512-pose and the 1k solve, on a seeded sweep of lambda
+with a near-singular C_k and at the kernels' edge chain lengths, bit for bit
+its plain version (x also within 1e-5 of max |x|), timed beside its serial
+chain and the dense (6K)^2 Cholesky calls of torch; at
 the first `verify_closure`, `rbf_moments` on both clouds, `ndt_d2d` in the
 pack form (the coarse align is on the hash map), `linearize_raw`,
 `nn_search` and both trial launches.  Card against CPU: `verify_closure`
@@ -162,6 +164,13 @@ say) on phase 3's inputs and print one JSON line, so two designs can be
 compared in one call on one card; `--lin-timing` also prints digests of the
 linearizes' outputs, and with REF (a file holding such a line) whether each
 equals REF's.
+
+    python3 chip_smoke.py [--backend] --tridiag-previous DIR
+
+runs the whole script (or the back-end's phases) and also builds
+`block_tridiag.cu` of the package under DIR into a library of its own and
+times its factor and apply beside this package's on the back-end's inputs,
+in turns (previous, this, this, previous).
 This script imports nothing of JAX or of the JAX package.
 """
 
@@ -1415,8 +1424,9 @@ LIN_MANGLED = re.compile(r"16linearize_kernelILb(\d)E([ix])?E")
 @functools.cache
 def kernel_build_report():
     """{kernel: (registers, stack frame bytes)} of the GICP and NDT
-    linearize kernels and the error kernels (trial off and on) from the
-    ptxas lines of the library's build log, each logged (once a process).
+    linearize kernels, the error kernels (trial off and on) and
+    block_tridiag's factor and apply from the ptxas lines of the library's
+    build log, each logged (once a process).
     linearize.cu's are named "linearize<i32>" (int32 ids or none),
     "linearize_raw<i64>" and so on, and a package before the idx form
     reports "linearize" and "linearize_raw"; a package before the merged error kernel reports its
@@ -1443,10 +1453,12 @@ def kernel_build_report():
             lin = NDT_LIN_MANGLED.search(m.group(1))
             err = re.search(r"12error_kernelILb(\d)ELb(\d)E", m.group(1))
             gicp = LIN_MANGLED.search(m.group(1))
+            tridiag = re.search(r"block_tridiag_(factor|apply)_kernel", m.group(1))
             name = (ndt_lin_name(lin) if lin else
                     ERROR_KERNELS[err.groups()] if err else
                     lin_name(gicp) if gicp else
-                    "ndt_error" if "ndt_error_kernel" in m.group(1) else None)
+                    "ndt_error" if "ndt_error_kernel" in m.group(1) else
+                    f"block_tridiag_{tridiag.group(1)}" if tridiag else None)
             continue
         if name is None:
             continue
@@ -4535,6 +4547,24 @@ TRIDIAG_APPLY_OPS = 210  # U^T y 66, r - . 6, C^-1 v 66; G x 66, y - . 6
 TRIDIAG_APPLY_CHAIN = 20  # 6-term dots 6 + 1 + 6 forward, 6 + 1 backward
 TRIDIAG_FACTOR_OPS = 1393  # C 432, LL^T 97, 12 column solves 864
 TRIDIAG_FACTOR_CHAIN = 124  # C's dot 12, LL^T 40, a column's two substitutions 72
+TRIDIAG_CYCLES_PER_OP = 4  # a dependent FP32 operation's latency, for the chain's time
+# chain lengths at the kernels' edges (csrc/block_tridiag.cu): one, two and
+# three steps (an odd last chunk's rows end short of a bulk copy's 16 bytes),
+# each side of the first, second and third turn of a chunk of kChunk = 16
+# steps (the factor's ring holds 2 chunks, the apply's 3); and each side of
+# the apply's y on chip (kOnChipSteps = 1024)
+TRIDIAG_EDGE_K = (1, 2, 3, 15, 16, 17, 31, 32, 33, 47, 48, 49)
+TRIDIAG_ON_CHIP_K = (1023, 1024, 1025)
+# the previous design's device time a launch (the apply: one thread walking
+# both sweeps from a shared-memory double buffer with a block barrier every 32
+# steps; the factor: three block barriers a step), ms, at the back-end's first
+# PCG of the 512-pose and the 1k solve, from `--backend --tridiag-previous DIR`
+# on NVIDIA H100 80GB HBM3 at 700 W, in one process beside this design
+TRIDIAG_PREVIOUS_MS = {
+    "block_tridiag_apply": {"graph_512": (0.1663, 0.1664), "graph_1k": (0.3195, 0.3196)},
+    "block_tridiag_factor": {"graph_512": (1.7810, 1.7818), "graph_1k": (3.4782, 3.4908)},
+}
+TRIDIAG_PREVIOUS_TREE = None  # `--tridiag-previous DIR`: the checkout whose design is timed
 
 
 def make_backend_drive():
@@ -4905,17 +4935,19 @@ def stage_profile(label, run, dev, tag="backend"):
     return out
 
 
-def tridiag_check(label, D, U, r):
+def tridiag_check(label, D, U, r, plain=None):
     """block_tridiag's factor and apply against their plain versions on the
-    same inputs: x within TRIDIAG_TOL of max |x| (factor then apply, each
-    side its own), the factor's outputs and a repeat compared; returns
-    (max |x - x_plain| / max |x|, the factor's max diff)."""
+    same inputs (factor then apply, each side its own; `plain`, the plain
+    factor's (Cinv, G) where the caller has them): Cinv, G and x bit for bit
+    the plain versions', x also within TRIDIAG_TOL of max |x|, and a repeat
+    bit-identical; returns (max |x - x_plain| / max |x|, the factor's max
+    diff)."""
     from fast_gicp_tpu_torch.ops import cuda_pose_graph as cpg
 
     Cinv, G = cpg.block_tridiag_factor(D, U)
     x = cpg.block_tridiag_apply(Cinv, G, U, r)
     again = cpg.block_tridiag_apply(*cpg.block_tridiag_factor(D, U), U, r)
-    Cinv_p, G_p = cpg.block_tridiag_factor_plain(D, U)
+    Cinv_p, G_p = cpg.block_tridiag_factor_plain(D, U) if plain is None else plain
     x_p = cpg.block_tridiag_apply_plain(Cinv_p, G_p, U, r)
     torch.cuda.synchronize()
     require(bool(torch.isfinite(x).all()), f"block_tridiag {label}: non-finite x")
@@ -4924,111 +4956,255 @@ def tridiag_check(label, D, U, r):
     err = float((x - x_p).abs().max()) / scale
     fac = max(float((Cinv - Cinv_p).abs().max() / Cinv_p.abs().max()),
               float((G - G_p).abs().max() / G_p.abs().max().clamp(min=1e-30)))
+    equal = {k: bool(torch.equal(a, b)) for k, a, b in (("Cinv", Cinv, Cinv_p), ("G", G, G_p),
+                                                         ("x", x, x_p))}
     log(f"[kernels] block_tridiag {label} (K = {D.shape[0]}): x within {err:.3e} of max |x| "
         f"({scale:.3e}) of the plain version (bound {TRIDIAG_TOL}); the factor's Cinv and G "
-        f"within {fac:.3e} of their largest entry; a repeat bit-identical")
+        f"within {fac:.3e} of their largest entry; bit for bit the plain versions: {equal}; "
+        "a repeat bit-identical")
     require(err <= TRIDIAG_TOL, f"block_tridiag {label}: {err} of max |x| off the plain version")
+    require(all(equal.values()), f"block_tridiag {label}: not bit for bit the plain versions "
+            f"({equal})")
     return err, fac
 
 
+def tridiag_chain(rng, K, lam, near_singular_at=None):
+    """D, U (float32 numpy) of a seeded SPD chain (pose-graph blocks, pose 0
+    pinned, each pose its own SPD block) at lambda; with `near_singular_at`
+    = a (0 < a < K - 1), C_a is near-singular: its smallest eigenvalue 1e-4
+    of its largest."""
+    from fast_gicp_tpu_torch.ops import cuda_pose_graph as cpg
+
+    D = np.zeros((K, 6, 6))
+    U = np.zeros((K, 6, 6))
+    for k in range(K - 1):
+        J = np.concatenate([-(np.eye(6) + 0.1 * rng.normal(size=(6, 6))),
+                            np.eye(6) + 0.1 * rng.normal(size=(6, 6))], 1)
+        H = J.T @ np.diag(rng.uniform(0.5, 2.0, 6)) @ J
+        D[k] += H[:6, :6]
+        D[k + 1] += H[6:, 6:]
+        U[k] = H[:6, 6:]
+    D[0] += 1e3 * np.eye(6)
+    for k in range(K):
+        B = rng.normal(size=(6, 6))
+        D[k] += B @ B.T / 6 + 0.5 * np.eye(6)
+    D += lam * np.eye(6)
+    D, U = D.astype(np.float32), U.astype(np.float32)
+    a = near_singular_at
+    if a is not None:
+        # D_a = U_{a-1}^T G_{a-1} + C, G_{a-1} the float32 factor's own (the
+        # plain version on the CPU, the kernel's arithmetic) and C the
+        # chain's C_a with its smallest eigenvalue set to 1e-4 of its
+        # largest, so that C_a = C to within rounding
+        _Cinv, G = cpg.block_tridiag_factor_plain(torch.as_tensor(D[:a]), torch.as_tensor(U[:a]))
+        prod = U[a - 1].T.astype(np.float64) @ G[a - 1].double().numpy()
+        w, V = np.linalg.eigh(D[a].astype(np.float64) - prod)
+        w[0] = 1e-4 * w[-1]
+        D[a] = prod + (V * w) @ V.T
+        # and C_a's weak direction q coupled 1e-3 as strongly to pose a + 1,
+        # which keeps the whole system SPD (C_{a+1} = D_{a+1} - U_a^T C_a^-1 U_a)
+        q = V[:, 0]
+        U[a] = U[a] - (1.0 - 1e-3) * np.outer(q, q @ U[a])
+    return D, U
+
+
 def tridiag_sweep(dev):
-    """block_tridiag on seeded SPD chains (pose-graph blocks, pose 0 pinned)
-    at lambda from 1e-7 to 1e4, K = 64, with each pose's own SPD block (well
-    conditioned) and, at every lambda, one system whose C_k at k = 40 is
-    near-singular (its smallest eigenvalue 1e-4 of its largest).  Returns the
-    worst error and the points checked."""
+    """block_tridiag on seeded SPD chains (`tridiag_chain`): at lambda from
+    1e-7 to 1e4, K = 64, each well conditioned and with C_40 near-singular;
+    then at the kernels' edges (TRIDIAG_EDGE_K, lambda 1e-3; one system with
+    C_16 near-singular at a chunk's turn, one whose inputs are views 4 bytes
+    off a 16-byte boundary, which the wrappers copy) and on each side of
+    the apply's on-chip y (TRIDIAG_ON_CHIP_K: prefixes of one chain, whose
+    plain factor is the prefix of the longest one's, taken once).  Returns
+    the worst error and the points checked."""
     from fast_gicp_tpu_torch.ops import cuda_pose_graph as cpg
 
     rng = np.random.default_rng(7)
     worst, points, K = 0.0, 0, 64
-    for lam in (1e-7, 1e-5, 1e-3, 1e-1, 1e1, 1e3, 1e4):
-        for near_singular in (False, True):
-            D = np.zeros((K, 6, 6))
-            U = np.zeros((K, 6, 6))
-            for k in range(K - 1):
-                J = np.concatenate([-(np.eye(6) + 0.1 * rng.normal(size=(6, 6))),
-                                    np.eye(6) + 0.1 * rng.normal(size=(6, 6))], 1)
-                H = J.T @ np.diag(rng.uniform(0.5, 2.0, 6)) @ J
-                D[k] += H[:6, :6]
-                D[k + 1] += H[6:, 6:]
-                U[k] = H[:6, 6:]
-            D[0] += 1e3 * np.eye(6)
-            for k in range(K):
-                B = rng.normal(size=(6, 6))
-                D[k] += B @ B.T / 6 + 0.5 * np.eye(6)
-            D += lam * np.eye(6)
-            D, U = D.astype(np.float32), U.astype(np.float32)
-            if near_singular:
-                # D_40 = U_39^T G_39 + C, G_39 the float32 factor's own (the
-                # plain version on the CPU, the kernel's arithmetic) and C the
-                # chain's C_40 with its smallest eigenvalue set to 1e-4 of its
-                # largest, so that C_40 = C to within rounding
-                _Cinv, G = cpg.block_tridiag_factor_plain(torch.as_tensor(D[:40]),
-                                                          torch.as_tensor(U[:40]))
-                prod = U[39].T.astype(np.float64) @ G[39].double().numpy()
-                w, V = np.linalg.eigh(D[40].astype(np.float64) - prod)
-                w[0] = 1e-4 * w[-1]
-                D[40] = prod + (V * w) @ V.T
-                # and C_40's weak direction q coupled 1e-3 as strongly to pose 41,
-                # which keeps the whole system SPD (C_41 = D_41 - U_40^T C_40^-1 U_40)
-                q = V[:, 0]
-                U[40] = U[40] - (1.0 - 1e-3) * np.outer(q, q @ U[40])
-            args = [torch.as_tensor(a.astype(np.float32), device=dev)
-                    for a in (D, U, rng.normal(size=(K, 6)))]
-            err, _fac = tridiag_check(f"sweep lambda {lam:g}"
-                                      + (", near-singular C_40" if near_singular else ""), *args)
-            worst, points = max(worst, err), points + 1
+    systems = [(f"sweep lambda {lam:g}" + (", near-singular C_40" if ns else ""), K, lam,
+                40 if ns else None)
+               for lam in (1e-7, 1e-5, 1e-3, 1e-1, 1e1, 1e3, 1e4) for ns in (False, True)]
+    systems += [(f"edge K = {k}", k, 1e-3, None) for k in TRIDIAG_EDGE_K]
+    systems.append(("edge K = 33, near-singular C_16", 33, 1e-3, 16))
+    systems.append(("edge K = 17, inputs off a 16-byte boundary", 17, 1e-3, None))
+    for label, k, lam, at in systems:
+        D, U = tridiag_chain(rng, k, lam, at)
+        args = [torch.as_tensor(a.astype(np.float32), device=dev)
+                for a in (D, U, rng.normal(size=(k, 6)))]
+        if "boundary" in label:
+            args = [torch.empty(a.numel() + 1, device=dev)[1:].view(a.shape).copy_(a)
+                    for a in args]
+        err, _fac = tridiag_check(label, *args)
+        worst, points = max(worst, err), points + 1
+    n = max(TRIDIAG_ON_CHIP_K)
+    D, U = tridiag_chain(rng, n, 1e-3)
+    D, U, r = [torch.as_tensor(a.astype(np.float32), device=dev)
+               for a in (D, U, rng.normal(size=(n, 6)))]
+    Cinv_p, G_p = cpg.block_tridiag_factor_plain(D, U)
+    for k in TRIDIAG_ON_CHIP_K:
+        err, _fac = tridiag_check(f"y on chip's edge K = {k}", D[:k], U[:k], r[:k],
+                                  plain=(Cinv_p[:k], G_p[:k]))
+        worst, points = max(worst, err), points + 1
     return worst, points
+
+
+@functools.cache
+def sm_clock_mhz():
+    """(the card's largest SM clock, its SM clock now) in MHz, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0]
+    top, now = (float(v) for v in out.split(","))
+    return top, now
+
+
+def dense_tridiag(D, U):
+    """The assembled (6K)^2 block-tridiagonal matrix of D and U."""
+    K = D.shape[0]
+    A = torch.zeros((6 * K, 6 * K), dtype=D.dtype, device=D.device)
+    blocks = A.view(K, 6, K, 6)
+    k = torch.arange(K, device=D.device)
+    blocks[k, :, k, :] = D
+    blocks[k[:-1], :, k[1:], :] = U[:-1]
+    blocks[k[1:], :, k[:-1], :] = U[:-1].transpose(1, 2)
+    return A
+
+
+@functools.cache
+def previous_tridiag(tree):
+    """(factor, apply) of the block_tridiag kernels of the package under
+    `tree` (another checkout), built from its `csrc/block_tridiag.cu` alone
+    into a library of their own with this package's flags: the same C
+    entries, called as the wrappers call them but not counted."""
+    from fast_gicp_tpu_torch.ops import _build
+
+    src = pathlib.Path(tree).resolve() / "fast_gicp_tpu_torch" / "csrc" / "block_tridiag.cu"
+    so = _build.BUILD_DIR / "previous_block_tridiag.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-fmad=false", "-shared",
+                           str(src), "-o", str(so)], capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0, f"the previous block_tridiag.cu did not build:\n{proc.stdout}"
+            f"{proc.stderr}")
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "registers" in line or "stack frame" in line or "Compiling entry" in line:
+            log(f"[build] previous block_tridiag: {line.strip()}")
+    lib = ctypes.CDLL(str(so))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fac, app = lib.fgt_block_tridiag_factor, lib.fgt_block_tridiag_apply
+    fac.argtypes, app.argtypes = (P, P, P, P, I, P), (P, P, P, P, P, I, P)
+    fac.restype = app.restype = ctypes.c_int
+
+    def factor(D, U):
+        Cinv, G = torch.empty_like(D), torch.empty_like(D)
+        _build.check("previous factor", fac(D.data_ptr(), U.data_ptr(), Cinv.data_ptr(),
+                                            G.data_ptr(), D.shape[0],
+                                            torch.cuda.current_stream().cuda_stream))
+        return Cinv, G
+
+    def apply(Cinv, G, U, r):
+        x = torch.empty_like(r)
+        _build.check("previous apply", app(Cinv.data_ptr(), G.data_ptr(), U.data_ptr(),
+                                           r.data_ptr(), x.data_ptr(), r.shape[0],
+                                           torch.cuda.current_stream().cuda_stream))
+        return x
+
+    return factor, apply
 
 
 def tridiag_record(name, inputs, errors, sweep):
     """The record of block_tridiag's factor or apply entry from its inputs at
     the back-end's first PCG of the 512-pose solve and of the 1k solve: the
     errors of `tridiag_check` there and on the sweep, the device time of a
-    launch, the plain version's time (the apply's from a profiler trace; the
-    factor's, ~200 launches a step, from CUDA events) and the bound: the
-    larger of the bytes (each input read once, each output written once)
-    and the FP32 operations over the card's rates; beside it the serial
-    chain's length (K steps x the step's dependent operations)."""
+    launch, µs a step, registers and stack frame, the plain version's time
+    (the apply's from a profiler trace; the factor's, ~200 launches a step,
+    from CUDA events), the bound (the larger of the bytes, each input read
+    once and each output written once, and the FP32 operations over the
+    card's rates), the serial chain (K steps x the step's dependent FP32
+    operations x TRIDIAG_CYCLES_PER_OP at the card's largest SM clock) and
+    the launch's time over it, and the library's time: one PyTorch call on
+    the assembled (6K)^2 matrix (`torch.linalg.cholesky_ex` beside the
+    factor, `torch.cholesky_solve` with its dense lower factor beside the
+    apply).  With `--tridiag-previous DIR`, the previous design's kernel is
+    timed on the same inputs in turns (previous, this, this, previous);
+    without, its time from such a run (TRIDIAG_PREVIOUS_MS) is printed."""
     from fast_gicp_tpu_torch.ops import cuda_pose_graph as cpg
 
     apply = name == "block_tridiag_apply"
+    kernel = f"{name}_kernel"
+    regs, stack = kernel_build_report().get(name, (None, None))
+    clock_max, clock_now = sm_clock_mhz()
+    previous = previous_tridiag(TRIDIAG_PREVIOUS_TREE) if TRIDIAG_PREVIOUS_TREE else None
     by_k = {}
     for label, (D, U, r) in inputs.items():
         K = D.shape[0]
         Cinv, G = cpg.block_tridiag_factor(D, U)
+        A = dense_tridiag(D, U)
+        L, info = torch.linalg.cholesky_ex(A)
         if apply:
-            ms = device_ms(lambda: cpg.block_tridiag_apply(Cinv, G, U, r), 100,
-                           "block_tridiag_apply_kernel")
+            reps = 100
+            run = lambda: cpg.block_tridiag_apply(Cinv, G, U, r)  # noqa: E731
+            prev = previous and (lambda: previous[1](Cinv, G, U, r))
             plain_ms = device_ms(lambda: cpg.block_tridiag_apply_plain(Cinv, G, U, r), 2)
+            rhs = r.reshape(-1, 1)
+            library_ms = device_ms(lambda: torch.cholesky_solve(rhs, L), 20)
             nbytes = K * (3 * 36 + 6 + 6) * 4
             nops, chain = K * TRIDIAG_APPLY_OPS, K * TRIDIAG_APPLY_CHAIN
         else:
-            ms = device_ms(lambda: cpg.block_tridiag_factor(D, U), 20,
-                           "block_tridiag_factor_kernel")
+            reps = 20
+            run = lambda: cpg.block_tridiag_factor(D, U)  # noqa: E731
+            prev = previous and (lambda: previous[0](D, U))
             plain_ms = cuda_ms(lambda: cpg.block_tridiag_factor_plain(D, U), 1)
+            library_ms = device_ms(lambda: torch.linalg.cholesky_ex(A), 5)
             nbytes = K * 4 * 36 * 4
             nops, chain = K * TRIDIAG_FACTOR_OPS, K * TRIDIAG_FACTOR_CHAIN
+        if previous:
+            prev_ms, ms = [device_ms(prev, reps, kernel)], [device_ms(run, reps, kernel)]
+            ms.append(device_ms(run, reps, kernel))
+            prev_ms.append(device_ms(prev, reps, kernel))
+            p_out, out = prev(), run()
+            same = all(torch.equal(a, b) for a, b in zip(
+                p_out if isinstance(p_out, tuple) else (p_out,),
+                out if isinstance(out, tuple) else (out,)))
+            previous_note = (f"previous design {prev_ms[0]:.4f}, {prev_ms[1]:.4f} ms (this one "
+                             f"{ms[0]:.4f}, {ms[1]:.4f}; outputs bit-equal: {same})")
+        else:
+            ms = [device_ms(run, reps, kernel)]
+            prev_ms, same = None, None
+            lo, hi = TRIDIAG_PREVIOUS_MS[name][label]
+            previous_note = f"previous design {lo}-{hi} ms (recorded, TRIDIAG_PREVIOUS_MS)"
         b_ms, b_by = bound_ms(nbytes, nops)
-        by_k[label] = dict(K=K, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                           bytes=nbytes, operations=nops, serial_chain_operations=chain,
-                           us_per_step=1e3 * ms / K, x_err_of_max=errors[label][0],
+        chain_ms = chain * TRIDIAG_CYCLES_PER_OP / (clock_max * 1e3)
+        by_k[label] = dict(K=K, ms=ms[0], ms_runs=ms, previous_ms_runs=prev_ms,
+                           previous_outputs_equal=same, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, bytes=nbytes, operations=nops,
+                           serial_chain_operations=chain, serial_chain_ms=chain_ms,
+                           chain_ratio=ms[0] / chain_ms, sm_clock_mhz=[clock_max, clock_now],
+                           us_per_step=1e3 * ms[0] / K, library_ms=library_ms,
+                           library_cholesky_info=int(info), x_err_of_max=errors[label][0],
                            factor_err_of_max=errors[label][1])
-        log(f"[kernels] {name} at {label} (K = {K}): {ms:.4f} ms a launch "
-            f"({1e3 * ms / K:.4f} us a step), plain {plain_ms:.3f} ms; bound {b_ms:.3e} ms "
-            f"({b_by}), serial chain {chain} dependent operations")
+        log(f"[kernels] {name} at {label} (K = {K}): {ms[0]:.4f} ms a launch "
+            f"({1e3 * ms[0] / K:.4f} us a step; {regs} registers, {stack} bytes stack frame); "
+            f"{previous_note}; plain {plain_ms:.3f} ms; dense (6K)^2 "
+            f"{'torch.cholesky_solve' if apply else 'torch.linalg.cholesky_ex'} "
+            f"{library_ms:.4f} ms (cholesky info {int(info)}); bound {b_ms:.3e} ms ({b_by}); "
+            f"serial chain {chain} dependent operations, {chain_ms:.4f} ms at "
+            f"{TRIDIAG_CYCLES_PER_OP} cycles each and {clock_max:.0f} MHz (now {clock_now:.0f}): "
+            f"the launch {ms[0] / chain_ms:.2f}x it")
     main = by_k["graph_512"]
     return dict(name=name, own_path="backend", route="cuda",
                 source="fast_gicp_tpu_torch/csrc/block_tridiag.cu",
                 replaces="none: XLA's lax.scan in fast_gicp_tpu/models/pose_graph_sparse.py:89",
+                registers=regs, stack_bytes=stack,
                 max_abs_err=max([e[0] for e in errors.values()] + [sweep[0]]),
-                tolerance=f"x within {TRIDIAG_TOL} of max |x| of the plain version (factor "
-                          f"then apply) at both solves' first PCG and on {sweep[1]} sweep "
-                          "systems; a repeat bit-identical",
-                library_ms=None,
+                tolerance=f"Cinv, G and x bit for bit the plain versions' (factor then apply), "
+                          f"x within {TRIDIAG_TOL} of max |x|, at both solves' first PCG and on "
+                          f"{sweep[1]} sweep systems; a repeat bit-identical",
                 timing="profiler device time" if apply else
                 "kernel: profiler device time; plain: CUDA events (host-bound)",
-                by_k=by_k, **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+                library="dense (6K)^2: " + ("torch.cholesky_solve(r, L), L its lower Cholesky "
+                                            "factor" if apply else "torch.linalg.cholesky_ex"),
+                by_k=by_k, **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "library_ms")})
 
 
 def first_pcg_inputs(run):
@@ -6289,8 +6465,12 @@ def phase_device_loop(dev, records, path_launches, summary, pair=None):
 
 
 def main() -> int:
+    global TRIDIAG_PREVIOUS_TREE
     timing = {"--ndt-timing": ndt_timing, "--trial-timing": trial_timing,
               "--lin-timing": lin_timing}
+    if sys.argv[-2:-1] == ["--tridiag-previous"] and sys.argv[1:-2] in ([], ["--backend"]):
+        TRIDIAG_PREVIOUS_TREE = sys.argv[-1]
+        del sys.argv[-2:]
     timing_only = (len(sys.argv) == 3 and sys.argv[1] in timing
                    or len(sys.argv) == 4 and sys.argv[1] == "--lin-timing")
     odometry_only = sys.argv[1:] == ["--odometry"]
@@ -6302,8 +6482,8 @@ def main() -> int:
     elif len(sys.argv) > 1 and not (odometry_only or backend_only or parallel_only
                                     or align_only):
         print("usage: chip_smoke.py [--odometry | --backend | --parallel | --align | "
-              "--ndt-timing DIR | --trial-timing DIR | --lin-timing DIR [REF]]",
-              file=sys.stderr)
+              "--ndt-timing DIR | --trial-timing DIR | --lin-timing DIR [REF]] "
+              "| [--backend] --tridiag-previous DIR", file=sys.stderr)
         return 2
     # phase 1: device
     if not torch.cuda.is_available():
@@ -6481,7 +6661,7 @@ def run_phases(timing, timing_only, odometry_only, backend_only, parallel_only=F
              "form_launches_by_path", "unique_rows", "unique_cells", "bytes", "edge_cases",
              "class_maps", "hash_path", "multipoint", "scan_to_map", "localization",
              "odometry_serial", "odometry_stream", "odometry_scan", "by_k", "backend",
-             "backend_source", "backend_target", "parallel")
+             "backend_source", "backend_target", "parallel", "library")
     work = ("candidates", "exact_candidates", "exact_search_ms", "source_cloud_ms",
             "pairs_visited", "pairs_in_range", "pairs_to_visit", "pairs_in_window",
             "pairs_visited_block_cull", "wide_slab_ms", "k48_ms")

@@ -41,6 +41,14 @@ def _check_blocks(name, t, K=None):
                          f"{tuple(t.shape)} {t.dtype}")
 
 
+def _aligned(t):
+    """t, or a contiguous copy of it: the kernels copy their operands in
+    bulk, which needs contiguous data starting on a 16-byte boundary."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _solve6(A, B):
     """Solve A X = B for a 6x6 SPD A through `linalg3.cholesky_solve`; B
     (6,) or (6, m) (columns), as the JAX package's `_solve6`."""
@@ -57,6 +65,7 @@ def block_tridiag_factor(D, U):
     if _same_device((D, U)).type == "cpu":
         return block_tridiag_factor_plain(D, U)
     _check_cuda((D, U))
+    D, U = _aligned(D), _aligned(U)
     K = D.shape[0]
     Cinv = torch.empty_like(D)
     G = torch.empty_like(D)
@@ -102,6 +111,7 @@ def block_tridiag_apply(Cinv, G, U, r):
     if _same_device((Cinv, G, U, r)).type == "cpu":
         return block_tridiag_apply_plain(Cinv, G, U, r)
     _check_cuda((Cinv, G, U, r))
+    Cinv, G, U, r = (_aligned(t) for t in (Cinv, G, U, r))
     x = torch.empty_like(r)
     fn = _build.function("fgt_block_tridiag_apply", _APPLY_ARGS)
     stream = torch.cuda.current_stream(r.device).cuda_stream

@@ -18,6 +18,8 @@ config, so the cases share shapes and configs.  Tolerances:
     (by up to 3.3e-2 at K = 64) and from each other by as much: over six
     seeds the port's float64 error was 0.1-78x JAX's, the same with an
     explicit C_k^-1 as with triangular solves, so those are not compared;
+    against a float64 dense solve of the assembled system, the anchored
+    chains within 1e-5 of max|x| too (measured <= 3.1e-7);
   * poses within 1e-4, the error within 1e-4 relative, `converged` equal.
     Iterations are equal where the convergence test (max |delta| < 1e-6)
     is decided clear of float32's noise: at convergence_delta = 1e-5.  At
@@ -216,6 +218,44 @@ def test_tridiag_solve_matches_jax(K):
             want = np.asarray(jsolve(jnp.asarray(D), jnp.asarray(U), jnp.asarray(r)))
             got = TS._tridiag_solve(torch.as_tensor(D), torch.as_tensor(U), torch.as_tensor(r))
             assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max(), (K, lam)
+
+
+_JAX_TRIDIAG = jax.jit(JS._tridiag_solve)
+
+
+@pytest.mark.parametrize("lam", [1e-7, 1e-4, 1e-1, 1e2, 1e4])
+def test_tridiag_solve_matches_jax_at_graph_size(lam):
+    """The plain factor + apply against JAX's `_tridiag_solve` at K = 512,
+    the back-end graph's size, on an anchored chain (measured <= 2.2e-7 of
+    max |x|)."""
+    D, U, r = _tridiag_system(np.random.default_rng(512), 512, lam, anchored=True)
+    want = np.asarray(_JAX_TRIDIAG(jnp.asarray(D), jnp.asarray(U), jnp.asarray(r)))
+    U_t = torch.as_tensor(U)
+    got = cpg.block_tridiag_apply(*cpg.block_tridiag_factor(torch.as_tensor(D), U_t), U_t,
+                                  torch.as_tensor(r))
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("K", [1, 2, 31, 32, 33])
+def test_tridiag_solve_matches_float64_dense_solve(K):
+    """The plain factor + apply against a float64 `numpy.linalg.solve` of
+    the assembled (6K)^2 system, anchored chains at five lambdas: within
+    1e-5 of max |x| (measured <= 3.1e-7 over six seeds), at chain lengths
+    on each side of the kernels' edges."""
+    rng = np.random.default_rng(100 + K)
+    for lam in (1e-7, 1e-4, 1e-1, 1e2, 1e4):
+        D, U, r = _tridiag_system(rng, K, lam, anchored=True)
+        A = np.zeros((6 * K, 6 * K))
+        for k in range(K):
+            A[6 * k:6 * k + 6, 6 * k:6 * k + 6] = D[k]
+            if k + 1 < K:
+                A[6 * k:6 * k + 6, 6 * k + 6:6 * k + 12] = U[k]
+                A[6 * k + 6:6 * k + 12, 6 * k:6 * k + 6] = U[k].T
+        want = np.linalg.solve(A, r.astype(np.float64).reshape(-1)).reshape(K, 6)
+        U_t = torch.as_tensor(U)
+        got = cpg.block_tridiag_apply(*cpg.block_tridiag_factor(torch.as_tensor(D), U_t), U_t,
+                                      torch.as_tensor(r))
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max(), lam
 
 
 def test_solve6_matches_jax():
