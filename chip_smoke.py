@@ -52,10 +52,18 @@ pose), `optimize_pose_graph_sparse` over the 512 poses (odometry edges at
 JAX test's 1k graph (the end drift under 0.3x), dense against sparse on a
 10-pose graph (within 2e-3), and `SlidingWindowBA` (window 20) over the
 drive's first 96 relatives, a solve every 32 keyframes, and on the 30-keyframe
-chain (the loop edge halves the tail error).  The 512-pose solve runs again
-under torch's sync debug mode: its host syncs must be its flag reads (one
-an LM trial, one a Gauss-Newton iteration; none inside a PCG), and every
-preconditioner application one `block_tridiag_apply` launch.  The kernels
+chain (the loop edge halves the tail error), each solve in its device form
+(the default: one CUDA graph a signature, its loops conditional nodes, the
+counts read from the device tally `pg_counts`).  The 512-pose solve runs
+again in the eager form under torch's sync debug mode: its host syncs must
+be its flag reads (one an LM trial, one a Gauss-Newton iteration; none
+inside a PCG), and every preconditioner application one
+`block_tridiag_apply` launch.  Then every solve in both forms
+(`backend_forms`): bit for bit with deterministic scatter-adds, the eager
+form's counts equal to the tally, 0 host syncs in a replay, the applies one
+a PCG and one a CG iteration, the warm-up and capture, replay, eager and
+device-span times and a traced replay; and `pg_cond` bit for bit its plain
+version on a seeded sweep of every mode.  The kernels
 at the back-end's own inputs: `block_tridiag` (factor and apply) at the
 first PCG of the 512-pose and the 1k solve, on a seeded sweep of lambda
 with a near-singular C_k and at the kernels' edge chain lengths, bit for bit
@@ -65,9 +73,14 @@ the first `verify_closure`, `rbf_moments` on both clouds, `ndt_d2d` in the
 pack form (the coarse align is on the hash map), `linearize_raw`,
 `nn_search` and both trial launches.  Card against CPU: `verify_closure`
 (2e-3 m, 1e-3 rad), a 64-pose sparse solve (1e-4) and the 30-keyframe
-window (1e-4 after its first solve; after the loop edge the objective,
+window (both in the device form; 1e-4 after its first solve; after the loop edge the objective,
 within 1e-3, as the poses lie in a flat valley there).  A traced run of each stage gives its wall, device busy time and
-idle share.  `python3 chip_smoke.py --backend` runs only those phases.
+idle share; the sparse solves' are their replays', timed by CUDA events and counted by the
+tally.  The back-end run's launches of `block_tridiag_factor`, `block_tridiag_apply` and
+`pg_cond` are what those kernels counted on the device (`pg_counts`: a replay launches them
+without their wrappers).  A growing graph (the 512-pose graph cut after its 1st, 3rd, 5th and
+7th closure) gives the device form's first call at each new signature, its warm-up and capture,
+the memory the cached graphs hold and the eager form's wall beside it.  `python3 chip_smoke.py --backend` runs only those phases.
 Slice H's multi-device phase runs after the back-end (`phase_parallel`;
 `python3 chip_smoke.py --parallel` runs it alone).  The world of one: this
 process alone in an NCCL group; the five sharded aligns on the full-size
@@ -122,7 +135,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
      device="cpu" (the plain versions): the VGICP and GICP paths on the
      CPU-test-sized pair, the NDT paths on the full-size pair (the small
      pair's 1 m voxels hold too few points for NDT's > 6 gate);
-  6. bench protocol: 30 registrations of each path through a 1e-5 rigid
+  6. bench protocol: 20 registrations of each path through a 1e-5 rigid
      jitter of both clouds (bench.py's protocol at a smaller depth), after
      a warm-up;
   7. profile: stage wall times, each registration's device span from CUDA
@@ -2415,6 +2428,7 @@ def counters():
         "block_tridiag_factor": cuda_pose_graph.block_tridiag_factor,
         "block_tridiag_apply": cuda_pose_graph.block_tridiag_apply,
         "loop_cond": cuda_solver.loop_cond,
+        "pg_cond": cuda_pose_graph.pg_cond,
     }
 
 
@@ -2837,10 +2851,10 @@ def phase_card_vs_cpu(dev, pair, path):
                 iterations_gpu=int(r_gpu.iterations), iterations_cpu=int(r_cpu.iterations))
 
 
-# bench.py's protocol at a smaller depth: 30 registrations a path (100 until
-# PR 16; the class paths' new ones 50) and 4 batches (10), to keep the whole
-# script in its time with the device loop's phase
-BENCH_REGS = 30
+# bench.py's protocol at a smaller depth: 20 registrations a path (bench.py:
+# 100) and 4 batches (10), to keep the whole script in its time with the
+# device loop's phase and the back-end's device forms
+BENCH_REGS = 20
 BENCH_BATCHES = 4
 
 
@@ -4540,7 +4554,21 @@ CARD_CPU_POSES = 64
 # the hash map (ndt_d2d in the pack form, the NDT trial launch), the fitness
 # (nn_search) and the preconditioner (block_tridiag)
 BACKEND_KERNELS = ("rbf_moments", "linearize_raw", "lm_step", "nn_search", "ndt_d2d",
-                   "block_tridiag_factor", "block_tridiag_apply")
+                   "block_tridiag_factor", "block_tridiag_apply", "pg_cond")
+# the back-end's kernels that count their runs on the device (their slots of
+# `cuda_pose_graph.pg_counts`): the solves replay them from CUDA graphs
+DEVICE_COUNTED = {"block_tridiag_factor": "factors", "block_tridiag_apply": "applies",
+                  "pg_cond": "pg_cond"}
+# the growing graph's solves (`signature_sequence`): the 512-pose graph cut
+# after its 1st, 3rd, 5th and 7th closure (each a signature of its own), the
+# eager form beside the first and the last
+SIGNATURE_CLOSURES = (1, 3, 5, 7)
+# the pose-graph condition kernel (csrc/device_loop.cu pg_cond_kernel) at its
+# commonest mode, a CG iteration's step: it reads the trip counter, res.res and
+# the threshold and two tally ints, and writes the counter, the flag and the
+# two tally ints; a compare, an add, a few logic operations
+PG_COND_BYTES = (1 + 2 + 2) * 4 + (1 + 1 + 2) * 4
+PG_COND_OPS = 6
 # FP32 operations a step, counted from the kernels' arithmetic, and the
 # dependent ones among them (the serial chain)
 TRIDIAG_APPLY_OPS = 210  # U^T y 66, r - . 6, C^-1 v 66; G x 66, y - . 6
@@ -4743,10 +4771,11 @@ def window_chain():
 def window_loop(ba, rel, gt):
     """test_sliding_window_ba on `ba` (window 10): the 30 keyframes, a solve,
     a loop edge base -> 29 at 1e4 I, a solve.  (tail error before, after,
-    the poses after the first solve, the loop-edge solve's result)."""
+    the poses after the first solve, the loop-edge solve's result, the first
+    solve's result)."""
     for r in rel:
         ba.add_keyframe(r)
-    ba.optimize()
+    first_res = ba.optimize()
     first = np.stack(ba.poses)
     gi, gj = ba.base, len(gt) - 1
     lc = (np.linalg.inv(gt[gi]) @ gt[gj]).astype(np.float32)
@@ -4758,7 +4787,7 @@ def window_loop(ba, rel, gt):
     before = tail()
     ba.add_loop_edge(gi, gj, lc, 1e4 * np.eye(6, dtype=np.float32))
     res = ba.optimize()
-    return before, tail(), first, res
+    return before, tail(), first, res, first_res
 
 
 def synced(dev):
@@ -4775,27 +4804,48 @@ def timed(dev, fn):
     return out, time.perf_counter() - t0
 
 
-def sparse_solve(dev, graph, **config):
+def sparse_solve(dev, graph, device_loop=False, **config):
+    """The sparse solve of `graph`, in the eager form unless `device_loop`."""
     from fast_gicp_tpu_torch.models import pose_graph_sparse as pgs
 
     poses, ei, ej, rel, info = graph[:5]
     return pgs.optimize_pose_graph_sparse(poses, ei, ej, rel, info,
-                                          config=pgs.SparsePGConfig(**config), device=dev)
+                                          config=pgs.SparsePGConfig(**config), device=dev,
+                                          device_loop=device_loop)
 
 
-def solve_stats(label, res, wall, gt=None, before=None):
-    """The sparse solve's counters (since the last reset_stats), its wall
-    and, with gt, ATE and end error before and after."""
+def pg_tally(dev, since=None):
+    """The device tally (`cuda_pose_graph.pg_counts`) as a dict: what
+    pg_cond and the block_tridiag kernels ran, replays included; with
+    `since` (a dict of it read before), what they ran since."""
+    from fast_gicp_tpu_torch.ops import cuda_pose_graph as cpg
+
+    now = dict(zip(cpg.PG_COUNTS, cpg.pg_counts(dev).tolist()))
+    return now if since is None else {k: v - since[k] for k, v in now.items()}
+
+
+def solve_stats(label, res, wall, gt=None, before=None, tally=None):
+    """The sparse solve's counters (since the last reset_stats; with
+    `tally`, the device form's, read from its device tally), its wall and,
+    with gt, ATE and end error before and after."""
     from fast_gicp_tpu_torch.models import pose_graph_sparse as pgs
     from fast_gicp_tpu_torch.utils.kitti import ate_rmse
 
     f = pgs.optimize_pose_graph_sparse
     poses = res.poses.cpu().numpy().astype(np.float64)
     stats = dict(poses=len(poses), iterations=int(res.iterations),
-                 converged=bool(res.converged), error=float(res.error), lm_trials=f.trials,
-                 pcgs=f.pcgs, cg_iterations=f.pcgs * pgs.SparsePGConfig().cg_iterations,
-                 cg_iterations_before_tolerance=int(f.cg_iterations_run),
-                 host_reads=f.host_syncs, wall_s=wall)
+                 converged=bool(res.converged), error=float(res.error))
+    if tally is None:
+        stats.update(lm_trials=f.trials, pcgs=f.pcgs,
+                     cg_iterations=f.pcgs * pgs.SparsePGConfig().cg_iterations,
+                     cg_iterations_before_tolerance=int(f.cg_iterations_run),
+                     host_reads=f.host_syncs, wall_s=wall)
+    else:
+        stats.update(form="device", lm_trials=tally["trials"], pcgs=tally["pcgs"],
+                     cg_iterations=tally["cg_iterations"],
+                     cg_iterations_before_tolerance=tally["cg_iterations"],
+                     tridiag_applies=tally["applies"], tridiag_factors=tally["factors"],
+                     host_reads=0, wall_s=wall)
     if gt is not None:
         stats.update(ate_before_m=ate_rmse(gt, list(before)), ate_after_m=ate_rmse(gt, list(poses)),
                      end_error_before_m=float(np.linalg.norm(before[-1][:3, 3] - gt[-1][:3, 3])),
@@ -4821,14 +4871,35 @@ def closure_errors(closures, gt):
     return [pose_gap(np.linalg.inv(gt[c.i]) @ gt[c.j], c.relative) for c in closures]
 
 
+def window_drive(dev, front_poses, device_loop):
+    """SlidingWindowBA (window 20) over the drive's first
+    WINDOW_DRIVE_KEYFRAMES relatives at the odometry edges' information, a
+    solve every 32 keyframes.  (the window, the solves' results)."""
+    from fast_gicp_tpu_torch.models import pose_graph_sparse as pgs
+
+    ba = pgs.SlidingWindowBA(window=WINDOW, device=dev, device_loop=device_loop)
+    rels = [np.linalg.inv(a) @ b for a, b in zip(front_poses[:WINDOW_DRIVE_KEYFRAMES],
+                                                  front_poses[1:WINDOW_DRIVE_KEYFRAMES + 1])]
+    info = ODOMETRY_EDGE_INFO * np.eye(6, dtype=np.float32)
+    results = []
+    for k, r in enumerate(rels):
+        ba.add_keyframe(r, info)
+        if (k + 1) % WINDOW_EVERY == 0:
+            results.append(ba.optimize())
+    return ba, results
+
+
 def backend_run(dev, front_poses):
     """Stages 2-6 of the back-end on the drive's stream poses, as a user runs
-    them: `detect_loop_closures`, the sparse solve over the 512 poses, the
-    1k graph (a warm-up solve, then the timed one), dense and sparse on the
+    them (the solves in their device form, the default): `detect_loop_closures`,
+    the sparse solve over the 512 poses (the first call captures its graph,
+    the timed one replays it), the 1k graph likewise, dense and sparse on the
     10-pose graph, SlidingWindowBA over the drive's first
     WINDOW_DRIVE_KEYFRAMES relatives (window 20, a solve every 32
-    keyframes) and on the 30-keyframe chain.  Each stage's
-    checks; returns (stats, the 512-pose graph, the closures)."""
+    keyframes) and on the 30-keyframe chain.  Each stage's checks, the
+    solves' counts from the device tally (read before and after each, never
+    zeroed: the caller reads the whole run's); returns (stats, the 512-pose
+    graph, the closures)."""
     from fast_gicp_tpu_torch.models import pose_graph as pg
     from fast_gicp_tpu_torch.models import pose_graph_sparse as pgs
     from fast_gicp_tpu_torch.models.loop_closure import LoopClosureConfig, detect_loop_closures
@@ -4848,11 +4919,13 @@ def backend_run(dev, front_poses):
             f"a closure is {max(e[0] for e in errs)} m off the ground truth (bound {CLOSURE_TOL})")
 
     graph = closure_graph(front_poses, closures)
-    _res, cold = timed(dev, lambda: sparse_solve(dev, graph))  # the first call's set-up
-    pgs.reset_stats()
-    res, wall = timed(dev, lambda: sparse_solve(dev, graph))
+    # the first call's set-up: the capture of the device form's graph
+    _res, cold = timed(dev, lambda: sparse_solve(dev, graph, device_loop=True))
+    base = pg_tally(dev)
+    res, wall = timed(dev, lambda: sparse_solve(dev, graph, device_loop=True))
     stats["graph_512"] = s = solve_stats(f"sparse solve, {n} poses, {len(graph[1])} edges "
-                                         "(warm)", res, wall, gt[:n], graph[0])
+                                         "(device form, a replay)", res, wall, gt[:n], graph[0],
+                                         tally=pg_tally(dev, base))
     s["cold_wall_s"] = cold
     require(bool(torch.isfinite(res.poses).all()), "512-pose solve: non-finite poses")
     require(s["end_error_after_m"] < s["end_error_before_m"],
@@ -4860,18 +4933,19 @@ def backend_run(dev, front_poses):
             f"{s['end_error_after_m']} m")
 
     g1k = k1000_graph()
-    sparse_solve(dev, g1k, max_iterations=15)  # warm-up, as the JAX test's
-    pgs.reset_stats()
-    res, wall = timed(dev, lambda: sparse_solve(dev, g1k, max_iterations=15))
-    stats["graph_1k"] = s = solve_stats("sparse solve, 1k graph (warm)", res, wall, g1k[5],
-                                        g1k[0])
+    # warm-up, as the JAX test's: the capture
+    sparse_solve(dev, g1k, device_loop=True, max_iterations=15)
+    base = pg_tally(dev)
+    res, wall = timed(dev, lambda: sparse_solve(dev, g1k, device_loop=True, max_iterations=15))
+    stats["graph_1k"] = s = solve_stats("sparse solve, 1k graph (device form, a replay)", res,
+                                        wall, g1k[5], g1k[0], tally=pg_tally(dev, base))
     require(s["end_error_after_m"] < K1000_DRIFT_SHARE * s["end_error_before_m"],
             f"1k graph: end drift {s['end_error_after_m']} m, not under "
             f"{K1000_DRIFT_SHARE} x {s['end_error_before_m']} m")
 
     g10 = small_graph()
     dense = pg.optimize_pose_graph(*g10, pg.PoseGraphConfig(max_iterations=20), device=dev)
-    sparse = sparse_solve(dev, g10, max_iterations=20)
+    sparse = sparse_solve(dev, g10, device_loop=True, max_iterations=20)
     gap = float((dense.poses - sparse.poses).abs().max())
     stats["dense_vs_sparse"] = dict(max_abs_diff=gap, dense_iterations=int(dense.iterations),
                                     sparse_iterations=int(sparse.iterations))
@@ -4879,27 +4953,17 @@ def backend_run(dev, front_poses):
         f"(bound {DENSE_SPARSE_TOL}); {stats['dense_vs_sparse']}")
     require(gap < DENSE_SPARSE_TOL, f"dense and sparse part by {gap}")
 
-    ba = pgs.SlidingWindowBA(window=WINDOW, device=dev)
-    rels = [np.linalg.inv(a) @ b for a, b in zip(front_poses[:-1], front_poses[1:])]
-    rels = rels[:WINDOW_DRIVE_KEYFRAMES]
-    info = ODOMETRY_EDGE_INFO * np.eye(6, dtype=np.float32)
-
-    def feed():
-        for k, r in enumerate(rels):
-            ba.add_keyframe(r, info)
-            if (k + 1) % WINDOW_EVERY == 0:
-                ba.optimize()
-
-    pgs.reset_stats()
-    _none, wall = timed(dev, feed)
+    base = pg_tally(dev)
+    (ba, _results), wall = timed(dev, lambda: window_drive(dev, front_poses, True))
+    rels = min(WINDOW_DRIVE_KEYFRAMES, len(front_poses) - 1)
     require(all(np.isfinite(p).all() for p in ba.poses) and len(ba.poses) == WINDOW,
             "SlidingWindowBA: poses")
-    stats["window_drive"] = dict(keyframes=len(rels), window=WINDOW, solves=len(rels) // WINDOW_EVERY,
-                                 base=ba.base, wall_s=wall, ms_per_keyframe=1e3 * wall / len(rels),
-                                 lm_trials=pgs.optimize_pose_graph_sparse.trials)
+    stats["window_drive"] = dict(keyframes=rels, window=WINDOW, solves=rels // WINDOW_EVERY,
+                                 base=ba.base, wall_s=wall, ms_per_keyframe=1e3 * wall / rels,
+                                 form="device", lm_trials=pg_tally(dev, base)["trials"])
     log(f"[backend] SlidingWindowBA over the drive: {stats['window_drive']}")
     rel30, gt30 = window_chain()
-    before, after, _first, _res = window_loop(pgs.SlidingWindowBA(
+    before, after, _first, _res, _first_res = window_loop(pgs.SlidingWindowBA(
         window=10, config=pgs.SparsePGConfig(max_iterations=10), device=dev), rel30, gt30)
     stats["window_loop"] = dict(tail_before_m=before, tail_after_m=after)
     log(f"[backend] SlidingWindowBA, 30 keyframes, window 10: the loop edge takes the tail "
@@ -5332,7 +5396,8 @@ def backend_card_vs_cpu(dev, front_poses, first_candidate):
     truth at 1e4 I (poses within 1e-4), and SlidingWindowBA on the
     30-keyframe chain (the poses after its first solve and prior_info within
     1e-4 of their largest entry, the loop-edge solve's objective within
-    1e-3; its poses reported); the solves with deterministic scatter-adds."""
+    1e-3; its poses reported); the solves in the device form (the default),
+    with deterministic scatter-adds."""
     from fast_gicp_tpu_torch.models import pose_graph_sparse as pgs
     from fast_gicp_tpu_torch.models.loop_closure import LoopClosure, verify_closure
 
@@ -5351,7 +5416,7 @@ def backend_card_vs_cpu(dev, front_poses, first_candidate):
     lc = LoopClosure(i=0, j=n - 1, relative=(np.linalg.inv(gt[0]) @ gt[n - 1]).astype(
         np.float32), information=1e4 * np.eye(6, dtype=np.float32), fitness=0.0)
     graph = closure_graph(front_poses[:n], [lc])
-    solves = [_deterministic(lambda d=d: sparse_solve(torch.device(d), graph))
+    solves = [_deterministic(lambda d=d: sparse_solve(torch.device(d), graph, device_loop=True))
               for d in (dev, "cpu")]
     gap = float((solves[0].poses.cpu() - solves[1].poses).abs().max())
     its = [int(s.iterations) for s in solves]
@@ -5383,6 +5448,313 @@ def backend_card_vs_cpu(dev, front_poses, first_candidate):
                 window_loop_objective=e_gap, window_loop_poses_m=loop_gap)
 
 
+def _bits(t):
+    """A tensor's bits on the host (float32 as int32, so NaNs compare too)."""
+    t = torch.as_tensor(t).detach().cpu().contiguous()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def forms_equal(a, b):
+    """Two runs' (results, host arrays) bit for bit: every field of every
+    PoseGraphResult and every array."""
+    (ra, xa), (rb, xb) = a, b
+    return (len(ra) == len(rb) and len(xa) == len(xb)
+            and all(torch.equal(_bits(getattr(p, f)), _bits(getattr(q, f)))
+                    for p, q in zip(ra, rb) for f in p._fields)
+            and all(np.array_equal(np.asarray(u, np.float32).view(np.int32),
+                                   np.asarray(v, np.float32).view(np.int32))
+                    for u, v in zip(xa, xb)))
+
+
+def backend_solves(dev, graph, front_poses):
+    """The back-end's solves as `run(device_loop) -> (results, host arrays,
+    one)`: the 512-pose and the 1k sparse solves, the dense 10-pose one, and
+    SlidingWindowBA over the drive (window 20, 96 relatives) and on the
+    30-keyframe chain (window 10, the loop edge), each window's poses, prior
+    pose and prior information after its last solve; `one(device_loop)`
+    runs the last solve's signature once more from the same state (a
+    window's poses put back first) and returns its result."""
+    from fast_gicp_tpu_torch.models import pose_graph as pg
+    from fast_gicp_tpu_torch.models import pose_graph_sparse as pgs
+
+    g1k, g10 = k1000_graph(), small_graph()
+    rel30, gt30 = window_chain()
+
+    def state(ba):
+        return [np.stack(ba.poses), ba.prior_pose, ba.prior_info]
+
+    def again(ba):
+        poses = list(ba.poses)
+
+        def one(loop):
+            ba.poses, ba.device_loop = list(poses), loop
+            return ba.optimize()
+        return one
+
+    def drive(loop):
+        ba, results = window_drive(dev, front_poses, loop)
+        return results, state(ba), again(ba)
+
+    def chain(loop):
+        ba = pgs.SlidingWindowBA(window=10, config=pgs.SparsePGConfig(max_iterations=10),
+                                 device=dev, device_loop=loop)
+        _before, _after, first, res, first_res = window_loop(ba, rel30, gt30)
+        return [first_res, res], [first] + state(ba), again(ba)
+
+    def single(solve):
+        def run(loop):
+            return [solve(loop)], [], solve
+        return run
+
+    return {
+        "graph_512": single(lambda loop: sparse_solve(dev, graph, device_loop=loop)),
+        "graph_1k": single(lambda loop: sparse_solve(dev, g1k, device_loop=loop,
+                                                     max_iterations=15)),
+        "dense_10": single(lambda loop: pg.optimize_pose_graph(
+            *g10, pg.PoseGraphConfig(max_iterations=20), device=dev, device_loop=loop)),
+        "window_drive": drive,
+        "window_chain": chain,
+    }
+
+
+def timed_span(dev, fn):
+    """(fn(), its wall seconds closed by a synchronize, its device span ms
+    from CUDA events on the current stream)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end)
+
+
+def new_setups(keys0):
+    """(warm_s, capture_s) of each program `graphs.replay_cached` holds now
+    and did not hold under the keys `keys0`."""
+    from fast_gicp_tpu_torch import graphs
+
+    return [(g.warm_s, g.capture_s) for k, (_static, g) in graphs._programs.items()
+            if k not in keys0]
+
+
+def replay_profile(form):
+    """A sparse solve's stage record from its `backend_forms` entry: the
+    replay, the main path's form.  Its device time is the CUDA-event span
+    (the graph's whole run on the stream) with the tally's counts; the
+    traced busy time and ops are lower bounds (CUPTI misses kernels of
+    conditional bodies in some runs)."""
+    keys = ("replay_wall_ms", "device_span_ms", "tally", "traced_device_busy_ms",
+            "traced_wall_ms", "traced_idle_share", "traced_device_ops", "card")
+    out = {k: form[k] for k in keys}
+    out.update(form="device (a replay of the whole solve)",
+               span_idle_share=1.0 - form["device_span_ms"] / form["replay_wall_ms"])
+    return out
+
+
+def signature_sequence(dev, front_poses, closures):
+    """The device form where each call is a new signature: a growing graph,
+    the 512-pose graph cut after each of SIGNATURE_CLOSURES closures (in the
+    order of their later pose) and solved once at each size, as a SLAM
+    back-end re-solves at each loop closure.  Each solve's first call (the
+    warm-up, the capture and one replay), the eager form's wall beside the
+    first and the last, and the device memory the cached graphs hold (the
+    caching allocator's reserved and allocated bytes before and after each
+    capture)."""
+    from fast_gicp_tpu_torch import graphs
+
+    ordered = sorted(closures, key=lambda c: (c.j, c.i))
+    rows = []
+    for n in SIGNATURE_CLOSURES:
+        if n > len(ordered):
+            break
+        k = ordered[n - 1].j + 1
+        g = closure_graph(front_poses[:k], ordered[:n])
+        keys0 = set(graphs._programs)
+        reserved0, allocated0 = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+        res, wall = timed(dev, lambda: sparse_solve(dev, g, device_loop=True))
+        setups = new_setups(keys0)
+        row = dict(poses=k, edges=len(g[1]), closures=n, first_call_ms=1e3 * wall,
+                   warm_up_ms=1e3 * sum(w for w, _c in setups),
+                   capture_ms=1e3 * sum(c for _w, c in setups), captures=len(setups),
+                   reserved_mib=(torch.cuda.memory_reserved() - reserved0) / 2**20,
+                   allocated_mib=(torch.cuda.memory_allocated() - allocated0) / 2**20,
+                   iterations=int(res.iterations), error=float(res.error))
+        if n in (SIGNATURE_CLOSURES[0], SIGNATURE_CLOSURES[-1]):
+            eager, eager_wall = timed(dev, lambda: sparse_solve(dev, g))
+            row.update(eager_wall_ms=1e3 * eager_wall, eager_error=float(eager.error))
+        rows.append(row)
+        log(f"[backend_device] growing graph, {k} poses, {n} closures: {row}")
+        require(len(setups) == 1 and bool(torch.isfinite(res.poses).all()),
+                f"growing graph at {k} poses: {len(setups)} captures, or non-finite poses")
+    out = dict(solves=rows, programs_held=len(graphs._programs), programs_max=graphs.PROGRAMS,
+               card=card_line())
+    log(f"[backend_device] growing graph: {len(rows)} signatures, {out['programs_held']} "
+        f"programs held (at most {graphs.PROGRAMS}); {out['card']}")
+    return out
+
+
+def backend_forms(dev, graph, front_poses, card, repeats=None):
+    """Each back-end solve in the device form beside the eager form: with
+    deterministic scatter-adds on both sides (the graph captured under them)
+    every result and window state bit for bit, and the trials, PCGs and CG
+    iterations the eager form counts on the host equal to the device tally.
+    Then one solve of the last signature (a window's last solve again, from
+    its state): with atomic scatter-adds the gap beside the eager form's own
+    repeat gap; the replay's wall and device span (CUDA events) in one run,
+    its tally (block_tridiag_apply's calls one a PCG and one a CG
+    iteration), the eager form's wall, a traced replay's device busy time
+    and idle share (the trace misses kernels of conditional bodies: lower
+    bounds) and, for the single solves, the host syncs between the replay's
+    enqueue and its result read (none allowed; a window's solve reads its
+    poses back).  The warm-up and capture are timed on the deterministic
+    graphs (their signatures' first calls).  `repeats`: an eager result of
+    a solve made before (the 512-pose solve's host-sync count) that stands
+    for its eager repeat."""
+    from fast_gicp_tpu_torch import graphs
+    from fast_gicp_tpu_torch.models import pose_graph_sparse as pgs
+    from fast_gicp_tpu_torch.ops import cuda_pose_graph as cpg
+
+    f = pgs.optimize_pose_graph_sparse
+    out = {}
+    count_host_syncs(lambda: None)  # a process's first sync-debug window counts one in torch.cuda
+    for name, run in backend_solves(dev, graph, front_poses).items():
+        t0 = time.perf_counter()
+        single = not name.startswith("window")
+        # deterministic scatter-adds: both forms, the device form captured under
+        # them (a signature of its own: its warm-up and capture are timed)
+        keys0 = set(graphs._programs)
+        cpg.pg_counts(dev).zero_()
+        det_dev = _deterministic(lambda: run(True))
+        setups = new_setups(keys0)
+        det_tally = pg_tally(dev)
+        pgs.reset_stats()
+        det_eager = _deterministic(lambda: run(False))
+        host = dict(trials=f.trials, pcgs=f.pcgs, cg_iterations=int(f.cg_iterations_run))
+        bit_equal = forms_equal(det_dev[:2], det_eager[:2])
+        # atomic scatter-adds: one solve of the last signature in each form
+        one = det_dev[2]
+        one(True)  # its graph without deterministic algorithms, if not yet captured
+        cpg.pg_counts(dev).zero_()
+        dev_res, wall, span = timed_span(dev, lambda: one(True))
+        tally = pg_tally(dev)
+        eager_res, eager_wall = timed(dev, lambda: one(False))
+        repeat = (repeats or {}).get(name) or one(False)
+        gap = float((dev_res.poses - eager_res.poses).abs().max())
+        repeat_gap = float((repeat.poses - eager_res.poses).abs().max())
+        syncs, sites = count_host_syncs(lambda: one(True)) if single else (None, None)
+        prof = stage_profile(f"{name}, device form (a replay)", lambda: one(True), dev)
+        setup_ms = 1e3 * sum(w + c for w, c in setups)
+        stats = dict(bit_equal_deterministic=bit_equal, eager_counts_deterministic=host,
+                     tally_deterministic=det_tally, tally=tally,
+                     iterations=int(dev_res.iterations), signatures=len(setups),
+                     warm_up_and_capture_ms=setup_ms,
+                     warm_up_ms=1e3 * sum(w for w, _c in setups),
+                     capture_ms=1e3 * sum(c for _w, c in setups), replay_wall_ms=1e3 * wall,
+                     eager_wall_ms=1e3 * eager_wall, device_span_ms=span,
+                     traced_device_busy_ms=prof["device_busy_ms"],
+                     traced_wall_ms=prof["traced_wall_ms"], traced_idle_share=prof["idle_share"],
+                     traced_device_ops=prof["device_ops"], gap_atomic=gap,
+                     eager_repeat_gap_atomic=repeat_gap, host_syncs=syncs,
+                     host_sync_sites=sites, card=card)
+        out[name] = stats
+        log(f"[backend_device] {name}: deterministic bit-equal {bit_equal} (tally {det_tally}, "
+            f"eager {host}); {len(setups)} signatures, warm-up + capture {setup_ms:.1f} ms; "
+            f"one solve: replay {1e3 * wall:.1f} ms, device span {span:.1f} ms, eager "
+            f"{1e3 * eager_wall:.1f} ms, traced busy {prof['device_busy_ms']:.1f} ms of "
+            f"{prof['traced_wall_ms']:.1f} (idle {100 * prof['idle_share']:.1f}%; lower bounds); "
+            f"tally {tally}; atomic gap {gap:.3e} (eager repeat {repeat_gap:.3e}); host syncs "
+            f"{syncs} {sites} ({time.perf_counter() - t0:.1f} s; {card})")
+        require(bit_equal, f"{name}: the device form differs from the eager form with "
+                "deterministic scatter-adds")
+        require(all(det_tally[k] == host[k] for k in ("trials", "pcgs", "cg_iterations"))
+                and det_tally["applies"] == det_tally["pcgs"] + det_tally["cg_iterations"]
+                and det_tally["factors"] == det_tally["pcgs"],
+                f"{name}: device tally {det_tally} against the eager form's counts {host}")
+        require(tally["solves"] == 1 and tally["iterations"] == int(dev_res.iterations)
+                and tally["trials"] == tally["pcgs"] == tally["factors"]
+                and tally["applies"] == tally["pcgs"] + tally["cg_iterations"],
+                f"{name}: tally {tally} for {int(dev_res.iterations)} iterations")
+        require(not single or syncs == 0, f"{name}: {syncs} host syncs in a replay: {sites}")
+    return out
+
+
+def pg_cond_sweep(dev):
+    """pg_cond against its plain version on every mode, at trip counters on
+    both sides of each cap and of the refresh period, both stop flags and
+    res.res on both sides of, at and NaN against the threshold: the counters
+    and flags bit for bit case by case, the tallies in all.  Returns the
+    cases run."""
+    from fast_gicp_tpu_torch.ops import cuda_pose_graph as cpg
+
+    rng = np.random.default_rng(20)
+    rows = []
+    for mode in range(cpg.PG_REFRESH + 1):
+        caps = (cpg.CG_REFRESH, 1, 3) if mode == cpg.PG_REFRESH else (0, 1, 8, 100)
+        for cap in caps:
+            for n in sorted({0, max(cap - 2, 0), max(cap - 1, 0), cap, cap + 1, 62, 63, 64}):
+                for stop in (0, 1):
+                    th = np.float32(rng.uniform(1e-12, 1.0))
+                    for rr in (np.nextafter(th, np.float32(0)), th,
+                               np.nextafter(th, np.float32(np.inf)), np.float32(np.nan)):
+                        rows.append((mode, cap, n, stop, rr, th))
+    m = len(rows)
+    cols = list(zip(*rows))
+    host = dict(counter=torch.tensor(cols[2], dtype=torch.int32),
+                stop=torch.tensor(cols[3], dtype=torch.bool),
+                rr=torch.tensor(np.asarray(cols[4], np.float32)),
+                thresh=torch.tensor(np.asarray(cols[5], np.float32)),
+                flag=torch.full((m,), 7, dtype=torch.int32))
+    card = {k: v.to(dev) for k, v in host.items()}
+    tallies = []
+    for side, t in (("cuda", card), ("cpu", host)):
+        d = t["counter"].device
+        before = cpg.pg_counts(d).clone()
+        for c, (mode, cap, *_rest) in enumerate(rows):
+            args = [t[k][c:c + 1] for k in ("counter", "flag")]
+            kw = {k: t[k][c:c + 1] for k in ("stop", "rr", "thresh")}
+            if side == "cuda":
+                cpg.pg_cond(mode, cap, *args, **kw)
+            else:
+                cpg.pg_cond_plain(mode, cap, *args, **kw)
+        tallies.append((cpg.pg_counts(d) - before).cpu())
+    torch.cuda.synchronize()
+    for k in ("counter", "flag"):
+        diff = (card[k].cpu() != host[k]).nonzero().flatten().tolist()
+        require(not diff, f"pg_cond's {k} differs from its plain version on cases "
+                f"{[rows[c] for c in diff[:5]]}")
+    require(torch.equal(*tallies), f"pg_cond's tally {tallies[0].tolist()} against its plain "
+            f"version's {tallies[1].tolist()}")
+    return m
+
+
+def pg_cond_record(dev, launches):
+    """The pose-graph condition kernel's record: the sweep bit for bit, a
+    launch's device time at a CG step against the plain version's, the
+    bound."""
+    from fast_gicp_tpu_torch.ops import cuda_pose_graph as cpg
+
+    cases = pg_cond_sweep(dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    counter, flag = torch.zeros((), **i32), torch.zeros(1, **i32)
+    rr, th = torch.ones((), device=dev), torch.zeros((), device=dev)
+    kw = dict(rr=rr, thresh=th)
+    run = lambda: cpg.pg_cond(cpg.PG_CG_STEP, 100, counter, flag, **kw)  # noqa: E731
+    plain = lambda: cpg.pg_cond_plain(cpg.PG_CG_STEP, 100, counter, flag, **kw)  # noqa: E731
+    t = timings(run, plain, "pg_cond_kernel", 200, 20)
+    b_ms, b_by = bound_ms(PG_COND_BYTES, PG_COND_OPS)
+    log(f"[kernels] pg_cond: {cases} cases bit for bit its plain version; {t['ms']:.5f} ms a "
+        f"launch, plain {t['plain_ms']:.4f} ms; bound {b_ms:.3e} ms ({b_by})")
+    return dict(name="pg_cond", own_path="backend", route="cuda",
+                source="fast_gicp_tpu_torch/csrc/device_loop.cu",
+                replaces="none: the predicates of the lax.while_loops and the CG's lax.cond in "
+                         "fast_gicp_tpu/models/pose_graph_sparse.py:255-323 and "
+                         "pose_graph.py:111-116 (evaluated by XLA)",
+                launches=launches, max_abs_err=0.0, tolerance=f"bit for bit on {cases} cases",
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, bytes=PG_COND_BYTES, **t)
+
+
 def flag_read_lines():
     """The lines of `models/pose_graph_sparse.py` that read the solve's two
     flags (the trial's accept, the iteration's convergence)."""
@@ -5399,12 +5771,14 @@ def phase_backend(dev, records, path_launches, summary):
     """Slice G's phases on the 512-frame drive: the front end, then the
     back-end's run with every launch counter set to 0 just before it and
     read just after (`backend_run`), the host reads of the 512-pose solve
-    and its launches, the kernels at the back-end's own inputs, card against
-    CPU and a traced run of each stage."""
+    and its launches, the device forms (`backend_forms`), pg_cond, the
+    growing graph (`signature_sequence`), the kernels at the back-end's own
+    inputs, card against CPU and a traced run of each stage."""
     from fast_gicp_tpu_torch.models import pose_graph_sparse as pgs
     from fast_gicp_tpu_torch.models.loop_closure import (
         LoopClosureConfig, detect_loop_closures, find_loop_candidates, verify_closure,
     )
+    from fast_gicp_tpu_torch.ops import cuda_pose_graph as cpg
     from fast_gicp_tpu_torch.solver import lsq_solve
     from fast_gicp_tpu_torch.utils.kitti import trajectory_report
 
@@ -5424,14 +5798,23 @@ def phase_backend(dev, records, path_launches, summary):
     require(len(poses) == BACKEND_FRAMES and all(np.isfinite(p).all() for p in poses),
             "front end: poses")
 
-    # stages 2-6, every launch counter at 0 just before and read just after
+    # stages 2-6, every launch counter and the device tally at 0 just before
+    # and read just after.  The solves run as graph replays, so the
+    # launches of their kernels are what the kernels counted on the device;
+    # their wrappers' host counts are enqueues (into a graph, under capture)
     reset_counters()
+    cpg.pg_counts(dev).zero_()
     lsq_solve.host_syncs = 0
     t1 = time.perf_counter()
     stats, graph, closures = backend_run(dev, poses)
     launches = read_counters()
-    stats.update(front_end=front, wall_s=time.perf_counter() - t1, launches=launches)
-    log(f"[backend] back-end run: {stats['wall_s']:.1f} s; launches {launches}")
+    tally = pg_tally(dev)
+    enqueued = {k: launches[k] for k in DEVICE_COUNTED}
+    launches.update({k: tally[slot] for k, slot in DEVICE_COUNTED.items()})
+    stats.update(front_end=front, wall_s=time.perf_counter() - t1, launches=launches,
+                 tally=tally, host_counted_enqueues=enqueued)
+    log(f"[backend] back-end run: {stats['wall_s']:.1f} s; launches {launches} (the solves' "
+        f"kernels from the device tally {tally}; their wrappers' host counts {enqueued})")
     require(all(launches[k] > 0 for k in BACKEND_KERNELS),
             f"backend: a kernel of the path was not launched: {launches}")
     require(launches["lm_step"] == lsq_solve.host_syncs
@@ -5441,14 +5824,17 @@ def phase_backend(dev, records, path_launches, summary):
     require(launches["ndt_d2d[lookup]"] == 0, "backend: the hash-map NDT align made a "
             "lookup-form launch")
 
-    # the 512-pose solve again: host reads (one a trial and one a Gauss-Newton
-    # iteration, none inside a PCG) and one block_tridiag launch an
-    # application of the preconditioner
+    # the 512-pose solve again in the eager form: host reads (one a trial and
+    # one a Gauss-Newton iteration, none inside a PCG) and one block_tridiag
+    # launch an application of the preconditioner
     reset_counters()
     pgs.reset_stats()
-    syncs, sites = count_host_syncs(lambda: sparse_solve(dev, graph))
+    base = pg_tally(dev)
+    eager_512 = []
+    syncs, sites = count_host_syncs(lambda: eager_512.append(sparse_solve(dev, graph)))
     f = pgs.optimize_pose_graph_sparse
     applies = read_counters()
+    ran = pg_tally(dev, base)
     cg = pgs.SparsePGConfig().cg_iterations
     stats["graph_512"].update(host_syncs=syncs, host_sync_sites=sites)
     log(f"[backend] 512-pose solve: {syncs} host syncs for {f.trials} trials and "
@@ -5467,6 +5853,17 @@ def phase_backend(dev, records, path_launches, summary):
     require(applies["block_tridiag_apply"] == f.pcgs * (cg + 1)
             and applies["block_tridiag_factor"] == f.trials == f.pcgs,
             f"preconditioner launches {applies} for {f.pcgs} PCGs")
+    require(ran["applies"] == applies["block_tridiag_apply"]
+            and ran["factors"] == applies["block_tridiag_factor"],
+            f"the eager solve's block_tridiag runs counted on the device {ran} against its "
+            f"launches {applies}")
+
+    # each solve in the device form beside the eager form; pg_cond's record
+    stats["device_forms"] = backend_forms(dev, graph, poses, card_line(),
+                                          repeats={"graph_512": eager_512[0]})
+    records.append(pg_cond_record(dev, launches["pg_cond"]))
+    stats["signatures"] = signature_sequence(dev, poses, closures)
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: back-end device forms, pg_cond")
 
     # kernels at the back-end's own inputs
     by_name = {r["name"]: r for r in records}
@@ -5487,10 +5884,11 @@ def phase_backend(dev, records, path_launches, summary):
     stats["card_vs_cpu"] = backend_card_vs_cpu(dev, poses, (i, j))
     log(f"[total] {time.perf_counter() - T_START:.1f} s: back-end card against CPU")
 
-    # a traced run of each stage, cut short where a whole one would trace
-    # ~200,000 device ops: the solves to 3 Gauss-Newton iterations, the window
-    # to 33 keyframes (13 marginalizations and one solve)
-    g1k = k1000_graph()
+    # a traced run of each stage, the window cut to 33 keyframes (13
+    # marginalizations and one solve); the two sparse solves' are their
+    # replays' from `backend_forms`, each with its CUDA-event span and tally
+    # (the trace misses kernels of conditional bodies in some runs)
+    forms = stats["device_forms"]
     ba_rels = [np.linalg.inv(a) @ b for a, b in zip(poses[:33], poses[1:34])]
 
     def window_33():
@@ -5506,12 +5904,8 @@ def phase_backend(dev, records, path_launches, summary):
         "detect_loop_closures": stage_profile(
             "detect_loop_closures",
             lambda: detect_loop_closures(scans, poses, LoopClosureConfig(), device=dev), dev),
-        "sparse_512_3_iterations": stage_profile(
-            "sparse solve, 512 poses, 3 iterations",
-            lambda: sparse_solve(dev, graph, max_iterations=3), dev),
-        "sparse_1k_3_iterations": stage_profile(
-            "sparse solve, 1k graph, 3 iterations",
-            lambda: sparse_solve(dev, g1k, max_iterations=3), dev),
+        "sparse_512": replay_profile(forms["graph_512"]),
+        "sparse_1k": replay_profile(forms["graph_1k"]),
         "window_33_keyframes": stage_profile("SlidingWindowBA, 33 keyframes", window_33, dev),
     }
     summary["backend"] = stats
@@ -5744,7 +6138,7 @@ def parallel_world(dev, mesh, inp, with_single=False):
         def single_1k():
             return pgs.optimize_pose_graph_sparse(*g1k[:5], config=cfg1k, device=dev)
 
-        # traced in the back-end phase ("sparse solve, 1k graph, 3 iterations")
+        # traced in the back-end phase (the 1k graph's replay)
         want, _l, _c, stats["single"] = parallel_measure(
             dev, "sparse solve, 1k graph, single device", single_1k, 0, trace=False)
         stats["single"].update(error=float(want.error),

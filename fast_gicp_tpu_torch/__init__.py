@@ -27,15 +27,16 @@ through the PCL-shaped class API (`FastGICP`, `FastGICPSingleThread`,
     `models.pose_graph.optimize_pose_graph`, the sparse
     `models.pose_graph_sparse.optimize_pose_graph_sparse` (block-PCG with
     a block-tridiagonal preconditioner, `ops.cuda_pose_graph`) and
-    `SlidingWindowBA`;
+    `SlidingWindowBA`, each solve one CUDA graph by default (its loops
+    conditional nodes, `graphs`);
   * multi-device on `torch.distributed` (`parallel`): the aligns with the
     source split across ranks, the multi-process launch, the edge-sharded
     `optimize_pose_graph_sparse_sharded` and the hash-sharded persistent
     map of `parallel.sharded_map.ShardedScanToMapOdometry`.
 Their kernels are hand-written CUDA C++ (`csrc/*.cu`), built with
 nvcc for sm_90a at first use: the fifteen ports of the JAX package's
-Pallas kernels and the block-tridiagonal solve; each has a plain PyTorch twin that runs for
-CPU tensors.
+Pallas kernels, the block-tridiagonal solve and the device loops' condition kernels; each
+has a plain PyTorch twin that runs for CPU tensors.
 
 This package imports torch and numpy only: never jax and never the JAX
 package `fast_gicp_tpu`, which stays the reference.

@@ -151,12 +151,14 @@ __device__ __forceinline__ void factor_issue(float (*fd)[kChunk * 36],
 
 __global__ void __launch_bounds__(kWarp)
     block_tridiag_factor_kernel(const float* __restrict__ D, const float* __restrict__ U,
-                                float* __restrict__ Cinv, float* __restrict__ G, int K) {
+                                float* __restrict__ Cinv, float* __restrict__ G, int K,
+                                int* __restrict__ launches) {
   __shared__ __align__(128) float fd[2][kChunk * 36];
   __shared__ __align__(128) float fu[2][(kChunk + 1) * 36];
   __shared__ __align__(8) unsigned long long bars[2];
   const int t = threadIdx.x;
   const int chunks = (K + kChunk - 1) / kChunk;
+  if (t == 0 && launches != nullptr) atomicAdd(launches, 1);
   slots_ready(bars, 2);
   if (t == 0)
     for (int c = 0; c < min(2, chunks); ++c) factor_issue(fd, fu, bars, D, U, K, c);
@@ -293,7 +295,7 @@ __device__ __forceinline__ void apply_issue(float (*sa)[kChunk * 36], float (*su
 __global__ void __launch_bounds__(kWarp)
     block_tridiag_apply_kernel(const float* __restrict__ Cinv, const float* __restrict__ G,
                                const float* __restrict__ U, const float* __restrict__ r,
-                               float* x, int K) {
+                               float* x, int K, int* __restrict__ launches) {
   __shared__ __align__(128) float sa[kSlots][kChunk * 36];
   __shared__ __align__(128) float su[kSlots][kChunk * 36];
   __shared__ __align__(128) float sv[kSlots][kChunk * 6];
@@ -306,6 +308,7 @@ __global__ void __launch_bounds__(kWarp)
   // overwrites once its chunk's copy of y has landed)
   const bool y_on_chip = K <= kOnChipSteps;
   const float r_last = r[(K - 1) * 6 + i];  // r_{K-1}[i], for an odd last chunk
+  if (lane == 0 && launches != nullptr) atomicAdd(launches, 1);
   slots_ready(bars, kSlots);
   if (lane == 0)
     for (int j = 0; j < min(kSlots, jobs); ++j)
@@ -421,22 +424,25 @@ __global__ void __launch_bounds__(kWarp)
 }  // namespace
 
 // D (K, 6, 6), U (K, 6, 6): float32 on the device, 16-byte aligned.  Writes
-// Cinv (K, 6, 6) and G (K, 6, 6).  Returns cudaGetLastError().
+// Cinv (K, 6, 6) and G (K, 6, 6).  `launches` (one int of device memory, or
+// null): the kernel adds one to it as it runs, so a launch replayed from a
+// CUDA graph counts too.  Returns cudaGetLastError().
 extern "C" int fgt_block_tridiag_factor(const float* D, const float* U, float* Cinv, float* G,
-                                        int K, void* stream) {
+                                        int K, int* launches, void* stream) {
   if (K > 0)
     block_tridiag_factor_kernel<<<1, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
-        D, U, Cinv, G, K);
+        D, U, Cinv, G, K, launches);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Cinv, G, U (K, 6, 6) and r (K, 6): float32 on the device, 16-byte
 // aligned.  Writes x (K, 6), 16-byte aligned, which must not alias r.
-// Returns cudaGetLastError().
+// `launches` as the factor's.  Returns cudaGetLastError().
 extern "C" int fgt_block_tridiag_apply(const float* Cinv, const float* G, const float* U,
-                                       const float* r, float* x, int K, void* stream) {
+                                       const float* r, float* x, int K, int* launches,
+                                       void* stream) {
   if (K > 0)
     block_tridiag_apply_kernel<<<1, kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
-        Cinv, G, U, r, x, K);
+        Cinv, G, U, r, x, K, launches);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,6 +21,21 @@
 // loop_counts): condition launches, trials, outer iterations (one
 // linearization each) and solves -- a profiler does not see every kernel a
 // conditional body runs, so a replay's launches are read from it.
+//
+// pg_cond_kernel is the same for the pose-graph solves' device form
+// (models/pose_graph_sparse.py, models/pose_graph.py): one thread that steps
+// a loop's trip counter and writes the condition of JAX's while_loops,
+//   Gauss-Newton  it < max_iterations & ~conv
+//                 (fast_gicp_tpu/models/pose_graph_sparse.py:317-319,
+//                  pose_graph.py:111-113),
+//   LM trials     t < lm_max_trials & ~accepted                 (:288-290),
+//   PCG           i < cg_iterations & res.res > tol max(|b|^2, 1e-30)
+//                                                               (:255-260),
+// the last from the two device scalars the reduction just before it left,
+// and the CG's refresh test (i + 1) % 64 == 0 (:271-275) as the condition of
+// a conditional IF node.  It also keeps the tally of ops/cuda_pose_graph.py
+// pg_counts.  Bound: launch latency (it reads at most 13 bytes and
+// read-modify-writes two tally ints).
 
 #include <cuda_runtime.h>
 
@@ -80,6 +95,47 @@ __global__ void loop_cond_kernel(float* __restrict__ state, const float* __restr
   if (set_handle) cudaGraphSetConditional(handle, cond);
 }
 
+// pg_cond modes (ops/cuda_pose_graph.py PG_*) and tally slots (PG_COUNTS)
+constexpr int kPgGnEnter = 0;     // before the Gauss-Newton loop: it = 0
+constexpr int kPgGnStep = 1;      // after a Gauss-Newton iteration: it += 1
+constexpr int kPgTrialEnter = 2;  // before the trials: t = 0
+constexpr int kPgTrialStep = 3;   // after a trial: t += 1
+constexpr int kPgCgEnter = 4;     // before the CG iterations: i = 0
+constexpr int kPgCgStep = 5;      // after a CG iteration: i += 1
+constexpr int kPgRefresh = 6;     // the CG iteration's refresh test: (i + 1) % cap == 0
+constexpr int kCountConds = 0, kCountSolves = 1, kCountIterations = 2, kCountTrials = 3,
+              kCountPcgs = 4, kCountCg = 5;
+
+__global__ void pg_cond_kernel(int* __restrict__ counter, const unsigned char* __restrict__ stop,
+                               const float* __restrict__ rr, const float* __restrict__ thresh,
+                               int* __restrict__ flag, int* __restrict__ counts, int mode, int cap,
+                               cudaGraphConditionalHandle handle, int set_handle) {
+  counts[kCountConds] += 1;
+  int n = *counter;
+  unsigned int cond;
+  if (mode == kPgRefresh) {
+    cond = (n + 1) % cap == 0;
+  } else {
+    const bool enter = mode == kPgGnEnter || mode == kPgTrialEnter || mode == kPgCgEnter;
+    n = enter ? 0 : n + 1;
+    *counter = n;
+    const int slot = mode == kPgGnEnter ? kCountSolves
+                     : mode == kPgGnStep ? kCountIterations
+                     : mode == kPgTrialStep ? kCountTrials
+                     : mode == kPgCgEnter ? kCountPcgs
+                     : mode == kPgCgStep ? kCountCg : -1;
+    if (slot >= 0) counts[slot] += 1;
+    cond = n < cap;
+    if (mode == kPgCgEnter || mode == kPgCgStep) {
+      cond = cond && *rr > *thresh;  // false for a NaN residual, as in JAX
+    } else {
+      cond = cond && *stop == 0;
+    }
+  }
+  *flag = static_cast<int>(cond);
+  if (set_handle) cudaGraphSetConditional(handle, cond);
+}
+
 // Graph-building calls are made in relaxed capture mode: a capture of
 // torch's in global mode would otherwise refuse any call it deems unsafe.
 struct RelaxedCapture {
@@ -115,6 +171,20 @@ extern "C" int fgt_loop_cond(float* state, const float* H, const float* y0, floa
   return static_cast<int>(cudaGetLastError());
 }
 
+// One launch of the pose-graph condition kernel on `stream`.  counter (1
+// int), flag (1 int), counts (the tally's 8 ints; it adds to the first six)
+// and, where the mode reads them, stop (1 byte: a bool tensor's), rr and
+// thresh (1 float each): device memory; the others may be null.  cap > 0 for kPgRefresh.  With set_handle, the
+// condition also goes into `handle`.  Returns cudaGetLastError().
+extern "C" int fgt_pg_cond(int* counter, const unsigned char* stop, const float* rr,
+                           const float* thresh, int* flag, int* counts, int mode, int cap,
+                           unsigned long long handle, int set_handle, void* stream) {
+  pg_cond_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      counter, stop, rr, thresh, flag, counts, mode, cap,
+      static_cast<cudaGraphConditionalHandle>(handle), set_handle);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // A conditional handle (default value 0, assigned by the condition kernel
 // before the node is reached) on the graph that `stream` is capturing into.
 extern "C" int fgt_cond_handle_create(void* stream, unsigned long long* handle_out) {
@@ -130,11 +200,14 @@ extern "C" int fgt_cond_handle_create(void* stream, unsigned long long* handle_o
   return static_cast<int>(err);
 }
 
-// Adds a WHILE node on `handle` to the graph `stream` is capturing into,
-// after the capture's current dependencies, makes the node the stream's one
-// dependency (what the stream captures next runs after the loop), and
-// begins capturing `body_stream` into the node's body graph.
-extern "C" int fgt_while_begin(void* stream, unsigned long long handle, void* body_stream) {
+namespace {
+
+// Adds a conditional node of `type` on `handle` to the graph `stream` is
+// capturing into, after the capture's current dependencies, makes the node
+// the stream's one dependency (what the stream captures next runs after it),
+// and begins capturing `body_stream` into the node's body graph.
+int cond_begin(void* stream, unsigned long long handle, void* body_stream,
+               cudaGraphConditionalNodeType type) {
   RelaxedCapture relaxed;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaGraph_t graph;
@@ -145,7 +218,7 @@ extern "C" int fgt_while_begin(void* stream, unsigned long long handle, void* bo
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
   params.conditional.handle = static_cast<cudaGraphConditionalHandle>(handle);
-  params.conditional.type = cudaGraphCondTypeWhile;
+  params.conditional.type = type;
   params.conditional.size = 1;
   cudaGraphNode_t node;
   err = cudaGraphAddNode(&node, graph, deps, n, &params);
@@ -158,7 +231,22 @@ extern "C" int fgt_while_begin(void* stream, unsigned long long handle, void* bo
   return static_cast<int>(err);
 }
 
-// Ends the capture of a WHILE node's body that fgt_while_begin started.
+}  // namespace
+
+// A WHILE node on `handle` (cond_begin): its body runs while the handle is
+// nonzero, the handle read before each trip.
+extern "C" int fgt_while_begin(void* stream, unsigned long long handle, void* body_stream) {
+  return cond_begin(stream, handle, body_stream, cudaGraphCondTypeWhile);
+}
+
+// An IF node on `handle` (cond_begin): its body runs once if the handle is
+// nonzero.
+extern "C" int fgt_if_begin(void* stream, unsigned long long handle, void* body_stream) {
+  return cond_begin(stream, handle, body_stream, cudaGraphCondTypeIf);
+}
+
+// Ends the capture of a conditional node's body that fgt_while_begin or
+// fgt_if_begin started.
 extern "C" int fgt_while_end(void* body_stream) {
   RelaxedCapture relaxed;
   cudaGraph_t body;

@@ -3,8 +3,11 @@ nodes (the counterpart of the JAX package's `lax.while_loop` and of its
 one-program `lax.scan`s).
 
 `solver.lsq_solve` takes its device form when a CUDA graph is being
-captured on the current stream, or inside `device_loop()`.  Its two loops
-then go through `while_loop`:
+captured on the current stream, or inside `device_loop()`; the pose-graph
+solves (`models/pose_graph_sparse.py`, `models/pose_graph.py`) take theirs
+with `device_loop=True`, captured once per signature (`replay_cached`).
+Their loops go through `while_loop` (and the CG's refresh branch through
+`if_then`):
 
   * under capture, each loop is a conditional WHILE node added to the graph
     being captured (`csrc/device_loop.cu`); its body is captured once, on a
@@ -17,7 +20,8 @@ then go through `while_loop`:
     plain version; on CUDA it is the eager warm-up that `DeviceGraph` runs
     before it captures, on the same body streams, so that every per-stream
     resource (the kernels' reduction scratch, cuBLAS's workspace) exists
-    before the capture.
+    before the capture.  The warm-up runs every loop body and branch once,
+    whatever its condition says, and reads no condition.
 
 `DeviceGraph(fn, device)` captures `fn` (which reads and writes static
 device buffers, its solves in the device form) once and replays it.  A
@@ -32,14 +36,16 @@ first, so the capture stream's allocations still go there.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import threading
+import time
 
 import torch
 
 from . import device as _device
-from .ops import _build, cuda_linearize, cuda_solver
+from .ops import _build, cuda_linearize, cuda_pose_graph, cuda_solver
 
 _P = ctypes.c_void_p
 _local = threading.local()
@@ -92,7 +98,9 @@ def capture_stream(device):
     return body_stream(device, -1)
 
 
-LEVELS = 2  # the LM solve nests two loops
+# the sparse pose-graph solve nests three loops (Gauss-Newton, LM trials,
+# CG) and the CG's refresh branch; the LM solve two loops
+LEVELS = 4
 
 
 def prepare(device):
@@ -102,6 +110,7 @@ def prepare(device):
     device = torch.device(device)
     _build.library()
     cuda_solver.loop_counts(device)
+    cuda_pose_graph.pg_counts(device)
     for level in range(-1, LEVELS):
         with torch.cuda.stream(body_stream(device, level)):
             cuda_linearize._reduce_scratch(device)
@@ -131,7 +140,20 @@ def while_loop(cond: Condition, body):
     Under capture: one WHILE node on `cond.handle`, `body` captured once on
     the body stream of this nesting level.  Otherwise the host loop: one
     read of `cond.flag` a trip (on CUDA with the body on the same body
-    stream as under capture, ordered against the current stream)."""
+    stream as under capture, ordered against the current stream); in
+    `DeviceGraph`'s warm-up, one trip and no read."""
+    _conditional(cond, body, "fgt_while_begin", loop=True)
+
+
+def if_then(cond, body):
+    """Run `body()` once if the condition holds (set before the call on the
+    current stream).  Under capture: one IF node on `cond.handle`, `body`
+    captured on the body stream of this nesting level; otherwise one read of
+    `cond.flag` (in `DeviceGraph`'s warm-up, no read: `body` runs)."""
+    _conditional(cond, body, "fgt_if_begin", loop=False)
+
+
+def _conditional(cond, body, begin, loop):
     global host_reads
     device = cond.flag.device
     level = _get("level")
@@ -140,6 +162,8 @@ def while_loop(cond: Condition, body):
         try:
             while int(cond.flag[0]):
                 body()
+                if not loop:
+                    break
         finally:
             _local.level = level
         return
@@ -148,8 +172,8 @@ def while_loop(cond: Condition, body):
     _local.level = level + 1
     try:
         if cond.handle:
-            fn = _build.function("fgt_while_begin", (_P, ctypes.c_ulonglong, _P))
-            _build.check("fgt_while_begin (the conditional WHILE node)",
+            fn = _build.function(begin, (_P, ctypes.c_ulonglong, _P))
+            _build.check(f"{begin} (the conditional node)",
                          fn(cur.cuda_stream, cond.handle, side.cuda_stream))
             try:
                 with torch.cuda.stream(side):
@@ -157,18 +181,22 @@ def while_loop(cond: Condition, body):
             finally:
                 end = _build.function("fgt_while_end", (_P,))
                 code = end(side.cuda_stream)
-            _build.check("fgt_while_end (the WHILE body's capture)", code)
+            _build.check("fgt_while_end (the conditional body's capture)", code)
             return
         if capturing(device):
-            raise RuntimeError("while_loop under capture needs the condition's handle")
+            raise RuntimeError("a conditional node under capture needs the condition's handle")
+        warm = _get("warm", False)
         while True:
-            host_reads += 1
-            if not int(cond.flag.item()):
-                break
+            if not warm:
+                host_reads += 1
+                if not int(cond.flag.item()):
+                    break
             side.wait_stream(cur)
             with torch.cuda.stream(side):
                 body()
             cur.wait_stream(side)
+            if warm or not loop:
+                break
     finally:
         _local.level = level
 
@@ -181,10 +209,14 @@ class DeviceGraph:
     tensors hold the last replay's results.
 
     On CUDA the constructor warms `fn` up eagerly on the capture stream
-    (the device form's host loop; it also builds every kernel), then
-    captures it.  On the CPU there is no graph: `replay()` runs `fn()`
-    under `device_loop()`, the device form's plain version.  `captures`
-    counts the graphs captured."""
+    (the device form's host loop with every loop body and branch run once,
+    whatever its condition: enough to make every per-stream resource; it
+    also builds every kernel; the device tallies are put back after it),
+    then captures it; `warm_s` and `capture_s` are the host seconds of each
+    (the warm-up closed by a synchronize, the capture with the graph's
+    instantiation).  On the CPU there is no graph:
+    `replay()` runs `fn()` under `device_loop()`, the device form's plain
+    version.  `captures` counts the graphs captured."""
 
     captures = 0
 
@@ -193,20 +225,33 @@ class DeviceGraph:
         self.device = _device.resolve(device)
         self.graph = None
         self.out = None
+        self.warm_s = self.capture_s = 0.0
         if self.device.type == "cpu":
             return
+        t0 = time.perf_counter()
         prepare(self.device)
+        # the device tallies count what replays run: the warm-up's steps go
+        tallies = (cuda_solver.loop_counts(self.device), cuda_pose_graph.pg_counts(self.device))
+        saved = [t.clone() for t in tallies]
         stream = capture_stream(self.device)
         cur = torch.cuda.current_stream(self.device)
         stream.wait_stream(cur)
-        with torch.cuda.stream(stream), device_loop():
-            fn()
+        _local.warm = True
+        try:
+            with torch.cuda.stream(stream), device_loop():
+                fn()
+        finally:
+            _local.warm = False
         torch.cuda.synchronize(self.device)
+        for t, v in zip(tallies, saved):
+            t.copy_(v)
+        t1 = time.perf_counter()
         self.pool = torch.cuda.MemPool()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, stream=stream):
             with torch.cuda.use_mem_pool(self.pool):
                 self.out = fn()
+        self.warm_s, self.capture_s = t1 - t0, time.perf_counter() - t1
         DeviceGraph.captures += 1
 
     def replay(self):
@@ -219,3 +264,38 @@ class DeviceGraph:
         else:
             self.graph.replay()
         return self.out
+
+
+_programs: collections.OrderedDict = collections.OrderedDict()
+PROGRAMS = 32
+"""The most captured programs `replay_cached` keeps (the oldest goes).  A
+sparse solve's graph at ~500 poses holds 8-12 MiB of the caching
+allocator's reserved device memory (`chip_smoke.py --backend`, NVIDIA H100
+80GB HBM3, 700 W), so 32 such graphs hold under 0.4 GiB; that run's whole
+back-end (17 signatures) evicts none."""
+
+
+def replay_cached(key, inputs: dict, fn, device):
+    """`fn(**inputs)` as one device program: on CUDA captured once per
+    `key` (`DeviceGraph` on static copies of `inputs`, a dict of tensors on
+    `device`), later calls copying their inputs into those buffers and
+    replaying (nothing read to the host); on the CPU `fn(**inputs)` in the
+    device form's plain version.  Returns what `fn` returned: on CUDA the
+    graph's own buffers, which the next replay of `key` overwrites."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        with device_loop():
+            return fn(**inputs)
+    entry = _programs.get(key)
+    if entry is None:
+        static = {k: torch.empty_like(v, memory_format=torch.contiguous_format).copy_(v)
+                  for k, v in inputs.items()}
+        entry = (static, DeviceGraph(lambda: fn(**static), device))
+        _programs[key] = entry
+        while len(_programs) > PROGRAMS:
+            _programs.popitem(last=False)
+    else:
+        _programs.move_to_end(key)
+        for k, v in inputs.items():
+            entry[0][k].copy_(v)
+    return entry[1].replay()

@@ -6,10 +6,14 @@ Residual (right-perturbation pose-graph form):
 with Z_e the measured relative pose.  The whole-graph Jacobian at delta = 0
 comes from `torch.func.jacfwd`, the normal equations are assembled densely
 ((6K)^2: windows of tens of keyframes), pose 0 is pinned by a strong gauge
-prior and the damped system is solved by `torch.linalg.solve`.  The
-Gauss-Newton loop reads its convergence flag to the host once an iteration
-(the JAX package's `lax.while_loop` keeps it on the device).  Runs on the
-card unless the caller passes device="cpu".
+prior and the damped system is solved by `torch.linalg.solve_ex` (an LU
+whose info is not read, as `jnp.linalg.solve` checks nothing).  Runs on the
+card unless the caller passes device="cpu", in the device form by default:
+the JAX package's `lax.while_loop` as a conditional WHILE node of a CUDA
+graph captured once per signature, its condition set by
+`cuda_pose_graph.pg_cond` (on the CPU the host loop over the same
+condition); with `device_loop=False` the eager loop, which reads its
+convergence flag to the host once an iteration.  Both give the same bits.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ import torch
 from torch.func import jacfwd
 
 from .. import device as _device
-from .. import se3
+from .. import graphs, se3
+from ..ops import cuda_pose_graph as cpg
 from ..precision import f32_matmuls
 
 
@@ -80,10 +85,54 @@ def graph_inputs(poses, edge_i, edge_j, edge_rel, edge_info, dev):
     return poses, edge_i, edge_j, edge_info, z_inv
 
 
+def _gn_delta(T, edge_i, edge_j, edge_info, z_inv, diag, zero):
+    """The Gauss-Newton step (K * 6,) at poses T: the whole-graph Jacobian
+    by jacfwd, the dense normal equations, the damped solve."""
+    k = T.shape[0]
+
+    def res_flat(deltas):
+        return _edge_residuals(T, deltas.reshape(k, 6), edge_i, edge_j, z_inv)
+
+    J, r = jacfwd(_with_aux(res_flat), has_aux=True)(zero)  # (E, 6, 6K), (E, 6)
+    WJ = torch.einsum("eij,ejd->eid", edge_info, J)
+    H = torch.einsum("eid,eim->dm", J, WJ)
+    b = torch.einsum("eid,ei->d", WJ, r)
+    return -torch.linalg.solve_ex(H + torch.diag(diag), b, check_errors=False)[0]
+
+
+def _final_error(T, edge_i, edge_j, edge_info, z_inv):
+    r = _edge_residuals(T, torch.zeros((T.shape[0], 6), dtype=torch.float32, device=T.device),
+                        edge_i, edge_j, z_inv)
+    return torch.einsum("ei,eij,ej->", r, edge_info, r)
+
+
+def _dense_device(poses, edge_i, edge_j, edge_info, z_inv, diag, zero, config):
+    """The solve's device form: JAX's while_loop through `graphs.while_loop`,
+    the state (poses, iterations, converged) in device buffers."""
+    k, dev = poses.shape[0], poses.device
+    T = poses.clone()
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    conv = torch.zeros((), dtype=torch.bool, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def step():
+        delta = _gn_delta(T, edge_i, edge_j, edge_info, z_inv, diag, zero)
+        T.copy_(T @ se3.se3_exp(delta.reshape(k, 6)))
+        conv.copy_(torch.max(torch.abs(delta)) < config.convergence_delta)
+        cpg.pg_cond(cpg.PG_GN_STEP, config.max_iterations, it, flag, stop=conv,
+                    handle=gn.handle)
+
+    gn = graphs.Condition(flag)
+    cpg.pg_cond(cpg.PG_GN_ENTER, config.max_iterations, it, flag, stop=conv, handle=gn.handle)
+    graphs.while_loop(gn, step)
+    return PoseGraphResult(poses=T, error=_final_error(T, edge_i, edge_j, edge_info, z_inv),
+                           iterations=it, converged=conv)
+
+
 @f32_matmuls
 def optimize_pose_graph(poses, edge_i, edge_j, edge_rel, edge_info=None,
                         config: PoseGraphConfig = PoseGraphConfig(),
-                        device="cuda") -> PoseGraphResult:
+                        device="cuda", device_loop: bool = True) -> PoseGraphResult:
     """Gauss-Newton pose-graph solve.
 
     Args:
@@ -93,6 +142,12 @@ def optimize_pose_graph(poses, edge_i, edge_j, edge_rel, edge_info=None,
       edge_info: optional (E, 6, 6) information matrices (e.g. registration
         Hessians); identity if None.
       device: where it runs (CUDA unless the caller asks for the CPU).
+      device_loop: the device form (the default): on CUDA one replay of a
+        graph captured once per signature (K, E, the config, the device,
+        deterministic algorithms on or off), nothing read to the host; on the
+        CPU its plain version.  A signature's first call also pays a warm-up
+        and the capture, so it pays off where signatures repeat.  False: the
+        eager loop.
     """
     dev = _device.resolve(device)
     poses, edge_i, edge_j, edge_info, z_inv = graph_inputs(
@@ -103,25 +158,23 @@ def optimize_pose_graph(poses, edge_i, edge_j, edge_rel, edge_info=None,
         torch.full((6 * k - 6,), config.damping, dtype=torch.float32, device=dev),
     ])
     zero = torch.zeros(6 * k, dtype=torch.float32, device=dev)
+    if device_loop:
+        inputs = dict(poses=poses, edge_i=edge_i, edge_j=edge_j, edge_info=edge_info,
+                      z_inv=z_inv)
+        key = ("dense", k, edge_i.shape[0], config, str(dev),
+               torch.are_deterministic_algorithms_enabled())
+        res = graphs.replay_cached(key, inputs, lambda **kw: _dense_device(
+            **kw, diag=diag, zero=zero, config=config), dev)
+        return res if dev.type == "cpu" else PoseGraphResult(*(t.clone() for t in res))
     T, it, conv = poses, 0, False
     conv_t = torch.zeros((), dtype=torch.bool, device=dev)
     while it < config.max_iterations and not conv:
-        def res_flat(deltas, T=T):
-            return _edge_residuals(T, deltas.reshape(k, 6), edge_i, edge_j, z_inv)
-
-        J, r = jacfwd(_with_aux(res_flat), has_aux=True)(zero)  # (E, 6, 6K), (E, 6)
-        WJ = torch.einsum("eij,ejd->eid", edge_info, J)
-        H = torch.einsum("eid,eim->dm", J, WJ)
-        b = torch.einsum("eid,ei->d", WJ, r)
-        delta = -torch.linalg.solve(H + torch.diag(diag), b)
+        delta = _gn_delta(T, edge_i, edge_j, edge_info, z_inv, diag, zero)
         T = T @ se3.se3_exp(delta.reshape(k, 6))
         conv_t = torch.max(torch.abs(delta)) < config.convergence_delta
         it += 1
         conv = bool(conv_t)  # the one host read a Gauss-Newton iteration
-    r = _edge_residuals(T, torch.zeros((k, 6), dtype=torch.float32, device=dev),
-                        edge_i, edge_j, z_inv)
-    err = torch.einsum("ei,eij,ej->", r, edge_info, r)
-    return PoseGraphResult(poses=T, error=err,
+    return PoseGraphResult(poses=T, error=_final_error(T, edge_i, edge_j, edge_info, z_inv),
                            iterations=torch.full((), it, dtype=torch.int32, device=dev),
                            converged=conv_t)
 

@@ -165,7 +165,8 @@ def _one_ulp(graph, seed):
 
 def _both(graph):
     cfg = dict(max_iterations=F1_ITERATIONS)
-    t = TS.optimize_pose_graph_sparse(*graph, config=TS.SparsePGConfig(**cfg), device="cpu")
+    t = TS.optimize_pose_graph_sparse(*graph, config=TS.SparsePGConfig(**cfg), device="cpu",
+                                      device_loop=False)
     j = JS.optimize_pose_graph_sparse(*_jax_args(*graph), config=JS.SparsePGConfig(**cfg))
     return t, j
 
