@@ -25,6 +25,20 @@ the drive, each pair bit for bit against its single-pair call; and
 pack form on the hash path's first freeze, `knn_slab` at k = 32 and the
 gathered `linearize` at FastGICPMultiPoints' first linearization, and the
 trial launch at every new path's first linearization.
+The class, batch and pygicp paths run in both forms (`phase_class_paths`;
+`python3 chip_smoke.py --classes` runs them alone, with odometry_serial's
+two forms): the graph form (`device_loop=True`, the default: an align or a
+batch one CUDA graph replay a signature) first, so that its main run holds
+each signature's first call (every kernel launched by its warm-up; the
+replays' loops in the device tally `cuda_solver.loop_counts`; warm-up and
+capture seconds, MiB reserved), then the eager form with the launch counts
+of one trial launch a flag read; then `class_forms` / `batch_forms` and
+pygicp's checks: no host sync while a replay is enqueued (torch's sync
+debug mode "error"), with deterministic algorithms the graph form bit for
+bit the eager form (results, cached covariances and maps, each batch pair
+its single-pair call) and the tally equal to the eager trials and
+iterations, two chained calls with different guesses each their eager
+call; the bench in both forms.
 Slice F's odometry runs five paths over a 128-frame synthetic drive (seed
 11, the 1.4M-point world, 0.25 m host downsample; `ODOMETRY_PATHS`):
 `run_odometry` with FastVGICP (the KITTI app's serial mode),
@@ -2546,30 +2560,30 @@ PATHS = {
 }
 
 
-def _fast_vgicp_hash(device):
+def _fast_vgicp_hash(device, device_loop=True):
     """FastVGICP with the class defaults (kNN covariances, k = 20, plane,
     DIRECT1, 1 m, additive) on the hash map (grid_dims=None)."""
     from fast_gicp_tpu_torch.models.vgicp import FastVGICP
 
-    return FastVGICP(grid_dims=None, device=device)
+    return FastVGICP(grid_dims=None, device=device, device_loop=device_loop)
 
 
-def _fast_vgicp_grid_mult(device):
+def _fast_vgicp_grid_mult(device, device_loop=True):
     """FastVGICP, multiplicative accumulation, DIRECT7, grid_dims "auto":
     the sparse dense-grid map (`GridVoxelMap`)."""
     from fast_gicp_tpu_torch.models.vgicp import FastVGICP
 
-    reg = FastVGICP(device=device)
+    reg = FastVGICP(device=device, device_loop=device_loop)
     reg.set_voxel_accumulation_mode("multiplicative")
     reg.set_neighbor_search_method("DIRECT7")
     return reg
 
 
-def _fast_gicp_class(device):
+def _fast_gicp_class(device, device_loop=True):
     """FastGICP with the class defaults."""
     from fast_gicp_tpu_torch.models.gicp import FastGICP
 
-    return FastGICP(device=device)
+    return FastGICP(device=device, device_loop=device_loop)
 
 
 def _ndt_cuda(mode, hash_map):
@@ -2578,10 +2592,10 @@ def _ndt_cuda(mode, hash_map):
     over both clouds (the lookup form), or after set_grid_dims(None) the
     hash map (an eager freeze and a pack-form launch a linearization)."""
 
-    def make(device):
+    def make(device, device_loop=True):
         from fast_gicp_tpu_torch.models.ndt import NDTCuda
 
-        reg = NDTCuda(device=device)
+        reg = NDTCuda(device=device, device_loop=device_loop)
         reg.set_distance_mode(mode)
         if hash_map:
             reg.set_grid_dims(None)
@@ -2590,12 +2604,12 @@ def _ndt_cuda(mode, hash_map):
     return make
 
 
-def _fast_gicp_multipoints(device):
+def _fast_gicp_multipoints(device, device_loop=True):
     """FastGICPMultiPoints with its defaults (kNN covariances k = 20 plane,
     radius 1 m over the exact 32 nearest neighbours)."""
     from fast_gicp_tpu_torch.models.experimental import FastGICPMultiPoints
 
-    return FastGICPMultiPoints(device=device)
+    return FastGICPMultiPoints(device=device, device_loop=device_loop)
 
 
 # class path -> (make(device) -> Registration, kernels the path must launch,
@@ -2633,7 +2647,8 @@ CLASS_LIMITS = {"ndt_p2d_class": P2D_LIMITS, "ndt_p2d_hash": P2D_LIMITS}  # else
 
 
 def _batch_path(kind):
-    """(run(arrays, device) -> stacked LsqResult) of `ndt_align_batch` (D2D,
+    """(run(arrays, device, device_loop=True) -> stacked LsqResult) of
+    `ndt_align_batch` (D2D,
     NDTConfig's defaults: the hash map) or `vgicp_align_batch`
     (VGICPConfig's defaults: DIRECT1 on the hash map, the kNN covariances
     in the arrays), and the per-pair call each pair must equal bit for
@@ -2643,9 +2658,9 @@ def _batch_path(kind):
     if kind == "ndt":
         cfg = ndt.NDTConfig()
 
-        def run(a, device):
+        def run(a, device, device_loop=True):
             return batch.ndt_align_batch(a["sp"], a["sm"], a["tp"], a["tm"], a["guess"], cfg,
-                                         device=device)
+                                         device=device, device_loop=device_loop)
 
         def one(a, i, device):
             return ndt.ndt_align(a["sp"][i], a["sm"][i], a["tp"][i], a["tm"][i], a["guess"][i],
@@ -2653,9 +2668,10 @@ def _batch_path(kind):
     else:
         cfg = vgicp.VGICPConfig()
 
-        def run(a, device):
+        def run(a, device, device_loop=True):
             return batch.vgicp_align_batch(a["sp"], a["sm"], a["sc"], a["tp"], a["tm"], a["tc"],
-                                           a["guess"], cfg, device=device)
+                                           a["guess"], cfg, device=device,
+                                           device_loop=device_loop)
 
         def one(a, i, device):
             return vgicp.vgicp_align(a["sp"][i], a["sm"][i], a["sc"][i], a["tp"][i], a["tm"][i],
@@ -2855,6 +2871,7 @@ def phase_card_vs_cpu(dev, pair, path):
 # 100) and 4 batches (10), to keep the whole script in its time with the
 # device loop's phase and the back-end's device forms
 BENCH_REGS = 20
+PROFILE_REGS = 3  # traced registrations a path in the profile phases
 BENCH_BATCHES = 4
 
 
@@ -2972,7 +2989,7 @@ def wall_ms(fn, reps=10):
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def phase_profile(dev, pair, path, n_regs=5):
+def phase_profile(dev, pair, path, n_regs=PROFILE_REGS):
     """Where a registration's time goes: host-clock stage times (each stage
     alone, synchronised), then a torch.profiler trace of `n_regs`
     registrations for the device time by kernel and the device's busy
@@ -3285,48 +3302,83 @@ def class_workflow(reg, source, target, scores=True):
 
 
 def phase_class_main(dev, pair, path):
-    """A class path's workflow (`class_workflow`) on the full-size pair,
-    with every launch counter set to 0 just before it and read just after:
-    both poses against the ground truth and its inverse, every kernel of the
-    path launched, one trial launch a host sync, no standalone trial or
-    error launch, every linearize launch the idx form, none of
-    linearize_raw."""
+    """A class path's workflow (`class_workflow`) on the full-size pair in
+    both forms, with every launch counter and device tally set to 0 just
+    before each run and read just after.
+
+    The graph form (`device_loop=True`, the default) runs first, after an
+    eager warm-up only, so that its run holds each signature's first call.
+    Its launches are what the kernels counted on the device (`device_counters`:
+    the replays' runs; the warm-up's are taken back out by `DeviceGraph`);
+    its wrappers' host counts, the warm-up's launches and the capture's
+    enqueues, are logged beside them.  Every kernel of the path ran, one
+    trial launch a trial of the loops' tally, the linearize forms;
+    first-call seconds (warm-up, capture) and the MiB its programs hold are
+    recorded.  The eager form (`device_loop=False`) then runs as before
+    (host counts: one trial launch a host sync, the linearize forms), its
+    device counts equal to its host counts.  Both: poses against the ground
+    truth and its inverse, the swap reusing the cached states, no
+    standalone trial or error launch.  Then `class_forms`."""
     from fast_gicp_tpu_torch.solver import lsq_solve
 
     source, target, gt = pair
     make, kernels, _pair = CLASS_PATHS[path]
-    class_workflow(make(dev), source, target)  # warm-up
-    torch.cuda.synchronize()
-    reset_counters()
-    lsq_solve.host_syncs = 0
-    t0 = time.perf_counter()
-    T1, T2, its, cost, fitness, built = class_workflow(make(dev), source, target)
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = read_counters()
-    syncs = lsq_solve.host_syncs
-    errs = [pose_errors(T1, gt), pose_errors(T2, np.linalg.inv(gt))]
-    log(f"[main] {path}: fresh t_err {errs[0][0]:.6f} m r_err {errs[0][1]:.6f} deg, "
-        f"swapped t_err {errs[1][0]:.6f} m r_err {errs[1][1]:.6f} deg, iterations {its}, "
-        f"host syncs {syncs}, cost at the swapped pose {cost}, fitness {fitness:.6f}, "
-        f"cached states the second align built {built}, "
-        f"wall {wall_ms:.3f} ms (both aligns, evaluate_cost, fitness), launches {launches}")
     t_lim, r_lim = CLASS_LIMITS.get(path, D2D_LIMITS)
-    require(all(np.isfinite(T).all() for T in (T1, T2)), f"{path}: non-finite pose")
-    require(all(t < t_lim and r < r_lim for t, r in errs), f"{path}: pose errors {errs}")
-    require((cost is None or math.isfinite(cost)) and math.isfinite(fitness),
-            f"{path}: non-finite cost")
-    require(built == (1 if path in ("ndt_p2d_class", "ndt_p2d_hash") else 0),
-            f"{path}: the align after the swap built {built} cached states")
-    require(all(launches[k] > 0 for k in kernels),
-            f"{path}: a kernel of the path was not launched: {launches}")
-    require(launches["lm_step"] == syncs, f"{path}: {launches['lm_step']} trial launches "
-            f"for {syncs} trials")
-    require(all(launches[k] == 0 for k in TRIAL_CARRIED),
-            f"{path}: a standalone trial or error launch in the LM solve: {launches}")
-    check_lin_forms(path, launches, CLASS_LIN_FORM.get(path, "idx"))
-    return launches, dict(t_err_m=[e[0] for e in errs], r_err_deg=[e[1] for e in errs],
-                          iterations=list(its), host_syncs=syncs, wall_ms=wall_ms,
-                          cost=cost, fitness=fitness, second_align_built=built)
+    out = {}
+    class_workflow(make(dev, device_loop=False), source, target)  # warm-up
+    for form in ("graph", "eager"):
+        torch.cuda.synchronize()
+        reset_counters()
+        zero_tally(dev)
+        lsq_solve.host_syncs = 0
+        first = program_setups()
+        t0 = time.perf_counter()
+        T1, T2, its, cost, fitness, built = class_workflow(
+            make(dev, device_loop=form == "graph"), source, target)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        host, launches = read_counters(), device_counters(dev)
+        syncs = lsq_solve.host_syncs
+        loops = tally(dev)
+        errs = [pose_errors(T1, gt), pose_errors(T2, np.linalg.inv(gt))]
+        log(f"[main] {path} ({form} form): fresh t_err {errs[0][0]:.6f} m r_err "
+            f"{errs[0][1]:.6f} deg, swapped t_err {errs[1][0]:.6f} m r_err {errs[1][1]:.6f} "
+            f"deg, iterations {its}, host syncs {syncs}, cost at the swapped pose {cost}, "
+            f"fitness {fitness:.6f}, cached states the second align built {built}, "
+            f"wall {wall_ms:.3f} ms (both aligns, evaluate_cost, fitness), launches (device "
+            f"counts) {launches}, loops {loops}; the wrappers' host counts {host}")
+        require(all(np.isfinite(T).all() for T in (T1, T2)), f"{path}: non-finite pose")
+        require(all(t < t_lim and r < r_lim for t, r in errs), f"{path}: pose errors {errs}")
+        require((cost is None or math.isfinite(cost)) and math.isfinite(fitness),
+                f"{path}: non-finite cost")
+        require(built == (1 if path in ("ndt_p2d_class", "ndt_p2d_hash") else 0),
+                f"{path}: the align after the swap built {built} cached states")
+        require(all(launches[k] > 0 for k in kernels),
+                f"{path} ({form}): a kernel of the path was not launched: {launches}")
+        require(all(launches[k] == 0 for k in TRIAL_CARRIED),
+                f"{path}: a standalone trial or error launch in the LM solve: {launches}")
+        check_lin_forms(path, launches, CLASS_LIN_FORM.get(path, "idx"))
+        stats = dict(t_err_m=[e[0] for e in errs], r_err_deg=[e[1] for e in errs],
+                     iterations=list(its), host_syncs=syncs, wall_ms=wall_ms, cost=cost,
+                     fitness=fitness, second_align_built=built)
+        if form == "graph":
+            # the replays' loops on the device: one solve an align, its
+            # iterations those the getters read, one trial launch a trial,
+            # no flag read on the host
+            require(loops["solves"] == 2 and loops["iterations"] == sum(its) and syncs == 0
+                    and loops["trials"] >= loops["iterations"]
+                    and launches["lm_step"] == loops["trials"],
+                    f"{path}: the replays' tally {loops} for iterations {its}, "
+                    f"{launches['lm_step']} trial launches, {syncs} flag reads")
+            stats.update(tally=loops, first_call=first(), launches=launches,
+                         host_counted_warm_up_and_capture=host)
+            out["graph"] = stats
+        else:
+            check_device_counts(path, launches, host)
+            require(launches["lm_step"] == syncs, f"{path}: {launches['lm_step']} trial "
+                    f"launches for {syncs} trials")
+            out.update(stats, launches=launches)
+    out["forms"] = class_forms(dev, pair, path)
+    return out["graph"]["launches"], out
 
 
 def reset_counters():
@@ -3407,12 +3459,12 @@ def phase_class_card_vs_cpu(dev, pair, path):
                 iterations_gpu=list(gpu[2]), iterations_cpu=list(cpu[2]))
 
 
-def _fresh_class(dev, pair, path):
+def _fresh_class(dev, pair, path, device_loop=True):
     """A class instance of `path` holding the pair, and one registration of
     it: clear_covariances, then align_async (the fresh path; the clouds are
     not uploaded again)."""
     source, target, _gt = pair
-    reg = CLASS_PATHS[path][0](dev)
+    reg = CLASS_PATHS[path][0](dev, device_loop=device_loop)
     reg.set_input_target(target)
     reg.set_input_source(source)
 
@@ -3426,28 +3478,43 @@ def _fresh_class(dev, pair, path):
 def phase_class_bench(dev, pair, path, n_regs=BENCH_REGS):
     """`n_regs` fresh class registrations after a warm-up (clear_covariances
     + align_async, the class API's form of a fresh instance per align,
-    align.cpp:56-76), closed by a synchronise."""
+    align.cpp:56-76), closed by a synchronise, in both forms; the device
+    span a registration from CUDA events around the same registrations."""
     from fast_gicp_tpu_torch.solver import lsq_solve
 
-    _reg, register = _fresh_class(dev, pair, path)
-    register()
-    torch.cuda.synchronize()
-    syncs0 = lsq_solve.host_syncs
-    t0 = time.perf_counter()
-    iters = [register().iterations for _ in range(n_regs)]
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / n_regs
-    iters = torch.stack(iters).cpu().numpy()
-    syncs = (lsq_solve.host_syncs - syncs0) / n_regs
-    log(f"[bench] {path}, {n_regs} registrations: {ms:.4f} ms/registration "
-        f"({1e3 / ms:.2f} reg/s), iterations mean {iters.mean():.2f}, "
-        f"host syncs/registration {syncs:.2f}")
-    return dict(registrations=n_regs, ms_per_registration=ms, registrations_per_s=1e3 / ms,
-                mean_iterations=float(iters.mean()), host_syncs_per_registration=syncs)
+    out = {}
+    for form in ("graph", "eager"):
+        _reg, register = _fresh_class(dev, pair, path, device_loop=form == "graph")
+        register()
+        torch.cuda.synchronize()
+        syncs0 = lsq_solve.host_syncs
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        iters = [register().iterations for _ in range(n_regs)]
+        end.record()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n_regs
+        span = start.elapsed_time(end) / n_regs
+        iters = torch.stack(iters).cpu().numpy()
+        syncs = (lsq_solve.host_syncs - syncs0) / n_regs
+        log(f"[bench] {path} ({form} form), {n_regs} registrations: {ms:.4f} "
+            f"ms/registration ({1e3 / ms:.2f} reg/s), device span {span:.4f} ms, iterations "
+            f"mean {iters.mean():.2f}, flag reads/registration {syncs:.2f}")
+        stats = dict(registrations=n_regs, ms_per_registration=ms,
+                     registrations_per_s=1e3 / ms, device_span_ms=span,
+                     mean_iterations=float(iters.mean()), host_syncs_per_registration=syncs)
+        if form == "graph":
+            out["graph"] = stats
+        else:
+            out.update(stats)
+    return out
 
 
-def phase_class_profile(dev, pair, path, n_regs=5):
-    """Stage wall times of a class path (a fresh align with its result read;
+def phase_class_profile(dev, pair, path, n_regs=PROFILE_REGS):
+    """In the eager form (the profiler misses kernels of a graph's
+    conditional bodies; `phase_class_bench` has the graph form's device
+    span): stage wall times of a class path (a fresh align with its result read;
     an align after a swap, on the cached covariances), then the trace of
     `n_regs` fresh registrations (`trace_registrations`), its device ops
     against PREDICTED_CLASS_OPS at the registrations' own iterations and
@@ -3455,7 +3522,7 @@ def phase_class_profile(dev, pair, path, n_regs=5):
     read, none the other way."""
     from fast_gicp_tpu_torch.solver import lsq_solve
 
-    reg, register = _fresh_class(dev, pair, path)
+    reg, register = _fresh_class(dev, pair, path, device_loop=False)
 
     def swapped():
         # the other way round on the cached covariances, then back
@@ -3590,13 +3657,14 @@ def batch_on(dev):
     return a
 
 
-def pygicp_run(path, pair, device):
+def pygicp_run(path, pair, device, device_loop=True, guess=None):
     """align_points of the path's method on the (already downsampled)
     pair, the rest of its arguments at their defaults."""
     from fast_gicp_tpu_torch import pygicp
 
     source, target, _gt = pair
-    return pygicp.align_points(target, source, method=PYGICP_PATHS[path][0], device=device)
+    return pygicp.align_points(target, source, method=PYGICP_PATHS[path][0],
+                               initial_guess=guess, device=device, device_loop=device_loop)
 
 
 NEW_TRIAL_PATHS = ("ndt_d2d_hash", "ndt_p2d_hash", "fast_gicp_multipoints") + tuple(
@@ -3606,21 +3674,23 @@ NEW_TRIAL_PATHS = ("ndt_d2d_hash", "ndt_p2d_hash", "fast_gicp_multipoints") + tu
 def new_path_trial_inputs(dev, pair):
     """{path: first_trial of the path} for NDTCuda on the hash map,
     FastGICPMultiPoints, the two batch aligns (their first pair) and each
-    pygicp method, as each runs on the full-size pair.  NDTCuda on the dense
+    pygicp method, as each runs on the full-size pair (eager).  NDTCuda on the dense
     grid solves `ndt_register_fresh`'s objective, whose inputs
     `trial_inputs` takes as ndt_d2d_fresh / ndt_p2d_fresh."""
     source, target, _gt = pair
     out = {}
+    # in the eager form: the stand-in stops the run at the call, which a
+    # program's warm-up would make on its capture stream
     for path in NEW_TRIAL_PATHS[:3]:
-        reg = CLASS_PATHS[path][0](dev)
+        reg = CLASS_PATHS[path][0](dev, device_loop=False)
         reg.set_input_target(target)
         reg.set_input_source(source)
         out[path] = first_trial(reg.align)
     arrays = batch_on(dev)
     for path, (kind, _k, _l) in BATCH_PATHS.items():
-        out[path] = first_trial(lambda: _batch_path(kind)[0](arrays, dev))
+        out[path] = first_trial(lambda: _batch_path(kind)[0](arrays, dev, device_loop=False))
     for path in PYGICP_PATHS:
-        out[path] = first_trial(lambda: pygicp_run(path, pair, dev))
+        out[path] = first_trial(lambda: pygicp_run(path, pair, dev, device_loop=False))
     return out
 
 
@@ -3743,53 +3813,337 @@ def _deterministic(fn):
         torch.use_deterministic_algorithms(False)
 
 
+# -- the class, batch and pygicp programs: the graph form against eager ------
+
+CHAIN_TWIST = (0.002, -0.001, 0.0015, 0.05, -0.03, 0.02)  # the second chained guess
+
+
+def tally(dev):
+    """The device tally (`cuda_solver.loop_counts`: condition launches,
+    trials, outer iterations, solves) as a dict, after a synchronize."""
+    from fast_gicp_tpu_torch.ops import cuda_solver as cs
+
+    torch.cuda.synchronize()
+    return dict(zip(cs.LOOP_COUNTS, cs.loop_counts(dev).tolist()))
+
+
+def zero_tally(dev):
+    """Every device tally to 0: the loops' (`loop_counts`), the kernels'
+    (`ops.tally`) and the pose graph's (`pg_counts`)."""
+    from fast_gicp_tpu_torch.ops import cuda_pose_graph as cpg
+    from fast_gicp_tpu_torch.ops import cuda_solver as cs
+    from fast_gicp_tpu_torch.ops import tally as kernel_tally
+
+    torch.cuda.synchronize()
+    for t in (cs.loop_counts(dev), kernel_tally.counts(dev), cpg.pg_counts(dev)):
+        t.zero_()
+
+
+def device_counters(dev):
+    """`read_counters()`'s dict as the kernels counted their own runs on
+    the device, a graph's replays included (`ops.tally`, with `loop_cond`
+    from `loop_counts` and pg_cond and the block_tridiag kernels from
+    `pg_counts`), after a synchronize."""
+    from fast_gicp_tpu_torch.ops import tally as kernel_tally
+
+    loops, pg = tally(dev), pg_tally(dev)
+    out = dict(kernel_tally.read(dev), loop_cond=loops["loop_cond"], pg_cond=pg["pg_cond"],
+               block_tridiag_factor=pg["factors"], block_tridiag_apply=pg["applies"])
+    require(set(out) == set(read_counters()), f"device counters {sorted(out)}")
+    return out
+
+
+def kernel_runs(counts):
+    """The kernels' runs of `device_counters`' dict (the condition kernels',
+    which only the graph form runs, left out)."""
+    return {k: v for k, v in counts.items() if k not in ("loop_cond", "pg_cond") and v}
+
+
+def check_device_counts(what, device, host):
+    """The eager form's device counts equal its wrappers' host counts (each
+    launch counted once on each side: the device tally counts launches)."""
+    differ = {k: (device[k], host[k]) for k in device if device[k] != host[k]}
+    require(not differ, f"{what}: device counts differ from the host's launches: {differ}")
+
+
+def program_setups():
+    """Notes the programs `graphs.replay_cached` holds and returns a
+    closure; called after the run that follows, it returns the run's new
+    programs' first-call cost: their count, each one's warm-up and capture
+    seconds, and the MiB the caching allocator reserved over the run once
+    its unused cached blocks were released (the programs' graph pools and
+    static inputs, and what the run left alive), in all and a program,
+    with the programs the run evicted (whose memory, freed, the MiB leave
+    out)."""
+    from fast_gicp_tpu_torch import graphs
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    keys0, mem0 = set(graphs._programs), torch.cuda.memory_reserved()
+
+    def first():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        mib = (torch.cuda.memory_reserved() - mem0) / 2**20
+        new = [g for k, (_s, g) in graphs._programs.items() if k not in keys0]
+        return dict(programs=len(new), warm_s=[g.warm_s for g in new],
+                    capture_s=[g.capture_s for g in new], reserved_mib=mib,
+                    reserved_mib_per_program=mib / max(len(new), 1),
+                    evicted=len(keys0 - set(graphs._programs)))
+    return first
+
+
+def tree_bits_equal(a, b):
+    """Two nested results (LsqResults, cached states: tensors in tuples,
+    NamedTuples, None and static values) of the same structure, with the
+    same bits in every tensor."""
+    from torch.utils import _pytree as pytree
+
+    (la, sa), (lb, sb) = pytree.tree_flatten(a), pytree.tree_flatten(b)
+    if repr(sa) != repr(sb) or len(la) != len(lb):
+        return False
+    return all(torch.equal(_bits(x), _bits(y)) if isinstance(x, torch.Tensor)
+               else type(x) is type(y) and x == y for x, y in zip(la, lb))
+
+
+def chained_guesses(dev):
+    """Two guesses: the identity and a small motion (CHAIN_TWIST)."""
+    from fast_gicp_tpu_torch import se3
+
+    return [torch.eye(4, device=dev),
+            se3.se3_exp(torch.tensor(CHAIN_TWIST, dtype=torch.float32, device=dev))]
+
+
+def enqueue_without_sync(what, run):
+    """`run()` (enqueuing a replay) under torch's sync debug mode "error":
+    a synchronizing call in it fails the phase."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return run()
+    except RuntimeError as e:
+        raise PhaseError(f"{what}: a host sync while enqueuing the program: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def class_forms(dev, pair, path):
+    """A class path's graph form against its eager form on the full-size
+    pair: no host sync while align_async enqueues a captured program (the
+    fresh align after clear_covariances, and the align after the swap);
+    then, with deterministic algorithms on both sides, the swap workflow's
+    results (pose, Hessian, error, converged, iterations) and the cached
+    covariances or maps bit for bit, the device tally of the graph form's
+    replays equal to the eager form's trials (its flag reads) and
+    iterations, every kernel's runs in the replays (counted on the device)
+    equal to the eager form's launches, and two align_async calls in a row
+    with different guesses on the cached states, read afterwards, each bit
+    for bit its eager call."""
+    from fast_gicp_tpu_torch.solver import lsq_solve
+
+    source, target, _gt = pair
+    make = CLASS_PATHS[path][0]
+    reg = make(dev)
+    reg.set_input_target(target)
+    reg.set_input_source(source)
+    reg.align()  # the program of the phase's main run
+    enqueued = []
+    for step in ("fresh", "swapped"):
+        if step == "fresh":
+            reg.clear_covariances()
+        else:
+            reg.swap_source_and_target()
+        enqueue_without_sync(f"{path} ({step})", reg.align_async)
+        enqueued.append(reg.get_final_transformation())
+    require(all(np.isfinite(T).all() for T in enqueued), f"{path}: a non-finite pose")
+
+    def workflow(loop):
+        r = make(dev, device_loop=loop)
+        r.set_input_target(target)
+        r.set_input_source(source)
+        res = [r.align_async()]
+        r.swap_source_and_target()
+        res.append(r.align_async())
+        return r, res
+
+    def compare():
+        s0 = lsq_solve.host_syncs
+        zero_tally(dev)
+        eager, want = workflow(False)
+        torch.cuda.synchronize()
+        trials, runs = lsq_solve.host_syncs - s0, device_counters(dev)
+        workflow(True)  # the deterministic mode's programs, captured
+        zero_tally(dev)
+        graph, got = workflow(True)
+        loops, graph_runs = tally(dev), device_counters(dev)
+        # two aligns in a row on the cached states, read afterwards
+        guesses = chained_guesses(dev)
+        chained = [graph.align_async(g) for g in guesses]
+        chained_eager = [eager.align_async(g) for g in guesses]
+        return (want, got, _cached(eager), _cached(graph), trials, loops, chained,
+                chained_eager, runs, graph_runs)
+
+    (want, got, st_e, st_g, trials, loops, chained, chained_e, runs,
+     graph_runs) = _deterministic(compare)
+    iterations = sum(int(r.iterations) for r in want)
+    out = dict(bit_equal=all(tree_bits_equal(a, b) for a, b in zip(got, want)),
+               cached_states_bit_equal=tree_bits_equal(st_g, st_e),
+               eager_trials=trials, eager_iterations=iterations, graph_tally=loops,
+               kernel_runs_equal=kernel_runs(graph_runs) == kernel_runs(runs),
+               graph_kernel_runs=kernel_runs(graph_runs),
+               chained_bit_equal=[tree_bits_equal(a, b) for a, b in zip(chained, chained_e)],
+               chained_eager_differ=not tree_bits_equal(*chained_e),
+               enqueue_host_syncs=0)
+    log(f"[forms] {path}: graph form bit for bit the eager form {out['bit_equal']}, cached "
+        f"states {out['cached_states_bit_equal']} (deterministic algorithms); tally {loops} "
+        f"against the eager form's {trials} trials and {iterations} iterations; kernel runs "
+        f"in the replays {kernel_runs(graph_runs)} equal to the eager launches "
+        f"{out['kernel_runs_equal']}; chained "
+        f"align_async calls bit for bit their eager calls {out['chained_bit_equal']} (the "
+        f"eager results differ {out['chained_eager_differ']}); no host sync enqueuing the "
+        f"fresh and the swapped align")
+    require(out["bit_equal"] and out["cached_states_bit_equal"],
+            f"{path}: the graph form differs from the eager form")
+    require(loops["trials"] == trials and loops["iterations"] == iterations
+            and loops["solves"] == 2, f"{path}: tally {loops}, eager {trials} trials "
+            f"{iterations} iterations")
+    require(out["kernel_runs_equal"], f"{path}: kernel runs in the replays "
+            f"{kernel_runs(graph_runs)}, eager launches {kernel_runs(runs)}")
+    require(all(out["chained_bit_equal"]), f"{path}: a chained align_async result differs "
+            f"from its eager call")
+    return out
+
+
 def phase_batch_main(dev, path):
-    """A batch path on B = 4 consecutive full-size pairs, with every launch
-    counter set to 0 just before it and read just after: each pair's pose
-    against its ground truth, every kernel of the path launched, one trial
-    launch a host sync, the linearize forms; then each pair's result bit for
-    bit against the per-pair call (`ndt_align` / `vgicp_align` with the
-    same config), both run with deterministic scatter-adds."""
+    """A batch path on B = 4 consecutive full-size pairs in both forms, with
+    every launch counter and device tally set to 0 just before each run and
+    read just after: the graph form first (after an eager warm-up, so its
+    run holds the program's first call: launches as the kernels counted them
+    on the device in the replay, one trial launch a trial of the loops'
+    tally, the host counts of its warm-up and capture logged beside them,
+    first-call cost), then the eager form (host counts: one trial launch a
+    host sync; its device counts equal); both: each pair's pose against its
+    ground truth, every kernel of the path launched, no standalone trial or
+    error launch, the linearize forms.  Then `batch_forms`."""
     from fast_gicp_tpu_torch.solver import lsq_solve
 
     kind, kernels, (t_lim, r_lim) = BATCH_PATHS[path]
-    run, one = _batch_path(kind)
+    run, _one = _batch_path(kind)
     arrays = batch_on(dev)
     gts = batch_arrays()["gt"]
-    run(arrays, dev)  # warm-up
-    torch.cuda.synchronize()
-    reset_counters()
-    lsq_solve.host_syncs = 0
-    t0 = time.perf_counter()
-    res = run(arrays, dev)
-    T = res.transformation.cpu().numpy()
-    wall = (time.perf_counter() - t0) * 1e3
-    launches = read_counters()
-    syncs = lsq_solve.host_syncs
-    errs = [pose_errors(T[i].astype(np.float64), gts[i]) for i in range(len(gts))]
-    iters = res.iterations.cpu().tolist()
-    log(f"[main] {path}, B = {len(gts)}: t_err {[round(e[0], 6) for e in errs]} m, r_err "
-        f"{[round(e[1], 6) for e in errs]} deg, iterations {iters}, host syncs {syncs}, wall "
-        f"{wall:.3f} ms, launches {launches}")
-    require(np.isfinite(T).all() and T.shape == (len(gts), 4, 4), f"{path}: poses")
-    require(all(t < t_lim and r < r_lim for t, r in errs), f"{path}: pose errors {errs}")
-    require(all(launches[k] > 0 for k in kernels),
-            f"{path}: a kernel of the path was not launched: {launches}")
-    require(launches["lm_step"] == syncs, f"{path}: {launches['lm_step']} trial launches "
-            f"for {syncs} trials")
-    require(all(launches[k] == 0 for k in TRIAL_CARRIED),
-            f"{path}: a standalone trial or error launch in the LM solve: {launches}")
-    check_lin_forms(path, launches, "pack" if kind == "ndt" else "idx")
-    got = _deterministic(lambda: run(arrays, dev))
-    for i in range(len(gts)):
-        want = _deterministic(lambda: one(arrays, i, dev))
-        require(all(bool(torch.equal(g[i], w)) for g, w in zip(got, want)),
-                f"{path}: pair {i} differs from the per-pair call")
-    log(f"[main] {path}: each pair's result (pose, Hessian, error, converged, iterations) "
-        f"bit-equal to the per-pair call, both with deterministic scatter-adds")
-    return launches, dict(pairs=len(gts), t_err_m=[e[0] for e in errs],
-                          r_err_deg=[e[1] for e in errs], iterations=iters, host_syncs=syncs,
-                          wall_ms=wall, bit_equal_to_pairs=True)
+    run(arrays, dev, device_loop=False)  # warm-up
+    out = {}
+    for form in ("graph", "eager"):
+        torch.cuda.synchronize()
+        reset_counters()
+        zero_tally(dev)
+        lsq_solve.host_syncs = 0
+        first = program_setups()
+        t0 = time.perf_counter()
+        res = run(arrays, dev, device_loop=form == "graph")
+        T = res.transformation.cpu().numpy()
+        wall = (time.perf_counter() - t0) * 1e3
+        host, launches = read_counters(), device_counters(dev)
+        syncs = lsq_solve.host_syncs
+        loops = tally(dev)
+        errs = [pose_errors(T[i].astype(np.float64), gts[i]) for i in range(len(gts))]
+        iters = res.iterations.cpu().tolist()
+        log(f"[main] {path} ({form} form), B = {len(gts)}: t_err "
+            f"{[round(e[0], 6) for e in errs]} m, r_err {[round(e[1], 6) for e in errs]} deg, "
+            f"iterations {iters}, host syncs {syncs}, wall {wall:.3f} ms, launches (device "
+            f"counts) {launches}, loops {loops}; the wrappers' host counts {host}")
+        require(np.isfinite(T).all() and T.shape == (len(gts), 4, 4), f"{path}: poses")
+        require(all(t < t_lim and r < r_lim for t, r in errs), f"{path}: pose errors {errs}")
+        require(all(launches[k] > 0 for k in kernels),
+                f"{path} ({form}): a kernel of the path was not launched: {launches}")
+        require(all(launches[k] == 0 for k in TRIAL_CARRIED),
+                f"{path}: a standalone trial or error launch in the LM solve: {launches}")
+        check_lin_forms(path, launches, "pack" if kind == "ndt" else "idx")
+        stats = dict(pairs=len(gts), t_err_m=[e[0] for e in errs],
+                     r_err_deg=[e[1] for e in errs], iterations=iters, host_syncs=syncs,
+                     wall_ms=wall)
+        if form == "graph":
+            require(loops["solves"] == len(gts) and loops["iterations"] == sum(iters)
+                    and syncs == 0 and launches["lm_step"] == loops["trials"],
+                    f"{path}: the replay's tally {loops} for iterations {iters}, "
+                    f"{launches['lm_step']} trial launches, {syncs} flag reads")
+            stats.update(tally=loops, first_call=first(), launches=launches,
+                         host_counted_warm_up_and_capture=host)
+            out["graph"] = stats
+        else:
+            check_device_counts(path, launches, host)
+            require(launches["lm_step"] == syncs, f"{path}: {launches['lm_step']} trial "
+                    f"launches for {syncs} trials")
+            out.update(stats, launches=launches)
+    out["forms"] = batch_forms(dev, path)
+    out["bit_equal_to_pairs"] = True
+    return out["graph"]["launches"], out
+
+
+def batch_forms(dev, path):
+    """A batch path's graph form against its eager form: no host sync while
+    the batch call enqueues its captured program; then, with deterministic
+    algorithms on both sides, each pair of the graph form's batch and of
+    the eager form's bit for bit the per-pair call (`ndt_align` /
+    `vgicp_align` with the same config), the graph form's tally equal to
+    the eager batch's trials and iterations and its kernel runs (counted
+    on the device) to the eager batch's launches, and two batch calls in a row
+    with different guesses, read afterwards, each bit for bit its eager
+    call."""
+    from fast_gicp_tpu_torch.solver import lsq_solve
+
+    kind = BATCH_PATHS[path][0]
+    run, one = _batch_path(kind)
+    arrays = batch_on(dev)
+    B = arrays["sp"].shape[0]
+    res = enqueue_without_sync(path, lambda: run(arrays, dev))
+    require(bool(torch.isfinite(res.transformation).all()), f"{path}: a non-finite pose")
+
+    def compare():
+        s0 = lsq_solve.host_syncs
+        zero_tally(dev)
+        eager = run(arrays, dev, device_loop=False)
+        torch.cuda.synchronize()
+        trials, runs = lsq_solve.host_syncs - s0, device_counters(dev)
+        run(arrays, dev)  # the deterministic mode's program, captured
+        zero_tally(dev)
+        graph = run(arrays, dev)
+        loops, graph_runs = tally(dev), device_counters(dev)
+        pairs = [one(arrays, i, dev) for i in range(B)]
+        batches = [dict(arrays, guess=g.expand(B, 4, 4).contiguous())
+                   for g in chained_guesses(dev)]
+        chained = [run(a, dev) for a in batches]
+        chained_eager = [run(a, dev, device_loop=False) for a in batches]
+        return eager, graph, trials, loops, pairs, chained, chained_eager, runs, graph_runs
+
+    (eager, graph, trials, loops, pairs, chained, chained_e, runs,
+     graph_runs) = _deterministic(compare)
+    iterations = int(eager.iterations.sum())
+    out = dict(bit_equal=tree_bits_equal(graph, eager),
+               pairs_bit_equal=[all(bool(torch.equal(_bits(g[i]), _bits(w)))
+                                    for g, w in zip(graph, pairs[i])) for i in range(B)],
+               eager_trials=trials, eager_iterations=iterations, graph_tally=loops,
+               kernel_runs_equal=kernel_runs(graph_runs) == kernel_runs(runs),
+               graph_kernel_runs=kernel_runs(graph_runs),
+               chained_bit_equal=[tree_bits_equal(a, b) for a, b in zip(chained, chained_e)],
+               chained_eager_differ=not tree_bits_equal(*chained_e), enqueue_host_syncs=0)
+    log(f"[forms] {path}: graph form bit for bit the eager form {out['bit_equal']}, each pair "
+        f"bit for bit its per-pair call {out['pairs_bit_equal']} (deterministic "
+        f"algorithms); tally {loops} against the eager form's {trials} trials and "
+        f"{iterations} iterations; kernel runs in the replay {kernel_runs(graph_runs)} equal "
+        f"to the eager launches {out['kernel_runs_equal']}; chained batch calls bit for bit "
+        f"their eager calls "
+        f"{out['chained_bit_equal']}; no host sync enqueuing the batch")
+    require(out["bit_equal"] and all(out["pairs_bit_equal"]),
+            f"{path}: the graph form differs from the eager form or a pair from its call")
+    require(loops["trials"] == trials and loops["iterations"] == iterations
+            and loops["solves"] == B, f"{path}: tally {loops}, eager {trials} trials "
+            f"{iterations} iterations")
+    require(out["kernel_runs_equal"], f"{path}: kernel runs in the replay "
+            f"{kernel_runs(graph_runs)}, eager launches {kernel_runs(runs)}")
+    require(all(out["chained_bit_equal"]), f"{path}: a chained batch differs from its eager "
+            f"call")
+    return out
 
 
 def phase_batch_card_vs_cpu(dev, path):
@@ -3814,83 +4168,172 @@ def phase_batch_card_vs_cpu(dev, path):
 
 
 def phase_batch_timing(dev, path, n_batches=BENCH_BATCHES):
-    """ms a registration over `n_batches` batch calls after a warm-up, then
-    a traced batch's device busy time and ops (per registration: / B)."""
+    """ms a registration over `n_batches` batch calls after a warm-up, in
+    both forms (the device span of the same calls from CUDA events beside it),
+    then a traced batch of the eager form's device busy time and ops (per
+    registration: / B)."""
     from fast_gicp_tpu_torch.solver import lsq_solve
 
     run = _batch_path(BATCH_PATHS[path][0])[0]
     arrays = batch_on(dev)
     B = arrays["sp"].shape[0]
-    run(arrays, dev)
-    torch.cuda.synchronize()
-    syncs0 = lsq_solve.host_syncs
-    t0 = time.perf_counter()
-    for _ in range(n_batches):
-        run(arrays, dev)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / (n_batches * B)
-    syncs = (lsq_solve.host_syncs - syncs0) / (n_batches * B)
-    log(f"[bench] {path}, {n_batches} batches of {B}: {ms:.4f} ms/registration, host "
-        f"syncs/registration {syncs:.2f}")
-    traced = trace_registrations(path, lambda: run(arrays, dev), 3, None)
+    out = dict(batch=B)
+    for form in ("graph", "eager"):
+        loop = form == "graph"
+        run(arrays, dev, device_loop=loop)
+        torch.cuda.synchronize()
+        syncs0 = lsq_solve.host_syncs
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n_batches):
+            run(arrays, dev, device_loop=loop)
+        end.record()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (n_batches * B)
+        span = start.elapsed_time(end) / (n_batches * B)
+        syncs = (lsq_solve.host_syncs - syncs0) / (n_batches * B)
+        log(f"[bench] {path} ({form} form), {n_batches} batches of {B}: {ms:.4f} "
+            f"ms/registration, device span {span:.4f} ms/registration, host "
+            f"syncs/registration {syncs:.2f}")
+        if loop:
+            out["graph"] = dict(ms_per_registration=ms, device_span_ms=span,
+                                host_syncs_per_registration=syncs)
+        else:
+            out.update(ms_per_registration=ms, device_span_ms=span,
+                       host_syncs_per_registration=syncs)
+    traced = trace_registrations(path, lambda: run(arrays, dev, device_loop=False), 3, None)
     per_reg = {k: traced[k] / B for k in ("device_busy_ms", "device_ops_per_registration",
                                          "device_span_ms", "traced_wall_ms")}
-    log(f"[profile] {path} per registration (a batch / {B}): " + ", ".join(
+    log(f"[profile] {path} (eager form) per registration (a batch / {B}): " + ", ".join(
         f"{k} {v:.3f}" for k, v in per_reg.items()))
-    return dict(ms_per_registration=ms, host_syncs_per_registration=syncs, batch=B,
-                per_registration=per_reg, per_batch=traced)
+    out.update(per_registration=per_reg, per_batch=traced)
+    return out
 
 
-def phase_pygicp(dev, pair, small, path, n_regs=20):
-    """`pygicp.align_points` of the path's method on the full-size pair:
-    with every launch counter set to 0 just before it and read just after,
-    the pose against the ground truth, every kernel of the path launched,
-    one trial launch a host sync; then the same call with device="cpu" on
-    `PYGICP_PATHS`' pair (poses within 1e-3), `n_regs` calls timed, a few
-    traced."""
+PYGICP_REGS = 8  # align_points calls timed in each form
+
+
+def phase_pygicp(dev, pair, small, path, n_regs=PYGICP_REGS):
+    """`pygicp.align_points` of the path's method on the full-size pair, in
+    both forms, with every launch counter and device tally set to 0 just
+    before each run and read just after: the graph form first (after an
+    eager warm-up: its run holds the program's first call; launches as the
+    kernels counted them on the device, one trial launch a trial of the
+    loops' tally), then the eager form (host counts: one trial launch a
+    host sync; its device counts equal); both: the pose against the ground
+    truth, every kernel of the path launched, no standalone trial or error
+    launch, the linearize forms.  Then, with deterministic algorithms on
+    both sides, the graph form's pose bit for bit the eager form's, its
+    tally equal to the eager form's trials and linearizations and its
+    kernel runs to the eager launches, and with another guess too; one host sync a graph-form
+    call (the result's read); the same call with device="cpu" on
+    `PYGICP_PATHS`' pair (poses within 1e-3); `n_regs` calls timed in each
+    form, a few of the graph form traced."""
     from fast_gicp_tpu_torch.solver import lsq_solve
 
     method, kernels, which, (t_lim, r_lim) = PYGICP_PATHS[path]
     gt = pair[2]
-    pygicp_run(path, pair, dev)  # warm-up
-    torch.cuda.synchronize()
-    reset_counters()
-    lsq_solve.host_syncs = 0
-    t0 = time.perf_counter()
-    T = pygicp_run(path, pair, dev)
-    wall = (time.perf_counter() - t0) * 1e3
-    launches = read_counters()
-    syncs = lsq_solve.host_syncs
-    t_err, r_err = pose_errors(T, gt)
-    log(f"[main] {path} (align_points {method!r}): t_err {t_err:.6f} m, r_err {r_err:.6f} "
-        f"deg, host syncs {syncs}, wall {wall:.3f} ms, launches {launches}")
-    require(np.isfinite(T).all() and t_err < t_lim and r_err < r_lim,
-            f"{path}: pose error {t_err} m {r_err} deg")
-    require(all(launches[k] > 0 for k in kernels),
-            f"{path}: a kernel of the path was not launched: {launches}")
-    require(launches["lm_step"] == syncs and all(launches[k] == 0 for k in TRIAL_CARRIED),
-            f"{path}: trial launches {launches}, {syncs} syncs")
-    check_lin_forms(path, launches, {"GICP": "idx", "NDT_CUDA": "lookup"}.get(method, "idx_raw"))
+    pygicp_run(path, pair, dev, device_loop=False)  # warm-up
+    form_stats = {}
+    for form in ("graph", "eager"):
+        loop = form == "graph"
+        torch.cuda.synchronize()
+        reset_counters()
+        zero_tally(dev)
+        lsq_solve.host_syncs = 0
+        first = program_setups()
+        t0 = time.perf_counter()
+        T = pygicp_run(path, pair, dev, device_loop=loop)
+        wall = (time.perf_counter() - t0) * 1e3
+        host, launches = read_counters(), device_counters(dev)
+        syncs = lsq_solve.host_syncs
+        loops = tally(dev)
+        t_err, r_err = pose_errors(T, gt)
+        log(f"[main] {path} (align_points {method!r}, {form} form): t_err {t_err:.6f} m, r_err "
+            f"{r_err:.6f} deg, host syncs {syncs}, wall {wall:.3f} ms, launches (device "
+            f"counts) {launches}, loops {loops}; the wrappers' host counts {host}")
+        require(np.isfinite(T).all() and t_err < t_lim and r_err < r_lim,
+                f"{path}: pose error {t_err} m {r_err} deg")
+        require(all(launches[k] > 0 for k in kernels),
+                f"{path} ({form}): a kernel of the path was not launched: {launches}")
+        require(all(launches[k] == 0 for k in TRIAL_CARRIED),
+                f"{path}: a standalone trial or error launch: {launches}")
+        check_lin_forms(path, launches,
+                        {"GICP": "idx", "NDT_CUDA": "lookup"}.get(method, "idx_raw"))
+        stats = dict(t_err_m=t_err, r_err_deg=r_err, host_syncs=syncs, wall_ms=wall)
+        if loop:
+            require(loops["solves"] == 1 and syncs == 0
+                    and launches["lm_step"] == loops["trials"],
+                    f"{path}: the replay's tally {loops}, {launches['lm_step']} trial launches, "
+                    f"{syncs} flag reads")
+            stats.update(tally=loops, first_call=first(), launches=launches,
+                         host_counted_warm_up_and_capture=host)
+            graph_launches = launches
+        else:
+            check_device_counts(path, launches, host)
+            require(launches["lm_step"] == syncs,
+                    f"{path}: {launches['lm_step']} trial launches for {syncs} trials")
+            stats["launches"] = launches
+        form_stats[form] = stats
+
+    def compare():
+        out = []
+        for guess in (None, chained_guesses(dev)[1].cpu().numpy()):
+            reset_counters()
+            zero_tally(dev)
+            s0 = lsq_solve.host_syncs
+            T_e = pygicp_run(path, pair, dev, device_loop=False, guess=guess)
+            launches = read_counters()
+            lins = sum(launches[k] for k in ("linearize", "linearize_raw", "ndt_d2d", "ndt_p2d"))
+            trials, runs = lsq_solve.host_syncs - s0, device_counters(dev)
+            pygicp_run(path, pair, dev, guess=guess)  # the deterministic program
+            zero_tally(dev)
+            T_g = pygicp_run(path, pair, dev, guess=guess)
+            out.append((T_e, T_g, trials, lins, tally(dev), runs, device_counters(dev)))
+        return out
+
+    forms = []
+    for T_e, T_g, trials, lins, loops, runs, graph_runs in _deterministic(compare):
+        equal = bool(np.array_equal(T_e, T_g))
+        require(equal and loops["trials"] == trials and loops["iterations"] == lins
+                and kernel_runs(graph_runs) == kernel_runs(runs),
+                f"{path}: graph form {T_g} tally {loops} kernel runs {kernel_runs(graph_runs)} "
+                f"against the eager form {T_e}, {trials} trials, {lins} linearizations, "
+                f"launches {kernel_runs(runs)}")
+        forms.append(dict(bit_equal=equal, eager_trials=trials, eager_linearizations=lins,
+                          graph_tally=loops, kernel_runs_equal=True,
+                          graph_kernel_runs=kernel_runs(graph_runs)))
+    syncs, sites = count_host_syncs(lambda: pygicp_run(path, pair, dev))
+    log(f"[forms] {path}: graph form bit for bit the eager form at two guesses "
+        f"(deterministic algorithms), tallies {[f['graph_tally'] for f in forms]} against "
+        f"the eager trials {[f['eager_trials'] for f in forms]}; {syncs} host syncs a "
+        f"graph-form call: {sites}")
+    require(syncs == 1, f"{path}: {syncs} host syncs in a graph-form call: {sites}")
     cvc = pair if which == "full" else small
     T_gpu, T_cpu = (pygicp_run(path, cvc, d) for d in (dev, "cpu"))
     diff = float(np.abs(T_gpu - T_cpu).max())
     log(f"[card vs cpu] {path} ({which} pair): |T_gpu - T_cpu| max {diff:.3e}")
     require(diff <= 1e-3, f"{path} card vs cpu: pose diff {diff}")
-    syncs0 = lsq_solve.host_syncs
-    t0 = time.perf_counter()
-    for _ in range(n_regs):
-        pygicp_run(path, pair, dev)
-    ms = (time.perf_counter() - t0) * 1e3 / n_regs
-    host_syncs = (lsq_solve.host_syncs - syncs0) / n_regs
-    log(f"[bench] {path}, {n_regs} align_points calls: {ms:.4f} ms/registration, host syncs "
-        f"{host_syncs:.2f}")
+    bench = {}
+    for form in ("graph", "eager"):
+        loop = form == "graph"
+        syncs0 = lsq_solve.host_syncs
+        t0 = time.perf_counter()
+        for _ in range(n_regs):
+            pygicp_run(path, pair, dev, device_loop=loop)
+        ms = (time.perf_counter() - t0) * 1e3 / n_regs
+        host_syncs = (lsq_solve.host_syncs - syncs0) / n_regs
+        log(f"[bench] {path} ({form} form), {n_regs} align_points calls: {ms:.4f} "
+            f"ms/registration, flag reads {host_syncs:.2f}")
+        bench[form] = dict(registrations=n_regs, ms_per_registration=ms,
+                           host_syncs_per_registration=host_syncs)
     traced = trace_registrations(path, lambda: pygicp_run(path, pair, dev), 3, None)
-    return launches, dict(main_path=dict(t_err_m=t_err, r_err_deg=r_err, host_syncs=syncs,
-                                         wall_ms=wall),
-                          card_vs_cpu=dict(pair=which, pose_diff=diff),
-                          bench=dict(registrations=n_regs, ms_per_registration=ms,
-                                     host_syncs_per_registration=host_syncs),
-                          profile=traced)
+    return graph_launches, dict(main_path=form_stats["graph"], eager=form_stats["eager"],
+                                forms=dict(guesses=forms, host_syncs_a_call=syncs),
+                                card_vs_cpu=dict(pair=which, pose_diff=diff),
+                                bench=dict(bench["eager"], graph=bench["graph"]),
+                                profile=traced)
 
 
 # -- slice F: odometry on the synthetic drive -------------------------------
@@ -3963,8 +4406,9 @@ def odometry_run(path, dev, frames=None, drive=None, map_path=None, device_loop=
     `ScanToMapOdometry(ScanToMapConfig())` fed chunks of 32 frames, the
     app's map mode; localization: NDT D2D on the mapping pass's map saved at
     `map_path`, loaded with `load_map`, fuse_scans=False, over the first 32
-    frames.  `device_loop`: the one-program forms of scan and scan_to_map
-    (a frame one CUDA graph replay); the other phases run them eager."""
+    frames.  `device_loop`: the one-program forms of serial (an align one
+    CUDA graph replay), scan and scan_to_map (a frame one replay); the
+    other phases run them eager."""
     from fast_gicp_tpu_torch.models.scan_to_map import (
         ScanToMapConfig, ScanToMapOdometry, load_map,
     )
@@ -3974,7 +4418,8 @@ def odometry_run(path, dev, frames=None, drive=None, map_path=None, device_loop=
     clouds, _gt, dims = drive or odometry_drive()
     clouds = clouds[:frames]
     if path == "odometry_serial":
-        return kitti.run_odometry(clouds, FastVGICP(resolution=1.0, device=dev), -1.0), None
+        return kitti.run_odometry(clouds, FastVGICP(resolution=1.0, device=dev,
+                                                    device_loop=device_loop), -1.0), None
     cfg = VGICPConfig(resolution=1.0, grid_dims=dims)
     if path == "odometry_stream":
         return kitti.run_odometry_stream(clouds, -1.0, config=cfg, device=dev), None
@@ -5559,7 +6004,7 @@ def signature_sequence(dev, front_poses, closures):
     order of their later pose) and solved once at each size, as a SLAM
     back-end re-solves at each loop closure.  Each solve's first call (the
     warm-up, the capture and one replay), the eager form's wall beside the
-    first and the last, and the device memory the cached graphs hold (the
+    last, and the device memory the cached graphs hold (the
     caching allocator's reserved and allocated bytes before and after each
     capture)."""
     from fast_gicp_tpu_torch import graphs
@@ -5581,7 +6026,7 @@ def signature_sequence(dev, front_poses, closures):
                    reserved_mib=(torch.cuda.memory_reserved() - reserved0) / 2**20,
                    allocated_mib=(torch.cuda.memory_allocated() - allocated0) / 2**20,
                    iterations=int(res.iterations), error=float(res.error))
-        if n in (SIGNATURE_CLOSURES[0], SIGNATURE_CLOSURES[-1]):
+        if n == SIGNATURE_CLOSURES[-1]:
             eager, eager_wall = timed(dev, lambda: sparse_solve(dev, g))
             row.update(eager_wall_ms=1e3 * eager_wall, eager_error=float(eager.error))
         rows.append(row)
@@ -5604,7 +6049,9 @@ def backend_forms(dev, graph, front_poses, card, repeats=None):
     its state): with atomic scatter-adds the gap beside the eager form's own
     repeat gap; the replay's wall and device span (CUDA events) in one run,
     its tally (block_tridiag_apply's calls one a PCG and one a CG
-    iteration), the eager form's wall, a traced replay's device busy time
+    iteration), the eager form's wall (both forms also at equal work: the
+    deterministic eager solve's wall, and for a single solve a deterministic
+    replay's, which walks the same iterations), a traced replay's device busy time
     and idle share (the trace misses kernels of conditional bodies: lower
     bounds) and, for the single solves, the host syncs between the replay's
     enqueue and its result read (none allowed; a window's solve reads its
@@ -5630,9 +6077,14 @@ def backend_forms(dev, graph, front_poses, card, repeats=None):
         setups = new_setups(keys0)
         det_tally = pg_tally(dev)
         pgs.reset_stats()
-        det_eager = _deterministic(lambda: run(False))
+        det_eager, det_eager_wall = timed(dev, lambda: _deterministic(lambda: run(False)))
         host = dict(trials=f.trials, pcgs=f.pcgs, cg_iterations=int(f.cg_iterations_run))
         bit_equal = forms_equal(det_dev[:2], det_eager[:2])
+        # equal work: a deterministic replay walks the eager form's iterations
+        det_wall = det_span = None
+        if single:
+            _r, det_wall, det_span = timed_span(
+                dev, lambda: _deterministic(lambda: det_dev[2](True)))
         # atomic scatter-adds: one solve of the last signature in each form
         one = det_dev[2]
         one(True)  # its graph without deterministic algorithms, if not yet captured
@@ -5653,6 +6105,9 @@ def backend_forms(dev, graph, front_poses, card, repeats=None):
                      warm_up_ms=1e3 * sum(w for w, _c in setups),
                      capture_ms=1e3 * sum(c for _w, c in setups), replay_wall_ms=1e3 * wall,
                      eager_wall_ms=1e3 * eager_wall, device_span_ms=span,
+                     deterministic_replay_wall_ms=det_wall and 1e3 * det_wall,
+                     deterministic_device_span_ms=det_span,
+                     deterministic_eager_wall_ms=1e3 * det_eager_wall,
                      traced_device_busy_ms=prof["device_busy_ms"],
                      traced_wall_ms=prof["traced_wall_ms"], traced_idle_share=prof["idle_share"],
                      traced_device_ops=prof["device_ops"], gap_atomic=gap,
@@ -5662,7 +6117,9 @@ def backend_forms(dev, graph, front_poses, card, repeats=None):
         log(f"[backend_device] {name}: deterministic bit-equal {bit_equal} (tally {det_tally}, "
             f"eager {host}); {len(setups)} signatures, warm-up + capture {setup_ms:.1f} ms; "
             f"one solve: replay {1e3 * wall:.1f} ms, device span {span:.1f} ms, eager "
-            f"{1e3 * eager_wall:.1f} ms, traced busy {prof['device_busy_ms']:.1f} ms of "
+            f"{1e3 * eager_wall:.1f} ms; at equal work (deterministic): replay "
+            f"{stats['deterministic_replay_wall_ms']} ms (span {det_span}), eager "
+            f"{1e3 * det_eager_wall:.1f} ms; traced busy {prof['device_busy_ms']:.1f} ms of "
             f"{prof['traced_wall_ms']:.1f} (idle {100 * prof['idle_share']:.1f}%; lower bounds); "
             f"tally {tally}; atomic gap {gap:.3e} (eager repeat {repeat_gap:.3e}); host syncs "
             f"{syncs} {sites} ({time.perf_counter() - t0:.1f} s; {card})")
@@ -6686,18 +7143,21 @@ def phase_device_loop_rows(dev, pair, card):
     source, target, _gt = pair
     count_host_syncs(lambda: None)  # a process's first sync-debug window counts one in torch.cuda
     reset_counters()
+    zero_tally(dev)
     captures0 = graphs.DeviceGraph.captures
     rows_out = {}
     t0 = time.perf_counter()
     table = app.run_device_rows(list(DEVICE_LOOP_METHODS), source, target, DEVICE_LOOP_N,
                                 device=dev, reps=DEVICE_LOOP_REPS,
                                 max_source_voxels=DEVICE_LOOP_SOURCE_VOXELS, rows_out=rows_out)
-    launches = read_counters()
+    host, launches = read_counters(), device_counters(dev)
     require(len(rows_out) == 14 and graphs.DeviceGraph.captures - captures0 == 14,
             f"device-loop rows: {len(rows_out)} rows, "
             f"{graphs.DeviceGraph.captures - captures0} captures")
     log(f"[device_loop] 14 rows run (warm-up, capture, {DEVICE_LOOP_REPS} timed runs) in "
-        f"{time.perf_counter() - t0:.1f} s; launches at warm-up and capture {launches}")
+        f"{time.perf_counter() - t0:.1f} s; launches as the kernels counted them on the device "
+        f"(the replays and the bodies' eager set-up) {launches}; the wrappers' host counts "
+        f"(the warm-ups' launches and the captures' enqueues) {host}")
     bodies = app.device_bodies(source, target, dev, DEVICE_LOOP_SOURCE_VOXELS)
     jit = next(iter(rows_out.values())).jit
     n = jit.shape[0]
@@ -6759,21 +7219,70 @@ def phase_device_loop_rows(dev, pair, card):
     return launches, out
 
 
-def phase_device_loop_odometry(dev, card):
-    """`run_odometry_scan` and `ScanToMapOdometry.process_chunk` in their
+SEQUENCE_PAIRS = 32  # consecutive frame pairs of the drive that align_points aligns
+SEQUENCE_METHODS = ("GICP", "VGICP")
+SEQUENCE_TOL = 1e-3  # the two forms' poses apart (atomic scatter-adds on both sides)
+
+
+def align_points_sequence(dev, clouds, card):
+    """`pygicp.align_points`, a new instance each call, over SEQUENCE_PAIRS
+    distinct pairs (frame i + 1 onto frame i of the drive) in each form,
+    from an empty program cache (a fresh process): ms a call, and in the
+    graph form the calls that met a new signature (a first call: warm-up
+    and capture) and their share, since the padded sizes and, for VGICP's
+    "auto" grid dims, each cloud's extent name a program."""
+    from fast_gicp_tpu_torch import graphs, pygicp
+
+    pairs = [(clouds[i], clouds[i + 1]) for i in range(SEQUENCE_PAIRS)]
+    graphs._programs.clear()
+    out = {}
+    for method in SEQUENCE_METHODS:
+        stats, poses = {}, {}
+        for form in ("graph", "eager"):
+            n0, t0 = graphs.DeviceGraph.captures, time.perf_counter()
+            poses[form] = [pygicp.align_points(t, s, method=method, device=dev,
+                                               device_loop=form == "graph") for t, s in pairs]
+            stats[f"{form}_ms_per_call"] = (time.perf_counter() - t0) * 1e3 / len(pairs)
+            if form == "graph":
+                stats["first_calls"] = graphs.DeviceGraph.captures - n0
+        stats.update(calls=len(pairs), first_call_share=stats["first_calls"] / len(pairs),
+                     programs_held=len(graphs._programs),
+                     pose_gap=float(max(np.abs(a - b).max()
+                                        for a, b in zip(poses["graph"], poses["eager"]))),
+                     card=card)
+        out[method] = stats
+        log(f"[device_loop] align_points over {len(pairs)} distinct pairs of the drive "
+            f"({method}): graph form {stats['graph_ms_per_call']:.3f} ms a call, "
+            f"{stats['first_calls']} first calls ({100 * stats['first_call_share']:.1f}%); "
+            f"eager {stats['eager_ms_per_call']:.3f} ms; poses apart {stats['pose_gap']:.3e} "
+            f"({card})")
+        require(all(np.isfinite(T).all() for T in poses["graph"])
+                and stats["pose_gap"] <= SEQUENCE_TOL,
+                f"align_points sequence ({method}): the graph form's poses {stats}")
+    return out
+
+
+def phase_device_loop_odometry(dev, card, paths=("odometry_serial", "odometry_scan",
+                                                  "scan_to_map")):
+    """`run_odometry` over FastVGICP (serial: an align one graph replay),
+    `run_odometry_scan` and `ScanToMapOdometry.process_chunk` in their
     one-program forms (a frame one graph replay) over the 128-frame drive,
     against their eager forms: poses bit for bit with deterministic
-    scatter-adds, the atomic gap beside the eager form's own repeat gap, the
+    scatter-adds (but serial's), the atomic gap beside the eager form's own
+    repeat gap (but serial's; its graph form also runs again with the drive's
+    signatures held), the
     ATE bounds, frames/s of both forms, and the host syncs of a chunk of 32
     after the capture (the fill read before and after it, as in the JAX
-    package) and of a whole scan run (the warm-up's condition reads before
-    the capture and the one read of the deltas)."""
+    package), of a whole scan run (the warm-up's condition reads before
+    the capture and the one read of the deltas) and of a whole serial run
+    in both forms (the graph form's a frame: the pose's read, and a new
+    signature's warm-up and capture; fewer than the eager form's)."""
     from fast_gicp_tpu_torch import graphs
     from fast_gicp_tpu_torch.utils.kitti import trajectory_report
 
-    _clouds, gt, _dims = odometry_drive()
+    clouds, gt, _dims = odometry_drive()
     out = {}
-    for path in ("odometry_scan", "scan_to_map"):
+    for path in paths:
         bound = None
         runs = {}
         for form in ("eager", "graph"):
@@ -6784,11 +7293,22 @@ def phase_device_loop_odometry(dev, card):
             poses, odo = odometry_run(path, dev, device_loop=loop)
             wall = time.perf_counter() - t0
             rep = trajectory_report(gt[:len(poses)], poses)
-            # the eager form's own repeat gap (atomic scatter-adds)
-            repeat = odometry_run(path, dev)[0] if form == "eager" else None
-            det = _deterministic(lambda: odometry_run(path, dev, device_loop=loop)[0])
+            # the eager form's own repeat gap (atomic scatter-adds) and both
+            # forms with deterministic ones; serial's aligns are the class
+            # API's, which the class and pygicp phases hold bit for bit
+            repeat = (odometry_run(path, dev)[0]
+                      if form == "eager" and path != "odometry_serial" else None)
+            det = (None if path == "odometry_serial" else
+                   _deterministic(lambda: odometry_run(path, dev, device_loop=loop)[0]))
             runs[form] = dict(poses=np.asarray(poses), repeat=np.asarray(repeat),
                               det=np.asarray(det), frames_per_s=len(poses) / wall, ate=rep)
+            if path == "odometry_serial" and loop:
+                # again, every signature of the drive held (the run above
+                # captured those its warm-up had not seen; the eager form
+                # captures nothing)
+                t0 = time.perf_counter()
+                n = len(odometry_run(path, dev, device_loop=loop)[0])
+                runs[form]["frames_per_s_again"] = n / (time.perf_counter() - t0)
             bound = (SCAN_TO_MAP_ATE if path == "scan_to_map"
                      else SCAN_TO_SCAN_ATE_SHARE * rep["path_length_m"])
             require(rep["ate_rmse_m"] < bound, f"{path} ({form}): ATE {rep['ate_rmse_m']} m")
@@ -6796,11 +7316,33 @@ def phase_device_loop_odometry(dev, card):
         stats = dict(frames_per_s=g["frames_per_s"], eager_frames_per_s=e["frames_per_s"],
                      ate_m=g["ate"]["ate_rmse_m"], eager_ate_m=e["ate"]["ate_rmse_m"],
                      ate_bound_m=bound,
-                     deterministic_bit_equal=bool(np.array_equal(g["det"], e["det"])),
+                     deterministic_bit_equal=(None if path == "odometry_serial" else
+                                              bool(np.array_equal(g["det"], e["det"]))),
                      gap_atomic=float(np.abs(g["poses"] - e["poses"]).max()),
-                     eager_repeat_gap_atomic=float(np.abs(e["repeat"] - e["poses"]).max()),
+                     eager_repeat_gap_atomic=(None if path == "odometry_serial" else
+                                              float(np.abs(e["repeat"] - e["poses"]).max())),
                      card=card)
-        if path == "scan_to_map":
+        if path == "odometry_serial":
+            stats.update(frames_per_s_again=g["frames_per_s_again"])
+            per_frame = {}
+            for form in ("graph", "eager"):
+                n0 = len(graphs._programs)
+                syncs, sites = count_host_syncs(lambda: odometry_run(
+                    path, dev, frames=SYNC_FRAMES + 1, device_loop=form == "graph"))
+                per_frame[form] = syncs / SYNC_FRAMES
+                stats[f"{form}_host_syncs_a_run"] = syncs
+                stats[f"{form}_host_sync_sites"] = sites
+                if form == "graph":
+                    # the drive's signatures (16 over its 127 registrations)
+                    stats["programs_held_before_and_after"] = [n0, len(graphs._programs)]
+            stats.update(host_syncs_a_frame=per_frame["graph"],
+                         eager_host_syncs_a_frame=per_frame["eager"],
+                         align_points_sequence=align_points_sequence(dev, clouds, card))
+            log(f"[device_loop] odometry_serial again (the drive's signatures held): graph "
+                f"{stats['frames_per_s_again']:.1f} frames/s; host syncs a frame {per_frame}")
+            require(per_frame["graph"] < per_frame["eager"],
+                    f"odometry_serial graph form: {per_frame} host syncs a frame")
+        elif path == "scan_to_map":
             syncs, sites = count_host_syncs(_graph_chunk(dev))
             stats.update(host_syncs_a_chunk=syncs, host_sync_sites=sites)
             require(syncs <= ODOMETRY_READS["scan_to_map"],
@@ -6818,11 +7360,12 @@ def phase_device_loop_odometry(dev, card):
             f"{stats['eager_frames_per_s']:.1f}); ATE {stats['ate_m']:.4f} m (eager "
             f"{stats['eager_ate_m']:.4f}, bound {bound:.4f}); deterministic bit-equal "
             f"{stats['deterministic_bit_equal']}; atomic gap {stats['gap_atomic']:.3e} (eager "
-            f"repeat {stats['eager_repeat_gap_atomic']:.3e}); host syncs "
+            f"repeat {stats['eager_repeat_gap_atomic']}); host syncs "
             f"{ {k: v for k, v in stats.items() if 'sync' in k or 'warm' in k} } ({card})")
-        require(stats["deterministic_bit_equal"],
-                f"{path}: the graph form differs from the eager form with deterministic "
-                f"scatter-adds: {float(np.abs(g['det'] - e['det']).max())}")
+        if stats["deterministic_bit_equal"] is False:
+            raise PhaseError(f"{path}: the graph form differs from the eager form with "
+                             f"deterministic scatter-adds: "
+                             f"{float(np.abs(g['det'] - e['det']).max())}")
         out[path] = stats
     return out
 
@@ -6871,29 +7414,62 @@ def main() -> int:
     backend_only = sys.argv[1:] == ["--backend"]
     parallel_only = sys.argv[1:] == ["--parallel"]
     align_only = sys.argv[1:] == ["--align"]
+    classes_only = sys.argv[1:] == ["--classes"]
     if timing_only:  # time the kernels of the package under DIR
         sys.path.insert(0, str(pathlib.Path(sys.argv[2]).resolve()))
     elif len(sys.argv) > 1 and not (odometry_only or backend_only or parallel_only
-                                    or align_only):
+                                    or align_only or classes_only):
         print("usage: chip_smoke.py [--odometry | --backend | --parallel | --align | "
-              "--ndt-timing DIR | --trial-timing DIR | --lin-timing DIR [REF]] "
+              "--classes | --ndt-timing DIR | --trial-timing DIR | --lin-timing DIR [REF]] "
               "| [--backend] --tridiag-previous DIR", file=sys.stderr)
         return 2
     # phase 1: device
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    if not (timing_only or odometry_only or backend_only or parallel_only or align_only):
+    if not (timing_only or odometry_only or backend_only or parallel_only or align_only
+            or classes_only):
         start_backend_drive()
     try:
         return run_phases(timing, timing_only, odometry_only, backend_only, parallel_only,
-                          align_only)
+                          align_only, classes_only)
     finally:
         stop_backend_drive()
 
 
+def phase_class_paths(dev, pair, summary, path_launches):
+    """The class, batch and pygicp paths: each main path in both forms with
+    its graph form's checks (`phase_class_main`, `phase_batch_main`,
+    `phase_pygicp`), card against CPU, the batches' and the classes' bench
+    in both forms.  Returns the small pair."""
+    t0 = time.perf_counter()
+    for path in CLASS_PATHS:
+        path_launches[path], main_stats = phase_class_main(dev, pair, path)
+        summary[path] = {"main_path": main_stats}
+    for path in BATCH_PATHS:
+        path_launches[path], main_stats = phase_batch_main(dev, path)
+        summary[path] = {"main_path": main_stats}
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: class and batch main paths "
+        f"({time.perf_counter() - t0:.1f} s)")
+    small = synthetic_pair(n_world=400_000, voxel=0.3)
+    for path in PYGICP_PATHS:
+        path_launches[path], summary[path] = phase_pygicp(dev, pair, small, path)
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: pygicp")
+    for path, (_make, _kernels, which) in CLASS_PATHS.items():
+        summary[path]["card_vs_cpu"] = phase_class_card_vs_cpu(
+            dev, pair if which == "full" else small, path)
+    for path in BATCH_PATHS:
+        summary[path]["card_vs_cpu"] = phase_batch_card_vs_cpu(dev, path)
+        summary[path]["timing"] = phase_batch_timing(dev, path)
+    for path in CLASS_PATHS:
+        summary[path]["bench"] = phase_class_bench(dev, pair, path)
+    log(f"[total] {time.perf_counter() - T_START:.1f} s: the class, batch and pygicp phases "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return small
+
+
 def run_phases(timing, timing_only, odometry_only, backend_only, parallel_only=False,
-               align_only=False) -> int:
+               align_only=False, classes_only=False) -> int:
     """The phases of `main`'s mode, after the device check."""
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6954,6 +7530,14 @@ def run_phases(timing, timing_only, odometry_only, backend_only, parallel_only=F
                           "launches_by_path": path_launches}))
         return 0
     pair = synthetic_pair()
+    if classes_only:  # the class, batch and pygicp programs in both forms alone
+        summary, path_launches = {}, {}
+        phase_class_paths(dev, pair, summary, path_launches)
+        summary["odometry_serial"] = phase_device_loop_odometry(dev, card_line(),
+                                                                ("odometry_serial",))
+        summary["profiler_fallbacks"] = PROFILER_FALLBACKS
+        print(json.dumps({"classes": summary, "launches_by_path": path_launches}))
+        return 0
     if timing_only:
         import fast_gicp_tpu_torch
 
@@ -6977,37 +7561,19 @@ def run_phases(timing, timing_only, odometry_only, backend_only, parallel_only=F
     for path in PATHS:
         path_launches[path], main_stats = phase_main_path(dev, pair, path)
         summary[path] = {"main_path": main_stats}
-    for path in CLASS_PATHS:
-        path_launches[path], main_stats = phase_class_main(dev, pair, path)
-        summary[path] = {"main_path": main_stats}
-    for path in BATCH_PATHS:
-        path_launches[path], main_stats = phase_batch_main(dev, path)
-        summary[path] = {"main_path": main_stats}
     summary["ndt_budgets"] = phase_ndt_budgets(dev, pair)
     log(f"[total] {time.perf_counter() - T_START:.1f} s: main paths")
-    small = synthetic_pair(n_world=400_000, voxel=0.3)
-    for path in PYGICP_PATHS:
-        path_launches[path], summary[path] = phase_pygicp(dev, pair, small, path)
-    log(f"[total] {time.perf_counter() - T_START:.1f} s: pygicp")
+    small = phase_class_paths(dev, pair, summary, path_launches)
     for path in PATHS:
         summary[path]["card_vs_cpu"] = phase_card_vs_cpu(
             dev, pair if path in NDT_PATHS else small, path)
-    for path, (_make, _kernels, which) in CLASS_PATHS.items():
-        summary[path]["card_vs_cpu"] = phase_class_card_vs_cpu(
-            dev, pair if which == "full" else small, path)
     log(f"[total] {time.perf_counter() - T_START:.1f} s: card against CPU")
-    for path in BATCH_PATHS:
-        summary[path]["card_vs_cpu"] = phase_batch_card_vs_cpu(dev, path)
-        summary[path]["timing"] = phase_batch_timing(dev, path)
-    log(f"[total] {time.perf_counter() - T_START:.1f} s: batches")
     phase_odometry(dev, records, path_launches, summary)
     phase_backend(dev, records, path_launches, summary)
     phase_parallel(dev, records, path_launches, summary)
     phase_device_loop(dev, records, path_launches, summary, pair)
     for path in PATHS:
         summary[path]["bench"] = phase_bench(dev, pair, path)
-    for path in CLASS_PATHS:
-        summary[path]["bench"] = phase_class_bench(dev, pair, path)
     for path in PATHS:
         summary[path]["profile"] = phase_profile(dev, pair, path)
     for path in CLASS_PATHS:

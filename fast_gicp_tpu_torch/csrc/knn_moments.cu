@@ -52,6 +52,8 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;  // warps a block
@@ -156,8 +158,10 @@ __device__ __forceinline__ void write_query(float* acc, int kth_key, int lane, i
 __global__ void __launch_bounds__(kThreads)
     knn_moments_kernel(const float4* __restrict__ q, const float4* __restrict__ t,
                        const int* __restrict__ cidx, int nq, int nt, int C, int ct, int k,
-                       float* __restrict__ mom, float* __restrict__ kth) {
+                       float* __restrict__ mom, float* __restrict__ kth,
+                       int* __restrict__ launches) {
   __shared__ float4 pts[2][kChunk];
+  count_launch(launches);
   const int qt = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int i0 = qt * kQueryTile + blockIdx.y * kBlockQueries + (threadIdx.x >> 5) * kRows;
@@ -242,7 +246,9 @@ __global__ void __launch_bounds__(kThreads)
 __global__ void __launch_bounds__(kThreads)
     knn_moments_rounds_kernel(const float4* __restrict__ q, const float4* __restrict__ t,
                               const int* __restrict__ cidx, int nq, int nt, int C, int ct,
-                              int k, float* __restrict__ mom, float* __restrict__ kth) {
+                              int k, float* __restrict__ mom, float* __restrict__ kth,
+                              int* __restrict__ launches) {
+  count_launch(launches);
   extern __shared__ float4 slab[];  // the whole slab, S positions
   const int qt = blockIdx.x;
   const int S = C * ct;
@@ -281,11 +287,12 @@ __global__ void __launch_bounds__(kThreads)
 // nq = 256 * Q.  t: (nt, 4) float32 [x, y, z, valid], masked targets parked
 // at MASK_COORD, nt a multiple of ct.  cidx: (Q, C) int32 candidate tiles
 // in [0, nt / ct), C * ct <= 4096; 1 <= k <= C * ct.  mom: (10, nq); kth:
-// (nq,).  One launch on `stream` (k <= 32: the bounded insertion; else the
+// (nq,).  launches: the tally slot (one int of device memory, or null).
+// One launch on `stream` (k <= 32: the bounded insertion; else the
 // rounds); returns cudaGetLastError().
 extern "C" int fgt_knn_moments(const float* q, const float* t, const int* cidx, int nq,
                                int nt, int C, int ct, int k, float* mom, float* kth,
-                               void* stream) {
+                               int* launches, void* stream) {
   const int Q = nq / kQueryTile;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float4* q4 = reinterpret_cast<const float4*>(q);
@@ -293,7 +300,7 @@ extern "C" int fgt_knn_moments(const float* q, const float* t, const int* cidx, 
   if (Q <= 0) return static_cast<int>(cudaGetLastError());
   if (k <= kMaxListK) {
     knn_moments_kernel<<<dim3(Q, kParts), kThreads, 0, s>>>(q4, t4, cidx, nq, nt, C, ct, k,
-                                                           mom, kth);
+                                                           mom, kth, launches);
   } else {
     // above 48 KB only after this attribute; set once for the widest slab
     static const cudaError_t attr =
@@ -302,7 +309,7 @@ extern "C" int fgt_knn_moments(const float* q, const float* t, const int* cidx, 
                              kMaxSlab * static_cast<int>(sizeof(float4)));
     if (attr != cudaSuccess) return static_cast<int>(attr);
     knn_moments_rounds_kernel<<<dim3(Q, kRoundParts), kThreads, C * ct * sizeof(float4), s>>>(
-        q4, t4, cidx, nq, nt, C, ct, k, mom, kth);
+        q4, t4, cidx, nq, nt, C, ct, k, mom, kth, launches);
   }
   return static_cast<int>(cudaGetLastError());
 }

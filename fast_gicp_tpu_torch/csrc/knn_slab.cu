@@ -44,6 +44,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_count.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;  // warps a block
@@ -106,8 +108,10 @@ __device__ __forceinline__ float warp_kth_smallest(float v, int k, int lane) {
 __global__ void __launch_bounds__(kThreads)
     knn_slab_kernel(const float4* __restrict__ q, const float4* __restrict__ t,
                     const int* __restrict__ cidx, int nt, int C, int ct, int k,
-                    int* __restrict__ idx_out, float* __restrict__ sq_out) {
+                    int* __restrict__ idx_out, float* __restrict__ sq_out,
+                    int* __restrict__ launches) {
   __shared__ float4 pts[2][kChunk];
+  count_launch(launches);
   const int qt = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int i0 = qt * kQueryTile + blockIdx.y * kBlockQueries + (threadIdx.x >> 5) * kRows;
@@ -197,13 +201,15 @@ __global__ void __launch_bounds__(kThreads)
 // nq = 256 * Q.  t: (nt, 4) float32 [x, y, z, valid], masked targets parked
 // at MASK_COORD, nt a multiple of ct.  cidx: (Q, C) int32 candidate tiles;
 // 1 <= k <= min(32, C * ct).  idx: (nq, k) int32; sq: (nq, k) float32.
-// Launches on `stream`; returns cudaGetLastError().
+// launches: the tally slot (one int of device memory, or null).  Launches
+// on `stream`; returns cudaGetLastError().
 extern "C" int fgt_knn_slab(const float* q, const float* t, const int* cidx, int nq, int nt,
-                            int C, int ct, int k, int* idx, float* sq, void* stream) {
+                            int C, int ct, int k, int* idx, float* sq, int* launches,
+                            void* stream) {
   const int Q = nq / kQueryTile;
   if (Q > 0)
     knn_slab_kernel<<<dim3(Q, kParts), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(t), cidx, nt, C,
-        ct, k, idx, sq);
+        ct, k, idx, sq, launches);
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,6 +40,7 @@
 // clusters of 8 blocks that add their rows through distributed shared
 // memory before one row a cluster goes through global memory.
 
+#include "launch_count.cuh"
 #include "lin_common.cuh"
 
 using namespace fgt;
@@ -81,7 +82,8 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ xp, const float4* __restrict__ rows,
                      const Id* __restrict__ ids, const float* __restrict__ valid_in, int L,
                      float* partials, unsigned int* ticket, float* __restrict__ out,
-                     float* __restrict__ aux) {
+                     float* __restrict__ aux, int* __restrict__ launches) {
+  count_launch(launches, ids != nullptr);
   const Pose x = load_pose(xp);
   float acc[28];
 #pragma unroll
@@ -117,7 +119,7 @@ __global__ void __launch_bounds__(kThreads)
 template <bool kRaw>
 int launch(const float* p, const float* ca, const float* x, const float* rows,
            const void* ids, int id_bytes, const float* valid, int L, float* partials,
-           unsigned int* ticket, float* out, float* aux, void* stream) {
+           unsigned int* ticket, float* out, float* aux, int* launches, void* stream) {
   const void* kernel = reinterpret_cast<const void*>(linearize_kernel<kRaw, int>);
   const int grid = wave_grid<6 + kRaw>(kernel, L, kThreads);
   if (grid == 0) return refused();
@@ -127,12 +129,13 @@ int launch(const float* p, const float* ca, const float* x, const float* rows,
     case 0:
     case 4:
       linearize_kernel<kRaw, int><<<grid, kThreads, 0, s>>>(
-          p, ca, x, rows4, static_cast<const int*>(ids), valid, L, partials, ticket, out, aux);
+          p, ca, x, rows4, static_cast<const int*>(ids), valid, L, partials, ticket, out, aux,
+          launches);
       break;
     case 8:
       linearize_kernel<kRaw, long long><<<grid, kThreads, 0, s>>>(
           p, ca, x, rows4, static_cast<const long long*>(ids), valid, L, partials, ticket, out,
-          aux);
+          aux, launches);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -161,20 +164,24 @@ extern "C" int fgt_max_reduce_blocks() {
 // indices in [0, T), id_bytes 4 (int32) or 8 (int64); or null with
 // id_bytes 0, and then T = L and lane n reads row n.  partials:
 // fgt_max_reduce_blocks() * 28 floats; ticket: one uint32, 0 on entry and
-// left 0.  out: 43 floats [err, H (6 x 6), b (6)]; aux: (10, L).
+// left 0.  out: 43 floats [err, H (6 x 6), b (6)]; aux: (10, L).  launches:
+// the tally slot (two ints of device memory: all runs, runs with ids), or
+// null.
 extern "C" int fgt_linearize_raw(const float* p, const float* ca, const float* x,
                                  const float* rows, const void* ids, int id_bytes,
                                  const float* valid, int L, float* partials,
-                                 unsigned int* ticket, float* out, float* aux, void* stream) {
+                                 unsigned int* ticket, float* out, float* aux, int* launches,
+                                 void* stream) {
   return launch<true>(p, ca, x, rows, ids, id_bytes, valid, L, partials, ticket, out, aux,
-                      stream);
+                      launches, stream);
 }
 
 // As fgt_linearize_raw, with finalized rows ([mu, cov9, count, pad]).
 extern "C" int fgt_linearize(const float* p, const float* ca, const float* x,
                              const float* rows, const void* ids, int id_bytes,
                              const float* valid, int L, float* partials,
-                             unsigned int* ticket, float* out, float* aux, void* stream) {
+                             unsigned int* ticket, float* out, float* aux, int* launches,
+                             void* stream) {
   return launch<false>(p, ca, x, rows, ids, id_bytes, valid, L, partials, ticket, out, aux,
-                       stream);
+                       launches, stream);
 }

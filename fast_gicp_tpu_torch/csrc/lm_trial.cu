@@ -18,22 +18,27 @@
 //
 // out (39 floats): xi (4x4 row-major), delta (4x4 row-major), d (6), denom.
 
+#include "launch_count.cuh"
 #include "lm_step.cuh"
 
 namespace {
 
 __global__ void lm_trial_kernel(const float* __restrict__ H, const float* __restrict__ b,
                                 const float* __restrict__ lam_p,
-                                const float* __restrict__ x, float* __restrict__ out) {
+                                const float* __restrict__ x, float* __restrict__ out,
+                                int* __restrict__ launches) {
+  count_launch(launches);
   fgt::lm_trial_step(H, b, *lam_p, x, out);
 }
 
 }  // namespace
 
 // H (6, 6), b (6,), lambda (1,), x (4, 4): float32 on the device.
-// out: 39 floats.  Returns cudaGetLastError().
+// out: 39 floats.  launches: the tally slot (one int of device memory, or
+// null).  Returns cudaGetLastError().
 extern "C" int fgt_lm_trial(const float* H, const float* b, const float* lam,
-                            const float* x, float* out, void* stream) {
-  lm_trial_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(H, b, lam, x, out);
+                            const float* x, float* out, int* launches, void* stream) {
+  lm_trial_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(H, b, lam, x, out,
+                                                                   launches);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,6 +43,7 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_count.cuh"
 #include "tile_cull.cuh"
 
 namespace {
@@ -57,7 +58,9 @@ constexpr int kListCap = 1024;  // chunks tested per listing round
 __global__ void __launch_bounds__(kThreads)
     nn_search_kernel(const float4* __restrict__ q, const float4* __restrict__ t,
                      const float* __restrict__ boxes, int nq, int nt,
-                     int* __restrict__ idx_out, float* __restrict__ d2_out) {
+                     int* __restrict__ idx_out, float* __restrict__ d2_out,
+                     int* __restrict__ launches) {
+  count_launch(launches);
   __shared__ int list[kListCap];
   __shared__ int counts[kListCap / kThreads][kWarps];
   __shared__ float4 slot[kWarps][kChunk];  // each warp's staged chunk
@@ -152,10 +155,12 @@ __global__ void __launch_bounds__(kThreads)
 
 // q: (nq, 4) float32 [x, y, z, valid]; t: (nt, 4) float32 [x, y, z, valid] with
 // masked targets parked at MASK_COORD.  boxes: scratch of 6 * ceil(nt / 32)
-// floats.  idx: (nq,) int32; d2: (nq,) float32.  Two launches on `stream`
-// (chunk boxes, then the search); returns cudaGetLastError().
+// floats.  idx: (nq,) int32; d2: (nq,) float32.  launches: the search
+// kernel's tally slot (one int of device memory, or null).  Two launches on
+// `stream` (chunk boxes, then the search); returns cudaGetLastError().
 extern "C" int fgt_nn_search(const float* q, const float* t, int nq, int nt,
-                             float* boxes, int* idx, float* d2, void* stream) {
+                             float* boxes, int* idx, float* d2, int* launches,
+                             void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = (nq + kQueries - 1) / kQueries;
   if (nt > 0 && blocks > 0) {
@@ -163,7 +168,7 @@ extern "C" int fgt_nn_search(const float* q, const float* t, int nq, int nt,
         reinterpret_cast<const float4*>(t), nt, boxes);
     nn_search_kernel<<<blocks, kThreads, 0, s>>>(
         reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(t), boxes,
-        nq, nt, idx, d2);
+        nq, nt, idx, d2, launches);
   }
   return static_cast<int>(cudaGetLastError());
 }

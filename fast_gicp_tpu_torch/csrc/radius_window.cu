@@ -72,6 +72,7 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_count.cuh"
 #include "tile_cull.cuh"
 
 namespace {
@@ -96,7 +97,9 @@ __device__ __forceinline__ void group_sync(int g) {
 __global__ void __launch_bounds__(kCountThreads)
     radius_count_kernel(const float4* __restrict__ q, const float4* __restrict__ t,
                         const float* __restrict__ boxes, const float* __restrict__ r2,
-                        int L, int nq, int nt, float* __restrict__ cnt) {
+                        int L, int nq, int nt, float* __restrict__ cnt,
+                        int* __restrict__ launches) {
+  count_launch(launches);
   extern __shared__ int hist[];  // [L + 1][kCountThreads]
   __shared__ float4 tile[kCountGroups][kTile];
   __shared__ int visit[kCountThreads];  // the tiles that pass the cull, one chunk
@@ -229,7 +232,9 @@ __device__ __forceinline__ void add_window(float* acc, float4 y, bool inside) {
 __global__ void __launch_bounds__(kWindowThreads)
     radius_window_kernel(const float4* __restrict__ q, const float4* __restrict__ t,
                          const float* __restrict__ chunk_boxes, const float* __restrict__ r2q,
-                         int nq, int nt, float* __restrict__ out) {
+                         int nq, int nt, float* __restrict__ out,
+                         int* __restrict__ launches) {
+  count_launch(launches);
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * kWindowWarps + (threadIdx.x >> 5);
   if (i >= nq) return;  // uniform across the warp
@@ -298,11 +303,12 @@ extern "C" int fgt_radius_boxes(const float* t, int nt, float* boxes, float* chu
 
 // q: (nq, 4) float32 [x, y, z, valid] centered, masked queries parked at
 // MASK_COORD; t as above, and boxes from fgt_radius_boxes on it.  r2: (L,)
-// float32 with 1 <= L <= 32.  cnt: (L, nq) float32.  One launch on
-// `stream`; returns cudaGetLastError().
+// float32 with 1 <= L <= 32.  cnt: (L, nq) float32.  launches: the tally
+// slot (one int of device memory, or null).  One launch on `stream`;
+// returns cudaGetLastError().
 extern "C" int fgt_radius_count(const float* q, const float* t, const float* boxes,
                                 const float* r2, int L, int nq, int nt, float* cnt,
-                                void* stream) {
+                                int* launches, void* stream) {
   const int blocks = (nq + kTile - 1) / kTile;
   if (blocks > 0 && nt > 0) {
     // above 48 KB only after this attribute; set once for the largest ladder
@@ -312,21 +318,22 @@ extern "C" int fgt_radius_count(const float* q, const float* t, const float* box
     radius_count_kernel<<<blocks, kCountThreads, (L + 1) * kCountThreads * sizeof(int),
                           static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(t), boxes, r2, L,
-        nq, nt, cnt);
+        nq, nt, cnt, launches);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // q and t as above, chunk_boxes from fgt_radius_boxes on t; r2q: (nq,)
-// float32 squared window radius a query.  out: (16, nq) float32.  One
-// launch on `stream`; returns cudaGetLastError().
+// float32 squared window radius a query.  out: (16, nq) float32.
+// launches: as fgt_radius_count's.  One launch on `stream`; returns
+// cudaGetLastError().
 extern "C" int fgt_radius_window(const float* q, const float* t, const float* chunk_boxes,
                                  const float* r2q, int nq, int nt, float* out,
-                                 void* stream) {
+                                 int* launches, void* stream) {
   const int blocks = (nq + kWindowWarps - 1) / kWindowWarps;
   if (blocks > 0 && nt > 0)
     radius_window_kernel<<<blocks, kWindowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(t), chunk_boxes,
-        r2q, nq, nt, out);
+        r2q, nq, nt, out, launches);
   return static_cast<int>(cudaGetLastError());
 }

@@ -39,6 +39,7 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_count.cuh"
 #include "tile_cull.cuh"
 
 namespace {
@@ -51,7 +52,8 @@ constexpr int kSums = 10;
 __global__ void __launch_bounds__(kThreads)
     rbf_moments_kernel(const float4* __restrict__ q, const float4* __restrict__ t,
                        const float* __restrict__ boxes, int nq, int nt, float kw,
-                       float md2, float* __restrict__ out) {
+                       float md2, float* __restrict__ out, int* __restrict__ launches) {
+  count_launch(launches);
   __shared__ int list[kListCap];
   __shared__ int counts[kListCap / kThreads][kGroups];
   __shared__ float4 slot[kGroups][kChunk];  // each warp's staged chunk
@@ -129,12 +131,13 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // q, t: (n, 4) float32 [x, y, z, valid] about the common center.
-// boxes: scratch of 6 * ceil(nt / 32) floats.  out: (16, nq) float32.  Two
-// launches on `stream` (chunk boxes, then the moments); returns
+// boxes: scratch of 6 * ceil(nt / 32) floats.  out: (16, nq) float32.
+// launches: the moments kernel's tally slot (one int of device memory, or
+// null).  Two launches on `stream` (chunk boxes, then the moments); returns
 // cudaGetLastError().
 extern "C" int fgt_rbf_moments(const float* q, const float* t, int nq, int nt,
                                float kw, float md2, float* boxes, float* out,
-                               void* stream) {
+                               int* launches, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = (nq + 31) / 32;
   if (blocks > 0 && nt > 0)
@@ -143,6 +146,6 @@ extern "C" int fgt_rbf_moments(const float* q, const float* t, int nq, int nt,
   if (blocks > 0)
     rbf_moments_kernel<<<blocks, kThreads, 0, s>>>(
         reinterpret_cast<const float4*>(q), reinterpret_cast<const float4*>(t), boxes,
-        nq, nt, kw, md2, out);
+        nq, nt, kw, md2, out, launches);
   return static_cast<int>(cudaGetLastError());
 }

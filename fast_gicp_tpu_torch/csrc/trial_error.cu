@@ -37,6 +37,7 @@
 //     flight; the trial replaces the standalone trial launch and 34 eager
 //     ops a trial, which the host would otherwise enqueue.
 
+#include "launch_count.cuh"
 #include "lin_common.cuh"
 #include "lm_step.cuh"
 
@@ -155,7 +156,9 @@ template <bool kCauchy, bool kTrial>
 __global__ void __launch_bounds__(kThreads, kTrial ? kTrialBlocksPerSm : kBlocksPerSm)
     error_kernel(const float* __restrict__ p, int ps, int N, const float* __restrict__ xp,
                  const float* __restrict__ aux, float c_sq, int L, bool vec_aux, bool vec_p,
-                 float* partials, unsigned int* ticket, float* out, Trial tr) {
+                 float* partials, unsigned int* ticket, float* out, Trial tr,
+                 int* __restrict__ launches) {
+  count_launch(launches);
   const int groups = (L + kErrorLanes - 1) / kErrorLanes;
   const int stride = gridDim.x * kThreads;
   int g = blockIdx.x * kThreads + threadIdx.x;
@@ -202,7 +205,7 @@ __global__ void __launch_bounds__(kThreads, kTrial ? kTrialBlocksPerSm : kBlocks
 template <bool kCauchy, bool kTrial>
 int launch(const float* p, int ps, int N, const float* x, const float* aux, float c_sq,
            int L, float* partials, unsigned int* ticket, float* out, const Trial& tr,
-           void* stream) {
+           int* launches, void* stream) {
   const int grid = wave_grid<4 + kCauchy>(
       reinterpret_cast<const void*>(error_kernel<kCauchy, false>), L, kThreads * kErrorLanes);
   if (grid == 0) return refused();
@@ -210,7 +213,7 @@ int launch(const float* p, int ps, int N, const float* x, const float* aux, floa
   const bool vec_aux = L % kErrorLanes == 0 && aligned(aux);
   const bool vec_p = N % kErrorLanes == 0 && ps % kErrorLanes == 0 && aligned(p);
   error_kernel<kCauchy, kTrial><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, ps, N, x, aux, c_sq, L, vec_aux, vec_p, partials, ticket, out, tr);
+      p, ps, N, x, aux, c_sq, L, vec_aux, vec_p, partials, ticket, out, tr, launches);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -218,23 +221,26 @@ int launch(const float* p, int ps, int N, const float* x, const float* aux, floa
 
 // GICP / VGICP: p (3, L), x (4, 4), aux (10, L) [M (6), w, mu (3)]:
 // float32.  partials: fgt_max_reduce_blocks() floats; ticket: one uint32, 0
-// on entry and left 0; out: 1 float.
+// on entry and left 0; out: 1 float.  launches: the tally slot (one int of
+// device memory, or null).
 extern "C" int fgt_error(const float* p, const float* x, const float* aux, int L,
-                         float* partials, unsigned int* ticket, float* out, void* stream) {
+                         float* partials, unsigned int* ticket, float* out, int* launches,
+                         void* stream) {
   return launch<false, false>(p, L, L, x, aux, 0.f, L, partials, ticket, out, Trial{},
-                              stream);
+                              launches, stream);
 }
 
 // NDT: p: 3 rows of at least N floats, row stride ps (the untiled (3, N)
 // source columns, or the first N columns of a (3, L) array tiled over the
 // offsets); lane n (of L, offset-major) reads column n % N.  x (4, 4),
 // aux (10, L) [M (6), valid, mu (3)]: float32.  c_sq: resolution^2.
-// partials, ticket, out: as fgt_error.
+// partials, ticket, out, launches: as fgt_error.
 extern "C" int fgt_ndt_error(const float* p, int ps, int N, const float* x,
                              const float* aux, float c_sq, int L, float* partials,
-                             unsigned int* ticket, float* out, void* stream) {
+                             unsigned int* ticket, float* out, int* launches,
+                             void* stream) {
   return launch<true, false>(p, ps, N, x, aux, c_sq, L, partials, ticket, out, Trial{},
-                             stream);
+                             launches, stream);
 }
 
 // One LM trial as one launch: the trial step on the state (kStateFloats
@@ -243,16 +249,16 @@ extern "C" int fgt_ndt_error(const float* p, int ps, int N, const float* x,
 // weight, p's row stride must then be N = L; 1: fgt_ndt_error's with c_sq),
 // then the LM schedule.  first: the first trial after a linearization.
 // lambda_factor, inv_rot, inv_trans: float32 lm_init_lambda_factor and the
-// reciprocals of the two epsilons.  partials, ticket: as fgt_error.
+// reciprocals of the two epsilons.  partials, ticket, launches: as fgt_error.
 extern "C" int fgt_lm_step(const float* H, const float* b, const float* y0, float* state,
                            int first, float lambda_factor, float inv_rot, float inv_trans,
                            const float* p, int ps, int N, const float* aux, int cauchy,
                            float c_sq, int L, float* partials, unsigned int* ticket,
-                           void* stream) {
+                           int* launches, void* stream) {
   const Trial tr{H, b, y0, state, first, lambda_factor, inv_rot, inv_trans};
   float* out = state + kStateYi;
   return cauchy ? launch<true, true>(p, ps, N, nullptr, aux, c_sq, L, partials, ticket, out,
-                                     tr, stream)
+                                     tr, launches, stream)
                 : launch<false, true>(p, ps, N, nullptr, aux, c_sq, L, partials, ticket,
-                                      out, tr, stream);
+                                      out, tr, launches, stream);
 }

@@ -4,8 +4,12 @@ one-program `lax.scan`s).
 
 `solver.lsq_solve` takes its device form when a CUDA graph is being
 captured on the current stream, or inside `device_loop()`; the pose-graph
-solves (`models/pose_graph_sparse.py`, `models/pose_graph.py`) take theirs
-with `device_loop=True`, captured once per signature (`replay_cached`).
+solves (`models/pose_graph_sparse.py`, `models/pose_graph.py`), the class
+API's aligns (`models/base.Registration.align_async`) and the batch aligns
+(`models/batch.py`) take theirs with `device_loop=True`, captured once per
+signature (`replay_cached`, whose inputs may nest tensors in tuples and
+NamedTuples and whose results are the caller's own copies; `run` picks it or
+the eager call by the caller's `device_loop`).
 Their loops go through `while_loop` (and the CG's refresh branch through
 `if_then`):
 
@@ -43,9 +47,10 @@ import threading
 import time
 
 import torch
+from torch.utils import _pytree as pytree
 
 from . import device as _device
-from .ops import _build, cuda_linearize, cuda_pose_graph, cuda_solver
+from .ops import _build, cuda_linearize, cuda_pose_graph, cuda_solver, tally
 
 _P = ctypes.c_void_p
 _local = threading.local()
@@ -105,12 +110,13 @@ LEVELS = 4
 
 def prepare(device):
     """Make what the kernels need on every stream a capture uses (the
-    library, the loops' counts, the reduction scratch of the capture and
-    body streams), eagerly: nothing of it may be made under capture."""
+    library, the loops' counts, the kernel tally, the reduction scratch of
+    the capture and body streams), eagerly: nothing of it may be made under capture."""
     device = torch.device(device)
     _build.library()
     cuda_solver.loop_counts(device)
     cuda_pose_graph.pg_counts(device)
+    tally.counts(device)
     for level in range(-1, LEVELS):
         with torch.cuda.stream(body_stream(device, level)):
             cuda_linearize._reduce_scratch(device)
@@ -231,7 +237,8 @@ class DeviceGraph:
         t0 = time.perf_counter()
         prepare(self.device)
         # the device tallies count what replays run: the warm-up's steps go
-        tallies = (cuda_solver.loop_counts(self.device), cuda_pose_graph.pg_counts(self.device))
+        tallies = (cuda_solver.loop_counts(self.device), cuda_pose_graph.pg_counts(self.device),
+                   tally.counts(self.device))
         saved = [t.clone() for t in tallies]
         stream = capture_stream(self.device)
         cur = torch.cuda.current_stream(self.device)
@@ -272,30 +279,79 @@ PROGRAMS = 32
 sparse solve's graph at ~500 poses holds 8-12 MiB of the caching
 allocator's reserved device memory (`chip_smoke.py --backend`, NVIDIA H100
 80GB HBM3, 700 W), so 32 such graphs hold under 0.4 GiB; that run's whole
-back-end (17 signatures) evicts none."""
+back-end (17 signatures) evicts none.  A class-API or batch align's graph
+also holds its inputs' static copies and its covariance estimation's and
+map builds' intermediates: 26-98 MiB reserved a program at the full-size
+synthetic pair's 22,528 padded points (`chip_smoke.py --classes`, NVIDIA H100
+80GB HBM3, 700 W), so 32 such programs hold about 3 GiB, which fits the
+card's 80 GB comfortably."""
+
+
+def _leaf_key(leaf):
+    """What a program bakes in of one input leaf: a tensor's shape, dtype
+    and device, or any other value itself (a static leaf)."""
+    if isinstance(leaf, torch.Tensor):
+        return ("T", tuple(leaf.shape), leaf.dtype, str(leaf.device))
+    return ("S", leaf)
+
+
+def program_key(key, inputs: dict):
+    """The key under which `replay_cached(key, inputs, ...)` holds its
+    program: `key`, whether deterministic algorithms are on, the inputs'
+    structure (`torch.utils._pytree`: tuples, lists, dicts, NamedTuples,
+    None) and each leaf's `_leaf_key` (tensors on the device they lie on)."""
+    leaves, spec = pytree.tree_flatten(inputs)
+    return (key, torch.are_deterministic_algorithms_enabled(), repr(spec),
+            tuple(_leaf_key(v) for v in leaves))
+
+
+def owned(tree):
+    """`tree` with every tensor cloned (on its device): results that no
+    later replay of the program that wrote them overwrites."""
+    return pytree.tree_map_only(torch.Tensor, torch.clone, tree)
 
 
 def replay_cached(key, inputs: dict, fn, device):
     """`fn(**inputs)` as one device program: on CUDA captured once per
-    `key` (`DeviceGraph` on static copies of `inputs`, a dict of tensors on
-    `device`), later calls copying their inputs into those buffers and
-    replaying (nothing read to the host); on the CPU `fn(**inputs)` in the
-    device form's plain version.  Returns what `fn` returned: on CUDA the
-    graph's own buffers, which the next replay of `key` overwrites."""
+    `program_key(key, inputs)` (`inputs` a dict of tensors, or of nested
+    tuples, NamedTuples and None around them, all on `device`;
+    `DeviceGraph` on static copies of the tensors), later calls copying
+    their tensors into those buffers and replaying (nothing read to the
+    host); on the CPU `fn(**inputs)` in the device form's plain version.
+
+    Returns what `fn` returned, the caller's own: on CUDA a clone of the
+    graph's output buffers (which the next replay of the program
+    overwrites), made on the current stream after the replay."""
     device = torch.device(device)
     if device.type == "cpu":
         with device_loop():
             return fn(**inputs)
-    entry = _programs.get(key)
+    leaves, spec = pytree.tree_flatten(inputs)
+    full = program_key(key, inputs)
+    tensors = [v for v in leaves if isinstance(v, torch.Tensor)]
+    entry = _programs.get(full)
     if entry is None:
-        static = {k: torch.empty_like(v, memory_format=torch.contiguous_format).copy_(v)
-                  for k, v in inputs.items()}
-        entry = (static, DeviceGraph(lambda: fn(**static), device))
-        _programs[key] = entry
+        static = [torch.empty_like(v, memory_format=torch.contiguous_format).copy_(v)
+                  for v in tensors]
+        it = iter(static)
+        kwargs = pytree.tree_unflatten(
+            [next(it) if isinstance(v, torch.Tensor) else v for v in leaves], spec)
+        entry = (static, DeviceGraph(lambda: fn(**kwargs), device))
+        _programs[full] = entry
         while len(_programs) > PROGRAMS:
             _programs.popitem(last=False)
     else:
-        _programs.move_to_end(key)
-        for k, v in inputs.items():
-            entry[0][k].copy_(v)
-    return entry[1].replay()
+        _programs.move_to_end(full)
+        for buf, v in zip(entry[0], tensors):
+            buf.copy_(v)
+    return owned(entry[1].replay())
+
+
+def run(key, inputs: dict, fn, device, device_loop: bool = True):
+    """`fn(**inputs)`: with `device_loop` one device program
+    (`replay_cached`: `key` names what `fn` bakes in beyond its inputs;
+    the device, torch's deterministic mode and the inputs' structure and
+    shapes are added), else called directly, the eager form."""
+    if not device_loop:
+        return fn(**inputs)
+    return replay_cached(key, inputs, fn, device)

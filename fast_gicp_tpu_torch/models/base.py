@@ -9,21 +9,31 @@ for odometry loops.  Clouds are padded to bucket sizes on ingestion and
 kept on the instance's device with their covariances; the swap exchanges
 the two `Cloud` objects, so their cached covariances go with them
 (fast_gicp_impl.hpp:50-57).
+
+An align is a host part and a device body (the JAX package's one jitted
+program a registration): the host part reads what lives on the host (a
+cloud's extent for "auto" grid dims, the native kd-tree's covariances,
+which clouds already cache their state) and names the program; the body
+estimates what a cloud lacks, builds the maps and solves.  With
+`device_loop` (the default) the body is one CUDA graph replay a call
+(`graphs.replay_cached`, captured once a signature, its LM loops
+conditional WHILE nodes); otherwise it runs eagerly.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from dataclasses import dataclass, field
-from typing import Optional
+from dataclasses import dataclass, field, fields
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .. import device as _device
-from .. import se3
-from ..ops.covariance import masked_mean
+from .. import graphs, se3
+from ..ops.covariance import estimate_covariance_cols, masked_mean
+from ..precision import f32_matmuls
 from ..solver import LsqConfig
 from ..utils.padding import DEFAULT_BUCKET, pad_points
 from .metrics import fitness_score
@@ -128,25 +138,43 @@ def estimate_covariances(cloud: Cloud, method: str, k: int, regularization: str,
         idx, _ = native.knn_search(cloud.host_points[: cloud.size], cloud.host_points, k)
         cloud.covs = covariance.covariances_from_neighbors(cloud.points, idx,
                                                            method=regularization)
-    elif method == "rbf":
-        cloud.covs = covariance.rbf_covariance_cols(
-            cloud.points, cloud.mask, kernel_width, kernel_max_dist, method=regularization)
-    elif method == "knn":
-        cloud.covs = covariance.knn_covariance_cols(cloud.points, cloud.mask, k=k,
-                                                    method=regularization)
-    elif method == "adaptive":
-        cloud.covs = covariance.adaptive_radius_covariance_cols(
-            cloud.points, cloud.mask, k=k, method=regularization)
+    elif method in DEVICE_ESTIMATORS:
+        cloud.covs = estimate_covariance_cols(cloud.points, cloud.mask, method, k=k,
+                                              regularization=regularization,
+                                              kernel_width=kernel_width,
+                                              kernel_max_dist=kernel_max_dist)
     else:
         raise ValueError("covariance estimation must be 'knn', 'rbf', 'adaptive', "
                          "or 'kdtree'")
 
 
+DEVICE_ESTIMATORS = ("knn", "rbf", "adaptive")
+"""The covariance estimators that run on the device, inside an align's
+program; "kdtree" runs the native host tree before it."""
+
+
+class Program(NamedTuple):
+    """An align's device body and what it bakes in: `body(static,
+    **inputs)` -> (LsqResult, the source's new cached state or None, the
+    target's or None); `static` a hashable value the body reads (the
+    config, and for the covariance classes the align and the estimator's
+    settings); `inputs` the tensors (nested in tuples and NamedTuples, None
+    where a cloud has no cached state: the path) it reads."""
+
+    body: Callable
+    static: tuple
+    inputs: dict
+
+
 @dataclass
 class Registration:
-    """Base registration class; subclasses implement `_compute` and
-    `_evaluate`.  Defaults follow lsq_registration_impl.hpp:11-19.  Runs on
-    `device` (CUDA unless the caller asks for the CPU)."""
+    """Base registration class; subclasses implement `_program` (the host
+    part of an align: its `Program`) and `_evaluate`; `_store` puts the
+    states the program returns onto the clouds (covariances here, NDTCuda's
+    maps in its own).  Defaults follow
+    lsq_registration_impl.hpp:11-19.  Runs on `device` (CUDA unless the
+    caller asks for the CPU); `device_loop` (the default) runs each align
+    as one device program (`align_async`)."""
 
     max_iterations: int = 64
     rotation_epsilon: float = 2e-3
@@ -158,6 +186,7 @@ class Registration:
     lm_debug_print: bool = False
     bucket: int = DEFAULT_BUCKET
     device: object = "cuda"
+    device_loop: bool = True
 
     _source: Optional[Cloud] = field(default=None, repr=False)
     _target: Optional[Cloud] = field(default=None, repr=False)
@@ -253,7 +282,8 @@ class Registration:
 
     def set_debug_print(self, enabled: bool) -> None:
         """Print a line a LM trial, the reference's setDebugPrint
-        (lsq_registration.hpp:41, impl:143-149)."""
+        (lsq_registration.hpp:41, impl:143-149).  A printed trial is read
+        to the host, so while it is on the aligns take the eager form."""
         self.lm_debug_print = bool(enabled)
 
     def _lsq_config(self) -> LsqConfig:
@@ -274,18 +304,53 @@ class Registration:
         them, once, when first called.  A caller can chain the returned
         pose as the next align's guess.
 
-        The overlap this allows is bounded: the port's LM solve reads each
-        trial's two flags to the host (one sync a trial), so this returns
-        only after the solve's last trial; what it saves is the final read
-        of the pose, the Hessian and the flags."""
+        The align is one device program (`device_loop`, the default): on
+        CUDA one replay of a CUDA graph captured once a signature
+        (`signature()`: the class, every setting, the path, the padded
+        sizes, the device and whether deterministic algorithms are on),
+        its LM loops conditional WHILE nodes; nothing
+        is read to the host, so this returns once the replay is enqueued.
+        A signature's first call also pays an eager warm-up and the
+        capture.  The result and the cached covariances or maps are the
+        instance's own tensors, which no later replay overwrites.  On the
+        CPU the program is the device form's plain version.
+
+        The eager form (every LM trial's flags read to the host, so this
+        returns after the last trial) runs with `device_loop=False`, and
+        while `set_debug_print(True)` is on, since a printed trial is read
+        to the host.  Both forms give the same bits."""
         src, tgt = self._require_source(), self._require_target()
         guess = (_identity_guess(self.device) if initial_guess is None
                  else _device.as_f32(initial_guess, self.device))
-        result = self._compute(src, tgt, guess)
+        prog = self._program(src, tgt)
+        inputs = dict(prog.inputs, guess=guess)
+        run = functools.partial(prog.body, prog.static)
+        result, new_source, new_target = graphs.run(
+            self._program_key(prog), inputs, run, self.device,
+            device_loop=self.device_loop and not self.lm_debug_print)
+        self._store(prog, src, tgt, new_source, new_target)
         self._pending = result
         self._final_T = None
         self._final_H = None
         return result
+
+    def _program_key(self, prog: Program):
+        # every setting of the instance, used by the body or not (so no
+        # setter can be missed), beside what the host part derived
+        settings = tuple((f.name, getattr(self, f.name)) for f in fields(self)
+                         if not f.name.startswith("_"))
+        return type(self), settings, prog.static
+
+    def signature(self):
+        """The key under which the next align's program is captured and
+        replayed (`graphs.program_key`): the class, every setting of the
+        instance (the device among them), what the host part derived (the
+        config with its grid dims, the path), whether deterministic
+        algorithms are on, and the inputs' structure (which clouds hold a
+        state), padded sizes and layouts."""
+        prog = self._program(self._require_source(), self._require_target())
+        inputs = dict(prog.inputs, guess=_identity_guess(self.device))
+        return graphs.program_key(self._program_key(prog), inputs)
 
     def _sync_pending(self) -> None:
         result = self._pending
@@ -307,8 +372,17 @@ class Registration:
         self._sync_pending()
         return self._final_T
 
-    def _compute(self, source: Cloud, target: Cloud, guess: torch.Tensor):
+    def _program(self, source: Cloud, target: Cloud) -> Program:
         raise NotImplementedError
+
+    def _store(self, prog: Program, source: Cloud, target: Cloud, new_source,
+               new_target) -> None:
+        """The cached states the program returned onto the clouds: the new
+        covariances (NDTCuda stores its maps)."""
+        if new_source is not None:
+            source.covs = new_source
+        if new_target is not None:
+            target.covs = new_target
 
     def evaluate_cost(self, pose, return_terms: bool = False):
         """The objective (and with return_terms its H and b) at an arbitrary
@@ -373,12 +447,13 @@ class Registration:
 @dataclass
 class CovarianceRegistration(Registration):
     """A registration whose objective reads per-point covariances
-    (FastGICP, FastVGICP): the estimator's settings and setters, the
-    per-cloud cache, and the choice between the fresh align (both clouds'
-    covariances and the align in one call, whose covariances fill the
-    cache for the swap) and the align on cached covariances.  A subclass
-    sets `_register_fresh`, `_align_cached` and `_evaluate_at` to its
-    module's functions and builds its config in `_config(target)`."""
+    (FastGICP, FastVGICP): the estimator's settings and setters and the
+    per-cloud cache.  An align's program estimates the covariances of the
+    clouds that have none (both on the fresh align: the JAX package's one
+    dispatch) and aligns on them; the swap then reuses them.  The "kdtree"
+    estimator runs on the host before the program.  A subclass sets
+    `_align_cached` and `_evaluate_at` to its module's functions and builds
+    its config in `_config(target)`."""
 
     k_correspondences: int = 20
     regularization: str = "plane"
@@ -417,21 +492,17 @@ class CovarianceRegistration(Registration):
     def _config(self, target: Cloud):
         raise NotImplementedError
 
-    def _compute(self, source: Cloud, target: Cloud, guess: torch.Tensor):
-        if (source.covs is None and target.covs is None
-                and self.covariance_estimation in ("knn", "rbf", "adaptive")):
-            res, source.covs, target.covs = self._register_fresh(
-                source.points, source.mask, target.points, target.mask, guess,
-                self._config(target), method=self.covariance_estimation,
-                k=self.k_correspondences, regularization=self.regularization,
-                kernel_width=self.kernel_width, kernel_max_dist=self.kernel_max_dist,
-                device=self.device)
-            return res
-        self._ensure_covariances(source)
-        self._ensure_covariances(target)
-        return self._align_cached(source.points, source.mask, source.covs, target.points,
-                                  target.mask, target.covs, guess, self._config(target),
-                                  device=self.device)
+    def _program(self, source: Cloud, target: Cloud) -> Program:
+        if self.covariance_estimation not in DEVICE_ESTIMATORS:
+            self._ensure_covariances(source)  # the native host tree
+            self._ensure_covariances(target)
+        static = _CovarianceStatic(self._align_cached, self._config(target),
+                                   self.covariance_estimation, self.k_correspondences,
+                                   self.regularization, self.kernel_width,
+                                   self.kernel_max_dist)
+        return Program(_covariance_body, static, dict(
+            source=source.points, source_mask=source.mask, source_covs=source.covs,
+            target=target.points, target_mask=target.mask, target_covs=target.covs))
 
     def _evaluate(self, source: Cloud, target: Cloud, pose: torch.Tensor):
         self._ensure_covariances(source)
@@ -439,3 +510,41 @@ class CovarianceRegistration(Registration):
         return self._evaluate_at(source.points, source.mask, source.covs, target.points,
                                  target.mask, target.covs, pose, self._config(target),
                                  device=self.device)
+
+
+class _CovarianceStatic(NamedTuple):
+    """What a `CovarianceRegistration` align's program bakes in."""
+
+    align: Callable  # the module's align on covariances
+    config: tuple  # the module's config NamedTuple
+    method: str
+    k: int
+    regularization: str
+    kernel_width: float
+    kernel_max_dist: float
+
+
+@f32_matmuls
+def _estimate_missing(points, mask, covs, static: _CovarianceStatic):
+    """The covariances a cloud caches, estimated by `static`'s estimator
+    when `covs` is None: (covs, the new estimate or None)."""
+    if covs is not None:
+        return covs, None
+    covs = estimate_covariance_cols(points, mask, static.method, k=static.k,
+                                    regularization=static.regularization,
+                                    kernel_width=static.kernel_width,
+                                    kernel_max_dist=static.kernel_max_dist)
+    return covs, covs
+
+
+def _covariance_body(static: _CovarianceStatic, source, source_mask, source_covs, target,
+                     target_mask, target_covs, guess):
+    """A `CovarianceRegistration` align: the covariances the clouds lack
+    (the source's first, as the reference's fresh align), then the align on
+    them.  Returns (LsqResult, new source covariances or None, new target
+    covariances or None)."""
+    source_covs, new_source = _estimate_missing(source, source_mask, source_covs, static)
+    target_covs, new_target = _estimate_missing(target, target_mask, target_covs, static)
+    res = static.align(source, source_mask, source_covs, target, target_mask, target_covs,
+                       guess, static.config, device=source.device)
+    return res, new_source, new_target

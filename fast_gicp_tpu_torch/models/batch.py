@@ -5,17 +5,27 @@ padded to one size, masks marking the rest); each pair runs through its own
 target-centroid frame, objective and LM solve, as under the JAX package's
 `vmap`, and the results stack into one `LsqResult` with a leading B
 (transformation (B, 4, 4), hessian (B, 6, 6), error, converged and
-iterations (B,)).  The JAX package fuses the B registrations into one
-program; here the pairs run in turn on the caller's stream, each with the
-kernels of its single-pair path, so each pair's result is the single-pair
-call's bit for bit.  One launch for B pairs is later work.
+iterations (B,)).  Each pair runs with the kernels of its single-pair path,
+so each pair's result is the single-pair call's bit for bit.
+
+As the JAX package fuses the B registrations into one program, a batch is
+one device program with `device_loop` (the default): on CUDA one replay of
+a CUDA graph captured once a signature (`graphs.replay_cached`: the
+function, B, the padded sizes, the config, the device and whether
+deterministic algorithms are on) that runs the B pairs in turn, each LM
+loop a conditional WHILE node, nothing read to the host; on the CPU its
+plain version.  `device_loop=False` runs the pairs eagerly, each LM trial's
+flags read to the host.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import device as _device
+from .. import graphs
 from ..ops.voxelmap import build_voxelmap, neighbor_offsets
 from ..precision import f32_matmuls
 from ..solver import LsqResult, lsq_solve
@@ -40,16 +50,14 @@ def _batch(dev, clouds, guesses):
     return out, _device.as_f32(guesses, dev)
 
 
-@f32_matmuls
-def gicp_align_batch(sources, source_masks, source_covs, targets, target_masks, target_covs,
-                     guesses, config: GICPConfig = GICPConfig(), device="cuda") -> LsqResult:
-    """Batched GICP (1-NN re-searched every iteration; `refresh_iterations`
-    is not read, as in the JAX package).  Runs on `device` (CUDA unless
-    the caller asks for the CPU)."""
-    dev = _device.resolve(device)
-    ((sp, sm, sc), (tp, tm, tc)), g = _batch(
-        dev, ((sources, source_masks, source_covs), (targets, target_masks, target_covs)),
-        guesses)
+def _run(body, config, inputs: dict, dev, device_loop: bool) -> LsqResult:
+    """`body(config, **inputs)`: one program a signature with `device_loop`
+    (`graphs.run`), else eagerly."""
+    return graphs.run((body, config), inputs, functools.partial(body, config), dev,
+                      device_loop)
+
+
+def _gicp_pairs(config: GICPConfig, sp, sm, sc, tp, tm, tc, g) -> LsqResult:
     results = []
     for i in range(sp.shape[0]):
         def run(sp_c, tp_c, g_c, i=i):
@@ -61,23 +69,28 @@ def gicp_align_batch(sources, source_masks, source_covs, targets, target_masks, 
 
 
 @f32_matmuls
-def vgicp_align_batch(sources, source_masks, source_covs, targets, target_masks, target_covs,
-                      guesses, config: VGICPConfig = VGICPConfig(),
-                      device="cuda") -> LsqResult:
-    """Batched VGICP: each pair's Gaussian voxel map (`build_voxelmap` of
-    the configured mode; `GridVoxelMap` with grid_dims, the hash map
-    without), re-searched every iteration.  Runs on `device`."""
+def gicp_align_batch(sources, source_masks, source_covs, targets, target_masks, target_covs,
+                     guesses, config: GICPConfig = GICPConfig(), device="cuda",
+                     device_loop: bool = True) -> LsqResult:
+    """Batched GICP (1-NN re-searched every iteration; `refresh_iterations`
+    is not read, as in the JAX package).  Runs on `device` (CUDA unless
+    the caller asks for the CPU), as one program with `device_loop`."""
     dev = _device.resolve(device)
     ((sp, sm, sc), (tp, tm, tc)), g = _batch(
         dev, ((sources, source_masks, source_covs), (targets, target_masks, target_covs)),
         guesses)
+    return _run(_gicp_pairs, config, dict(sp=sp, sm=sm, sc=sc, tp=tp, tm=tm, tc=tc, g=g), dev,
+                device_loop)
+
+
+def _vgicp_pairs(config: VGICPConfig, sp, sm, sc, tp, tm, tc, g) -> LsqResult:
     offsets = neighbor_offsets(config.neighbor_search_method, config.neighbor_search_radius)
     results = []
     for i in range(sp.shape[0]):
         def run(sp_c, tp_c, g_c, i=i):
             vmap = build_voxelmap(tp_c, tm[i], config.resolution, covs=tc[i],
                                   mode=config.voxel_accumulation, grid_dims=config.grid_dims,
-                                  device=dev)
+                                  device=sp.device)
             lin, err, _freeze, _lf = make_vgicp_objective(sp_c, sm[i], sc[i], vmap, offsets,
                                                           config)
             return lsq_solve(lin, err, g_c, config.lsq)
@@ -87,15 +100,22 @@ def vgicp_align_batch(sources, source_masks, source_covs, targets, target_masks,
 
 
 @f32_matmuls
-def ndt_align_batch(sources, source_masks, targets, target_masks, guesses,
-                    config: NDTConfig = NDTConfig(), device="cuda") -> LsqResult:
-    """Batched NDT (P2D or D2D) on `_ndt_voxelmap`'s maps (the hash map, or
-    a `GridVoxelMap` with grid_dims; not the dense NDT grids), re-searched
-    every iteration.  Runs on `device`."""
-    _check_mode(config)
+def vgicp_align_batch(sources, source_masks, source_covs, targets, target_masks, target_covs,
+                      guesses, config: VGICPConfig = VGICPConfig(), device="cuda",
+                      device_loop: bool = True) -> LsqResult:
+    """Batched VGICP: each pair's Gaussian voxel map (`build_voxelmap` of
+    the configured mode; `GridVoxelMap` with grid_dims, the hash map
+    without), re-searched every iteration.  Runs on `device`, as one
+    program with `device_loop`."""
     dev = _device.resolve(device)
-    ((sp, sm), (tp, tm)), g = _batch(dev, ((sources, source_masks), (targets, target_masks)),
-                                     guesses)
+    ((sp, sm, sc), (tp, tm, tc)), g = _batch(
+        dev, ((sources, source_masks, source_covs), (targets, target_masks, target_covs)),
+        guesses)
+    return _run(_vgicp_pairs, config, dict(sp=sp, sm=sm, sc=sc, tp=tp, tm=tm, tc=tc, g=g), dev,
+                device_loop)
+
+
+def _ndt_pairs(config: NDTConfig, sp, sm, tp, tm, g) -> LsqResult:
     offsets = neighbor_offsets(config.neighbor_search_method, config.neighbor_search_radius)
     results = []
     for i in range(sp.shape[0]):
@@ -112,3 +132,18 @@ def ndt_align_batch(sources, source_masks, targets, target_masks, guesses,
 
         results.append(centered_frame_align(run, sp[i], tp[i], tm[i], g[i]))
     return _stack(results)
+
+
+@f32_matmuls
+def ndt_align_batch(sources, source_masks, targets, target_masks, guesses,
+                    config: NDTConfig = NDTConfig(), device="cuda",
+                    device_loop: bool = True) -> LsqResult:
+    """Batched NDT (P2D or D2D) on `_ndt_voxelmap`'s maps (the hash map, or
+    a `GridVoxelMap` with grid_dims; not the dense NDT grids), re-searched
+    every iteration.  Runs on `device`, as one program with
+    `device_loop`."""
+    _check_mode(config)
+    dev = _device.resolve(device)
+    ((sp, sm), (tp, tm)), g = _batch(dev, ((sources, source_masks), (targets, target_masks)),
+                                     guesses)
+    return _run(_ndt_pairs, config, dict(sp=sp, sm=sm, tp=tp, tm=tm, g=g), dev, device_loop)

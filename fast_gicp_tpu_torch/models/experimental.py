@@ -29,10 +29,11 @@ import torch
 
 from .. import device as _device
 from ..ops import cuda_linearize, cuda_solver, soa
+from ..ops.covariance import knn_covariance_cols
 from ..ops.neighbors import knn_search
 from ..precision import f32_matmuls
 from ..solver import LsqConfig, LsqResult, lsq_solve
-from .base import Cloud, Registration, estimate_covariances
+from .base import Cloud, Program, Registration
 
 
 class MultiPointConfig(NamedTuple):
@@ -102,7 +103,9 @@ def multipoint_align(source, source_mask, source_covs, target, target_mask, targ
 @dataclass
 class FastGICPMultiPoints(Registration):
     """Class-API multi-correspondence radius GICP (experimental, as in the
-    reference); kNN covariances of both clouds, cached on the clouds."""
+    reference); kNN covariances of both clouds, cached on the clouds.  An
+    align is one program (`Registration.align_async`): the covariances a
+    cloud lacks, then `multipoint_align`."""
 
     search_radius: float = 1.0
     k_neighbors: int = 32
@@ -121,17 +124,32 @@ class FastGICPMultiPoints(Registration):
     def set_num_threads(self, n: int) -> None:  # API parity no-op
         del n
 
-    def _ensure_covariances(self, cloud: Cloud) -> None:
-        estimate_covariances(cloud, "knn", self.k_correspondences, self.regularization)
-
     def _config(self) -> MultiPointConfig:
         return MultiPointConfig(search_radius=self.search_radius, k_neighbors=self.k_neighbors,
                                 k_correspondences=self.k_correspondences,
                                 regularization=self.regularization, lsq=self._lsq_config())
 
-    def _compute(self, source: Cloud, target: Cloud, guess):
-        self._ensure_covariances(source)
-        self._ensure_covariances(target)
-        return multipoint_align(source.points, source.mask, source.covs, target.points,
-                                target.mask, target.covs, guess, self._config(),
-                                device=self.device)
+    def _program(self, source: Cloud, target: Cloud) -> Program:
+        return Program(_multipoint_body, self._config(), dict(
+            source=source.points, source_mask=source.mask, source_covs=source.covs,
+            target=target.points, target_mask=target.mask, target_covs=target.covs))
+
+
+@f32_matmuls
+def _multipoint_body(config: MultiPointConfig, source, source_mask, source_covs, target,
+                     target_mask, target_covs, guess):
+    """A `FastGICPMultiPoints` align: the kNN covariances the clouds lack
+    (the source's first), then `multipoint_align`.  Returns (LsqResult, new
+    source covariances or None, new target covariances or None)."""
+    def estimate(points, mask, covs):
+        if covs is not None:
+            return covs, None
+        covs = knn_covariance_cols(points, mask, k=config.k_correspondences,
+                                   method=config.regularization)
+        return covs, covs
+
+    source_covs, new_source = estimate(source, source_mask, source_covs)
+    target_covs, new_target = estimate(target, target_mask, target_covs)
+    res = multipoint_align(source, source_mask, source_covs, target, target_mask, target_covs,
+                           guess, config, device=source.device)
+    return res, new_source, new_target

@@ -230,7 +230,6 @@ class FastGICP(CovarianceRegistration):
     the `Cloud`, so loops that `swap_source_and_target()` reuse them as the
     reference does (fast_gicp_impl.hpp:50-57, :107-112)."""
 
-    _register_fresh = staticmethod(gicp_register_fresh)
     _align_cached = staticmethod(gicp_align)
     _evaluate_at = staticmethod(gicp_evaluate)
 

@@ -56,7 +56,8 @@ from ..ops.voxelmap import (
 )
 from ..precision import f32_matmuls
 from ..solver import LsqConfig, LsqResult, lsq_solve
-from .base import Cloud, Registration, centered_frame_align, centered_frame_evaluate
+from .base import (Cloud, Program, Registration, centered_frame_align,
+                   centered_frame_evaluate)
 
 
 class NDTConfig(NamedTuple):
@@ -463,7 +464,10 @@ class NDTCuda(Registration):
     """Class-API NDT, the reference's `NDTCuda` (ndt_cuda.hpp:22-71): each
     cloud's voxel map (and, for D2D, its compact voxel statistics) is built
     once and cached on the cloud (`Cloud.ndt_cache`), so the swap moves it
-    with the cloud (ndt_cuda.cu:70-93).
+    with the cloud (ndt_cuda.cu:70-93).  An align is one program
+    (`Registration.align_async`): the states the clouds lack, then
+    `ndt_align_prebuilt`; on the hash map each linearization's eager freeze
+    runs inside the program's outer loop.
 
     grid_dims: "auto" (a dense grid sized from both clouds' extents), None
     (the hash map) or an explicit (Dx, Dy, Dz)."""
@@ -521,34 +525,30 @@ class NDTCuda(Registration):
         return (config.resolution, config.grid_dims, config.max_source_voxels,
                 config.distance_mode)
 
-    def _ensure_prepared(self, cloud: Cloud, config: NDTConfig):
-        """The cloud's (voxel map, compact stats, centroid), built on a
-        cache miss."""
-        key = self._key(config)
-        if cloud.ndt_cache is None or cloud.ndt_cache[0] != key:
-            cloud.ndt_cache = (key,) + tuple(ndt_prepare_cloud(cloud.points, cloud.mask, config,
-                                                               device=self.device))
-        return cloud.ndt_cache[1:]
-
-    def _compute(self, source: Cloud, target: Cloud, guess):
+    def _program(self, source: Cloud, target: Cloud) -> Program:
+        """The align's program: the states the clouds cache under this
+        config's key go in (the source's only for D2D); the program
+        prepares the others (the fresh align: both, or for P2D the target
+        alone, as `ndt_register_fresh`) and aligns on them
+        (`ndt_align_prebuilt`)."""
         config = self._config(grid_dims=self._grid_dims(source, target))
         key = self._key(config)
-        if all(c.ndt_cache is None or c.ndt_cache[0] != key for c in (source, target)):
-            # the fresh align; its per-cloud states fill both caches (P2D
-            # prepares the source lazily)
-            res, tstate, sstate = ndt_register_fresh(
-                source.points, source.mask, target.points, target.mask, guess, config,
-                device=self.device)
-            target.ndt_cache = (key,) + tuple(tstate)
-            if sstate is not None:
-                source.ndt_cache = (key,) + tuple(sstate)
-            return res
-        target_vm, _, tgt_center = self._ensure_prepared(target, config)
-        source_compact, src_center = None, tgt_center  # P2D reads the raw points
-        if self.distance_mode == "d2d":
-            _, source_compact, src_center = self._ensure_prepared(source, config)
-        return ndt_align_prebuilt(source.points, source.mask, source_compact, src_center,
-                                  target_vm, tgt_center, guess, config, device=self.device)
+
+        def cached(cloud):
+            return cloud.ndt_cache[1:] if cloud.ndt_cache is not None \
+                and cloud.ndt_cache[0] == key else None
+
+        return Program(_ndt_body, config, dict(
+            source=source.points, source_mask=source.mask, target=target.points,
+            target_mask=target.mask, target_state=cached(target),
+            source_state=cached(source) if config.distance_mode == "d2d" else None))
+
+    def _store(self, prog, source, target, new_source, new_target):
+        key = self._key(prog.static)
+        if new_target is not None:
+            target.ndt_cache = (key,) + tuple(new_target)
+        if new_source is not None:
+            source.ndt_cache = (key,) + tuple(new_source)
 
     def _evaluate(self, source: Cloud, target: Cloud, pose):
         return ndt_evaluate(source.points, source.mask, target.points, target.mask, pose,
@@ -557,3 +557,26 @@ class NDTCuda(Registration):
 
 
 NDT = NDTCuda
+
+
+@f32_matmuls
+def _ndt_body(config: NDTConfig, source, source_mask, target, target_mask, guess,
+              target_state, source_state):
+    """An `NDTCuda` align: the per-cloud states it lacks (`ndt_prepare_cloud`,
+    each in its cloud's own centroid frame; the target's first, as
+    `ndt_register_fresh`), then `ndt_align_prebuilt`.  Returns (LsqResult,
+    new source state or None, new target state or None)."""
+    dev = source.device
+    new_source = new_target = None
+    if target_state is None:
+        target_state = new_target = ndt_prepare_cloud(target, target_mask, config, device=dev)
+    target_vm, _, tgt_center = target_state
+    source_compact, src_center = None, tgt_center  # P2D reads the raw points
+    if config.distance_mode == "d2d":
+        if source_state is None:
+            source_state = new_source = ndt_prepare_cloud(source, source_mask, config,
+                                                          device=dev)
+        _, source_compact, src_center = source_state
+    res = ndt_align_prebuilt(source, source_mask, source_compact, src_center, target_vm,
+                             tgt_center, guess, config, device=dev)
+    return res, new_source, new_target

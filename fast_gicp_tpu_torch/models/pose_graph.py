@@ -161,11 +161,9 @@ def optimize_pose_graph(poses, edge_i, edge_j, edge_rel, edge_info=None,
     if device_loop:
         inputs = dict(poses=poses, edge_i=edge_i, edge_j=edge_j, edge_info=edge_info,
                       z_inv=z_inv)
-        key = ("dense", k, edge_i.shape[0], config, str(dev),
-               torch.are_deterministic_algorithms_enabled())
-        res = graphs.replay_cached(key, inputs, lambda **kw: _dense_device(
+        key = ("dense", k, edge_i.shape[0], config)
+        return graphs.replay_cached(key, inputs, lambda **kw: _dense_device(
             **kw, diag=diag, zero=zero, config=config), dev)
-        return res if dev.type == "cpu" else PoseGraphResult(*(t.clone() for t in res))
     T, it, conv = poses, 0, False
     conv_t = torch.zeros((), dtype=torch.bool, device=dev)
     while it < config.max_iterations and not conv:

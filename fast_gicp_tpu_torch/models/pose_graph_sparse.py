@@ -465,11 +465,9 @@ def optimize_pose_graph_sparse(poses, edge_i, edge_j, edge_rel, edge_info=None,
                                     prior_pose, config, dev)
     if not device_loop:
         return _optimize_sparse(**inputs, gauge_w=gauge_w, config=config)
-    key = ("sparse", inputs["poses"].shape[0], inputs["edge_i"].shape[0], gauge_w, config,
-           str(dev), torch.are_deterministic_algorithms_enabled())
-    res = graphs.replay_cached(key, inputs, lambda **kw: _optimize_sparse_device(
+    key = ("sparse", inputs["poses"].shape[0], inputs["edge_i"].shape[0], gauge_w, config)
+    return graphs.replay_cached(key, inputs, lambda **kw: _optimize_sparse_device(
         **kw, gauge_w=gauge_w, config=config), dev)
-    return res if dev.type == "cpu" else PoseGraphResult(*(t.clone() for t in res))
 
 
 @f32_matmuls

@@ -331,7 +331,6 @@ class FastVGICP(CovarianceRegistration):
     voxel_accumulation: str = "additive"
     grid_dims: object = "auto"
 
-    _register_fresh = staticmethod(vgicp_register_fresh)
     _align_cached = staticmethod(vgicp_align)
     _evaluate_at = staticmethod(vgicp_evaluate)
 

@@ -45,15 +45,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, tally
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_RBF_ARGS = (_P, _P, _I, _I, _F, _F, _P, _P, _P)
-_NN_ARGS = (_P, _P, _I, _I, _P, _P, _P, _P)
-_KNN_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P)
+_RBF_ARGS = (_P, _P, _I, _I, _F, _F, _P, _P, _P, _P)
+_NN_ARGS = (_P, _P, _I, _I, _P, _P, _P, _P, _P)
+_KNN_ARGS = (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P)
 _BOXES_ARGS = (_P, _I, _P, _P, _P)
-_COUNT_ARGS = (_P, _P, _P, _P, _I, _I, _I, _P, _P)
-_WINDOW_ARGS = (_P, _P, _P, _P, _I, _I, _P, _P)
+_COUNT_ARGS = (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P)
+_WINDOW_ARGS = (_P, _P, _P, _P, _I, _I, _P, _P, _P)
 
 # Large finite coordinate for masked points: distances ~3.6e18, far below
 # f32 overflow (3.4e38) even after squaring differences of 1e9.
@@ -124,6 +124,7 @@ def rbf_moments(query, qmask, target, tmask, center, kernel_width, max_dist):
     _check_cloud("target", target, tmask)
     dev = _one_device("rbf_moments", (query, qmask, target, tmask, center))
     if dev.type == "cpu":
+        tally.add(dev, "rbf_moments")
         return rbf_moments_plain(query, qmask, target, tmask, center,
                                  kernel_width, max_dist)
     kw, md2 = _constants(kernel_width, max_dist)
@@ -136,7 +137,7 @@ def rbf_moments(query, qmask, target, tmask, center, kernel_width, max_dist):
     stream = torch.cuda.current_stream(q4.device).cuda_stream
     _build.check("fgt_rbf_moments", fn(
         q4.data_ptr(), t4.data_ptr(), nq, nt, kw, md2, boxes.data_ptr(), out.data_ptr(),
-        stream))
+        tally.slot(dev, "rbf_moments"), stream))
     rbf_moments.launches += 1
     return out
 
@@ -188,6 +189,7 @@ def nn_search(query, target, tmask, qmask=None):
         raise ValueError("nn_search: empty target")
     dev = _one_device("nn_search", (query, qmask, target, tmask))
     if dev.type == "cpu":
+        tally.add(dev, "nn_search")
         return nn_search_plain(query, target, tmask)
     q4 = torch.cat([query, qmask.to(query.dtype)[:, None]], dim=1).contiguous()
     t4 = _pack_masked(target, tmask)
@@ -199,7 +201,7 @@ def nn_search(query, target, tmask, qmask=None):
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check("fgt_nn_search", fn(
         q4.data_ptr(), t4.data_ptr(), nq, nt, boxes.data_ptr(), idx.data_ptr(),
-        d2.data_ptr(), stream))
+        d2.data_ptr(), tally.slot(dev, "nn_search"), stream))
     nn_search.launches += 1
     return idx, d2
 
@@ -250,6 +252,7 @@ def knn_moments(query, qmask, target, tmask, cidx, k: int, cand_tile: int = 128)
     _check_knn(query, target, cidx, k, cand_tile)
     dev = _one_device("knn_moments", (query, qmask, target, tmask, cidx))
     if dev.type == "cpu":
+        tally.add(dev, "knn_moments")
         return knn_moments_plain(query, qmask, target, tmask, cidx, k, cand_tile)
     q4 = _pack_masked(query, qmask)
     t4 = _pack_masked(target, tmask)
@@ -261,7 +264,8 @@ def knn_moments(query, qmask, target, tmask, cidx, k: int, cand_tile: int = 128)
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check("fgt_knn_moments", fn(
         q4.data_ptr(), t4.data_ptr(), cidx.data_ptr(), nq, nt, cidx.shape[1],
-        cand_tile, int(k), mom.data_ptr(), kth.data_ptr(), stream))
+        cand_tile, int(k), mom.data_ptr(), kth.data_ptr(), tally.slot(dev, "knn_moments"),
+        stream))
     knn_moments.launches += 1
     return mom, kth
 
@@ -338,6 +342,7 @@ def knn_slab(query, qmask, target, tmask, cidx, k: int, cand_tile: int = 256):
     _check_slab(query, target, cidx, k, cand_tile)
     dev = _one_device("knn_slab", (query, qmask, target, tmask, cidx))
     if dev.type == "cpu":
+        tally.add(dev, "knn_slab")
         return knn_slab_plain(query, qmask, target, tmask, cidx, k, cand_tile)
     q4 = _pack_masked(query, qmask)
     t4 = _pack_masked(target, tmask)
@@ -349,7 +354,7 @@ def knn_slab(query, qmask, target, tmask, cidx, k: int, cand_tile: int = 256):
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check("fgt_knn_slab", fn(
         q4.data_ptr(), t4.data_ptr(), cidx.data_ptr(), nq, nt, cidx.shape[1], cand_tile,
-        int(k), idx.data_ptr(), sq.data_ptr(), stream))
+        int(k), idx.data_ptr(), sq.data_ptr(), tally.slot(dev, "knn_slab"), stream))
     knn_slab.launches += 1
     return idx, sq
 
@@ -461,6 +466,7 @@ def radius_count(query, qmask, target, tmask, center, r2, inputs=None):
     dev = _check_radius("radius_count", query, qmask, target, tmask, center, r2,
                         1, RADIUS_MAX_RUNGS)
     if dev.type == "cpu":
+        tally.add(dev, "radius_count")
         return radius_count_plain(query, qmask, target, tmask, center, r2)
     q4, t4, boxes, _chunk_boxes = _radius_launch_inputs(
         "radius_count", query, qmask, target, tmask, center, inputs, dev)
@@ -470,7 +476,8 @@ def radius_count(query, qmask, target, tmask, center, r2, inputs=None):
     fn = _build.function("fgt_radius_count", _COUNT_ARGS)
     _build.check("fgt_radius_count", fn(
         q4.data_ptr(), t4.data_ptr(), boxes.data_ptr(), r2.data_ptr(), L, nq, nt,
-        cnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
+        cnt.data_ptr(), tally.slot(dev, "radius_count"),
+        torch.cuda.current_stream(dev).cuda_stream))
     radius_count.launches += 1
     return cnt
 
@@ -501,6 +508,7 @@ def radius_window(query, qmask, target, tmask, center, r2q, inputs=None):
     dev = _check_radius("radius_window", query, qmask, target, tmask, center, r2q,
                         query.shape[0], query.shape[0])
     if dev.type == "cpu":
+        tally.add(dev, "radius_window")
         return radius_window_plain(query, qmask, target, tmask, center, r2q)
     q4, t4, _boxes, chunk_boxes = _radius_launch_inputs(
         "radius_window", query, qmask, target, tmask, center, inputs, dev)
@@ -510,7 +518,8 @@ def radius_window(query, qmask, target, tmask, center, r2q, inputs=None):
     fn = _build.function("fgt_radius_window", _WINDOW_ARGS)
     _build.check("fgt_radius_window", fn(
         q4.data_ptr(), t4.data_ptr(), chunk_boxes.data_ptr(), r2q.data_ptr(), nq, nt,
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
+        out.data_ptr(), tally.slot(dev, "radius_window"),
+        torch.cuda.current_stream(dev).cuda_stream))
     radius_window.launches += 1
     return out
 

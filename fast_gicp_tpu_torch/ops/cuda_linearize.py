@@ -34,11 +34,11 @@ import ctypes
 
 import torch
 
-from . import _build, soa
+from . import _build, soa, tally
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_LIN_ARGS = (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P)
-_ERR_ARGS = (_P, _P, _P, _I, _P, _P, _P, _P)
+_LIN_ARGS = (_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P)
+_ERR_ARGS = (_P, _P, _P, _I, _P, _P, _P, _P, _P)
 
 AUX_ROWS = 10
 
@@ -103,11 +103,12 @@ def normal_equations(out):
     return out[0], out[1:37].view(6, 6), out[37:43]
 
 
-def _linearize(wrapper, entry, plain, p, ca, x, rows, valid, idx):
+def _linearize(wrapper, name, plain, p, ca, x, rows, valid, idx):
     """The shared body of the two linearize wrappers: checks, the plain
     version for CPU tensors (rows[idx] first when idx is given), else one
-    launch of C entry `entry`, counted on `wrapper` (and in
-    `wrapper.idx_launches` when it read rows by index)."""
+    launch of C entry `fgt_<name>`, counted on `wrapper` (and in
+    `wrapper.idx_launches` when it read rows by index) and by the kernel in
+    its tally slot `name`."""
     L = p.shape[-1]
     _check("p", p, (3, L))
     _check("ca", ca, (6, L))
@@ -125,6 +126,7 @@ def _linearize(wrapper, entry, plain, p, ca, x, rows, valid, idx):
                              f"{tuple(idx.shape)} {idx.dtype}")
         tensors.append(idx)
     if _same_device(tensors).type == "cpu":
+        tally.add(p.device, name, form=idx is not None)
         return plain(p, ca, x, rows if idx is None else rows[idx], valid)
     _check_cuda(tensors)
     if rows.data_ptr() % 16:
@@ -132,12 +134,13 @@ def _linearize(wrapper, entry, plain, p, ca, x, rows, valid, idx):
     partials, ticket, stream = _reduce_scratch(p.device)
     out = torch.empty(43, dtype=torch.float32, device=p.device)
     aux = torch.empty((AUX_ROWS, L), dtype=torch.float32, device=p.device)
+    entry = f"fgt_{name}"
     fn = _build.function(entry, _LIN_ARGS)
     _build.check(entry, fn(
         p.data_ptr(), ca.data_ptr(), x.data_ptr(), rows.data_ptr(),
         None if idx is None else idx.data_ptr(), 0 if idx is None else idx.element_size(),
         valid.data_ptr(), L, partials.data_ptr(), ticket.data_ptr(), out.data_ptr(),
-        aux.data_ptr(), stream))
+        aux.data_ptr(), tally.slot(p.device, name), stream))
     wrapper.launches += 1
     if idx is not None:
         wrapper.idx_launches += 1
@@ -150,7 +153,7 @@ def linearize_raw(p, ca, x, rows, valid, idx=None):
     for correspondence n, or row n of gathered rows (L, 16) without idx.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    return _linearize(linearize_raw, "fgt_linearize_raw", linearize_raw_plain,
+    return _linearize(linearize_raw, "linearize_raw", linearize_raw_plain,
                       p, ca, x, rows, valid, idx)
 
 
@@ -165,7 +168,7 @@ def linearize(p, ca, x, rows, valid, idx=None):
     (L, 16) without idx.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    return _linearize(linearize, "fgt_linearize", linearize_plain,
+    return _linearize(linearize, "linearize", linearize_plain,
                       p, ca, x, rows, valid, idx)
 
 
@@ -182,6 +185,7 @@ def error(p, x, aux):
     _check("x", x, (4, 4))
     _check("aux", aux, (AUX_ROWS, L))
     if p.device.type == "cpu":
+        tally.add(p.device, "error")
         return error_plain(p, x, aux)
     _check_cuda([p, x, aux])
     partials, ticket, stream = _reduce_scratch(p.device)
@@ -189,7 +193,7 @@ def error(p, x, aux):
     fn = _build.function("fgt_error", _ERR_ARGS)
     _build.check("fgt_error", fn(
         p.data_ptr(), x.data_ptr(), aux.data_ptr(), L, partials.data_ptr(),
-        ticket.data_ptr(), out.data_ptr(), stream))
+        ticket.data_ptr(), out.data_ptr(), tally.slot(p.device, "error"), stream))
     error.launches += 1
     return out[0]
 

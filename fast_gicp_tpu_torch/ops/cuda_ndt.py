@@ -9,7 +9,8 @@ The linearize of each mode replaces a Pallas kernel behind
 "d2d_raw" `_ndt_d2d_raw_lin_kernel` (`:492`) and "p2d_raw"
 `_ndt_p2d_raw_lin_kernel` (`:507`); `ndt_error` replaces `_ndt_error_kernel`
 (`:580`) behind `ndt_error_pallas`.  Each mode has a wrapper of its own,
-whose `launches` counts the mode's launches in every form.
+whose `launches` counts the mode's launches in every form (on the host;
+each kernel adds its runs to the tally slot `ndt_<mode>`, `tally`).
 
 A linearize takes the target side in one of two forms:
   * lookup (`ndt_linearize_lookup`): the kernel looks each lane's voxel up
@@ -63,7 +64,7 @@ import ctypes
 import numpy as np
 import torch
 
-from . import _build, soa
+from . import _build, soa, tally
 from .cuda_linearize import (
     AUX_ROWS, _check, _check_cuda, _reduce_scratch, _same_device, normal_equations,
 )
@@ -74,8 +75,8 @@ from .voxelmap import (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LIN_ARGS = (_I, _I, _P, _P, _I, _I, _I, _P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-             _P, _I, _P, _P, _P, _P, _P)
-_ERR_ARGS = (_P, _I, _I, _P, _P, _F, _I, _P, _P, _P, _P)
+             _P, _I, _P, _P, _P, _P, _P, _P)
+_ERR_ARGS = (_P, _I, _I, _P, _P, _F, _I, _P, _P, _P, _P, _P)
 
 MODES = ("d2d", "p2d", "d2d_raw", "p2d_raw")
 _FORM = {"pack": 0, "lookup": 1}
@@ -137,7 +138,7 @@ def _mask(mask):
 def _launch(wrapper, mode, form, p, ca, x, resolution, L, N, *, pack=None, mask=None,
             vmap=None, offsets=None, x_lookup=None):
     """One launch of `fgt_ndt_linearize` (tensors checked by the caller),
-    counted on the mode's wrapper."""
+    counted on the mode's wrapper and by the kernel in its tally slot."""
     d2d = mode.startswith("d2d")
     table = None if vmap is None else (vmap.rows if mode.endswith("_raw") else vmap.packed)
     tensors = [p, x] + ([ca] if d2d else []) + [t for t in (
@@ -166,7 +167,8 @@ def _launch(wrapper, mode, form, p, ca, x, resolution, L, N, *, pack=None, mask=
         None if vmap is None else vmap.origin.data_ptr(), *dims,
         0 if table is None else table.shape[0] - 1, float(resolution),
         None if offs is None else offs.ctypes.data, 0 if offs is None else offs.shape[0],
-        partials.data_ptr(), ticket.data_ptr(), out.data_ptr(), aux.data_ptr(), stream))
+        partials.data_ptr(), ticket.data_ptr(), out.data_ptr(), aux.data_ptr(),
+        tally.slot(p.device, f"ndt_{mode}"), stream))
     wrapper.launches += 1
     if form == "lookup":
         wrapper.lookup_launches += 1
@@ -181,6 +183,7 @@ def _linearize(wrapper, mode, p, ca, x, pack, resolution):
         raise ValueError(f"p: {p.shape[-1]} columns do not divide L={L}")
     _check("x", x, (4, 4))
     if _same_device([p, x, pack] + ([ca] if mode.startswith("d2d") else [])).type == "cpu":
+        tally.add(p.device, f"ndt_{mode}")
         return ndt_linearize_plain(p, ca, x, pack, _c_sq(resolution), mode)
     return _launch(wrapper, mode, "pack", p, ca, x, resolution, L, p.shape[-1], pack=pack)
 
@@ -255,6 +258,7 @@ def ndt_linearize_lookup(p, ca, mask, x, vmap, offsets, mode, x_lookup=None):
     tensors += ([ca] if mode.startswith("d2d") else []) + ([x_lookup] if x_lookup is not None
                                                             else [])
     if _same_device(tensors).type == "cpu":
+        tally.add(p.device, f"ndt_{mode}", form=True)
         pack = ndt_freeze_pack(p, mask, x if x_lookup is None else x_lookup, vmap, offsets,
                                mode)
         return ndt_linearize_plain(p, ca, x, pack, _c_sq(vmap.resolution), mode)
@@ -280,6 +284,7 @@ def ndt_error(p, aux, x, resolution, offsets=1):
     _check("p", p, (3, N))
     c_sq = _c_sq(resolution)
     if p.device.type == "cpu":
+        tally.add(p.device, "ndt_error")
         return ndt_error_plain(p.repeat(1, offsets), aux, x, c_sq)
     _check_cuda([aux, x])
     if p.device != aux.device or (N > 1 and p.stride(1) != 1):
@@ -289,7 +294,8 @@ def ndt_error(p, aux, x, resolution, offsets=1):
     fn = _build.function("fgt_ndt_error", _ERR_ARGS)
     _build.check("fgt_ndt_error", fn(
         p.data_ptr(), p.stride(0), N, x.data_ptr(), aux.data_ptr(), c_sq, L,
-        partials.data_ptr(), ticket.data_ptr(), out.data_ptr(), stream))
+        partials.data_ptr(), ticket.data_ptr(), out.data_ptr(), tally.slot(p.device, "ndt_error"),
+        stream))
     ndt_error.launches += 1
     return out[0]
 

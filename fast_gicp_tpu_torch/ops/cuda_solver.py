@@ -38,12 +38,12 @@ import numpy as np
 import torch
 
 from .. import se3
-from . import _build, cuda_linearize, cuda_ndt, soa
+from . import _build, cuda_linearize, cuda_ndt, soa, tally
 from .cuda_linearize import AUX_ROWS, _check_cuda, _reduce_scratch
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_TRIAL_ARGS = (_P, _P, _P, _P, _P, _P)
-_STEP_ARGS = (_P, _P, _P, _P, _I, _F, _F, _F, _P, _I, _I, _P, _I, _F, _I, _P, _P, _P)
+_TRIAL_ARGS = (_P, _P, _P, _P, _P, _P, _P)
+_STEP_ARGS = (_P, _P, _P, _P, _I, _F, _F, _F, _P, _I, _I, _P, _I, _F, _I, _P, _P, _P, _P)
 _COND_ARGS = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_ulonglong, _I, _P)
 
 # A solve's LM state (csrc/lm_step.cuh kState*), float32: the pose, lambda
@@ -92,6 +92,7 @@ def lm_trial(H, b, lam, x):
     _check("lam", lam, 1)
     _check("x", x, 16)
     if H.device.type == "cpu":
+        tally.add(H.device, "lm_trial")
         return lm_trial_plain(H, b, lam.reshape(()), x)
     for t in (H, b, lam, x):
         if t.device != H.device:
@@ -105,7 +106,7 @@ def lm_trial(H, b, lam, x):
     stream = torch.cuda.current_stream(H.device).cuda_stream
     _build.check("fgt_lm_trial", fn(
         H.data_ptr(), b.data_ptr(), lam.data_ptr(), x.data_ptr(),
-        out.data_ptr(), stream))
+        out.data_ptr(), tally.slot(H.device, "lm_trial"), stream))
     lm_trial.launches += 1
     return out[:16].view(4, 4), out[16:32].view(4, 4), out[32:38], out[38]
 
@@ -229,6 +230,7 @@ def lm_step(state, H, b, y0, aux, cost, first, config):
         if t.device != state.device:
             raise ValueError(f"tensors on several devices: {t.device} vs {state.device}")
     if state.device.type == "cpu":
+        tally.add(state.device, "lm_step")
         return lm_step_plain(state, H, b, y0, aux, cost, first, config)
     if not isinstance(cost, TrialCost):
         raise ValueError("the trial launch takes the objective's cost as a TrialCost, "
@@ -247,7 +249,7 @@ def lm_step(state, H, b, y0, aux, cost, first, config):
         float(np.float32(config.lm_init_lambda_factor)), _inverse_f32(config.rotation_epsilon),
         _inverse_f32(config.transformation_epsilon), p.data_ptr(), p.stride(0), N,
         aux.data_ptr(), int(ndt), cuda_ndt._c_sq(cost.resolution) if ndt else 0.0, L,
-        partials.data_ptr(), ticket.data_ptr(), stream))
+        partials.data_ptr(), ticket.data_ptr(), tally.slot(state.device, "lm_step"), stream))
     lm_step.launches += 1
 
 

@@ -30,24 +30,25 @@ _METHODS = ("GICP", "VGICP", "VGICP_CUDA", "NDT_CUDA")
 
 def _make_reg(method: str, k_correspondences: int, max_correspondence_distance: float,
               voxel_resolution: float, neighbor_search_method: str,
-              neighbor_search_radius: float, device="cuda"):
+              neighbor_search_radius: float, device="cuda", device_loop: bool = True):
     """A registration object configured by method string (main.cpp:78-142),
-    on `device`."""
+    on `device`, in the form `device_loop` selects."""
     nsm = neighbor_search_method.lower()
+    kw = dict(device=device, device_loop=device_loop)
     if method == "GICP":
-        reg = FastGICP(device=device)
+        reg = FastGICP(**kw)
         reg.set_correspondence_randomness(k_correspondences)
     elif method == "VGICP":
-        reg = FastVGICP(device=device)
+        reg = FastVGICP(**kw)
         reg.set_correspondence_randomness(k_correspondences)
         reg.set_resolution(voxel_resolution)
         reg.set_neighbor_search_method(nsm, neighbor_search_radius)
     elif method == "VGICP_CUDA":
-        reg = FastVGICPCuda(device=device)
+        reg = FastVGICPCuda(**kw)
         reg.set_resolution(voxel_resolution)
         reg.set_neighbor_search_method(nsm, neighbor_search_radius)
     elif method == "NDT_CUDA":
-        reg = NDTCuda(device=device)
+        reg = NDTCuda(**kw)
         reg.set_resolution(voxel_resolution)
         reg.set_neighbor_search_method(nsm, neighbor_search_radius)
     else:
@@ -62,16 +63,20 @@ def align_points(target: np.ndarray, source: np.ndarray, method: str = "GICP",
                  voxel_resolution: float = 1.0, num_threads: int = 0,
                  neighbor_search_method: str = "DIRECT1",
                  neighbor_search_radius: float = 1.5,
-                 initial_guess: np.ndarray | None = None, device="cuda") -> np.ndarray:
+                 initial_guess: np.ndarray | None = None, device="cuda",
+                 device_loop: bool = True) -> np.ndarray:
     """One-shot alignment; returns the 4x4 source -> target transform
     (main.cpp:64-142).  `num_threads` is accepted for signature parity and
-    ignored.  Runs on `device` (CUDA unless the caller asks for the CPU)."""
+    ignored.  Runs on `device` (CUDA unless the caller asks for the CPU),
+    the align as one device program (`Registration.align_async`; the
+    programs are cached across calls, so calls on clouds of one padded size
+    and settings replay one) unless `device_loop` is False."""
     del num_threads
     target = downsample(np.asarray(target), downsample_resolution)
     source = downsample(np.asarray(source), downsample_resolution)
     reg = _make_reg(method, k_correspondences, max_correspondence_distance,
                     voxel_resolution, neighbor_search_method, neighbor_search_radius,
-                    device=device)
+                    device=device, device_loop=device_loop)
     reg.set_input_target(target)
     reg.set_input_source(source)
     return reg.align(initial_guess)
